@@ -9,22 +9,40 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: torch/CUDA versions and the card's name and power limit as
    ``nvidia-smi`` reports them;
-2. build: every kernel source of the port, one ``nvcc`` per source;
-3. kernels: each kernel against its plain PyTorch version over a sweep
-   of head dims and page sizes, then at the serving path's shapes
-   (float32 and bfloat16), with its time, the
-   plain version's, a library yardstick's and the least time the card
-   could take (bytes over the HBM peak or operations over the peak
-   rate, whichever is larger);
-4. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
-   width (12 layers, d_model 768, 12 heads, vocab 32000, random weights
-   from a seed) serving 8 staggered requests, once with
-   ``attention="paged"`` and once with ``"gather"``: every request
-   finishes, the greedy streams are identical across the modes and
-   equal ``lm_decode``'s, and the kernel ran once per layer per step
-   with a live decode slot;
-5. (``--profile`` only) the engine's workload again under
-   ``torch.profiler``: device busy time, idle share, top kernels.
+2. build: every kernel source of the port, one ``nvcc`` per source, all
+   started together;
+3. kernels: K4 (paged decode) against its plain PyTorch version over a
+   sweep of head dims and page sizes, then at the serving path's shapes
+   (float32 and bfloat16), with its time, the plain version's, a
+   library yardstick's and the least time the card could take (bytes
+   over the HBM peak or operations over the peak rate, whichever is
+   larger);
+4. flash: K1-K3 (flash forward, dQ, dK/dV) against their plain versions
+   over a sweep (causal and not, square and rectangular, offset causal,
+   lengths off the 64-row tile, head dims 8-128, f32 and bf16, strided
+   views), then at the training slice's shapes (B=8, L=2048, H=12,
+   D=64, causal, bf16), with the same four times each;
+5. training: the bench lane's data-parallel step at GPT-2-small width
+   (12 layers, d_model 768, 12 heads, vocab 32000, seq 2048, batch 8,
+   bf16 compute, random weights from a seed) on flash attention, Adam
+   1e-4 under ``DistributedOptimizer``, an NCCL world of one, a few
+   steps on one fixed batch: the losses are finite and fall, K1 ran 12
+   times per forward pass and K2/K3 12 times per backward pass, the
+   NCCL bucket collectives equal the bucket plan times the steps, and
+   one step with dense attention at batch 2 matches flash's loss and
+   gradient norm;
+6. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
+   width serving 8 staggered requests, once with ``attention="paged"``
+   and once with ``"gather"``: every request finishes, the greedy
+   streams are identical across the modes and equal ``lm_decode``'s,
+   and K4 ran once per layer per step with a live decode slot;
+7. (``--profile`` only) two training steps and the engine's workload
+   again under ``torch.profiler``: device busy time, idle share, top
+   kernels.
+
+Each kernel's launch count is set to 0 just before the phase that drives
+its path and read just after; launches made to compare or time a kernel
+do not count.
 
 The second-to-last line is the ``{"kernels": [...]}`` record and the last
 line ``{"ok": true, "device": {...}}``. The script imports nothing of
@@ -56,6 +74,12 @@ PPS = LMAX // PAGE
 NUM_PAGES = (SLOTS + 1) * PPS + 1
 HEAD_DIM = D_MODEL // HEADS
 KERNEL_LENGTHS = [0, 1, 16, 17, 384, 100, 250, 383]
+# Kernel against plain version, atol = rtol. float32: the same float32
+# arithmetic summed in another order (errors of a few 1e-7 relative on
+# the sweep's sums). bfloat16: both round their outputs (one bf16 ulp is
+# 2^-8 relative) and the softmax weights / dS to bf16 inside, where a
+# last-bit difference in the float32 value before the rounding moves one
+# term by an ulp.
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
@@ -304,6 +328,360 @@ def kernel_phase(torch, np):
 
 # ------------------------------------------------------------- phase 4
 
+# The training slice's attention shapes: bench defaults, batch 8 of seq
+# 2048, 12 heads of 64, causal, bfloat16.
+FLASH_B, FLASH_L = 8, 2048
+# Sweep geometries: (Lq, Lk, causal, q_offset, k_offset). Lengths that
+# are not multiples of the 64-row tile, rectangular shapes, an offset
+# causal mask, and causal keys past every query (K3 loops over nothing
+# for them and must write zeros).
+FLASH_GEOMS = [(200, 200, True, 0, 0), (128, 128, False, 0, 0),
+               (64, 136, False, 0, 0), (72, 200, True, 128, 0),
+               (128, 128, True, 40, 8), (64, 192, True, 0, 0)]
+FLASH_HEAD_DIMS = (8, 32, 64, 100, 128)
+
+
+def _strided(torch, x):
+    """``x`` [B, L, H, D] as a view with a padded head stride, as the
+    model hands q/k/v over (views into one projection)."""
+    B, L, H, D = x.shape
+    buf = torch.zeros((B, L, H, 2 * D), dtype=x.dtype, device=x.device)
+    buf[..., :D] = x
+    return buf[..., :D]
+
+
+def _flash_case(torch, np, rng, B, H, D, Lq, Lk, dtype, strided=True):
+    mk = (lambda *s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
+                                  device="cuda").to(dtype))
+    q, do = mk(B, Lq, H, D), mk(B, Lq, H, D)
+    k, v = mk(B, Lk, H, D), mk(B, Lk, H, D)
+    if strided:
+        q, k, v, do = (_strided(torch, t) for t in (q, k, v, do))
+    return q, k, v, do
+
+
+def _flash_check(torch, fa, q, k, v, do, causal, qo, ko, tol, what):
+    """Each of K1-K3 against its plain version on the same inputs; the
+    backward kernels get the plain forward's lse and D, so each kernel
+    is held alone. Returns the largest absolute error."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = fa.flash_forward(q, k, v, causal, scale, qo, ko)
+    r_out, r_lse = fa.flash_forward_reference(q, k, v, causal, scale, qo, ko)
+    d = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, r_lse, d, causal, scale, qo, ko)
+    r_dq = fa.flash_bwd_dq_reference(q, k, v, do, r_lse, d, causal, scale,
+                                     qo, ko)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, r_lse, d, causal, scale, qo, ko)
+    r_dk, r_dv = fa.flash_bwd_dkv_reference(q, k, v, do, r_lse, d, causal,
+                                            scale, qo, ko)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("out", out, r_out), ("lse", lse, r_lse),
+                           ("dq", dq, r_dq), ("dk", dk, r_dk),
+                           ("dv", dv, r_dv)):
+        got, ref = got.float(), ref.float()
+        errs[name] = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and torch.allclose(got, ref, atol=tol, rtol=tol),
+              f"flash {what}: {name} disagrees with its plain version "
+              f"(max_abs_err {errs[name]:.3e}, atol=rtol={tol})")
+    return errs
+
+
+def _flash_sweep(torch, np):
+    from horovod_tpu_torch.ops import attention as fa
+
+    rng = np.random.default_rng(11)
+    cases = 0
+    worst = {}
+    for D in FLASH_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for Lq, Lk, causal, qo, ko in FLASH_GEOMS:
+                q, k, v, do = _flash_case(torch, np, rng, 2, 3, D, Lq, Lk,
+                                          dtype)
+                errs = _flash_check(
+                    torch, fa, q, k, v, do, causal, qo, ko, TOL[dname],
+                    f"sweep D={D} {dname} Lq={Lq} Lk={Lk} causal={causal} "
+                    f"offsets=({qo},{ko})")
+                worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+                cases += 1
+    log(f"flash sweep: {cases} cases (D {FLASH_HEAD_DIMS}, "
+        f"{len(FLASH_GEOMS)} geometries, f32 + bf16, strided views) agree "
+        f"with the plain versions; max_abs_err {worst}")
+
+
+def _flash_bounds(B, H, L, D, elt):
+    """Least work of K1-K3 at a causal square shape: operations over the
+    bf16 tensor-core peak and bytes over the HBM peak, counting only the
+    live (query, key) pairs and each input read and output written once.
+    K1: q.k and p.v, 4 flops per live pair and head-dim element; K2 adds
+    dO.v and dS.k and drops p.v (6); K3 recomputes q.k and dO.v and does
+    P^T.dO and dS^T.q (8)."""
+    pairs = B * H * L * (L + 1) // 2
+    tile = B * L * H * D * elt               # one [B, L, H, D] tensor
+    stat = B * H * L * 4                     # one float32 [B, H, L]
+    work = {
+        "flash_forward": (4 * D * pairs, 3 * tile + tile + stat),
+        "flash_bwd_dq": (6 * D * pairs, 4 * tile + 2 * stat + tile),
+        "flash_bwd_dkv": (8 * D * pairs, 4 * tile + 2 * stat + 2 * tile),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
+        out[name] = {"flops": flops, "bytes": nbytes,
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": ("operations" if t_ops >= t_bytes
+                                  else "bytes")}
+    return out
+
+
+def flash_phase(torch, np):
+    """K1-K3 over the sweep, then at the slice shapes in bf16: agreement,
+    then the cold-L2 time of each kernel, of its plain version and of
+    the library yardstick (``scaled_dot_product_attention``; its backward
+    through autograd stands for K2 and K3 together)."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import attention as fa
+
+    _flash_sweep(torch, np)
+    B, L, H, D = FLASH_B, FLASH_L, HEADS, HEAD_DIM
+    rng = np.random.default_rng(12)
+    q, k, v, do = _flash_case(torch, np, rng, B, H, D, L, L, torch.bfloat16,
+                              strided=False)
+    errs = _flash_check(torch, fa, q, k, v, do, True, 0, 0, TOL["bfloat16"],
+                        f"slice B={B} L={L} H={H} D={D} bf16 causal")
+    log(f"flash slice shapes: K1-K3 agree with the plain versions in bf16 "
+        f"(max_abs_err {errs})")
+    scale = 1.0 / math.sqrt(D)
+    out, lse = fa.flash_forward(q, k, v, True, scale)
+    d = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    # No atomics anywhere: a second launch repeats every output bit.
+    again = (fa.flash_forward(q, k, v, True, scale),
+             (fa.flash_bwd_dq(q, k, v, do, lse, d, True, scale),),
+             fa.flash_bwd_dkv(q, k, v, do, lse, d, True, scale))
+    first = (fa.flash_forward(q, k, v, True, scale),
+             (fa.flash_bwd_dq(q, k, v, do, lse, d, True, scale),),
+             fa.flash_bwd_dkv(q, k, v, do, lse, d, True, scale))
+    check(all(torch.equal(a, b) for x, y in zip(first, again)
+              for a, b in zip(x, y)),
+          "flash slice shapes: a second launch changed an output bit")
+    log("flash slice shapes: K1-K3 repeat bit for bit")
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    runs = {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, True, scale),
+            lambda: fa.flash_forward_reference(q, k, v, True, scale)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, d, True, scale),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, d, True,
+                                              scale)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, d, True, scale),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, d, True,
+                                               scale)),
+    }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    library = {
+        "flash_forward": _time_cold_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), is_causal=True),
+            flush, iters=20, warmup=3),
+        "flash_bwd": _time_cold_ms(
+            torch, lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True),
+            flush, iters=20, warmup=3),
+    }
+    bounds = _flash_bounds(B, H, L, D, q.element_size())
+    results = {}
+    for name, (kern, plain) in runs.items():
+        ms = _time_cold_ms(torch, kern, flush, iters=20, warmup=3)
+        plain_ms = _time_cold_ms(torch, plain, flush, iters=5, warmup=1)
+        lib = library["flash_forward" if name == "flash_forward"
+                      else "flash_bwd"]
+        results[name] = {"max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib, **bounds[name]}
+        log(f"  {name}: ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
+            f"{lib:.4f}  bound_ms {bounds[name]['bound_ms']:.4f} "
+            f"({bounds[name]['bound_by']}: {bounds[name]['flops']} flops, "
+            f"{bounds[name]['bytes']} bytes)")
+    del flush
+    return results
+
+
+# ------------------------------------------------------------- phase 5
+
+TRAIN_STEPS = 5
+# The dense-attention cross-check runs one step at this batch (dense
+# attention keeps [B, H, L, L] scores per layer for the backward).
+PARITY_BATCH = 2
+# Flash against dense attention, same weights and tokens, bf16 compute:
+# dense rounds the scores to bf16 before its float32 softmax (its
+# einsum runs in the input dtype), flash keeps them in float32, so the
+# two differ by bf16 rounding of the scores; averaged over 2 x 2047
+# next-token losses that moves the loss by far less than 0.5%, and the
+# gradients' global norm by less than 5%. A wrong kernel moves both by
+# far more (the loss of a broken attention is off by whole units).
+PARITY_RTOL = {"loss": 5e-3, "grad_norm": 5e-2}
+
+
+def _lm(torch, attn_fn):
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+                         num_heads=HEADS, embed_dim=D_MODEL,
+                         max_len=FLASH_L, dtype=torch.bfloat16,
+                         attn_fn=attn_fn, seed=0, device="cuda")
+
+
+def _attention_parity(torch, flash, tokens):
+    """One forward + backward of the same weights with flash and with the
+    port's dense attention: loss and gradient global norm."""
+    from horovod_tpu_torch.models.train import next_token_loss
+
+    out = {}
+    for name, fn in (("flash", flash), ("dense", None)):
+        model = _lm(torch, fn)
+        loss = next_token_loss(model(tokens), tokens)
+        loss.backward()
+        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                              for p in model.parameters()))
+        out[name] = {"loss": float(loss.detach()),
+                     "grad_norm": float(norm)}
+        del model, loss
+        torch.cuda.empty_cache()
+    for key, rtol in PARITY_RTOL.items():
+        f, d = out["flash"][key], out["dense"][key]
+        rel = abs(f - d) / abs(d)
+        out[f"{key}_rel_diff"] = rel
+        check(math.isfinite(f) and math.isfinite(d) and rel <= rtol,
+              f"training: flash and dense {key} differ by {rel:.3e} "
+              f"(flash {f}, dense {d}; rtol {rtol})")
+    return out
+
+
+def training_phase(torch, np, profile):
+    """The bench lane's data-parallel step at GPT-2-small width and the
+    lane's defaults (seq 2048, batch 8, bf16, flash attention, Adam 1e-4
+    under DistributedOptimizer, NCCL world of one) on one fixed batch."""
+    import functools
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.models.train import (create_train_state,
+                                                make_train_step)
+    from horovod_tpu_torch.ops import attention as fa
+
+    hvd.init()
+    check(hvd.size() == 1 and dist.get_backend() == "nccl",
+          f"training: expected an NCCL world of one, got "
+          f"{dist.get_backend()} x {hvd.size()}")
+    flash = functools.partial(fa.flash_attention, causal=True)
+    rng = np.random.default_rng(5)
+    tokens = torch.tensor(rng.integers(0, VOCAB, (FLASH_B, FLASH_L)),
+                          device="cuda")
+    parity = _attention_parity(torch, flash, tokens[:PARITY_BATCH])
+    log(f"training: flash vs dense at batch {PARITY_BATCH}: loss "
+        f"{parity['flash']['loss']:.6f} vs {parity['dense']['loss']:.6f} "
+        f"(rel {parity['loss_rel_diff']:.2e}), grad norm "
+        f"{parity['flash']['grad_norm']:.6f} vs "
+        f"{parity['dense']['grad_norm']:.6f} "
+        f"(rel {parity['grad_norm_rel_diff']:.2e})")
+
+    model = _lm(torch, flash)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = create_train_state(model, torch.optim.Adam(model.parameters(),
+                                                     lr=1e-4),
+                             device="cuda")
+    step = make_train_step(model, opt)
+    plan = hvd.plan_buckets(list(model.parameters()),
+                            basics.config().fusion_threshold)
+    summary = hvd.plan_summary(plan)
+    log(f"training: {n_params} parameters, bucket plan {summary}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    fused_reduce.collectives = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    collectives = fused_reduce.collectives
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"training: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"training: the loss did not fall on a fixed batch: {losses}")
+    for name, n in launches.items():
+        check(n == LAYERS * TRAIN_STEPS,
+              f"training: {name} launched {n} times, expected {LAYERS} "
+              f"layers x {TRAIN_STEPS} passes")
+    check(collectives == len(plan) * TRAIN_STEPS,
+          f"training: {collectives} bucket collectives, expected "
+          f"{len(plan)} buckets x {TRAIN_STEPS} steps")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    result = {
+        "losses": losses, "step_s": times, "median_step_s": step_s,
+        "tokens_per_s": FLASH_B * FLASH_L / step_s,
+        "peak_memory_bytes": peak, "launches": launches,
+        "collectives": collectives, "plan": summary, "parity": parity,
+        "params": n_params,
+    }
+    log(f"training: {TRAIN_STEPS} steps, losses {losses}, step s "
+        f"{[round(t, 4) for t in times]}, median (steps 2-{TRAIN_STEPS}) "
+        f"{step_s:.4f} s = {result['tokens_per_s']:.1f} tokens/s per card, "
+        f"peak memory {peak / 2**30:.2f} GiB, launches {launches}, "
+        f"{collectives} NCCL bucket collectives")
+    if profile:
+        result["profile"] = _profile_steps(torch, step, tokens)
+    hvd.shutdown()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def _profile_steps(torch, step, tokens, steps=2):
+    """``--profile``: training steps under ``torch.profiler``: device busy
+    time, idle share of the wall, and the kernels that take the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    check(busy_us > 0, "profile[training]: no device events traced")
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    out = {"wall_s": wall, "steps": steps, "device_busy_s": busy_us / 1e6,
+           "idle_share": 1 - busy_us / 1e6 / wall,
+           "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                   for e in top]}
+    log(f"profile[training]: {json.dumps(out)}")
+    return out
+
+
+# ------------------------------------------------------------- phase 6
+
 
 def _requests(np):
     """8 requests, prompts of 64-256 tokens, 32 new tokens each, in three
@@ -473,6 +851,34 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
+def _flash_records(fres, tres, card):
+    """The kernels line's entries of K1-K3: launches from the training
+    phase, times and errors from the flash phase at the slice shapes."""
+    rows = [("flash_forward", ":179", ("out", "lse")),
+            ("flash_bwd_dq", ":533", ("dq",)),
+            ("flash_bwd_dkv", ":599", ("dk", "dv"))]
+    out = []
+    for name, line, outs in rows:
+        r = fres[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"horovod_tpu/ops/attention.py{line}",
+            "launches": tres["launches"][name],
+            "max_abs_err": max(r["max_abs_err"][o] for o in outs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            **({"library_covers": "flash_bwd_dq + flash_bwd_dkv"}
+               if name != "flash_forward" else {}),
+            "dtype": "bfloat16",
+            "shape": {"B": FLASH_B, "L": FLASH_L, "H": HEADS,
+                      "D": HEAD_DIM, "causal": True},
+            "flops": r["flops"], "bytes": r["bytes"], "card": card,
+        })
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -483,12 +889,17 @@ def main():
     except ImportError as e:
         raise SmokeFailure(f"the port package is not beside this script "
                            f"({e}); run from the root of a checkout")
+    profile = "--profile" in sys.argv[1:]
     build_phase()
     kres, rate = kernel_phase(torch, np)
+    fres = flash_phase(torch, np)
+    tres = training_phase(torch, np, profile)
     runs, params, prompts, waves = engine_phase(torch, np)
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_phase(torch, params, prompts, waves)
     f32, bf16 = kres["float32"], kres["bfloat16"]
+    print(json.dumps({"training": {k: v for k, v in tres.items()
+                                   if k != "profile"}}), flush=True)
     record = {"kernels": [{
         "name": "paged_attention_decode",
         "route": "cuda",
@@ -510,7 +921,7 @@ def main():
                                           "library_ms", "bound_ms",
                                           "bound_by")},
         "card": card,
-    }]}
+    }, *_flash_records(fres, tres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,16 @@ Conventions:
   with its plain PyTorch version beside it: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises.
 
-This first slice ports the serving path: the dense LM
+Ported so far: the serving path — the dense LM
 (:mod:`~horovod_tpu_torch.models.parallel_lm`), the continuous-batching
 engine (:mod:`~horovod_tpu_torch.serve`) and its paged-attention decode
-kernel (:mod:`~horovod_tpu_torch.ops.paged_attention`).
+kernel (:mod:`~horovod_tpu_torch.ops.paged_attention`); and data-parallel
+LM training — the flax ``TransformerLM``
+(:mod:`~horovod_tpu_torch.models.transformer`) on the flash-attention
+kernels (:mod:`~horovod_tpu_torch.ops.attention`), the Horovod surface
+over ``torch.distributed`` (:mod:`~horovod_tpu_torch.distributed`), the
+training step (:mod:`~horovod_tpu_torch.models.train`) and its bench
+lane (``python -m horovod_tpu_torch.bench``).
 """
 
 from horovod_tpu_torch._device import resolve_device

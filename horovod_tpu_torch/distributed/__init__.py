@@ -1,0 +1,34 @@
+"""The Horovod surface of the port: ``import horovod_tpu_torch.distributed
+as hvd``.
+
+The counterpart of ``horovod_tpu.jax`` for data-parallel training over
+``torch.distributed`` (NCCL on the card, gloo on the CPU): lifecycle
+(:func:`init`, :func:`size`, :func:`rank`, ...), collectives, the fused
+buckets and :func:`DistributedOptimizer`.
+"""
+
+from horovod_tpu_torch.common.basics import (init, is_initialized,
+                                             local_rank, rank, shutdown,
+                                             size)
+from horovod_tpu_torch.distributed.compression import Compression
+from horovod_tpu_torch.distributed.fusion import (fused_reduce,
+                                                  plan_buckets,
+                                                  plan_summary)
+from horovod_tpu_torch.distributed.mpi_ops import (Average, Max, Min,
+                                                   Product, Sum, allgather,
+                                                   allreduce,
+                                                   allreduce_async,
+                                                   broadcast,
+                                                   broadcast_object,
+                                                   synchronize)
+from horovod_tpu_torch.distributed.optimizer import (
+    DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+
+__all__ = [
+    "init", "shutdown", "is_initialized", "size", "rank", "local_rank",
+    "Compression", "Sum", "Average", "Min", "Max", "Product", "allreduce",
+    "allreduce_async", "synchronize", "broadcast", "broadcast_object",
+    "allgather", "fused_reduce", "plan_buckets", "plan_summary",
+    "DistributedOptimizer", "broadcast_parameters",
+    "broadcast_optimizer_state",
+]

@@ -339,6 +339,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for n in names:
                 root = n.split(".")[0]
-                if root in ("jax", "jaxlib", "horovod_tpu"):
+                if root in ("jax", "jaxlib", "flax", "optax", "horovod_tpu"):
                     bad.append(f"{f.relative_to(REPO)}: {n}")
     assert not bad, bad
