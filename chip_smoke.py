@@ -22,7 +22,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    lengths off the 64-row tile, head dims 8-128, f32 and bf16, strided
    views), then at the training slice's shapes (B=8, L=2048, H=12,
    D=64, causal, bf16), with the same four times each;
-5. training: the bench lane's data-parallel step at GPT-2-small width
+5. conv_bn: K5 (fused 1x1 conv + BatchNorm statistics) against its
+   plain version over a sweep (rows off the tile, K 8-2048, prologue on
+   and off with positive shifts, strided NHWC views, f32 and bf16), then
+   at ResNet-50's 16 1x1 shapes (batch 64, 224^2, bf16), with the four
+   times each and their sums over one training step's 36 launches;
+6. training: the bench lane's data-parallel step at GPT-2-small width
    (12 layers, d_model 768, 12 heads, vocab 32000, seq 2048, batch 8,
    bf16 compute, random weights from a seed) on flash attention, Adam
    1e-4 under ``DistributedOptimizer``, an NCCL world of one, a few
@@ -31,21 +36,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    NCCL bucket collectives equal the bucket plan times the steps, and
    one step with dense attention at batch 2 matches flash's loss and
    gradient norm;
-6. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
+7. resnet: the image bench lane's step, ResNet-50 at full width with the
+   JAX lane's defaults (224^2 synthetic images, 64 per card, 1000
+   classes, bf16, SGD 0.01 momentum 0.9 under ``DistributedOptimizer``)
+   with ``fused_bn``, an NCCL world of one, a few steps on one fixed
+   batch: the losses are finite and fall, K5 ran 36 times per step (16
+   with the prologue), the bucket collectives equal the plan times the
+   steps, and one step from the same weights with unfused BatchNorm
+   (cuDNN 1x1 convs, statistics as a separate pass) matches the fused
+   loss, running means and gradient norm;
+8. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
    width serving 8 staggered requests, once with ``attention="paged"``
    and once with ``"gather"``: every request finishes, the greedy
    streams are identical across the modes and equal ``lm_decode``'s,
    and K4 ran once per layer per step with a live decode slot;
-7. (``--profile`` only) two training steps and the engine's workload
-   again under ``torch.profiler``: device busy time, idle share, top
-   kernels.
+9. (``--profile`` only) two training steps of each lane and the
+   engine's workload again under ``torch.profiler``: device busy time,
+   idle share, top kernels.
 
 Each kernel's launch count is set to 0 just before the phase that drives
 its path and read just after; launches made to compare or time a kernel
 do not count.
 
-The second-to-last line is the ``{"kernels": [...]}`` record and the last
-line ``{"ok": true, "device": {...}}``. The script imports nothing of
+The second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
+the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
 CUDA device, it fails.
 """
@@ -516,6 +530,193 @@ def flash_phase(torch, np):
 
 # ------------------------------------------------------------- phase 5
 
+# ResNet-50's 1x1 ConvBN layers at the image lane's defaults (batch 64,
+# 224^2, bf16): (input side, K, N, stride, prologue, launches a training
+# step). 36 launches, 16 with the prologue; the stride-2 projections read
+# the subsampled view of their input in place.
+IMG_B, IMG_SIZE, CLASSES = 64, 224, 1000
+RESNET50_K5 = [
+    (56, 64, 64, 1, False, 1), (56, 64, 256, 1, False, 1),
+    (56, 64, 256, 1, True, 3), (56, 256, 64, 1, False, 2),
+    (56, 256, 128, 1, False, 1), (56, 256, 512, 2, False, 1),
+    (28, 128, 512, 1, True, 4), (28, 512, 128, 1, False, 3),
+    (28, 512, 256, 1, False, 1), (28, 512, 1024, 2, False, 1),
+    (14, 256, 1024, 1, True, 6), (14, 1024, 256, 1, False, 5),
+    (14, 1024, 512, 1, False, 1), (14, 1024, 2048, 2, False, 1),
+    (7, 512, 2048, 1, True, 3), (7, 2048, 512, 1, False, 2),
+]
+# Sweep: (B, H, W, K, N, stride, prologue). Rows off the 128- and 64-row
+# tiles (M = 1, 100, 129, 300), K from 8 to 2048 (off the 8-channel
+# vector width: 12, 100), N off the 64/128-column tiles, strided views,
+# odd sides.
+K5_SWEEP = [
+    (1, 1, 1, 8, 8, 1, False), (1, 10, 10, 100, 40, 1, True),
+    (3, 43, 1, 24, 130, 1, False), (2, 15, 10, 12, 64, 1, True),
+    (2, 16, 16, 256, 200, 2, False), (2, 15, 15, 64, 72, 2, True),
+    (1, 12, 25, 2048, 96, 1, True), (4, 9, 9, 512, 1024, 2, False),
+    (2, 8, 8, 1000, 3, 1, False),
+]
+
+
+def _k5_inputs(torch, np, rng, B, H, W, K, N, stride, prologue, dtype):
+    """x as the model hands it over (an NHWC view of a channels-last
+    activation, subsampled for a strided 1x1), w as the [K, N] view of an
+    OIHW 1x1 weight, a/b float32 with positive shifts (so a row off the
+    tile that escaped the mask would show in the statistics)."""
+    x = torch.tensor(rng.standard_normal((B, H, W, K), dtype=np.float32),
+                     device="cuda").to(dtype)
+    x = x[:, ::stride, ::stride, :]
+    wt = torch.tensor(rng.standard_normal((N, K), dtype=np.float32)
+                      / np.sqrt(K), device="cuda").to(dtype)
+    a = b = None
+    if prologue:
+        a = torch.tensor(rng.uniform(0.5, 1.5, K).astype(np.float32),
+                         device="cuda")
+        b = torch.tensor(rng.uniform(0.1, 0.6, K).astype(np.float32),
+                         device="cuda")
+    return x, wt.t(), a, b
+
+
+def _k5_check(torch, cb, x, w, a, b, dname, what):
+    """The kernel against its plain version: y elementwise; s1 against the
+    column sums of |y| (s1 is a sum of both signs), s2 relatively."""
+    y, s1, s2 = cb.bn_stats_forward(x, w, a, b)
+    x2 = x.reshape(-1, x.shape[-1])
+    if a is None:
+        ry, r1, r2 = cb.matmul_bn_stats_reference(x2, w)
+    else:
+        ry, r1, r2 = cb.matmul_prologue_bn_stats_reference(x2, a, b, w)
+    torch.cuda.synchronize()
+    tol, stol = TOL[dname], K5_STATS_TOL[dname]
+    err = float((y.float() - ry.float()).abs().max())
+    scale = ry.float().abs().sum(0)
+    e1 = float(((s1 - r1).abs() / scale.clamp_min(1e-30)).max())
+    e2 = float(((s2 - r2).abs() / r2.abs().clamp_min(1e-30)).max())
+    check(bool(torch.isfinite(y.float()).all())
+          and torch.allclose(y.float(), ry.float(), atol=tol, rtol=tol)
+          and e1 <= stol and e2 <= stol,
+          f"conv_bn {what}: kernel disagrees with its plain version (y "
+          f"max_abs_err {err:.3e} tol {tol}; s1 {e1:.3e}, s2 {e2:.3e} "
+          f"relative, tol {stol})")
+    return err, max(e1, e2)
+
+
+# Statistics against the plain version, relative (s1 to the column sums
+# of |y|, s2 to itself): float32 sums of the same values in another order
+# (float32: a few 1e-7 relative); bfloat16: the rare y that rounds one
+# bf16 ulp (2^-8) the other way moves a sum by far less than 1e-3.
+K5_STATS_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def _k5_bound(M, K, N, prologue, elt):
+    """Least work of one launch: x and w read once, y written once (plus
+    a/b and the float32 statistics); 2*M*K*N flops over the bf16 (or f32)
+    peak. Bytes over the HBM peak."""
+    nbytes = (M * K + K * N + M * N) * elt + 2 * N * 4 \
+        + (2 * K * elt if prologue else 0)
+    return nbytes, 2 * M * K * N
+
+
+def conv_bn_phase(torch, np):
+    """K5 over the sweep (f32 and bf16), then at the 16 ResNet-50 shapes
+    in bf16: agreement, bit-for-bit repetition, and per shape the cold-L2
+    time of the kernel, of its plain version and of the library yardstick
+    (``torch.matmul`` + the two column reductions, behind the prologue's
+    elementwise pass), with the bound; the sums over one training step's
+    36 launches."""
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    rng = np.random.default_rng(21)
+    worst = {}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for B, H, W, K, N, s, pro in K5_SWEEP:
+            x, w, a, b = _k5_inputs(torch, np, rng, B, H, W, K, N, s, pro,
+                                    dtype)
+            errs = _k5_check(torch, cb, x, w, a, b, dname,
+                             f"sweep {dname} x {tuple(x.shape)} "
+                             f"stride {s} N {N} prologue {pro}")
+            worst[dname] = max(worst.get(dname, (0, 0)), errs)
+            cases += 1
+    log(f"conv_bn sweep: {cases} cases (M 1..2048, K 8..2048, N 3..1024, "
+        f"prologue on/off, strided views, f32 + bf16) agree with the plain "
+        f"version; worst (y abs, stats rel) {worst}")
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    shapes = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
+           "t_ops": 0.0, "bytes": 0, "flops": 0, "launches": 0,
+           "max_abs_err": 0.0}
+    for side, K, N, s, pro, count in RESNET50_K5:
+        x, w, a, b = _k5_inputs(torch, np, rng, IMG_B, side, side, K, N, s,
+                                pro, torch.bfloat16)
+        what = f"ResNet-50 M={x.shape[0] * x.shape[1] * x.shape[2]} " \
+               f"{K}->{N} stride {s} prologue {pro}"
+        err, serr = _k5_check(torch, cb, x, w, a, b, "bfloat16", what)
+        first = cb.bn_stats_forward(x, w, a, b)
+        again = cb.bn_stats_forward(x, w, a, b)
+        check(all(torch.equal(p, q) for p, q in zip(first, again)),
+              f"conv_bn {what}: a second launch changed an output bit")
+        x2 = x.reshape(-1, K)
+        if a is None:
+            plain = lambda: cb.matmul_bn_stats_reference(x2, w)  # noqa
+        else:
+            plain = lambda: cb.matmul_prologue_bn_stats_reference(  # noqa
+                x2, a, b, w)
+
+        def library():
+            h = x.reshape(-1, K)
+            if a is not None:
+                h = torch.relu(h * a.to(h.dtype) + b.to(h.dtype))
+            y = torch.matmul(h, w)
+            yf = y.float()
+            return y, yf.sum(0), yf.square().sum(0)
+
+        ms = _time_cold_ms(torch, lambda: cb.bn_stats_forward(x, w, a, b),
+                           flush, iters=20, warmup=3)
+        plain_ms = _time_cold_ms(torch, plain, flush, iters=5, warmup=1)
+        library_ms = _time_cold_ms(torch, library, flush, iters=20, warmup=3)
+        M = x.shape[0] * x.shape[1] * x.shape[2]
+        nbytes, flops = _k5_bound(M, K, N, pro, 2)
+        t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row = {"M": M, "K": K, "N": N, "stride": s, "prologue": pro,
+               "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": err, "stats_rel_err": serr}
+        shapes.append(row)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", library_ms), ("t_bytes", t_bytes),
+                       ("t_ops", t_ops), ("bytes", nbytes),
+                       ("flops", flops), ("launches", 1)):
+            tot[key] += count * v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        log(f"  conv_bn {what} x{count}: ms {ms:.4f}  plain_ms "
+            f"{plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}), max_abs_err "
+            f"{err:.3e}")
+        del x, w, a, b, x2
+    del flush
+    torch.cuda.empty_cache()
+    check(tot["launches"] == 36, f"the ResNet-50 table holds "
+                                 f"{tot['launches']} launches, not 36")
+    step = {k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bytes",
+                                "flops", "max_abs_err")}
+    step["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
+    step["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                        else "operations")
+    log(f"conv_bn: one ResNet-50 step's 36 launches: ms {step['ms']:.4f}  "
+        f"plain_ms {step['plain_ms']:.4f}  library_ms "
+        f"{step['library_ms']:.4f}  bound_ms {step['bound_ms']:.4f} "
+        f"({step['bound_by']}: {step['bytes']} bytes, {step['flops']} "
+        f"flops)")
+    return {"step": step, "shapes": shapes, "sweep_worst": worst}
+
+
+# ------------------------------------------------------------- phase 6
+
 TRAIN_STEPS = 5
 # The dense-attention cross-check runs one step at this batch (dense
 # attention keeps [B, H, L, L] scores per layer for the backward).
@@ -653,34 +854,206 @@ def training_phase(torch, np, profile):
     return result
 
 
-def _profile_steps(torch, step, tokens, steps=2):
+def _device_events(prof):
+    """The kernels, copies and memsets of a trace, by name. A user
+    annotation (``Optimizer.step#SGD.step``) also shows on the device
+    timeline, spanning the kernels it encloses and the gaps between
+    them, so it is left out: it would count that time twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _profile_steps(torch, step, batch, name="training", steps=2):
     """``--profile``: training steps under ``torch.profiler``: device busy
     time, idle share of the wall, and the kernels that take the most
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(tokens)
+            step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    dev = _device_events(prof)
     busy_us = sum(e.self_device_time_total for e in dev)
-    check(busy_us > 0, "profile[training]: no device events traced")
+    check(busy_us > 0, f"profile[{name}]: no device events traced")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
     out = {"wall_s": wall, "steps": steps, "device_busy_s": busy_us / 1e6,
            "idle_share": 1 - busy_us / 1e6 / wall,
            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                    for e in top]}
-    log(f"profile[training]: {json.dumps(out)}")
+    log(f"profile[{name}]: {json.dumps(out)}")
     return out
 
 
-# ------------------------------------------------------------- phase 6
+# ------------------------------------------------------------- phase 7
+
+RESNET_STEPS = 5
+# Fused (K5) against unfused (cuDNN convs, statistics as a separate pass)
+# BatchNorm, same weights and batch, one bf16 forward + backward: both
+# round every conv output to bf16 from float32 sums taken in another
+# order, so a y now and then rounds one bf16 ulp (2^-8) the other way,
+# and 53 layers carry that along (the fused backward's products are
+# cuBLAS's, the unfused cuDNN's, summed in other orders again). That
+# moves the cross-entropy over 64 images and each layer's new running
+# mean (0.1 of its batch mean, over 3136-200704 rows) by far less than
+# 1e-3 (of the layer's largest), the gradients' global norm by less than
+# 1e-2. Wrong statistics or a wrong prologue move a layer's running mean
+# by its whole scale.
+RESNET_PARITY_TOL = {"loss": 1e-3, "running_mean": 1e-3, "grad_norm": 1e-2}
+
+
+def _resnet(torch, fused):
+    from horovod_tpu_torch.models import resnet
+
+    return resnet.build("resnet50", num_classes=CLASSES, fused_bn=fused,
+                        seed=0, device="cuda")
+
+
+def _resnet_parity(torch, batch):
+    """One forward + backward of the same weights with fused and with
+    unfused BatchNorm: loss, gradient global norm, new running means."""
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models.train import cross_entropy_loss
+
+    out = {}
+    for fused in (True, False):
+        model = _resnet(torch, fused)
+        loss = cross_entropy_loss(model(batch["image"]), batch["label"])
+        loss.backward()
+        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                              for p in model.parameters()))
+        means = [m.mean.clone() for m in model.modules()
+                 if isinstance(m, resnet.ConvBN)]
+        out[fused] = {"loss": float(loss.detach()), "grad_norm": float(norm),
+                      "means": means}
+        del model, loss
+        torch.cuda.empty_cache()
+    res = {}
+    for key in ("loss", "grad_norm"):
+        f, u = out[True][key], out[False][key]
+        rel = abs(f - u) / abs(u)
+        res[key] = {"fused": f, "unfused": u, "rel_diff": rel}
+        check(math.isfinite(f) and math.isfinite(u)
+              and rel <= RESNET_PARITY_TOL[key],
+              f"resnet: fused and unfused {key} differ by {rel:.3e} (fused "
+              f"{f}, unfused {u}; rtol {RESNET_PARITY_TOL[key]})")
+    worst = 0.0
+    for f, u in zip(out[True]["means"], out[False]["means"]):
+        rel = float((f - u).abs().max() / u.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    res["running_mean"] = {"layers": len(out[True]["means"]),
+                           "worst_rel_diff": worst}
+    check(worst <= RESNET_PARITY_TOL["running_mean"],
+          f"resnet: fused and unfused running means differ by {worst:.3e} "
+          f"of a layer's largest (tol {RESNET_PARITY_TOL['running_mean']})")
+    return res
+
+
+def resnet_phase(torch, np, profile):
+    """The image bench lane's step: ResNet-50 at full width with the JAX
+    lane's defaults (224^2 synthetic images, 64 per card, 1000 classes,
+    bf16 compute, SGD 0.01 momentum 0.9 under DistributedOptimizer,
+    average_loss=False), ``--fused-bn``, an NCCL world of one, a few
+    steps on one fixed batch."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.models.train import (create_train_state,
+                                                make_image_train_step)
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    hvd.init()
+    check(hvd.size() == 1 and dist.get_backend() == "nccl",
+          f"resnet: expected an NCCL world of one, got "
+          f"{dist.get_backend()} x {hvd.size()}")
+    rng = np.random.default_rng(6)
+    batch = {"image": torch.tensor(rng.standard_normal(
+                 (IMG_B, IMG_SIZE, IMG_SIZE, 3), dtype=np.float32),
+                 device="cuda"),
+             "label": torch.tensor(rng.integers(0, CLASSES, IMG_B),
+                                   device="cuda")}
+    parity = _resnet_parity(torch, batch)
+    log(f"resnet: fused vs unfused BatchNorm, one step at batch {IMG_B}: "
+        f"{json.dumps(parity)}")
+
+    model = _resnet(torch, True)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = create_train_state(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        device="cuda")
+    step = make_image_train_step(model, opt, average_loss=False)
+    plan = hvd.plan_buckets(list(model.parameters()),
+                            basics.config().fusion_threshold)
+    summary = hvd.plan_summary(plan)
+    log(f"resnet: {n_params} parameters, bucket plan {summary}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.bn_stats_forward.launches = 0
+    cb.bn_stats_forward.prologue_launches = 0
+    fused_reduce.collectives = 0
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = cb.bn_stats_forward.launches
+    prologue = cb.bn_stats_forward.prologue_launches
+    collectives = fused_reduce.collectives
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses),
+          f"resnet: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"resnet: the loss did not fall on a fixed batch: {losses}")
+    check(launches == 36 * RESNET_STEPS and prologue == 16 * RESNET_STEPS,
+          f"resnet: K5 launched {launches} times ({prologue} with the "
+          f"prologue), expected 36 x {RESNET_STEPS} (16 x {RESNET_STEPS})")
+    check(collectives == len(plan) * RESNET_STEPS,
+          f"resnet: {collectives} bucket collectives, expected "
+          f"{len(plan)} buckets x {RESNET_STEPS} steps")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    result = {
+        "losses": losses, "step_s": times, "median_step_s": step_s,
+        "img_per_s": IMG_B / step_s, "peak_memory_bytes": peak,
+        "launches": launches, "prologue_launches": prologue,
+        "collectives": collectives, "plan": summary, "parity": parity,
+        "params": n_params,
+    }
+    log(f"resnet: {RESNET_STEPS} steps, losses {losses}, step s "
+        f"{[round(t, 4) for t in times]}, median (steps 2-{RESNET_STEPS}) "
+        f"{step_s:.4f} s = {result['img_per_s']:.1f} img/s per card, peak "
+        f"memory {peak / 2**30:.2f} GiB, K5 launches {launches} "
+        f"({prologue} with the prologue), {collectives} NCCL bucket "
+        "collectives")
+    if profile:
+        result["profile"] = {"fused": _profile_steps(torch, step, batch,
+                                                     "resnet fused")}
+        del model, opt, step
+        torch.cuda.empty_cache()
+        model = _resnet(torch, False)
+        opt = create_train_state(
+            model, torch.optim.SGD(model.parameters(), lr=0.01,
+                                   momentum=0.9), device="cuda")
+        step = make_image_train_step(model, opt, average_loss=False)
+        for _ in range(3):                       # cuDNN's first calls
+            step(batch)
+        result["profile"]["unfused"] = _profile_steps(
+            torch, step, batch, "resnet unfused")
+    hvd.shutdown()
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------------- phase 8
 
 
 def _requests(np):
@@ -810,7 +1183,6 @@ def profile_phase(torch, params, prompts, waves):
     profiled wall time, and the kernels that take the most device time.
     The profiler's own host overhead lengthens the wall time, so the
     idle share here is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
@@ -819,8 +1191,7 @@ def profile_phase(torch, params, prompts, waves):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = _serve(torch, eng, waves)
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        dev = _device_events(prof)
         busy_us = sum(e.self_device_time_total for e in dev)
         check(busy_us > 0, f"profile[{mode}]: no device events traced")
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -879,6 +1250,31 @@ def _flash_records(fres, tres, card):
     return out
 
 
+def _conv_bn_record(cres, rres, card):
+    """The kernels line's entry of K5: launches from the ResNet phase (36
+    a step), the times and the bound summed over one step's 36 launches
+    at the ResNet-50 shapes, each shape's own numbers beside them."""
+    st = cres["step"]
+    return {
+        "name": "bn_stats_forward", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/conv_bn.cu",
+        "replaces": "horovod_tpu/ops/conv_bn.py:77",
+        "launches": rres["launches"],
+        "max_abs_err": st["max_abs_err"],
+        "ms": st["ms"], "plain_ms": st["plain_ms"],
+        "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+        "library_ms": st["library_ms"],
+        "library": "torch.matmul + y.float().sum(0) + "
+                   "y.float().square().sum(0), behind the prologue's "
+                   "relu(x*a+b)",
+        "times_cover": "one ResNet-50 training step's 36 launches "
+                       "(batch 64, 224^2, bf16)",
+        "prologue_launches": rres["prologue_launches"],
+        "dtype": "bfloat16", "flops": st["flops"], "bytes": st["bytes"],
+        "shapes": cres["shapes"], "card": card,
+    }
+
+
 def main():
     import numpy as np
     import torch
@@ -890,16 +1286,22 @@ def main():
         raise SmokeFailure(f"the port package is not beside this script "
                            f"({e}); run from the root of a checkout")
     profile = "--profile" in sys.argv[1:]
+    t_start = time.perf_counter()
     build_phase()
     kres, rate = kernel_phase(torch, np)
     fres = flash_phase(torch, np)
+    cres = conv_bn_phase(torch, np)
     tres = training_phase(torch, np, profile)
+    rres = resnet_phase(torch, np, profile)
     runs, params, prompts, waves = engine_phase(torch, np)
     if profile:
         profile_phase(torch, params, prompts, waves)
     f32, bf16 = kres["float32"], kres["bfloat16"]
     print(json.dumps({"training": {k: v for k, v in tres.items()
                                    if k != "profile"}}), flush=True)
+    print(json.dumps({"resnet": {k: v for k, v in rres.items()
+                                 if k != "profile"}}), flush=True)
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{
         "name": "paged_attention_decode",
         "route": "cuda",
@@ -921,7 +1323,7 @@ def main():
                                           "library_ms", "bound_ms",
                                           "bound_by")},
         "card": card,
-    }, *_flash_records(fres, tres, card)]}
+    }, *_flash_records(fres, tres, card), _conv_bn_record(cres, rres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

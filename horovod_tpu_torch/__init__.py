@@ -25,7 +25,10 @@ LM training — the flax ``TransformerLM``
 kernels (:mod:`~horovod_tpu_torch.ops.attention`), the Horovod surface
 over ``torch.distributed`` (:mod:`~horovod_tpu_torch.distributed`), the
 training step (:mod:`~horovod_tpu_torch.models.train`) and its bench
-lane (``python -m horovod_tpu_torch.bench``).
+lane (``python -m horovod_tpu_torch.bench``); and image training — the
+ResNet family (:mod:`~horovod_tpu_torch.models.resnet`) on the fused
+1x1-conv + BatchNorm-statistics kernel
+(:mod:`~horovod_tpu_torch.ops.conv_bn`) and the bench's image lane.
 """
 
 from horovod_tpu_torch._device import resolve_device

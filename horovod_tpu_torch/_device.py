@@ -1,7 +1,7 @@
 """Device resolution and the float32 policy of the port.
 
 Every entry point of the port (``ServeEngine``, ``lm_decode``,
-``init_lm_params``, ``TransformerLM``, ``hvd.init``,
+``init_lm_params``, ``TransformerLM``, ``ResNet``, ``hvd.init``,
 ``create_train_state``, ``bench.run``) takes an explicit ``device=``. ``None`` means the
 card (``"cuda"``); a caller that wants the CPU says so. Without a CUDA
 device a ``None``/``"cuda"`` request raises :class:`RuntimeError`: the

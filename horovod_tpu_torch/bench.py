@@ -1,26 +1,37 @@
-"""Training benchmark of the port: the transformer_lm lane of the JAX
-package's ``bench.py``, on the card.
+"""Training benchmark of the port: the transformer_lm and image lanes of
+the JAX package's ``bench.py``, on the card.
 
     python -m horovod_tpu_torch.bench --model transformer_lm \\
         [--attention dense|flash] [--seq-len 2048] [--batch-size 8] ...
+    python -m horovod_tpu_torch.bench --model resnet50 [--fused-bn] \\
+        [--image-size 224] [--batch-size 64] ...
 
 One process per card (``torchrun`` sets the world; alone it is a world of
-one). The model is ``TransformerLM`` at the JAX lane's defaults
-(GPT-2-small width: 12 layers, d_model 768, 12 heads, vocab 32000, seq
-2048, 8 sequences per card, bfloat16 compute, float32 parameters),
-``torch.optim.Adam(lr=1e-4)`` under ``DistributedOptimizer``, the mean
-next-token loss, on one fixed batch of random tokens from a numpy seed.
-The reference's timing discipline: ``--num-warmup-batches`` steps, then
-``--num-iters`` windows of ``--num-batches-per-iter`` steps with one
-``torch.cuda.synchronize()`` per window. Prints one JSON line: tokens/s
+one). The reference's timing discipline: ``--num-warmup-batches`` steps,
+then ``--num-iters`` windows of ``--num-batches-per-iter`` steps with one
+``torch.cuda.synchronize()`` per window. Prints one JSON line: the rate
 per card (the mean over the windows, with the 1.96-sigma spread and the
-best window), the step time, the peak memory, the bucket plan, the
-resolved attention, whether every rank ends with the same parameters,
-and the card's name and power limit.
+best window), the step time, the peak memory, the bucket plan, whether
+every rank ends with the same parameters, and the card's name and power
+limit.
 
-``--attention auto`` (the JAX lane's dense/flash crossover, measured on a
-TPU) waits for the H100 crossover and raises; the ResNet lane waits for
-kernel K5 (ROADMAP.md).
+* ``transformer_lm`` (the default): ``TransformerLM`` at the JAX lane's
+  defaults (GPT-2-small width: 12 layers, d_model 768, 12 heads, vocab
+  32000, seq 2048, 8 sequences per card, bfloat16 compute, float32
+  parameters), ``torch.optim.Adam(lr=1e-4)`` under
+  ``DistributedOptimizer``, the mean next-token loss, on one fixed batch
+  of random tokens from a numpy seed; tokens/s per card.
+  ``--attention auto`` (the JAX lane's dense/flash crossover, measured
+  on a TPU) waits for the H100 crossover and raises.
+* ``resnet18|34|50|101|152``: the JAX lane's image defaults (224x224x3
+  synthetic images and 1000 classes from a numpy seed, 64 images per
+  card, bfloat16 compute with float32 parameters and BatchNorm
+  statistics, ``torch.optim.SGD(lr=0.01, momentum=0.9)`` under
+  ``DistributedOptimizer``, the per-rank loss as with the JAX lane's
+  ``average_loss=False``); images/s per card. ``--fused-bn`` runs every
+  training-mode 1x1 ConvBN through kernel K5.
+
+Flags of one lane given to the other raise, as in the JAX ``bench.py``.
 """
 
 from __future__ import annotations
@@ -40,24 +51,49 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed.compression import Compression
 from horovod_tpu_torch.distributed.fusion import plan_buckets, plan_summary
 from horovod_tpu_torch.distributed.mpi_ops import allgather
-from horovod_tpu_torch.models.train import create_train_state, make_train_step
+from horovod_tpu_torch.models import resnet
+from horovod_tpu_torch.models.train import (create_train_state,
+                                            make_image_train_step,
+                                            make_train_step)
 from horovod_tpu_torch.models.transformer import TransformerLM
 from horovod_tpu_torch.ops.attention import flash_attention
 
 
+LM = "transformer_lm"
+IMAGE_MODELS = sorted(resnet._FAMILY)
+
+
+class _Parser(argparse.ArgumentParser):
+    """Fills the lane-dependent defaults: 8 sequences or 64 images per
+    card, and dense attention for the LM."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        ns, rest = super().parse_known_args(args, namespace)
+        if ns.batch_size is None:
+            ns.batch_size = 8 if ns.model == LM else 64
+        if ns.attention is None and ns.model == LM:
+            ns.attention = "dense"
+        return ns, rest
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--model", default="transformer_lm",
-                   choices=["transformer_lm"])
+    p = _Parser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", default=LM, choices=[LM, *IMAGE_MODELS])
     p.add_argument("--seq-len", type=int, default=2048)
-    p.add_argument("--batch-size", type=int, default=8,
-                   help="sequences per card")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="sequences (default 8) or images (default 64) per "
+                        "card")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--fused-bn", action="store_true",
+                   help="ResNet family: BatchNorm statistics in the 1x1 "
+                        "convs' matmul epilogue (kernel K5)")
     p.add_argument("--lm-layers", type=int, default=12)
     p.add_argument("--lm-dim", type=int, default=768)
     p.add_argument("--lm-heads", type=int, default=12)
     p.add_argument("--vocab", type=int, default=32000)
-    p.add_argument("--attention", default="dense",
-                   choices=["dense", "flash", "auto"])
+    p.add_argument("--attention", default=None,
+                   choices=["dense", "flash", "auto"],
+                   help="transformer_lm attention (default dense)")
     p.add_argument("--fp32", action="store_true",
                    help="float32 compute (default bfloat16)")
     p.add_argument("--overlap", default=None, choices=["auto", "on", "off"],
@@ -92,15 +128,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(args, device: DeviceLike = None) -> dict:
-    """The lane; returns the record. ``device=None`` is the card."""
-    if args.attention == "auto":
-        raise NotImplementedError(
-            "--attention auto needs the H100 dense/flash crossover, not "
-            "measured yet (ROADMAP.md); pass dense or flash")
-    dev = resolve_device(device)
-    basics.init(device=dev)
-    dev = basics.device()
+def _check_flags(args) -> None:
+    """The JAX lane's errors for flags of the other lane."""
+    if args.model == LM:
+        if args.fused_bn:
+            raise ValueError("--fused-bn applies to the ResNet family "
+                             f"(got --model {LM})")
+        if args.attention == "auto":
+            raise NotImplementedError(
+                "--attention auto needs the H100 dense/flash crossover, not "
+                "measured yet (ROADMAP.md); pass dense or flash")
+    elif args.attention is not None:
+        raise ValueError(f"--attention applies to {LM} only (got --model "
+                         f"{args.model})")
+
+
+def _lm_lane(args, dev):
+    """The LM, its step on one fixed batch per rank (no host sync: it
+    returns the loss tensor), and the units a step."""
     L, B = args.seq_len, args.batch_size
     attn_fn = None
     if args.attention == "flash":
@@ -121,6 +166,47 @@ def run(args, device: DeviceLike = None) -> dict:
     n, r = basics.size(), basics.rank()
     tokens = torch.tensor(np.random.default_rng(42).integers(
         0, args.vocab, (B * n, L))[r * B:(r + 1) * B], device=dev)
+    fields = {"metric": "tokens/sec", "unit": "tokens/sec/card",
+              "seq_len": L, "layers": args.lm_layers,
+              "d_model": args.lm_dim, "heads": args.lm_heads,
+              "vocab": args.vocab, "attention": args.attention}
+    return model, lambda: step(tokens), B * L, fields
+
+
+def _image_lane(args, dev):
+    """The ResNet, its step on one fixed batch of synthetic images per rank,
+    and the units (images) a step."""
+    model = resnet.build(
+        args.model, num_classes=1000,
+        dtype=torch.float32 if args.fp32 else torch.bfloat16,
+        fused_bn=args.fused_bn, seed=42, device=dev)
+    opt = create_train_state(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        compression=getattr(Compression, args.compression),
+        overlap=args.overlap, device=dev)
+    step = make_image_train_step(model, opt, average_loss=False)
+    n, r, B, S = basics.size(), basics.rank(), args.batch_size, \
+        args.image_size
+    rng = np.random.default_rng(42)
+    rows = slice(r * B, (r + 1) * B)
+    batch = {
+        "image": torch.tensor(rng.standard_normal(
+            (B * n, S, S, 3), dtype=np.float32)[rows], device=dev),
+        "label": torch.tensor(rng.integers(0, 1000, B * n)[rows],
+                              device=dev)}
+    fields = {"metric": "img/sec", "unit": "img/sec/card",
+              "image_size": S, "fused_bn": args.fused_bn}
+    return model, lambda: step(batch)["loss"], B, fields
+
+
+def run(args, device: DeviceLike = None) -> dict:
+    """The lane; returns the record. ``device=None`` is the card."""
+    _check_flags(args)
+    dev = resolve_device(device)
+    basics.init(device=dev)
+    dev = basics.device()
+    lane = _lm_lane if args.model == LM else _image_lane
+    model, step, units, fields = lane(args, dev)
     wire = getattr(Compression, args.compression)
     plan = plan_summary(plan_buckets(
         [torch.empty(p.shape, dtype=wire.plan_dtype(p.dtype), device="meta")
@@ -128,7 +214,7 @@ def run(args, device: DeviceLike = None) -> dict:
         basics.config().fusion_threshold))
 
     for _ in range(args.num_warmup_batches):
-        loss = step(tokens)
+        loss = step()
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -136,9 +222,9 @@ def run(args, device: DeviceLike = None) -> dict:
     for _ in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
-            loss = step(tokens)
+            loss = step()
         _sync(dev)
-        rates.append(B * L * args.num_batches_per_iter
+        rates.append(units * args.num_batches_per_iter
                      / (time.perf_counter() - t0))
     mean = float(np.mean(rates))
     # Data-parallel replicas must hold identical parameters after the
@@ -146,21 +232,20 @@ def run(args, device: DeviceLike = None) -> dict:
     checksum = torch.stack([p.detach().double().sum()
                             for p in model.parameters()]).sum()
     sums = allgather(checksum.reshape(1)).tolist()
+    n = basics.size()
     return {
-        "metric": "tokens/sec",
+        "metric": fields.pop("metric"),
         "value": mean,
-        "unit": "tokens/sec/card",
+        "unit": fields.pop("unit"),
         "conf": float(1.96 * np.std(rates)),
         "peak": float(np.max(rates)),
-        "step_ms": B * L / mean * 1e3,
+        "step_ms": units / mean * 1e3,
         "loss": float(loss),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
-        "model": args.model, "seq_len": L, "batch_size": B,
-        "layers": args.lm_layers, "d_model": args.lm_dim,
-        "heads": args.lm_heads, "vocab": args.vocab,
+        "model": args.model, "batch_size": args.batch_size, **fields,
         "dtype": "float32" if args.fp32 else "bfloat16",
-        "attention": args.attention, "compression": args.compression,
+        "compression": args.compression,
         "buckets": plan, "world_size": n,
         "replicas_in_sync": all(x == sums[0] for x in sums),
         "device": dev.type, "card": card_description(dev),

@@ -1,8 +1,8 @@
-"""Data-parallel LM training step: the transformer_lm lane of the JAX
-package's ``bench.py`` (its loss) with the parts of
-``horovod_tpu.models.train`` it uses.
+"""Data-parallel training steps: the transformer_lm and image lanes of
+the JAX package's ``bench.py`` with the parts of
+``horovod_tpu.models.train`` they use.
 
-Usage::
+Usage (LM)::
 
     import horovod_tpu_torch.distributed as hvd
     hvd.init()                                        # NCCL on the card
@@ -11,6 +11,14 @@ Usage::
                                                      lr=1e-4))
     step = make_train_step(model, opt)
     loss = step(tokens)                               # [B, L] per rank
+
+Usage (images)::
+
+    model = resnet.build("resnet50", fused_bn=True)
+    opt = create_train_state(model, torch.optim.SGD(model.parameters(),
+                                                    lr=0.01, momentum=0.9))
+    step = make_image_train_step(model, opt, average_loss=False)
+    metrics = step({"image": images, "label": labels})  # NHWC, per rank
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+import torch.nn.functional as F
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.common import basics
@@ -33,6 +43,14 @@ def next_token_loss(logits, tokens):
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())
     return nll.mean()
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean softmax cross-entropy against integer labels, in float32: a
+    log-softmax scored against one-hot labels."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).float()
+    return -(onehot * logp).sum(-1).mean()
 
 
 def create_train_state(model: torch.nn.Module,
@@ -82,5 +100,33 @@ def make_train_step(model: torch.nn.Module,
         if average_loss:
             loss = mpi_ops.allreduce(loss, average=True, name="train.loss")
         return loss
+
+    return train_step
+
+
+def make_image_train_step(model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer,
+                          average_loss: bool = True):
+    """The per-rank image step: ``step({"image": [B, H, W, 3], "label":
+    [B]}) -> {"loss", "accuracy"}``: a training-mode forward (which
+    updates the BatchNorm running statistics, per rank), the
+    cross-entropy loss, backward, the optimizer's (distributed) step; with
+    ``average_loss`` the loss and accuracy averaged across ranks."""
+
+    def train_step(batch):
+        model.train()
+        optimizer.zero_grad()
+        logits = model(batch["image"])
+        loss = cross_entropy_loss(logits, batch["label"])
+        loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            accuracy = (logits.argmax(-1) == batch["label"]).float().mean()
+        loss = loss.detach()
+        if average_loss:
+            loss = mpi_ops.allreduce(loss, average=True, name="train.loss")
+            accuracy = mpi_ops.allreduce(accuracy, average=True,
+                                         name="train.accuracy")
+        return {"loss": loss, "accuracy": accuracy}
 
     return train_step
