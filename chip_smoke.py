@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +131,20 @@ def device_phase(torch):
 # ------------------------------------------------------------- phase 2
 
 
+def _kernel_name(line):
+    """The kernel of a ptxas "Function properties for <mangled>" line:
+    the name whose length prefix fits and ends in "kernel", with its
+    template arguments (``flash_bwd_dq_tc_kernelILi64``)."""
+    for m in re.finditer(r"\d+(?=[a-z_])", line):
+        for i in range(len(m.group())):          # "N_122name": 1 | 22
+            end = m.end() + int(m.group()[i:])
+            if line[m.end():end].endswith("kernel"):
+                rest = line[end:]
+                return line[m.end():end] + (rest.split("EE")[0]
+                                            if rest.startswith("I") else "")
+    return line.split()[-1][:60]
+
+
 def build_phase():
     from horovod_tpu_torch import _build
 
@@ -138,9 +153,12 @@ def build_phase():
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, b in built.items():
+        fn = ""
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = _kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {fn}: {line.strip()}")
 
 
 # ------------------------------------------------------------- phase 3
@@ -346,31 +364,35 @@ def kernel_phase(torch, np):
 # 2048, 12 heads of 64, causal, bfloat16.
 FLASH_B, FLASH_L = 8, 2048
 # Sweep geometries: (Lq, Lk, causal, q_offset, k_offset). Lengths that
-# are not multiples of the 64-row tile, rectangular shapes, an offset
-# causal mask, and causal keys past every query (K3 loops over nothing
-# for them and must write zeros).
+# are not multiples of the 64-row tiles or of K3's 128-row bf16 key tile
+# (136, 200, 264, 320), rectangular shapes, offset causal masks, and
+# causal keys past every query (K3 loops over nothing for them and must
+# write zeros).
 FLASH_GEOMS = [(200, 200, True, 0, 0), (128, 128, False, 0, 0),
                (64, 136, False, 0, 0), (72, 200, True, 128, 0),
-               (128, 128, True, 40, 8), (64, 192, True, 0, 0)]
+               (128, 128, True, 40, 8), (64, 192, True, 0, 0),
+               (136, 136, True, 0, 0), (320, 320, True, 0, 0),
+               (64, 264, True, 200, 0), (192, 320, False, 0, 0)]
 FLASH_HEAD_DIMS = (8, 32, 64, 100, 128)
 
 
-def _strided(torch, x):
-    """``x`` [B, L, H, D] as a view with a padded head stride, as the
-    model hands q/k/v over (views into one projection)."""
+def _strided(torch, x, pad):
+    """``x`` [B, L, H, D] as a view with a head stride of ``D + pad``, as
+    the model hands q/k/v over (views into one projection)."""
     B, L, H, D = x.shape
-    buf = torch.zeros((B, L, H, 2 * D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((B, L, H, D + pad), dtype=x.dtype, device=x.device)
     buf[..., :D] = x
     return buf[..., :D]
 
 
-def _flash_case(torch, np, rng, B, H, D, Lq, Lk, dtype, strided=True):
+def _flash_case(torch, np, rng, B, H, D, Lq, Lk, dtype, pad=None):
+    """q, k, v, dO: contiguous, or views padded by ``pad`` elements."""
     mk = (lambda *s: torch.tensor(rng.standard_normal(s, dtype=np.float32),
                                   device="cuda").to(dtype))
     q, do = mk(B, Lq, H, D), mk(B, Lq, H, D)
     k, v = mk(B, Lk, H, D), mk(B, Lk, H, D)
-    if strided:
-        q, k, v, do = (_strided(torch, t) for t in (q, k, v, do))
+    if pad is not None:
+        q, k, v, do = (_strided(torch, t, pad) for t in (q, k, v, do))
     return q, k, v, do
 
 
@@ -411,9 +433,12 @@ def _flash_sweep(torch, np):
     for D in FLASH_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
-            for Lq, Lk, causal, qo, ko in FLASH_GEOMS:
+            for i, (Lq, Lk, causal, qo, ko) in enumerate(FLASH_GEOMS):
+                # Every other geometry pads the head stride to an odd
+                # count, which takes the bf16 K2/K3 off their 16-byte
+                # copies onto element loads at every head dim.
                 q, k, v, do = _flash_case(torch, np, rng, 2, 3, D, Lq, Lk,
-                                          dtype)
+                                          dtype, pad=D + i % 2)
                 errs = _flash_check(
                     torch, fa, q, k, v, do, causal, qo, ko, TOL[dname],
                     f"sweep D={D} {dname} Lq={Lq} Lk={Lk} causal={causal} "
@@ -421,8 +446,9 @@ def _flash_sweep(torch, np):
                 worst[dname] = max(worst.get(dname, 0.0), *errs.values())
                 cases += 1
     log(f"flash sweep: {cases} cases (D {FLASH_HEAD_DIMS}, "
-        f"{len(FLASH_GEOMS)} geometries, f32 + bf16, strided views) agree "
-        f"with the plain versions; max_abs_err {worst}")
+        f"{len(FLASH_GEOMS)} geometries, f32 + bf16, strided views, even "
+        f"and odd head strides) agree with the plain versions; max_abs_err "
+        f"{worst}")
 
 
 def _flash_bounds(B, H, L, D, elt):
@@ -463,8 +489,7 @@ def flash_phase(torch, np):
     _flash_sweep(torch, np)
     B, L, H, D = FLASH_B, FLASH_L, HEADS, HEAD_DIM
     rng = np.random.default_rng(12)
-    q, k, v, do = _flash_case(torch, np, rng, B, H, D, L, L, torch.bfloat16,
-                              strided=False)
+    q, k, v, do = _flash_case(torch, np, rng, B, H, D, L, L, torch.bfloat16)
     errs = _flash_check(torch, fa, q, k, v, do, True, 0, 0, TOL["bfloat16"],
                         f"slice B={B} L={L} H={H} D={D} bf16 causal")
     log(f"flash slice shapes: K1-K3 agree with the plain versions in bf16 "
@@ -1230,6 +1255,10 @@ def _flash_records(fres, tres, card):
             ("flash_bwd_dkv", ":599", ("dk", "dv"))]
     out = []
     for name, line, outs in rows:
+        # bf16 K2/K3 run the tensor-core design; K1 (and float32 K2/K3)
+        # the CUDA-core one.
+        design = ("cuda-core fma" if name == "flash_forward"
+                  else "wgmma m64n64k16 + cp.async ring")
         r = fres[name]
         out.append({
             "name": name, "route": "cuda",
@@ -1242,7 +1271,7 @@ def _flash_records(fres, tres, card):
             "library_ms": r["library_ms"],
             **({"library_covers": "flash_bwd_dq + flash_bwd_dkv"}
                if name != "flash_forward" else {}),
-            "dtype": "bfloat16",
+            "design": design, "dtype": "bfloat16",
             "shape": {"B": FLASH_B, "L": FLASH_L, "H": HEADS,
                       "D": HEAD_DIM, "causal": True},
             "flops": r["flops"], "bytes": r["bytes"], "card": card,

@@ -95,6 +95,58 @@ def test_gradients_match_jax(name, impl):
                                    err_msg=f"d{name_}", **GRAD_TOL)
 
 
+# The geometries that cross the bf16 K2/K3 tiles on the card (chip_smoke
+# sweep: a ragged 128-row key tile, five 64-row tiles, an offset causal
+# mask over long keys, a rectangular non-causal shape), as
+# name -> (Lq, Lk, causal, q_offset, k_offset, block_q, block_k). The
+# JAX kernels need blocks that divide the lengths: 136 = 17 x 8 and
+# 264 = 3 x 88.
+BWD_GEOMS = {
+    "ragged_key_tile_causal": (136, 136, True, 0, 0, 8, 8),
+    "five_tiles_causal": (320, 320, True, 0, 0, 64, 64),
+    "offset_causal_long_keys": (64, 264, True, 200, 0, 64, 88),
+    "rectangular": (192, 320, False, 0, 0, 64, 64),
+}
+# bfloat16: both round dS, P^T and dS^T to bf16 at the same points and
+# their outputs to bf16 (one ulp is 2^-8 relative); a last-bit
+# difference in a float32 sum may move one rounding by an ulp.
+BWD_TOL = {"float32": GRAD_TOL, "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(BWD_GEOMS))
+def test_backward_plain_versions_match_jax_kernels(name, dtype):
+    """The plain K2/K3 (``flash_bwd_dq_reference``,
+    ``flash_bwd_dkv_reference``) against the JAX dQ and dK/dV kernels in
+    interpret mode, on the forward's lse and O, in the working type."""
+    Lq, Lk, causal, qo, ko, bq, bk = BWD_GEOMS[name]
+    q, k, v, do = _inputs(1, Lq, Lk, 2, 8, seed=7)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(getattr(jnp, dtype))
+                       for a in (q, k, v, do))
+    scale = 1.0 / np.sqrt(8)
+    o, lse = ja._flash_forward(jq, jk, jv, causal, scale, bq, bk, True, qo,
+                               ko, None)
+    want = ja._flash_bwd_pallas(causal, scale, bq, bk, True, qo, ko, None,
+                                (jq, jk, jv, o, lse), jdo)
+
+    def to_torch(a):
+        return torch.tensor(np.asarray(a.astype(jnp.float32))).to(
+            getattr(torch, dtype))
+
+    tq, tk, tv, tdo, to = (to_torch(a) for a in (jq, jk, jv, jdo, o))
+    tlse = torch.tensor(np.asarray(lse))
+    d = (tdo.float() * to.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = ta.flash_bwd_dq_reference(tq, tk, tv, tdo, tlse, d, causal, scale,
+                                   qo, ko)
+    dk, dv = ta.flash_bwd_dkv_reference(tq, tk, tv, tdo, tlse, d, causal,
+                                        scale, qo, ko)
+    for name_, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   to_torch(w).float().numpy(),
+                                   err_msg=name_, **BWD_TOL[dtype])
+
+
 def test_plain_versions_match_dense_autograd_in_bfloat16():
     """The plain K1-K3 at bfloat16 inputs against dense attention's
     float32 autograd: the kernels' bf16 rounding points (p, dS, P^T,
