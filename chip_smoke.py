@@ -19,9 +19,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    larger);
 4. flash: K1-K3 (flash forward, dQ, dK/dV) against their plain versions
    over a sweep (causal and not, square and rectangular, offset causal,
-   lengths off the 64-row tile, head dims 8-128, f32 and bf16, strided
-   views), then at the training slice's shapes (B=8, L=2048, H=12,
-   D=64, causal, bf16), with the same four times each;
+   lengths off the 64- and 128-row tiles, head dims 8-128, f32 and bf16,
+   strided views), then at the training slice's shapes (B=8, L=2048,
+   H=12, D=64, causal, bf16), with the same four times each;
 5. conv_bn: K5 (fused 1x1 conv + BatchNorm statistics) against its
    plain version over a sweep (rows off the tile, K 8-2048, prologue on
    and off with positive shifts, strided NHWC views, f32 and bf16), then
@@ -157,7 +157,8 @@ def build_phase():
         for line in b.log.splitlines():
             if "Function properties for" in line:
                 fn = _kernel_name(line)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "warning" in line.lower() or "Performance" in line):
                 log(f"  ptxas {name} {fn}: {line.strip()}")
 
 
@@ -241,23 +242,6 @@ def _kernel_sweep(torch, np):
         "f32 + bf16) agree with the plain version")
 
 
-def _time_cold_ms(torch, fn, flush, iters=100, warmup=10):
-    """Mean device time of ``fn`` with the L2 cache flushed before every
-    call (the engine reads each layer's pages cold: a step's pages and
-    weights far exceed the 50 MB L2)."""
-    for _ in range(warmup):
-        fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for i in range(iters):
-        flush.zero_()
-        starts[i].record()
-        fn()
-        ends[i].record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-
-
 def _copy_rate(torch):
     """Measured device-to-device copy rate in bytes/s (read + write)."""
     n = 1 << 28                                   # 1 GiB of float32
@@ -281,12 +265,13 @@ def _copy_rate(torch):
 def kernel_phase(torch, np):
     import torch.nn.functional as F
 
+    from horovod_tpu_torch._timing import flush_buffer, time_cold_ms
     from horovod_tpu_torch.ops import paged_attention as pa
 
     _kernel_sweep(torch, np)
     rate = _copy_rate(torch)
     log(f"device copy rate: {rate / 1e9:.1f} GB/s")
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -323,12 +308,12 @@ def kernel_phase(torch, np):
             return F.scaled_dot_product_attention(
                 q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale)
 
-        ms = _time_cold_ms(torch, lambda: pa.paged_attention_decode(
+        ms = time_cold_ms(lambda: pa.paged_attention_decode(
             q, kp, vp, tables, lengths, scale), flush)
-        plain_ms = _time_cold_ms(
-            torch, lambda: pa.paged_attention_decode_reference(
+        plain_ms = time_cold_ms(
+            lambda: pa.paged_attention_decode_reference(
                 q, kp, vp, tables, lengths, scale), flush)
-        library_ms = _time_cold_ms(torch, library, flush)
+        library_ms = time_cold_ms(library, flush)
 
         # Least work this run's data needs: the K/V rows below each
         # slot's length read once (the kernel never loads the rows past
@@ -364,15 +349,16 @@ def kernel_phase(torch, np):
 # 2048, 12 heads of 64, causal, bfloat16.
 FLASH_B, FLASH_L = 8, 2048
 # Sweep geometries: (Lq, Lk, causal, q_offset, k_offset). Lengths that
-# are not multiples of the 64-row tiles or of K3's 128-row bf16 key tile
-# (136, 200, 264, 320), rectangular shapes, offset causal masks, and
-# causal keys past every query (K3 loops over nothing for them and must
-# write zeros).
+# are not multiples of the 64-row tiles or of the bf16 K1's 128-row query
+# tile and K3's 128-row key tile (129, 136, 200, 255, 264, 320),
+# rectangular shapes, offset causal masks, and causal keys past every
+# query (K3 loops over nothing for them and must write zeros).
 FLASH_GEOMS = [(200, 200, True, 0, 0), (128, 128, False, 0, 0),
                (64, 136, False, 0, 0), (72, 200, True, 128, 0),
                (128, 128, True, 40, 8), (64, 192, True, 0, 0),
                (136, 136, True, 0, 0), (320, 320, True, 0, 0),
-               (64, 264, True, 200, 0), (192, 320, False, 0, 0)]
+               (64, 264, True, 200, 0), (192, 320, False, 0, 0),
+               (129, 129, True, 0, 0), (255, 300, True, 45, 0)]
 FLASH_HEAD_DIMS = (8, 32, 64, 100, 128)
 
 
@@ -484,6 +470,7 @@ def flash_phase(torch, np):
     through autograd stands for K2 and K3 together)."""
     import torch.nn.functional as F
 
+    from horovod_tpu_torch._timing import flush_buffer, time_cold_ms
     from horovod_tpu_torch.ops import attention as fa
 
     _flash_sweep(torch, np)
@@ -508,7 +495,7 @@ def flash_phase(torch, np):
               for a, b in zip(x, y)),
           "flash slice shapes: a second launch changed an output bit")
     log("flash slice shapes: K1-K3 repeat bit for bit")
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     runs = {
         "flash_forward": (
             lambda: fa.flash_forward(q, k, v, True, scale),
@@ -527,20 +514,20 @@ def flash_phase(torch, np):
     sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
     library = {
-        "flash_forward": _time_cold_ms(
-            torch, lambda: F.scaled_dot_product_attention(
+        "flash_forward": time_cold_ms(
+            lambda: F.scaled_dot_product_attention(
                 qt.detach(), kt.detach(), vt.detach(), is_causal=True),
             flush, iters=20, warmup=3),
-        "flash_bwd": _time_cold_ms(
-            torch, lambda: torch.autograd.grad(
+        "flash_bwd": time_cold_ms(
+            lambda: torch.autograd.grad(
                 sdpa_out, (qt, kt, vt), dot, retain_graph=True),
             flush, iters=20, warmup=3),
     }
     bounds = _flash_bounds(B, H, L, D, q.element_size())
     results = {}
     for name, (kern, plain) in runs.items():
-        ms = _time_cold_ms(torch, kern, flush, iters=20, warmup=3)
-        plain_ms = _time_cold_ms(torch, plain, flush, iters=5, warmup=1)
+        ms = time_cold_ms(kern, flush, iters=20, warmup=3)
+        plain_ms = time_cold_ms(plain, flush, iters=5, warmup=1)
         lib = library["flash_forward" if name == "flash_forward"
                       else "flash_bwd"]
         results[name] = {"max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
@@ -555,31 +542,25 @@ def flash_phase(torch, np):
 
 # ------------------------------------------------------------- phase 5
 
-# ResNet-50's 1x1 ConvBN layers at the image lane's defaults (batch 64,
-# 224^2, bf16): (input side, K, N, stride, prologue, launches a training
-# step). 36 launches, 16 with the prologue; the stride-2 projections read
-# the subsampled view of their input in place.
+# The image lane's defaults (batch 64, 224^2, 1000 classes); its 16 1x1
+# ConvBN shapes are horovod_tpu_torch.models.resnet.RESNET50_K5.
 IMG_B, IMG_SIZE, CLASSES = 64, 224, 1000
-RESNET50_K5 = [
-    (56, 64, 64, 1, False, 1), (56, 64, 256, 1, False, 1),
-    (56, 64, 256, 1, True, 3), (56, 256, 64, 1, False, 2),
-    (56, 256, 128, 1, False, 1), (56, 256, 512, 2, False, 1),
-    (28, 128, 512, 1, True, 4), (28, 512, 128, 1, False, 3),
-    (28, 512, 256, 1, False, 1), (28, 512, 1024, 2, False, 1),
-    (14, 256, 1024, 1, True, 6), (14, 1024, 256, 1, False, 5),
-    (14, 1024, 512, 1, False, 1), (14, 1024, 2048, 2, False, 1),
-    (7, 512, 2048, 1, True, 3), (7, 2048, 512, 1, False, 2),
-]
 # Sweep: (B, H, W, K, N, stride, prologue). Rows off the 128- and 64-row
-# tiles (M = 1, 100, 129, 300), K from 8 to 2048 (off the 8-channel
-# vector width: 12, 100), N off the 64/128-column tiles, strided views,
-# odd sides.
+# tiles (M = 1, 100, 129, 257, 300, 429, 450, 2000, 39999: more M tiles
+# than the card holds blocks at once), K from 8 to 2048 (off the
+# 8-channel vector width: 12, 100; off the bf16 kernel's 64-deep slices:
+# 72, 100, 136, 1000, 1088 with a ring that wraps), N off the 64/128-column
+# tiles and off 256 (3, 72, 130, 136, 200, 300, 520), strided views, odd
+# sides, the prologue with positive shifts.
 K5_SWEEP = [
     (1, 1, 1, 8, 8, 1, False), (1, 10, 10, 100, 40, 1, True),
     (3, 43, 1, 24, 130, 1, False), (2, 15, 10, 12, 64, 1, True),
     (2, 16, 16, 256, 200, 2, False), (2, 15, 15, 64, 72, 2, True),
     (1, 12, 25, 2048, 96, 1, True), (4, 9, 9, 512, 1024, 2, False),
-    (2, 8, 8, 1000, 3, 1, False),
+    (2, 8, 8, 1000, 3, 1, False), (1, 257, 1, 72, 300, 1, True),
+    (2, 20, 20, 136, 256, 2, True), (3, 11, 13, 192, 520, 1, False),
+    (1, 1, 2000, 1088, 64, 1, True), (2, 30, 30, 64, 136, 2, False),
+    (1, 199, 201, 64, 256, 1, True),
 ]
 
 
@@ -649,6 +630,9 @@ def conv_bn_phase(torch, np):
     (``torch.matmul`` + the two column reductions, behind the prologue's
     elementwise pass), with the bound; the sums over one training step's
     36 launches."""
+    from horovod_tpu_torch._timing import (device_ms, flush_buffer,
+                                           time_cold_ms)
+    from horovod_tpu_torch.models.resnet import RESNET50_K5
     from horovod_tpu_torch.ops import conv_bn as cb
 
     rng = np.random.default_rng(21)
@@ -664,15 +648,15 @@ def conv_bn_phase(torch, np):
                              f"stride {s} N {N} prologue {pro}")
             worst[dname] = max(worst.get(dname, (0, 0)), errs)
             cases += 1
-    log(f"conv_bn sweep: {cases} cases (M 1..2048, K 8..2048, N 3..1024, "
+    log(f"conv_bn sweep: {cases} cases (M 1..39999, K 8..2048, N 3..1024, "
         f"prologue on/off, strided views, f32 + bf16) agree with the plain "
         f"version; worst (y abs, stats rel) {worst}")
 
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     shapes = []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
-           "t_ops": 0.0, "bytes": 0, "flops": 0, "launches": 0,
-           "max_abs_err": 0.0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "t_bytes": 0.0, "t_ops": 0.0, "bytes": 0, "flops": 0,
+           "launches": 0, "max_abs_err": 0.0}
     for side, K, N, s, pro, count in RESNET50_K5:
         x, w, a, b = _k5_inputs(torch, np, rng, IMG_B, side, side, K, N, s,
                                 pro, torch.bfloat16)
@@ -698,27 +682,32 @@ def conv_bn_phase(torch, np):
             yf = y.float()
             return y, yf.sum(0), yf.square().sum(0)
 
-        ms = _time_cold_ms(torch, lambda: cb.bn_stats_forward(x, w, a, b),
-                           flush, iters=20, warmup=3)
-        plain_ms = _time_cold_ms(torch, plain, flush, iters=5, warmup=1)
-        library_ms = _time_cold_ms(torch, library, flush, iters=20, warmup=3)
+        ms = time_cold_ms(lambda: cb.bn_stats_forward(x, w, a, b),
+                          flush, iters=20, warmup=3)
+        dev_ms = device_ms(lambda: cb.bn_stats_forward(x, w, a, b), flush,
+                           cb.KERNEL_NAMES)
+        plain_ms = time_cold_ms(plain, flush, iters=5, warmup=1)
+        library_ms = time_cold_ms(library, flush, iters=20, warmup=3)
         M = x.shape[0] * x.shape[1] * x.shape[2]
         nbytes, flops = _k5_bound(M, K, N, pro, 2)
         t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         row = {"M": M, "K": K, "N": N, "stride": s, "prologue": pro,
-               "launches_per_step": count, "ms": ms, "plain_ms": plain_ms,
+               "launches_per_step": count, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "max_abs_err": err, "stats_rel_err": serr}
         shapes.append(row)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+        for key, v in (("ms", ms), ("device_ms", dev_ms),
+                       ("plain_ms", plain_ms),
                        ("library_ms", library_ms), ("t_bytes", t_bytes),
                        ("t_ops", t_ops), ("bytes", nbytes),
                        ("flops", flops), ("launches", 1)):
             tot[key] += count * v
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        log(f"  conv_bn {what} x{count}: ms {ms:.4f}  plain_ms "
+        log(f"  conv_bn {what} x{count}: ms {ms:.4f}  device_ms "
+            f"{dev_ms:.4f}  plain_ms "
             f"{plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms "
             f"{row['bound_ms']:.4f} ({row['bound_by']}), max_abs_err "
             f"{err:.3e}")
@@ -727,13 +716,14 @@ def conv_bn_phase(torch, np):
     torch.cuda.empty_cache()
     check(tot["launches"] == 36, f"the ResNet-50 table holds "
                                  f"{tot['launches']} launches, not 36")
-    step = {k: tot[k] for k in ("ms", "plain_ms", "library_ms", "bytes",
-                                "flops", "max_abs_err")}
+    step = {k: tot[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                "bytes", "flops", "max_abs_err")}
     step["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
     step["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
                         else "operations")
     log(f"conv_bn: one ResNet-50 step's 36 launches: ms {step['ms']:.4f}  "
-        f"plain_ms {step['plain_ms']:.4f}  library_ms "
+        f"device_ms {step['device_ms']:.4f}  plain_ms "
+        f"{step['plain_ms']:.4f}  library_ms "
         f"{step['library_ms']:.4f}  bound_ms {step['bound_ms']:.4f} "
         f"({step['bound_by']}: {step['bytes']} bytes, {step['flops']} "
         f"flops)")
@@ -1255,9 +1245,11 @@ def _flash_records(fres, tres, card):
             ("flash_bwd_dkv", ":599", ("dk", "dv"))]
     out = []
     for name, line, outs in rows:
-        # bf16 K2/K3 run the tensor-core design; K1 (and float32 K2/K3)
-        # the CUDA-core one.
-        design = ("cuda-core fma" if name == "flash_forward"
+        # bf16 K1-K3 run the tensor-core designs (float32 the CUDA-core
+        # ones).
+        design = ("wgmma m64n64k16 tensor-core forward: 128 query rows a "
+                  "block, online softmax in registers, cp.async K/V ring"
+                  if name == "flash_forward"
                   else "wgmma m64n64k16 + cp.async ring")
         r = fres[name]
         out.append({
@@ -1293,12 +1285,19 @@ def _conv_bn_record(cres, rres, card):
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
         "library_ms": st["library_ms"],
+        # ms spans the calls (host gaps included); device_ms is K5's two
+        # kernels alone, as the profiler traces them.
+        "device_ms": st["device_ms"],
         "library": "torch.matmul + y.float().sum(0) + "
                    "y.float().square().sum(0), behind the prologue's "
                    "relu(x*a+b)",
         "times_cover": "one ResNet-50 training step's 36 launches "
                        "(batch 64, 224^2, bf16)",
         "prologue_launches": rres["prologue_launches"],
+        "design": "wgmma m64nBNk16 tensor-core kernel: 128-row M tiles of "
+                  "two warpgroups, 64-deep swizzled K slices through a "
+                  "cp.async ring, the prologue applied in shared memory, "
+                  "y staged and stored in 16-byte chunks",
         "dtype": "bfloat16", "flops": st["flops"], "bytes": st["bytes"],
         "shapes": cres["shapes"], "card": card,
     }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` on its own into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout (``build/`` is git-ignored). The hash covers the
-source and the flags (a source includes no header of the repo), so an edited source builds anew and an unchanged
+source, every header of ``csrc/`` (``*.cuh``, which the sources include)
+and the flags, so an edited source or header builds anew and an unchanged
 one is loaded from the earlier build. :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them together, so the
 build time of a checkout is that of its slowest source.
@@ -59,6 +60,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -38,55 +38,67 @@
 // the least time is the operations over the bf16 tensor-core peak
 // (chip_smoke.py computes the exact figures from the shapes).
 //
-// K1, and K2/K3 in float32, run float32 FMAs on the CUDA cores from
-// float shared-memory tiles (a 16 x 16 thread grid, each thread a 4 x 4
-// block of scores): simple and right, 45-50x from the bound (PERF.md).
-// Tensor cores would need TF32 for float32, which the port's float32
-// policy rules out.
+// In float32, K1-K3 run float32 FMAs on the CUDA cores from float
+// shared-memory tiles (a 16 x 16 thread grid, each thread a 4 x 4 block
+// of scores): simple and right, 45-50x from the bound (PERF.md). Tensor
+// cores would need TF32 for float32, which the port's float32 policy
+// rules out.
 //
-// K2 and K3 in bf16, the training path, are built for the tensor cores:
+// In bf16, the training path, all three are built for the tensor cores
+// (the Hopper helpers are in hopper.cuh):
 //   * every product is a warpgroup MMA, wgmma m64n64k16 (bf16 in,
-//     float32 accumulate): K2 S = Q K^T, dP = dO V^T, dQ += dS K; K3
-//     S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q. A warpgroup
-//     owns 64 rows of the resident tile (K2: one per block, its 64 query
-//     rows; K3: two per block, 64 of its 128 keys each) and reads the
-//     streamed tile's B operand once from shared memory by descriptor,
-//     K-major for the score products and MN-major (transposed) for the
-//     products into dQ, dK and dV;
+//     float32 accumulate): K1 S = Q K^T, O += P V; K2 S = Q K^T,
+//     dP = dO V^T, dQ += dS K; K3 S^T = K Q^T, dP^T = V dO^T,
+//     dV += P^T dO, dK += dS^T Q. A warpgroup owns 64 rows of the
+//     resident tile (K1: two per block, 64 of its 128 query rows each;
+//     K2: one per block, its 64 query rows; K3: two per block, 64 of its
+//     128 keys each) and reads the streamed tile's B operand from shared
+//     memory by descriptor, K-major for the score products and MN-major
+//     (transposed) for the products into O, dQ, dK and dV;
 //   * register reuse: P and dS are formed in float32 from the score
 //     accumulators, rounded to bf16 and re-packed as the register A
 //     operand of the next wgmma (a warp's accumulator layout is its A
-//     fragment layout); no score tile is stored to shared memory;
+//     fragment layout); no score tile is stored to shared memory. K1's
+//     online softmax stays in registers: row maxima over the 4 threads of
+//     a quad, exp2 of log2-scaled scores on the special-function unit,
+//     each thread's share of the row sums reduced once at the end;
 //   * a ring of bf16 tiles in shared memory, in the 128-byte swizzle of
 //     the wgmma descriptors (the head dim zero-padded to 64 or 128), is
 //     filled by cp.async 16-byte copies that overlap the products of the
-//     tile before. K2 streams K/V tiles of 64 rows against a resident
-//     64-row Q/dO tile; K3 streams Q/dO stages of 64 rows with their
-//     lse/D rows against a resident 128-row K/V tile. Rows past L and
-//     columns past D are zero-filled by the copy itself; a D that is not
-//     a multiple of 8 or rows that are not 16-byte aligned take element
-//     loads into the same ring;
-//   * only the diagonal tile and the ragged last tile are masked; tiles
-//     above the causal bound are never loaded;
-//   * the heaviest blocks launch first (K2: the last query tiles, K3: the
-//     first key tiles, on a 1-D tile-major grid), so the short blocks
+//     tile before. K1 and K2 stream K/V tiles of 64 rows against a
+//     resident Q tile (K2 also dO); K3 streams Q/dO stages of 64 rows
+//     with their lse/D rows against a resident 128-row K/V tile. Rows
+//     past L and columns past D are zero-filled by the copy itself; a D
+//     that is not a multiple of 8 or rows that are not 16-byte aligned
+//     take element loads into the same ring;
+//   * only the diagonal tiles and the ragged last tile are masked; tiles
+//     above the causal bound are never loaded, and K1's first warpgroup
+//     skips the last tile of a causal block, which lies above all its
+//     rows;
+//   * the heaviest blocks launch first (K1, K2: the last query tiles, K3:
+//     the first key tiles, on a 1-D tile-major grid), so the short blocks
 //     fill the tail;
-//   * no atomics: dQ, dK and dV are written exactly once each (dQ and dK
-//     scaled once at the end), and a second launch repeats every bit.
-// At the slice shapes they run at about a quarter to a third of the
-// bound: each warpgroup waits on its products before the exp and the
-// dS arithmetic of the same tile, and overlap comes only from the other
-// warpgroups on the SM (4 K2 blocks at 128 registers; K3's two
-// warpgroups at about 210). Deeper rings and 64-row K3 blocks do not
-// move them (tune_flash_bwd.py); PERF.md has the times. A producer warp
-// with TMA loads and two consumer warpgroups in ping-pong is the next
-// lever.
+//   * no atomics: out/lse, dQ, dK and dV are written exactly once each,
+//     and a second launch repeats every bit.
+// At the slice shapes they run at a quarter to a third of the bound:
+// each warpgroup waits on its products before the softmax (K1) or the dS
+// arithmetic (K2, K3) of the same tile, and overlap comes only from the
+// other warpgroups on the SM (2 K1 blocks at 128 registers, 4 K2 blocks,
+// K3's two warpgroups at about 210). In K1 the softmax's arithmetic, not
+// its exp2, is the largest part (tune_flash.py timings of K1 without
+// the softmax, without the exp2 or without a product; PERF.md), so its
+// row maxima and sums are trees. Issuing tile t+1's scores before tile
+// t's softmax (two score register sets) costs K1 a block an SM and was
+// slower; so were 64-row K1 blocks and deeper rings. A producer warp
+// with TMA loads and consumer warpgroups in ping-pong is the next lever.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -105,28 +117,8 @@ struct Geom {
   long long qs[3], ks[3], vs[3], dos[3];  // (batch, seq, head) strides
   float scale;
   int causal, delta;                      // delta = q_offset - k_offset
-  int vec;        // bf16 K2/K3: 16-byte async copies (D % 8 == 0, aligned)
+  int vec;        // bf16 K1-K3: 16-byte async copies (D % 8 == 0, aligned)
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the "astype" of the Pallas kernels.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -144,16 +136,16 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 // Rows [row0, row0 + kB) of head (b, h) of a [B, L, H, D] tensor into a
 // float tile [kB][kD + 1]; rows past L and columns past D are zeros.
-template <typename T, int kD>
-__device__ void load_tile(float* tile, const T* base, const long long* s,
+template <int kD>
+__device__ void load_tile(float* tile, const float* base, const long long* s,
                           int b, int h, int row0, int L, int D) {
-  const T* p = base + b * s[0] + h * s[2];
+  const float* p = base + b * s[0] + h * s[2];
   for (int idx = threadIdx.x; idx < kB * kD; idx += kThreads) {
     const int r = idx / kD;
     const int d = idx % kD;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < L && d < D) x = to_float(p[(long long)row * s[1] + d]);
+    if (row < L && d < D) x = p[(long long)row * s[1] + d];
     tile[r * (kD + 1) + d] = x;
   }
 }
@@ -211,8 +203,8 @@ __device__ __forceinline__ void tile_pv(float (&acc)[kRI][kD / kTX],
 }
 
 // Writes rows [row0, row0 + kB) of a contiguous [B, L, H, D] output.
-template <typename T, int kD>
-__device__ __forceinline__ void store_rows(T* out,
+template <int kD>
+__device__ __forceinline__ void store_rows(float* out,
                                            const float (&acc)[kRI][kD / kTX],
                                            const Geom& g, int b, int h,
                                            int row0, int L, int ty, int tx) {
@@ -220,21 +212,21 @@ __device__ __forceinline__ void store_rows(T* out,
   for (int i = 0; i < kRI; ++i) {
     const int row = row0 + ty + kTY * i;
     if (row >= L) continue;
-    T* o = out + (((long long)b * L + row) * g.H + h) * g.D;
+    float* o = out + (((long long)b * L + row) * g.H + h) * g.D;
 #pragma unroll
     for (int j = 0; j < kD / kTX; ++j) {
       const int d = tx + kTX * j;
-      if (d < g.D) o[d] = from_float<T>(acc[i][j]);
+      if (d < g.D) o[d] = acc[i][j];
     }
   }
 }
 
 // ------------------------------------------------------------------- K1
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, Geom g) {
   constexpr int kP = kD + 1;
   constexpr int kDJ = kD / kTX;
@@ -242,7 +234,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sq = smem;
   float* sk = sq + kB * kP;
   float* sv = sk + kB * kP;
-  float* sp = sv + kB * kP;                    // p rounded to v's type
+  float* sp = sv + kB * kP;                    // p
   const int bh = blockIdx.y;
   const int b = bh / g.H;
   const int h = bh % g.H;
@@ -250,7 +242,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % kTX;
   const int ty = threadIdx.x / kTX;
 
-  load_tile<T, kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
+  load_tile<kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
   const int q_last = min(q0 + kB, g.Lq) - 1;
   const int k_end = g.causal ? min(g.Lk, q_last + g.delta + 1) : g.Lk;
 
@@ -265,8 +257,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < k_end; k0 += kB) {
     __syncthreads();                           // the last tile is consumed
-    load_tile<T, kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
-    load_tile<T, kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
+    load_tile<kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
+    load_tile<kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
     __syncthreads();
     float s[kRI][kCJ];
 #pragma unroll
@@ -295,7 +287,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < kCJ; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        sp[(ty + kTY * i) * kSP + tx + kTX * j] = round_to<T>(p);
+        sp[(ty + kTY * i) * kSP + tx + kTX * j] = p;
       }
       l[i] = l[i] * alpha + half_warp_sum(rs);
 #pragma unroll
@@ -311,11 +303,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + kTY * i;
     if (row >= g.Lq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* o = out + (((long long)b * g.Lq + row) * g.H + h) * g.D;
+    float* o = out + (((long long)b * g.Lq + row) * g.H + h) * g.D;
 #pragma unroll
     for (int j = 0; j < kDJ; ++j) {
       const int d = tx + kTX * j;
-      if (d < g.D) o[d] = from_float<T>(acc[i][j] / lc);
+      if (d < g.D) o[d] = acc[i][j] / lc;
     }
     if (tx == 0) lse[(long long)bh * g.Lq + row] = m[i] + logf(lc);
   }
@@ -323,12 +315,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------------------------- K2
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dq,
+                    const float* __restrict__ dvec, float* __restrict__ dq,
                     Geom g) {
   constexpr int kP = kD + 1;
   constexpr int kDJ = kD / kTX;
@@ -337,7 +330,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sdo = sq + kB * kP;
   float* sk = sdo + kB * kP;
   float* sv = sk + kB * kP;
-  float* sds = sv + kB * kP;                   // dS rounded to k's type
+  float* sds = sv + kB * kP;                   // dS
   float* slse = sds + kB * kSP;
   float* sdd = slse + kB;
   const int bh = blockIdx.y;
@@ -347,8 +340,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % kTX;
   const int ty = threadIdx.x / kTX;
 
-  load_tile<T, kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
-  load_tile<T, kD>(sdo, dout, g.dos, b, h, q0, g.Lq, g.D);
+  load_tile<kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
+  load_tile<kD>(sdo, dout, g.dos, b, h, q0, g.Lq, g.D);
   load_row_stat(slse, lse, bh, q0, g.Lq);
   load_row_stat(sdd, dvec, bh, q0, g.Lq);
   const int q_last = min(q0 + kB, g.Lq) - 1;
@@ -362,8 +355,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < k_end; k0 += kB) {
     __syncthreads();
-    load_tile<T, kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
-    load_tile<T, kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
+    load_tile<kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
+    load_tile<kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
     __syncthreads();
     float s[kRI][kCJ], dp[kRI][kCJ];
 #pragma unroll
@@ -383,7 +376,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool live = col < g.Lk && (!g.causal || row + g.delta >= col);
         const float x = live ? s[i][j] * g.scale : kNegInf;
         const float p = expf(x - slse[r]);
-        sds[r * kSP + c] = round_to<T>(p * (dp[i][j] - sdd[r]));
+        sds[r * kSP + c] = p * (dp[i][j] - sdd[r]);
       }
     }
     __syncthreads();
@@ -398,18 +391,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kDJ; ++j) acc[i][j] += part[i][j] * g.scale;
   }
-  store_rows<T, kD>(dq, acc, g, b, h, q0, g.Lq, ty, tx);
+  store_rows<kD>(dq, acc, g, b, h, q0, g.Lq, ty, tx);
 }
 
 // ------------------------------------------------------------------- K3
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ dvec, T* __restrict__ dk,
-                     T* __restrict__ dv, Geom g) {
+                     const float* __restrict__ dvec, float* __restrict__ dk,
+                     float* __restrict__ dv, Geom g) {
   constexpr int kP = kD + 1;
   constexpr int kDJ = kD / kTX;
   extern __shared__ float smem[];
@@ -417,8 +411,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sv = sk + kB * kP;
   float* sq = sv + kB * kP;
   float* sdo = sq + kB * kP;
-  float* spt = sdo + kB * kP;                  // P^T rounded to dO's type
-  float* sdst = spt + kB * kSP;                // dS^T rounded to q's type
+  float* spt = sdo + kB * kP;                  // P^T
+  float* sdst = spt + kB * kSP;                // dS^T
   float* slse = sdst + kB * kSP;
   float* sdd = slse + kB;
   const int bh = blockIdx.y;
@@ -428,8 +422,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % kTX;
   const int ty = threadIdx.x / kTX;
 
-  load_tile<T, kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
-  load_tile<T, kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
+  load_tile<kD>(sk, k, g.ks, b, h, k0, g.Lk, g.D);
+  load_tile<kD>(sv, v, g.vs, b, h, k0, g.Lk, g.D);
   // The first query tile with a row that sees a key of this tile: row q
   // sees key j when q + delta >= j (the k-major start of the packed grid,
   // generalised for delta).
@@ -443,8 +437,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = q_begin; q0 < g.Lq; q0 += kB) {
     __syncthreads();
-    load_tile<T, kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
-    load_tile<T, kD>(sdo, dout, g.dos, b, h, q0, g.Lq, g.D);
+    load_tile<kD>(sq, q, g.qs, b, h, q0, g.Lq, g.D);
+    load_tile<kD>(sdo, dout, g.dos, b, h, q0, g.Lq, g.D);
     load_row_stat(slse, lse, bh, q0, g.Lq);
     load_row_stat(sdd, dvec, bh, q0, g.Lq);
     __syncthreads();
@@ -468,8 +462,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           (!g.causal || row + g.delta >= col);
         const float x = live ? st[i][j] * g.scale : kNegInf;
         const float p = expf(x - slse[c]);
-        spt[r * kSP + c] = round_to<T>(p);
-        sdst[r * kSP + c] = round_to<T>(p * (dpt[i][j] - sdd[c]));
+        spt[r * kSP + c] = p;
+        sdst[r * kSP + c] = p * (dpt[i][j] - sdd[c]);
       }
     }
     __syncthreads();
@@ -485,36 +479,34 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kDJ; ++j) dka[i][j] += part[i][j] * g.scale;
   }
-  store_rows<T, kD>(dk, dka, g, b, h, k0, g.Lk, ty, tx);
-  store_rows<T, kD>(dv, dva, g, b, h, k0, g.Lk, ty, tx);
+  store_rows<kD>(dk, dka, g, b, h, k0, g.Lk, ty, tx);
+  store_rows<kD>(dv, dva, g, b, h, k0, g.Lk, ty, tx);
 }
 
-// ------------------------------------------ bf16 K2/K3 on the tensor cores
+// ---------------------------------------- bf16 K1-K3 on the tensor cores
 //
 // A warpgroup (4 warps, 128 threads) computes each product of a 64-row
-// slice with wgmma m64n64k16 (bf16 in, float32 accumulators): K2's block
-// is one warpgroup over its 64 query rows, K3's two warpgroups over 64
-// key rows each. The score products (S, dP; S^T, dP^T) read both
-// operands from shared memory by descriptor, so a streamed tile is read
-// once per warpgroup; the products into dQ, dK and dV take P / dS from
-// registers as their A operand (the accumulator layout of a warp's 16
-// rows is the A-fragment layout) and the streamed or resident tile as an
-// MN-major B operand. Tiles are bf16 in the 128-byte swizzle of the wgmma
-// descriptors: [R][kD] as kD / 64 column blocks of [R][64], each row 128
-// bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), block
-// bases 1024-byte aligned; the head dim is zero-padded to 64 or 128. The
-// streamed tiles go through a ring of kStages2 / kStages3 buffers filled
-// by cp.async 16-byte copies (rows past L and columns past D zero-filled
-// by the copy itself), one barrier a tile.
+// slice with wgmma m64n64k16. The score products (S, dP; S^T, dP^T) read
+// both operands from shared memory by descriptor, so a streamed tile is
+// read once per warpgroup; the products into O, dQ, dK and dV take P /
+// dS from registers as their A operand and the streamed or resident tile
+// as an MN-major B operand. Tiles are bf16 [R][kD] in the 128-byte
+// swizzle (hopper.cuh), the head dim zero-padded to 64 or 128. The
+// streamed tiles go through a ring of kStages1 / kStages2 / kStages3
+// buffers filled by cp.async 16-byte copies, one barrier a tile.
 
-using bf16 = __nv_bfloat16;
-
-// Tiles, chosen on an H100 with tune_flash_bwd.py. 64 rows is a wgmma's
-// row count. K2 fits 4 blocks an SM (launch bounds cap it at 128
-// registers), faster than 3 or 2: the kernels are latency-bound and the
-// other blocks fill each one's waits. A third ring stage gains nothing
-// (and costs K2 a block an SM); K3's 128-row key tile is as fast as a
-// 64-row one and loads each Q/dO stage once for twice the keys.
+// Tiles, chosen on an H100 with tune_flash.py. 64 rows is a wgmma's row
+// count. K1's two warpgroups share each K/V tile, at 2 blocks an SM
+// (launch bounds cap it at 128 registers): faster than 64-row blocks at
+// 4 an SM, which load each tile twice as often. K2 fits 4 blocks an SM,
+// faster than 3 or 2: the kernels are latency-bound and the other blocks
+// fill each one's waits. A third ring stage gains nothing (and costs K2
+// a block an SM); K3's 128-row key tile is as fast as a 64-row one and
+// loads each Q/dO stage once for twice the keys.
+constexpr int kQ1 = 128;               // K1: query rows (2 warpgroups)
+constexpr int kN1 = 64;                // K1: rows of a streamed K/V tile
+constexpr int kT1 = 2 * kQ1;           // K1: threads, a warpgroup per 64 rows
+constexpr int kStages1 = 2;            // K1: ring depth of the K/V tiles
 constexpr int kQ2 = 64;                // K2: query rows (1 warpgroup)
 constexpr int kN2 = 64;                // K2: rows of a streamed key tile
 constexpr int kT2 = 128;               // K2: threads
@@ -524,191 +516,7 @@ constexpr int kQS = 64;                // K3: query rows of a streamed stage
 constexpr int kT3 = 256;               // K3: threads
 constexpr int kStages3 = 2;            // K3: ring depth of the Q/dO stages
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; the first `bytes` are copied, the rest of
-// the 16 zero-filled (bytes = 0 reads nothing).
-__device__ __forceinline__ void cp_async16(bf16* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Makes this thread's shared-memory writes (cp.async or plain stores)
-// visible to the wgmma operand reads that follow the next barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins an accumulator: the compiler may neither read it before the
-// wgmma wait that precedes this nor write it after the fence that
-// follows.
-template <int kN>
-__device__ __forceinline__ void fence_regs(float (&d)[kN][4]) {
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e]) :: "memory");
-}
-
-// Element offset of the 8-column chunk starting at column c (a multiple
-// of 8) of row r in a 128-byte-swizzled [R][.] tile.
-template <int R>
-__device__ __forceinline__ int sw_offset(int r, int c) {
-  return (c >> 6) * R * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3);
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand starting at p: 8-row
-// groups 1024 bytes apart, column blocks `lbo` bytes apart (read only
-// for MN-major operands wider than one block).
-__device__ __forceinline__ uint64_t sw128_desc(const bf16* p, uint32_t lbo) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x 64) += A (64 x 16) B (16 x 64), A and B in shared memory,
-// both K-major (B stored [n][k]). d holds this thread's 32 values in the
-// mma C layout of its warp's 16 rows.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// The same with A from registers (the warp's 16 rows of the 64 x 16
-// slice as an mma.sync m16n8k16 A fragment) and B MN-major (stored
-// [k][n], transposed on the way in).
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Two floats rounded to bf16, the first in the low half: the register
-// layout of an mma operand pair.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (flushes denormal results to zero,
-// about 2 ulp): one instruction per score.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-union Chunk8 {                         // 8 bf16 values, one 16-byte store
-  uint4 u;
-  bf16 h[8];
-};
-
-// The 1024-byte aligned start of the dynamic shared memory.
-__device__ __forceinline__ bf16* smem_base(unsigned char* raw) {
-  const uint32_t a = smem_u32(raw);
-  return reinterpret_cast<bf16*>(raw + (((a + 1023) & ~1023u) - a));
-}
-
-// Rows [row0, row0 + R) of head (b, h) of a [B, L, H, D] bf16 tensor
-// into a swizzled [R][kD] tile, zeros past L and past D. With `vec`
-// (D % 8 == 0, 16-byte aligned rows) each 16-byte chunk is one cp.async
-// that completes with the thread's next commit group; otherwise the
-// chunk is gathered element by element and stored at once.
-template <int R, int kD, int kThreadsT>
-__device__ __forceinline__ void load_tile_bf16(bf16* tile, const bf16* base,
-                                               const long long* s, int b,
-                                               int h, int row0, int L,
-                                               int D, bool vec) {
-  constexpr int kC = kD / 8;
-  static_assert(R * kC % kThreadsT == 0, "whole chunks per thread");
-  const bf16* p = base + b * s[0] + h * s[2];
-#pragma unroll
-  for (int it = 0; it < R * kC / kThreadsT; ++it) {
-    const int idx = threadIdx.x + it * kThreadsT;
-    const int r = idx / kC;
-    const int c = (idx % kC) * 8;
-    const int row = row0 + r;
-    const bf16* src = p + (long long)row * s[1] + c;
-    bf16* dst = tile + sw_offset<R>(r, c);
-    if (vec) {
-      const bool in = row < L && c < D;
-      cp_async16(dst, in ? src : p, in ? 16 : 0);
-    } else {
-      Chunk8 ch;
-      ch.u = make_uint4(0, 0, 0, 0);
-      if (row < L) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (c + j < D) ch.h[j] = src[j];
-      }
-      *reinterpret_cast<uint4*>(dst) = ch.u;
-    }
-  }
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Row row0 + i of a [B*H, L] float32 statistic into dst[i] by a 4-byte
 // cp.async; zero past L.
@@ -795,6 +603,194 @@ __device__ __forceinline__ void acc_tile(float (&acc)[kD / 8][4],
     for (int j = 0; j < kD / 64; ++j)
       wgmma_rs(*reinterpret_cast<float(*)[8][4]>(&acc[8 * j]), a[kk],
                   sw128_desc(b + j * 64 * 64 + kk * 16 * 64, 64 * 128));
+}
+
+// The online softmax of one tile of the warpgroup's scores, in place: s
+// (the warp's C fragments of a [16, 64] slice, raw q.k) becomes the
+// unrounded p = 2^(s * sl2 - m2) against the rows' new running maxima m2
+// (log2 units: the scale is positive, so the row maximum of s times sl2
+// is that of the scaled scores), l (this thread's share of each row's
+// sum) is rescaled and grows by the tile's p, and alpha is what the rows'
+// accumulators must be multiplied by. With `mask`, a column at or past
+// its row's limit `lim` (relative to the tile: past Lk or above the
+// causal diagonal) gets p = 0 exactly.
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m2)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float sl2, bool mask,
+                                             const int (&lim)[2], int tq) {
+  if (mask) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n * 8 + 2 * tq + (e & 1) >= lim[e >> 1]) s[n][e] = kNegInf;
+  }
+  // Each row's 16 values of this thread are reduced as a tree (short
+  // dependency chains), then over the 4 threads of the quad.
+  float mx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) t[n] = fmaxf(s[n][2 * i], s[n][2 * i + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+    mx[i] = fmaxf(t[0], __shfl_xor_sync(0xffffffffu, t[0], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+  // Key 0 is live for every row (delta >= 0), so from the first tile on
+  // each row's m2 is finite and a masked score's 2^(-1e30 sl2 - m2) is 0.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m2[i], mx[i] * sl2);
+    alpha[i] = exp2_approx(m2[i] - m_new);
+    m2[i] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = exp2_approx(fmaf(s[n][e], sl2, -m2[e >> 1]));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float t[8];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) t[n] = s[n][2 * i] + s[n][2 * i + 1];
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int n = 0; n < w; ++n) t[n] += t[n + w];
+    l[i] = fmaf(l[i], alpha[i], t[0]);
+  }
+}
+
+// K1 on the tensor cores. One block (kQ1 / 64 warpgroups) per (query
+// tile, batch*head), the heaviest query tiles (the last under a causal
+// mask) first; Q resident, K/V tiles streamed up to the causal bound,
+// each read by every warpgroup of the block. A warpgroup skips the key
+// tiles past its own rows' bound (the last one of a causal block for its
+// first warpgroup).
+template <int kD>
+__global__ void __launch_bounds__(kT1, (kD > 64 ? 256 : 512) / kT1)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, Geom g) {
+  constexpr int kTile = kN1 * kD;              // elements of a K or V tile
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* sq = smem_base(tc_smem);
+  bf16* ring = sq + kQ1 * kD;                  // kStages1 x (K tile, V tile)
+  const int BH = g.B * g.H;
+  const int n_qt = (g.Lq + kQ1 - 1) / kQ1;
+  const int bh = blockIdx.x % BH;
+  const int b = bh / g.H;
+  const int h = bh % g.H;
+  const int q0 = (n_qt - 1 - blockIdx.x / BH) * kQ1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const int q_last = min(q0 + kQ1, g.Lq) - 1;
+  const int k_end = g.causal ? min(g.Lk, q_last + g.delta + 1) : g.Lk;
+  const int nt = (k_end + kN1 - 1) / kN1;
+  // The warpgroup's 64 rows and the key tiles they see.
+  const int wg_lo = q0 + (warp >> 2) * 64;
+  const int wg_end = g.causal ? min(k_end, wg_lo + 63 + g.delta + 1) : k_end;
+  const int nt_wg = (wg_end + kN1 - 1) / kN1;
+  const bf16* wq = sq + (warp >> 2) * 64 * 64;
+  const bool vec = g.vec;
+
+  auto load_kv = [&](int t) {
+    bf16* dst = ring + (t % kStages1) * 2 * kTile;
+    load_tile_bf16<kN1, kD, kT1>(dst, k, g.ks, b, h, t * kN1, g.Lk, g.D, vec);
+    load_tile_bf16<kN1, kD, kT1>(dst + kTile, v, g.vs, b, h, t * kN1, g.Lk,
+                                 g.D, vec);
+  };
+  load_tile_bf16<kQ1, kD, kT1>(sq, q, g.qs, b, h, q0, g.Lq, g.D, vec);
+#pragma unroll
+  for (int t = 0; t < kStages1 - 1; ++t) {
+    if (t < nt) load_kv(t);
+    cp_async_commit();
+  }
+
+  const float sl2 = g.scale * kLog2e;
+  const int row_lo = q0 + warp * 16;           // the warp's first row
+  // Each of this thread's two rows sees the keys below its limit.
+  int row_end[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    row_end[i] = g.causal ? min(g.Lk, row_lo + gq + 8 * i + g.delta + 1)
+                          : g.Lk;
+  float m2[2] = {kNegInf, kNegInf};           // row maxima, log2 units
+  float l[2] = {0.f, 0.f};                    // this thread's row sums
+  float alpha[2];
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<kStages1 - 2>();             // tile t has landed
+    fence_proxy_async();
+    __syncthreads();                           // ... for every thread, and
+    if (t + kStages1 - 1 < nt) load_kv(t + kStages1 - 1);  // t-1 is free
+    cp_async_commit();
+    if (t >= nt_wg) continue;                  // warpgroup-uniform
+    const bf16* sk = ring + (t % kStages1) * 2 * kTile;
+    const bf16* sv = sk + kTile;
+    const int k0 = t * kN1;
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+    score_tile<kD, kQ1>(s, wq, sk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    // Only the ragged last tile and the tiles that reach above the
+    // diagonal of the warp's first row hold masked scores.
+    const bool edge = k0 + kN1 > g.Lk ||
+                      (g.causal && k0 + kN1 - 1 > row_lo + g.delta);
+    const int lim[2] = {row_end[0] - k0, row_end[1] - k0};
+    softmax_tile(s, m2, l, alpha, sl2, edge, lim, tq);
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    uint32_t pa[4][4];                         // p rounded to v's type
+    to_a_frags(pa, s);
+    fence_regs(acc);
+    wgmma_fence();
+    acc_tile<kD>(acc, pa, sv);
+    wgmma_commit();
+    wgmma_wait_all();                          // before the tile is reused
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)) in natural
+  // units, from the row sums of the 4 threads of a quad.
+  float lc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lc[i] = fmaxf(l[i], 1e-30f);
+    const int row = row_lo + gq + 8 * i;
+    if (tq == 0 && row < g.Lq)
+      lse[(long long)bh * g.Lq + row] = m2[i] * kLn2 + logf(lc[i]);
+  }
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] / lc[e >> 1];
+  store_rows_tc<kD>(out, acc, 1.f, g, b, h, row_lo, g.Lq, lane);
 }
 
 // K2 on the tensor cores. One block (one warpgroup) per (64-row query
@@ -1064,30 +1060,13 @@ constexpr size_t dkv_smem() {
   return sizeof(float) * (4 * kB * (kD + 1) + 2 * kB * kSP + 2 * kB);
 }
 
-// Every instance asks for its dynamic shared memory (above the 48 KB
-// default at kD = 64 and 128) before its launch.
-template <typename K>
-int prepare(K kernel, size_t smem) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
-}
-
-template <typename T, int kD>
-int launch_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, const Geom& g, cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, kD>;
-  const size_t smem = fwd_smem<kD>();
-  if (int rc = prepare(kern, smem)) return rc;
-  const dim3 grid((g.Lq + kB - 1) / kB, g.B * g.H);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, g);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Shared memory of the bf16 kernels, with 1 KB of slack to align the
 // swizzled tiles to 1024 bytes.
+template <int kD>
+constexpr size_t fwd_tc_smem() {
+  return sizeof(bf16) * (kQ1 + kStages1 * 2 * kN1) * kD + 1024;
+}
 template <int kD>
 constexpr size_t dq_tc_smem() {
   return sizeof(bf16) * (2 * kQ2 + kStages2 * 2 * kN2) * kD + 1024;
@@ -1124,12 +1103,29 @@ int tc_blocks(const Geom& g, int L, int rows, unsigned* blocks) {
 }
 
 template <int kD>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* out,
+                  float* lse, const Geom& g0, cudaStream_t st) {
+  auto kern = flash_fwd_tc_kernel<kD>;
+  const size_t smem = fwd_tc_smem<kD>();
+  static SmemSet smem_set;
+  if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
+  unsigned blocks;
+  if (tc_blocks(g0, g0.Lq, kQ1, &blocks)) return -1;
+  const Geom g = tc_geom(g0, q, k, v, q);
+  kern<<<blocks, kT1, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
 int launch_dq_tc(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
                  void* dq, const Geom& g0, cudaStream_t st) {
   auto kern = flash_bwd_dq_tc_kernel<kD>;
   const size_t smem = dq_tc_smem<kD>();
-  if (int rc = prepare(kern, smem)) return rc;
+  static SmemSet smem_set;
+  if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
   unsigned blocks;
   if (tc_blocks(g0, g0.Lq, kQ2, &blocks)) return -1;
   const Geom g = tc_geom(g0, q, k, v, dout);
@@ -1146,7 +1142,8 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
                   void* dk, void* dv, const Geom& g0, cudaStream_t st) {
   auto kern = flash_bwd_dkv_tc_kernel<kD>;
   const size_t smem = dkv_tc_smem<kD>();
-  if (int rc = prepare(kern, smem)) return rc;
+  static SmemSet smem_set;
+  if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
   unsigned blocks;
   if (tc_blocks(g0, g0.Lk, kK3, &blocks)) return -1;
   const Geom g = tc_geom(g0, q, k, v, dout);
@@ -1160,6 +1157,24 @@ int launch_dkv_tc(const void* q, const void* k, const void* v,
 // bf16 runs the tensor-core kernels; float32 the CUDA-core ones (tensor
 // cores would need TF32, which the port's float32 policy rules out).
 template <typename T, int kD>
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, const Geom& g, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_fwd_tc<(kD < 64 ? 64 : kD)>(q, k, v, out, lse, g, st);
+  } else {
+    auto kern = flash_fwd_kernel<kD>;
+    const size_t smem = fwd_smem<kD>();
+    static SmemSet smem_set;
+    if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
+    const dim3 grid((g.Lq + kB - 1) / kB, g.B * g.H);
+    kern<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <typename T, int kD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dvec, void* dq, const Geom& g,
               cudaStream_t st) {
@@ -1167,14 +1182,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return launch_dq_tc<(kD < 64 ? 64 : kD)>(q, k, v, dout, lse, dvec, dq, g,
                                              st);
   } else {
-    auto kern = flash_bwd_dq_kernel<T, kD>;
+    auto kern = flash_bwd_dq_kernel<kD>;
     const size_t smem = dq_smem<kD>();
-    if (int rc = prepare(kern, smem)) return rc;
+    static SmemSet smem_set;
+    if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
     const dim3 grid((g.Lq + kB - 1) / kB, g.B * g.H);
     kern<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-        static_cast<T*>(dq), g);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        dvec,
+        static_cast<float*>(dq), g);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -1187,14 +1204,16 @@ int launch_dkv(const void* q, const void* k, const void* v,
     return launch_dkv_tc<(kD < 64 ? 64 : kD)>(q, k, v, dout, lse, dvec, dk,
                                               dv, g, st);
   } else {
-    auto kern = flash_bwd_dkv_kernel<T, kD>;
+    auto kern = flash_bwd_dkv_kernel<kD>;
     const size_t smem = dkv_smem<kD>();
-    if (int rc = prepare(kern, smem)) return rc;
+    static SmemSet smem_set;
+    if (int rc = set_smem_once(kern, smem, smem_set)) return rc;
     const dim3 grid((g.Lk + kB - 1) / kB, g.B * g.H);
     kern<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-        static_cast<T*>(dk), static_cast<T*>(dv), g);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        dvec,
+        static_cast<float*>(dk), static_cast<float*>(dv), g);
     return static_cast<int>(cudaGetLastError());
   }
 }

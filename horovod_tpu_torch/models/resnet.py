@@ -306,6 +306,22 @@ _FAMILY = {
 }
 
 
+#: ResNet-50's 1x1 ConvBN layers at the image lane's defaults (batch 64,
+#: 224^2, bf16): (input side, K, N, stride, prologue, launches a training
+#: step). 36 launches, 16 with the prologue; the stride-2 projections read
+#: the subsampled view of their input in place.
+RESNET50_K5 = [
+    (56, 64, 64, 1, False, 1), (56, 64, 256, 1, False, 1),
+    (56, 64, 256, 1, True, 3), (56, 256, 64, 1, False, 2),
+    (56, 256, 128, 1, False, 1), (56, 256, 512, 2, False, 1),
+    (28, 128, 512, 1, True, 4), (28, 512, 128, 1, False, 3),
+    (28, 512, 256, 1, False, 1), (28, 512, 1024, 2, False, 1),
+    (14, 256, 1024, 1, True, 6), (14, 1024, 256, 1, False, 5),
+    (14, 1024, 512, 1, False, 1), (14, 1024, 2048, 2, False, 1),
+    (7, 512, 2048, 1, True, 3), (7, 2048, 512, 1, False, 2),
+]
+
+
 def build(name: str, **kwargs) -> ResNet:
     """A ResNet by torchvision-style name (``build("resnet50",
     fused_bn=True, device="cpu")``)."""

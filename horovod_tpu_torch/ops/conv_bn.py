@@ -46,6 +46,9 @@ from typing import Sequence, Tuple
 import torch
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Parts of the names of K5's two CUDA kernels (the product with its
+#: column partials, then their reduction), as a profiler trace shows them.
+KERNEL_NAMES = ("conv_bn_", "reduce_partials")
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -133,6 +136,41 @@ def bn_stats_forward(x, w, a=None, b=None):
     if x4.device.type != "cuda":
         raise ValueError(f"bn_stats_forward: unsupported device {x4.device}")
     _check_cuda(x4, w, a, b)
+    out = _launch(_lib(), x4, w, a, b)
+    bn_stats_forward.launches += 1
+    if a is not None:
+        bn_stats_forward.prologue_launches += 1
+    return out
+
+
+bn_stats_forward.launches = 0
+bn_stats_forward.prologue_launches = 0
+
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def bind(lib):
+    """Sets the C signatures of a K5 library's functions; returns it."""
+    if lib.hvd_conv_bn_stats.argtypes is None:
+        lib.hvd_conv_bn_tile_rows.argtypes = [_CI]
+        lib.hvd_conv_bn_tile_rows.restype = _CI
+        lib.hvd_conv_bn_stats.argtypes = ([_CI] + [_VP] * 9 + [_CI] * 5
+                                          + [_CL] * 3 + [_CI, _VP])
+        lib.hvd_conv_bn_stats.restype = _CI
+    return lib
+
+
+def _lib():
+    from horovod_tpu_torch import _build
+
+    return bind(_build.load("conv_bn"))
+
+
+def _launch(lib, x4, w, a, b):
+    """K5 of ``lib`` on checked CUDA tensors (x4 ``[B, H, W, K]``, w
+    ``[K, N]``): allocates y and the statistics' scratch, launches, and
+    raises if the launch failed."""
+    K = x4.shape[-1]
     if x4.stride(3) != 1:
         x4 = x4.contiguous()
     Bn, H, W, _ = x4.shape
@@ -144,7 +182,6 @@ def bn_stats_forward(x, w, a=None, b=None):
         a = a.to(x4.dtype).contiguous()
         b = b.to(x4.dtype).contiguous()
     dt = _KERNEL_DTYPES[x4.dtype]
-    lib = _lib()
     tiles = -(-M // lib.hvd_conv_bn_tile_rows(dt))
     dev = x4.device
     y = torch.empty((M, N), dtype=x4.dtype, device=dev)
@@ -162,29 +199,7 @@ def bn_stats_forward(x, w, a=None, b=None):
     if rc != 0:
         raise RuntimeError(f"bn_stats_forward: kernel launch failed (cuda "
                            f"error {rc})")
-    bn_stats_forward.launches += 1
-    if a is not None:
-        bn_stats_forward.prologue_launches += 1
     return y, s1, s2
-
-
-bn_stats_forward.launches = 0
-bn_stats_forward.prologue_launches = 0
-
-_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-
-
-def _lib():
-    from horovod_tpu_torch import _build
-
-    lib = _build.load("conv_bn")
-    if lib.hvd_conv_bn_stats.argtypes is None:
-        lib.hvd_conv_bn_tile_rows.argtypes = [_CI]
-        lib.hvd_conv_bn_tile_rows.restype = _CI
-        lib.hvd_conv_bn_stats.argtypes = ([_CI] + [_VP] * 9 + [_CI] * 5
-                                          + [_CL] * 3 + [_CI, _VP])
-        lib.hvd_conv_bn_stats.restype = _CI
-    return lib
 
 
 # --------------------------------------------------------------------------

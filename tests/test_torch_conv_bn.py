@@ -100,6 +100,31 @@ def test_matmul_prologue_bn_stats_matches_jax(m, positive_shift, dname):
     _assert_outputs(got, want, dname)
 
 
+# Shapes off the bf16 kernel's tiles on the card (128-row M tiles, K in
+# 64-deep slices, 64- or 128-column N tiles): M = 257, N = 300, K = 72
+# and 136, with and without the prologue (positive shifts, so a row off
+# the tile that escaped the mask would show in the statistics). The
+# wrapper on CPU tensors runs the plain version.
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("k", [72, 136])
+def test_plain_version_matches_jax_off_the_tiles(k, prologue):
+    x, w = _arrays(8, (257, k), (k, 300))
+    jx, jw = (jnp.asarray(v, jnp.bfloat16) for v in (x, w))
+    tx, tw = (torch.tensor(v).to(torch.bfloat16) for v in (x, w))
+    if prologue:
+        a, b = _affine(9, k, positive_shift=True)
+        want = jcb.matmul_prologue_bn_stats(jx, jnp.asarray(a),
+                                            jnp.asarray(b), jw, True)
+        got = tcb.bn_stats_forward(tx, tw, torch.tensor(a),
+                                   torch.tensor(b))
+    else:
+        want = jcb.matmul_bn_stats(jx, jw, True)
+        got = tcb.bn_stats_forward(tx, tw)
+    assert tuple(got[0].shape) == (257, 300)
+    assert got[0].dtype == torch.bfloat16
+    _assert_outputs(got, want, "bfloat16")
+
+
 def test_prologue_pad_rows_stay_out_of_the_statistics():
     """The statistics are those of the M real rows: with a positive shift
     every real row's h is relu(x + b) and a padded row would add relu(b)."""

@@ -147,6 +147,39 @@ def test_backward_plain_versions_match_jax_kernels(name, dtype):
                                    err_msg=name_, **BWD_TOL[dtype])
 
 
+# The forward at the same geometries: they straddle the bf16 K1's
+# 128-row query tiles and 64-row key tiles on the card. The float32
+# forward must agree to FWD_ATOL (one float32 softmax, summed in another
+# order); in bfloat16 both round p to bf16 before p.V and out to bf16,
+# so a last-bit difference moves a rounding by an ulp (BWD_TOL).
+FWD_TOL = {"float32": dict(rtol=0, atol=FWD_ATOL),
+           "bfloat16": BWD_TOL["bfloat16"]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(BWD_GEOMS))
+def test_forward_plain_version_matches_jax_kernel(name, dtype):
+    """The plain K1 (``flash_forward_reference``) against the JAX
+    forward kernel in interpret mode, in the working type: ``out`` in
+    it, ``lse`` float32."""
+    Lq, Lk, causal, qo, ko, bq, bk = BWD_GEOMS[name]
+    q, k, v, _ = _inputs(1, Lq, Lk, 2, 8, seed=8)
+    jq, jk, jv = (jnp.asarray(a).astype(getattr(jnp, dtype))
+                  for a in (q, k, v))
+    scale = 1.0 / np.sqrt(8)
+    want_out, want_lse = ja._flash_forward(jq, jk, jv, causal, scale, bq,
+                                           bk, True, qo, ko, None)
+    tq, tk, tv = (torch.tensor(np.asarray(a.astype(jnp.float32))).to(
+        getattr(torch, dtype)) for a in (jq, jk, jv))
+    out, lse = ta.flash_forward_reference(tq, tk, tv, causal, scale, qo, ko)
+    assert out.dtype == getattr(torch, dtype) and lse.dtype == torch.float32
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(want_out.astype(jnp.float32)),
+        err_msg="out", **FWD_TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               err_msg="lse", **FWD_TOL[dtype])
+
+
 def test_plain_versions_match_dense_autograd_in_bfloat16():
     """The plain K1-K3 at bfloat16 inputs against dense attention's
     float32 autograd: the kernels' bf16 rounding points (p, dS, P^T,

@@ -31,6 +31,7 @@ each with its reason:
   above it.
 """
 
+import collections
 import functools
 import os
 import socket
@@ -402,6 +403,31 @@ def test_resnet50_k5_calls_per_forward(monkeypatch, fused, train, want):
         out = model(torch.tensor(x))
     assert out.shape == (1, 3) and bool(torch.isfinite(out).all())
     assert (calls.count(False), calls.count(True)) == want
+
+
+def test_resnet50_k5_table_lists_the_model_s_fused_1x1s(monkeypatch):
+    """``RESNET50_K5`` (the shapes the chip smoke and the K5 tune script
+    time) is every fused 1x1 of a full-width ResNet-50 training forward:
+    K, N, stride, prologue and count, at a 64^2 image (sides 16/8/4/2
+    for the table's 56/28/14/7)."""
+    calls = collections.Counter()
+    real = tcb.bn_stats_forward
+
+    def counting(x, w, a=None, b=None):
+        calls[(x.shape[1], x.shape[3], w.shape[1], a is not None)] += 1
+        return real(x, w, a, b)
+
+    monkeypatch.setattr(tcb, "bn_stats_forward", counting)
+    model = tresnet.build("resnet50", num_classes=3, dtype=torch.float32,
+                          fused_bn=True, device="cpu")
+    model.train()
+    with torch.no_grad():
+        model(torch.zeros((1, 64, 64, 3)))
+    want = collections.Counter()
+    for side, K, N, stride, prologue, count in tresnet.RESNET50_K5:
+        want[(side * 64 // 224 // stride, K, N, prologue)] += count
+    assert calls == want
+    assert sum(want.values()) == 36
 
 
 # ------------------------------------------------ two ranks over gloo
