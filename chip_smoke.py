@@ -4,6 +4,7 @@
 Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --engine-only [RUNS]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -11,12 +12,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``nvidia-smi`` reports them;
 2. build: every kernel source of the port, one ``nvcc`` per source, all
    started together;
-3. kernels: K4 (paged decode) against its plain PyTorch version over a
-   sweep of head dims and page sizes, then at the serving path's shapes
-   (float32 and bfloat16), with its time, the plain version's, a
-   library yardstick's and the least time the card could take (bytes
-   over the HBM peak or operations over the peak rate, whichever is
-   larger);
+3. kernels: K4 (paged decode, a split-K kernel and a merge kernel)
+   against its plain PyTorch version over a sweep of head dims, page
+   sizes and lengths on the edges of its row chunks, bit for bit the
+   same on a second launch, then at the serving path's shapes and at a
+   long-context geometry (32 slots of up to 2048 keys), float32 and
+   bfloat16, with its time, its kernels' profiled device time, the
+   plain version's time, a library yardstick's and the least time the
+   card could take (bytes over the HBM peak or operations over the peak
+   rate, whichever is larger);
 4. flash: K1-K3 (flash forward, dQ, dK/dV) against their plain versions
    over a sweep (causal and not, square and rectangular, offset causal,
    lengths off the 64- and 128-row tiles, head dims 8-128, f32 and bf16,
@@ -54,6 +58,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    engine's workload again under ``torch.profiler``: device busy time,
    idle share, top kernels.
 
+``--engine-only`` runs phases 1 and 8 alone, the engine phase RUNS times
+(default 3) with all its checks, and prints one ``{"engine_runs": [...]}``
+line of each run's tokens/s, TTFT and per-token p50/p99 per mode, and no
+kernels or ok line: copied into another checkout, it serves that
+checkout's package with the same script, to compare two commits' serving
+on one card.
+
 Each kernel's launch count is set to 0 just before the phase that drives
 its path and read just after; launches made to compare or time a kernel
 do not count.
@@ -88,7 +99,6 @@ LMAX, PAGE, SLOTS, CHUNK = 384, 16, 8, 64
 PPS = LMAX // PAGE
 NUM_PAGES = (SLOTS + 1) * PPS + 1
 HEAD_DIM = D_MODEL // HEADS
-KERNEL_LENGTHS = [0, 1, 16, 17, 384, 100, 250, 383]
 # Kernel against plain version, atol = rtol. float32: the same float32
 # arithmetic summed in another order (errors of a few 1e-7 relative on
 # the sweep's sums). bfloat16: both round their outputs (one bf16 ulp is
@@ -152,6 +162,7 @@ def build_phase():
     built = _build.build()
     log(f"build: {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas = {}
     for name, b in built.items():
         fn = ""
         for line in b.log.splitlines():
@@ -160,86 +171,60 @@ def build_phase():
             elif ("registers" in line or "spill" in line
                   or "warning" in line.lower() or "Performance" in line):
                 log(f"  ptxas {name} {fn}: {line.strip()}")
+                ptxas.setdefault(name, {}).setdefault(fn, []).append(
+                    line.strip())
+    return ptxas
 
 
 # ------------------------------------------------------------- phase 3
 
 
-def _kernel_inputs(torch, np, dtype, seed):
-    """The serving shapes; ragged lengths incl. 0/1/16/17/384, shuffled
-    physical pages, a NaN null page 0, 1e30 in the stale rows past each
-    slot's length."""
-    rng = np.random.default_rng(seed)
-    S, H, D = SLOTS, HEADS, HEAD_DIM
-    k = rng.standard_normal((NUM_PAGES, PAGE, H, D), dtype=np.float32)
-    v = rng.standard_normal((NUM_PAGES, PAGE, H, D), dtype=np.float32)
-    q = rng.standard_normal((S, H, D), dtype=np.float32)
-    k[0] = np.nan
-    v[0] = np.nan
-    ids = rng.permutation(np.arange(1, NUM_PAGES))
-    tables = np.zeros((S, PPS), np.int32)
-    nxt = 0
-    for s, ln in enumerate(KERNEL_LENGTHS):
-        for j in range(-(-ln // PAGE)):
-            tables[s, j] = ids[nxt]
-            nxt += 1
-        if ln % PAGE:
-            last = tables[s, ln // PAGE]
-            k[last, ln % PAGE:] = 1e30
-            v[last, ln % PAGE:] = 1e30
-    dev = "cuda"
-    return (torch.tensor(q, device=dev, dtype=dtype),
-            torch.tensor(k, device=dev, dtype=dtype),
-            torch.tensor(v, device=dev, dtype=dtype),
-            torch.tensor(tables, device=dev),
-            torch.tensor(np.asarray(KERNEL_LENGTHS, np.int32), device=dev))
-
-
 def _kernel_sweep(torch, np):
-    """Every template instance of the kernel (head dims up to 32, 64,
-    128, 256) at odd page sizes, against the plain version: lengths 0, 1,
-    a page, a page + 1 and the full table, NaN null page, 1e30 stale
-    rows, shuffled pages."""
+    """K4 against its plain version: every template instance (16-byte
+    loads by 4, 8, 16 or 32 lanes a row, one load a lane or two; the
+    element path at D = 100 in bf16 and at a base off the 16-byte grid)
+    at odd page sizes, lengths 0, 1, a page, a page + 1 and
+    the full table; then tables of 4 chunks or more with lengths on the
+    chunk edges (R - 1, R, R + 1, 2R, 3R + 1). NaN null page, 1e30 stale
+    rows, shuffled pages. A second launch must give the same bits."""
     from horovod_tpu_torch.ops import paged_attention as pa
 
-    rng = np.random.default_rng(3)
-    cases = 0
-    for D in (8, 32, 48, 100, 128, 256):
-        for ps in (1, 5, 16):
-            for dtype in (torch.float32, torch.bfloat16):
-                S, H, pps = 5, 3, 6
-                lens = [0, 1, ps, ps + 1, ps * pps]
-                need = [-(-x // ps) for x in lens]
-                P = 1 + sum(need) + 2
-                k = rng.standard_normal((P, ps, H, D), dtype=np.float32)
-                v = rng.standard_normal((P, ps, H, D), dtype=np.float32)
-                k[0] = v[0] = np.nan
-                ids = rng.permutation(np.arange(1, P))
-                tab = np.zeros((S, pps), np.int32)
-                nxt = 0
-                for s, n in enumerate(need):
-                    tab[s, :n] = ids[nxt:nxt + n]
-                    nxt += n
-                    if lens[s] % ps:
-                        k[tab[s, n - 1], lens[s] % ps:] = 1e30
-                        v[tab[s, n - 1], lens[s] % ps:] = 1e30
-                args = [torch.tensor(a, device="cuda", dtype=dtype)
-                        for a in (rng.standard_normal((S, H, D)), k, v)]
-                args += [torch.tensor(tab, device="cuda"),
-                         torch.tensor(np.asarray(lens, np.int32),
-                                      device="cuda")]
-                out = pa.paged_attention_decode(*args).float()
-                ref = pa.paged_attention_decode_reference(*args).float()
-                tol = TOL[str(dtype).split(".")[1]]
-                check(bool(torch.isfinite(out).all())
-                      and bool((out[0] == 0).all())
-                      and torch.allclose(out, ref, atol=tol, rtol=tol),
-                      f"kernel sweep D={D} ps={ps} {dtype}: max_abs_err "
-                      f"{float((out - ref).abs().max())}")
-                cases += 1
+    R = pa.CHUNK_ROWS
+    cases = [(D, ps, 6, [0, 1, ps, ps + 1, ps * 6], False)
+             for D in (8, 32, 48, 100, 128, 256) for ps in (1, 5, 16)]
+    for D in (64, 100, 256):
+        for ps in (5, 16):
+            pps = -(-(3 * R + 8) // ps)
+            cases.append((D, ps, pps, [0, 1, R - 1, R, R + 1, 2 * R,
+                                       3 * R + 1, ps * pps], False))
+    cases.append((64, 16, 16, [0, 1, R - 1, R + 1, 3 * R + 1], True))
+    n = 0
+    for i, (D, ps, pps, lens, offset) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = list(pa.decode_inputs(lens, 3, D, ps, pps, dtype, seed=i))
+            if offset:                # contiguous, 2 or 4 bytes off 16
+                for j in (1, 2):
+                    buf = torch.empty(args[j].numel() + 1, dtype=dtype,
+                                      device="cuda")
+                    args[j] = buf[1:].view(args[j].shape).copy_(args[j])
+            out = pa.paged_attention_decode(*args)
+            again = pa.paged_attention_decode(*args)
+            ref = pa.paged_attention_decode_reference(*args).float()
+            tol = TOL[str(dtype).split(".")[1]]
+            what = (f"kernel sweep D={D} ps={ps} pps={pps} lengths {lens} "
+                    f"{dtype}{' off 16 bytes' if offset else ''}")
+            check(torch.equal(out, again), f"{what}: a second launch "
+                                           "changed an output bit")
+            out = out.float()
+            check(bool(torch.isfinite(out).all())
+                  and bool((out[0] == 0).all())
+                  and torch.allclose(out, ref, atol=tol, rtol=tol),
+                  f"{what}: max_abs_err {float((out - ref).abs().max())}")
+            n += 1
     torch.cuda.synchronize()
-    log(f"kernel sweep: {cases} cases (D 8..256, page sizes 1/5/16, "
-        "f32 + bf16) agree with the plain version")
+    log(f"kernel sweep: {n} cases (D 8..256, page sizes 1/5/16, up to "
+        f"{max(-(-c[1] * c[2] // R) for c in cases)} chunks of {R} rows, "
+        "f32 + bf16) agree with the plain version and repeat bit for bit")
 
 
 def _copy_rate(torch):
@@ -263,9 +248,14 @@ def _copy_rate(torch):
 
 
 def kernel_phase(torch, np):
+    """K4 at the serving shapes and at the long-context geometry, f32 and
+    bf16: agreement with the plain version, then the cold-L2 time of the
+    call (``ms``), its two kernels' profiled time (``device_ms``), the
+    plain version's and the library yardstick's times, and the bound."""
     import torch.nn.functional as F
 
-    from horovod_tpu_torch._timing import flush_buffer, time_cold_ms
+    from horovod_tpu_torch._timing import (device_ms, flush_buffer,
+                                           time_cold_ms)
     from horovod_tpu_torch.ops import paged_attention as pa
 
     _kernel_sweep(torch, np)
@@ -273,72 +263,75 @@ def kernel_phase(torch, np):
     log(f"device copy rate: {rate / 1e9:.1f} GB/s")
     flush = flush_buffer()
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        q, kp, vp, tables, lengths = _kernel_inputs(torch, np, dtype, 7)
-        scale = 1.0 / math.sqrt(HEAD_DIM)
-        out = pa.paged_attention_decode(q, kp, vp, tables, lengths, scale)
-        ref = pa.paged_attention_decode_reference(q, kp, vp, tables,
-                                                  lengths, scale)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()),
-              f"{dname}: NaN/inf in the kernel's output (null page or "
-              "stale rows read)")
-        idle = torch.tensor(KERNEL_LENGTHS, device="cuda") == 0
-        check(bool((out[idle] == 0).all()), f"{dname}: idle lane not zero")
-        err = float((out.float() - ref.float()).abs().max())
-        tol = TOL[dname]
-        ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-        log(f"kernel paged_attention_decode[{dname}]: max_abs_err "
-            f"{err:.3e} (atol=rtol={tol})")
-        check(ok, f"{dname}: kernel disagrees with its plain version "
-                  f"(max_abs_err {err})")
+    for geom in ("serving", "long"):
+        g = pa.geometry(geom)
+        lens = g["lengths"]
+        S, H, D, ps = len(lens), g["H"], g["D"], g["ps"]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            q, kp, vp, tables, lengths = args = pa.decode_inputs(
+                dtype=dtype, seed=7, **g)
+            scale = 1.0 / math.sqrt(D)
+            out = pa.paged_attention_decode(*args, scale)
+            ref = pa.paged_attention_decode_reference(*args, scale)
+            torch.cuda.synchronize()
+            what = f"{geom} {dname}"
+            check(bool(torch.isfinite(out).all()),
+                  f"{what}: NaN/inf in the kernel's output (null page or "
+                  "stale rows read)")
+            check(bool((out[lengths == 0] == 0).all()),
+                  f"{what}: idle lane not zero")
+            err = float((out.float() - ref.float()).abs().max())
+            tol = TOL[dname]
+            ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+            log(f"kernel paged_attention_decode[{what}]: max_abs_err "
+                f"{err:.3e} (atol=rtol={tol})")
+            check(ok, f"{what}: kernel disagrees with its plain version "
+                      f"(max_abs_err {err})")
 
-        # The yardstick: the same function as one gather + one
-        # scaled_dot_product_attention call with a length mask.
-        P, ps, H, D = kp.shape
-        rows = (tables.long()[:, :, None] * ps
-                + torch.arange(ps, device="cuda")).reshape(SLOTS, -1)
-        mask = (torch.arange(LMAX, device="cuda")[None, :]
-                < lengths.long()[:, None])[:, None, None, :]
+            # The yardstick: the same function as one gather + one
+            # scaled_dot_product_attention call with a length mask.
+            P = kp.shape[0]
+            lmax = g["pps"] * ps
+            rows = (tables.long()[:, :, None] * ps
+                    + torch.arange(ps, device="cuda")).reshape(S, -1)
+            mask = (torch.arange(lmax, device="cuda")[None, :]
+                    < lengths.long()[:, None])[:, None, None, :]
 
-        def library():
-            kg = kp.reshape(P * ps, H, D)[rows].transpose(1, 2)
-            vg = vp.reshape(P * ps, H, D)[rows].transpose(1, 2)
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale)
+            def library():
+                kg = kp.reshape(P * ps, H, D)[rows].transpose(1, 2)
+                vg = vp.reshape(P * ps, H, D)[rows].transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale)
 
-        ms = time_cold_ms(lambda: pa.paged_attention_decode(
-            q, kp, vp, tables, lengths, scale), flush)
-        plain_ms = time_cold_ms(
-            lambda: pa.paged_attention_decode_reference(
-                q, kp, vp, tables, lengths, scale), flush)
-        library_ms = time_cold_ms(library, flush)
-
-        # Least work this run's data needs: the K/V rows below each
-        # slot's length read once (the kernel never loads the rows past
-        # it), q read and out written once, the live table entries and
-        # the lengths read once; 4 flops per live K/V element (q.k and
-        # p.v multiply-adds). Bytes over the HBM peak, operations over
-        # the peak for the input type.
-        elt = kp.element_size()
-        live_pages = sum(-(-x // PAGE) for x in KERNEL_LENGTHS)
-        nbytes = (sum(KERNEL_LENGTHS) * H * D * 2 * elt
-                  + 2 * q.numel() * elt + live_pages * 4
-                  + lengths.numel() * 4)
-        flops = 4 * H * D * sum(KERNEL_LENGTHS)
-        t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dname] * 1e3
-        results[dname] = {
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops,
-        }
-        log(f"  ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms "
-            f"{library_ms:.4f}  bound_ms {results[dname]['bound_ms']:.4f} "
-            f"({nbytes} bytes at {HBM_PEAK_BYTES_S / 1e9:.0f} GB/s peak)")
+            call = lambda: pa.paged_attention_decode(*args, scale)  # noqa
+            ms = time_cold_ms(call, flush)
+            dev_ms = device_ms(call, flush, pa.KERNEL_NAMES)
+            plain_ms = time_cold_ms(
+                lambda: pa.paged_attention_decode_reference(*args, scale),
+                flush, iters=20, warmup=2)
+            library_ms = time_cold_ms(library, flush, iters=20, warmup=2)
+            # Least work this run's data needs (pa.decode_work): bytes
+            # over the HBM peak, operations over the peak for the type.
+            nbytes, flops = pa.decode_work(lens, H, D, ps, kp.element_size())
+            t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            results.setdefault(geom, {"shape": {
+                "S": S, "H": H, "D": D, "page_size": ps,
+                "pages_per_seq": g["pps"], "num_pages": P,
+                "lengths": lens}})[dname] = {
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops,
+            }
+            log(f"  ms {ms:.4f}  device_ms {dev_ms:.4f}  plain_ms "
+                f"{plain_ms:.4f}  library_ms {library_ms:.4f}  bound_ms "
+                f"{max(t_bytes, t_ops):.6f} ({nbytes} bytes at "
+                f"{HBM_PEAK_BYTES_S / 1e9:.0f} GB/s peak)")
+            del args, q, kp, vp, tables, lengths, out, ref, rows, mask
+        torch.cuda.empty_cache()
     del flush
     return results, rate
 
@@ -1237,6 +1230,38 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
+def _paged_record(kres, rate, launches, ptxas, card):
+    """The kernels line's entry of K4: launches from the engine phase, the
+    times and errors of the f32 serving shapes at the top level, bf16 and
+    the long-context geometry beside them, and ptxas's registers and
+    spills of each instance of the two kernels."""
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bytes", "flops")
+    serving, long = kres["serving"], kres["long"]
+    f32 = serving["float32"]
+    return {
+        "name": "paged_attention_decode", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "horovod_tpu/ops/paged_attention.py:55",
+        "launches": launches,
+        **{k: f32[k] for k in keys},
+        # ms spans the call (host gaps included); device_ms is the split
+        # and merge kernels alone, as the profiler traces them.
+        "design": "split-K decode: chunks of R key rows a block (one head "
+                  "a block), 16-byte loads by lane groups, every row of a "
+                  "chunk in flight at once, exp2 online softmax in "
+                  "registers; the chunks' float32 partials merged in chunk "
+                  "order by a second kernel, no atomics",
+        "dtype": "float32", "shape": serving["shape"],
+        "copy_GBps": rate / 1e9,
+        "bfloat16": {k: serving["bfloat16"][k] for k in keys},
+        "long_context": {"shape": long["shape"],
+                         "float32": {k: long["float32"][k] for k in keys},
+                         "bfloat16": {k: long["bfloat16"][k] for k in keys}},
+        "ptxas": ptxas, "card": card,
+    }
+
+
 def _flash_records(fres, tres, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, times and errors from the flash phase at the slice shapes."""
@@ -1303,6 +1328,21 @@ def _conv_bn_record(cres, rres, card):
     }
 
 
+def engine_only(torch, np):
+    """``--engine-only [RUNS]``: the engine phase RUNS times."""
+    args = sys.argv[sys.argv.index("--engine-only") + 1:]
+    runs = int(args[0]) if args else 3
+    out = []
+    for _ in range(runs):
+        res = engine_phase(torch, np)[0]
+        out.append({mode: {
+            "tokens_per_sec": r["stats"]["tokens_per_sec_per_chip"],
+            "ttft_ms": r["stats"]["ttft_ms"], "tbt_ms": r["stats"]["tbt_ms"],
+            "wall_s": r["wall"], "steps": r["steps"],
+            "launches": r["launches"]} for mode, r in res.items()})
+    print(json.dumps({"engine_runs": out}), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1313,9 +1353,11 @@ def main():
     except ImportError as e:
         raise SmokeFailure(f"the port package is not beside this script "
                            f"({e}); run from the root of a checkout")
+    if "--engine-only" in sys.argv[1:]:
+        return engine_only(torch, np)
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
-    build_phase()
+    ptxas = build_phase()
     kres, rate = kernel_phase(torch, np)
     fres = flash_phase(torch, np)
     cres = conv_bn_phase(torch, np)
@@ -1324,34 +1366,15 @@ def main():
     runs, params, prompts, waves = engine_phase(torch, np)
     if profile:
         profile_phase(torch, params, prompts, waves)
-    f32, bf16 = kres["float32"], kres["bfloat16"]
     print(json.dumps({"training": {k: v for k, v in tres.items()
                                    if k != "profile"}}), flush=True)
     print(json.dumps({"resnet": {k: v for k, v in rres.items()
                                  if k != "profile"}}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    record = {"kernels": [{
-        "name": "paged_attention_decode",
-        "route": "cuda",
-        "source": "horovod_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "horovod_tpu/ops/paged_attention.py:55",
-        "launches": runs["paged"]["launches"],
-        "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"],
-        "dtype": "float32",
-        "shape": {"S": SLOTS, "H": HEADS, "D": HEAD_DIM, "page_size": PAGE,
-                  "pages_per_seq": PPS, "num_pages": NUM_PAGES,
-                  "lengths": KERNEL_LENGTHS},
-        "copy_GBps": rate / 1e9,
-        "bfloat16": {k: bf16[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "bound_by")},
-        "card": card,
-    }, *_flash_records(fres, tres, card), _conv_bn_record(cres, rres, card)]}
+    record = {"kernels": [
+        _paged_record(kres, rate, runs["paged"]["launches"],
+                      ptxas.get("paged_attention", {}), card),
+        *_flash_records(fres, tres, card), _conv_bn_record(cres, rres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

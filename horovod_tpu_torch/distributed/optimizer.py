@@ -56,8 +56,20 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self) -> None:
         """Replace each ``.grad`` with its fused cross-rank reduction
         (divided by ``backward_passes_per_step`` first: ``.grad`` sums
-        the passes, ``optax.MultiSteps`` averages them)."""
-        params = [p for p in self._hvd_params if p.grad is not None]
+        the passes, ``optax.MultiSteps`` averages them).
+
+        Every parameter that requires a gradient is reduced, as
+        ``allreduce_gradients_transform`` reduces every leaf: one whose
+        ``.grad`` is None (it took no part in this rank's backward) gets
+        zeros first. So every rank plans the same buckets over the same
+        tensors, and the wrapped optimizer updates that parameter by its
+        moments, as optax does. A frozen parameter (``requires_grad``
+        False, the same on every rank) is neither given a gradient nor
+        reduced, so the wrapped optimizer skips it, as Horovod's does."""
+        params = [p for p in self._hvd_params if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         if self._hvd_k > 1:
             grads = [g / self._hvd_k for g in grads]

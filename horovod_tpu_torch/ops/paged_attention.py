@@ -6,12 +6,16 @@ page_size, H, D]`` per layer per K/V) indexed by a per-request page
 table; :func:`paged_attention_decode` attends one query token per decode
 slot over only that slot's ``ceil(len/page_size)`` live pages.
 
-* On a CUDA tensor it launches the hand-written Hopper kernel in
+* On a CUDA tensor it launches the hand-written Hopper kernels in
   ``csrc/paged_attention.cu`` (built by ``nvcc`` for ``sm_90a`` at first
-  use, bound through a plain C interface and ``ctypes``), or raises.
+  use, bound through a plain C interface and ``ctypes``), or raises: a
+  split-K kernel that cuts each slot's key axis into chunks of ``R``
+  rows (:func:`paged_split_plan`) and writes one float32 partial per
+  chunk, then a kernel that merges each (slot, head)'s chunks in chunk
+  order (:func:`merge_partials_reference` is its plain version).
 * On a CPU tensor it runs :func:`paged_attention_decode_reference`, the
-  kernel's plain PyTorch version, which the CPU parity tests hold
-  against the JAX kernel in interpret mode.
+  plain PyTorch version of the whole function, which the CPU parity
+  tests hold against the JAX kernel in interpret mode.
 
 :func:`paged_grid_info` is the static page/byte accounting, a copy of
 the JAX function.
@@ -30,6 +34,52 @@ from horovod_tpu_torch.ops.attention import NEG_INF
 #: dtypes the kernel takes, with the code its C interface expects.
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
+#: Key rows a chunk of the split kernel: ``kChunkRows`` of
+#: ``csrc/paged_attention.cu``, where the reasons for it stand. The entry
+#: point rejects a split plan made for another chunk size.
+CHUNK_ROWS = 64
+#: The CUDA kernels of one call, by the names the profiler gives them.
+KERNEL_NAMES = ("paged_split_kernel", "paged_merge_kernel")
+
+
+def paged_split_plan(pps: int, ps: int):
+    """The host's split of the key axis: ``(R, splits)``, ``R =``
+    :data:`CHUNK_ROWS` rows a chunk and ``splits = ceil(pps * ps / R)``
+    chunks a slot. It depends on the table's width ``pps * ps`` only,
+    never on the lengths (reading them would wait for the device); a
+    table narrower than a chunk is one chunk."""
+    if pps <= 0 or ps <= 0:
+        raise ValueError(f"pps {pps} and ps {ps} must be positive")
+    return CHUNK_ROWS, -(-pps * ps // CHUNK_ROWS)
+
+
+def merge_partials_reference(partials, lengths, rows: int,
+                             dtype=torch.float32):
+    """The plain version of the merge kernel: ``partials [S, H, splits,
+    D + 2]`` float32, each chunk's ``(m, l, acc[D])`` (``m`` the chunk's
+    largest score in log2 units, ``scale * log2(e) * q.k``; ``l`` the sum
+    of ``2^(score - m)``; ``acc`` those weights times the V rows), merged
+    over each slot's live chunks ``c < ceil(lengths[s] / rows)``:
+    ``sum_c acc_c w_c / max(sum_c l_c w_c, 1e-30)``, ``w_c = 2^(m_c -
+    max m)``. A chunk past the length holds ``m = -1e30, l = 0, acc = 0``
+    whatever its scratch held, and weighs 0; an idle lane gives a zero
+    row. Returns ``[S, H, D]`` in ``dtype``."""
+    partials = partials.float()
+    S, H, splits, _ = partials.shape
+    lengths = lengths.to(device=partials.device, dtype=torch.long)
+    live = (torch.arange(splits, device=partials.device)[None, :] * rows
+            < lengths[:, None])[:, None, :]                  # [S, 1, splits]
+    m = torch.where(live, partials[..., 0],
+                    torch.full((), NEG_INF, device=partials.device))
+    l = torch.where(live, partials[..., 1],
+                    torch.zeros((), device=partials.device))
+    acc = torch.where(live[..., None], partials[..., 2:],
+                      torch.zeros((), device=partials.device))
+    w = torch.where(live, torch.exp2(m - m.amax(dim=-1, keepdim=True)),
+                    torch.zeros((), device=partials.device))
+    L = (l * w).sum(dim=-1)
+    out = (acc * w[..., None]).sum(dim=-2)
+    return (out / torch.clamp(L, min=1e-30)[..., None]).to(dtype)
 
 
 def _check_shapes(q, k_pages, v_pages, tables, lengths):
@@ -97,9 +147,10 @@ def paged_attention_decode(q, k_pages, v_pages, tables, lengths,
                                   idle lane, whose output row is zeros
 
     Returns ``[S, H, D]`` in ``q.dtype``. A CPU ``q`` runs the plain
-    version; a CUDA ``q`` launches the kernel (float32 or bfloat16,
-    ``D <= 256``, contiguous inputs on one device) or raises. Each
-    launch adds one to ``paged_attention_decode.launches``.
+    version; a CUDA ``q`` launches the kernels (float32 or bfloat16,
+    ``D <= 256``, contiguous inputs on one device) or raises. Each call
+    that launches adds one to ``paged_attention_decode.launches``, for
+    its two CUDA kernels together.
 
     ``lengths`` and ``tables`` are trusted, as the kernel reads them on
     the device: the caller keeps ``lengths[s] <= pps * ps`` and every
@@ -140,16 +191,7 @@ def paged_attention_decode(q, k_pages, v_pages, tables, lengths,
     if D > _MAX_HEAD_DIM:
         raise ValueError(f"paged_attention_decode: head dim {D} > "
                          f"{_MAX_HEAD_DIM}")
-    out = torch.empty_like(q)
-    fn = _kernel()
-    with torch.cuda.device(q.device):
-        rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-                v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), S, H, D, k_pages.shape[1], tables.shape[1],
-                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_attention_decode: kernel launch failed "
-                           f"(cuda error {rc})")
+    out = _launch(_kernel(), q, k_pages, v_pages, tables, lengths, scale)
     paged_attention_decode.launches += 1
     return out
 
@@ -157,15 +199,42 @@ def paged_attention_decode(q, k_pages, v_pages, tables, lengths,
 paged_attention_decode.launches = 0
 
 
+def _launch(fn, q, k_pages, v_pages, tables, lengths, scale):
+    """One call of the C entry point ``fn`` on checked CUDA tensors: the
+    split plan, the output and the partials' scratch allocated, both
+    kernels launched on the current stream. Raises if a launch failed."""
+    S, H, D = q.shape
+    ps, pps = k_pages.shape[1], tables.shape[1]
+    _, splits = paged_split_plan(pps, ps)
+    out = torch.empty_like(q)
+    scratch = torch.empty((S, H, splits, D + 2), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        rc = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+                v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), S, H, D, ps, pps,
+                splits, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_decode: kernel launch failed "
+                           f"(cuda error {rc})")
+    return out
+
+
 def _kernel():
     from horovod_tpu_torch import _build
 
-    lib = _build.load("paged_attention")
+    return bind(_build.load("paged_attention"))
+
+
+def bind(lib):
+    """``lib``'s ``hvd_paged_attention_decode`` with its argument types
+    set (a library of ``csrc/paged_attention.cu``, or a tune variant)."""
     fn = lib.hvd_paged_attention_decode
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                       ctypes.c_float, vp]
+        fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                       ci, ctypes.c_float, vp]
         fn.restype = ci
     return fn
 
@@ -234,3 +303,86 @@ def paged_grid_info(lengths: Sequence[int], *, page_size: int,
         info["pages_visited"] = [
             [int(p) for p in tab[s, :pages_live[s]]] for s in range(S)]
     return info
+
+
+# --------------------------------------------------------------------------
+# Timing geometries (``chip_smoke.py`` and ``tune_paged.py``)
+
+#: The serving shapes: ``tools/serve_bench.py``'s defaults at GPT-2-small
+#: width (Lmax 384, page 16, 8 decode slots, ``num_pages = (8 + 1) * 24 +
+#: 1``).
+SERVING_GEOMETRY = dict(H=12, D=64, ps=16, pps=24, num_pages=217,
+                        lengths=[0, 1, 16, 17, 384, 100, 250, 383])
+#: A long-context geometry, where the K/V bytes dwarf a launch: 32 slots
+#: of up to 2048 keys at the same width, lengths from a numpy seed.
+LONG_GEOMETRY = dict(H=12, D=64, ps=16, pps=128, slots=32, seed=2048)
+
+
+def long_context_lengths():
+    """The long-context geometry's slot lengths: 0, 1, 16, 17 and 2048,
+    then draws from a numpy seed in 1..2048."""
+    import numpy as np
+
+    rng = np.random.default_rng(LONG_GEOMETRY["seed"])
+    fixed = [0, 1, 16, 17, 2048]
+    return fixed + rng.integers(
+        1, 2049, LONG_GEOMETRY["slots"] - len(fixed)).tolist()
+
+
+def geometry(name: str):
+    """``"serving"`` or ``"long"`` as keyword arguments of
+    :func:`decode_inputs` (``lengths``, ``H``, ``D``, ``ps``, ``pps``,
+    ``num_pages``)."""
+    if name == "serving":
+        return dict(SERVING_GEOMETRY)
+    if name != "long":
+        raise ValueError(f"unknown geometry {name!r}")
+    g = {k: LONG_GEOMETRY[k] for k in ("H", "D", "ps", "pps")}
+    g["lengths"] = long_context_lengths()
+    g["num_pages"] = None
+    return g
+
+
+def decode_inputs(lengths, H, D, ps, pps, dtype, seed, num_pages=None,
+                  device="cuda"):
+    """``(q, k_pages, v_pages, tables, lengths)`` for the given slot
+    lengths: standard normal values from ``seed``, physical pages
+    shuffled, the null page 0 NaN, the stale rows past each length 1e30.
+    ``num_pages`` defaults to the live pages plus the null page."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    S = len(lengths)
+    need = [-(-int(n) // ps) for n in lengths]
+    P = num_pages or 1 + sum(need)
+    k = rng.standard_normal((P, ps, H, D), dtype=np.float32)
+    v = rng.standard_normal((P, ps, H, D), dtype=np.float32)
+    q = rng.standard_normal((S, H, D), dtype=np.float32)
+    k[0] = np.nan
+    v[0] = np.nan
+    ids = rng.permutation(np.arange(1, P))
+    tables = np.zeros((S, pps), np.int32)
+    nxt = 0
+    for s, (n, pages) in enumerate(zip(lengths, need)):
+        tables[s, :pages] = ids[nxt:nxt + pages]
+        nxt += pages
+        if n % ps:
+            k[tables[s, n // ps], n % ps:] = 1e30
+            v[tables[s, n // ps], n % ps:] = 1e30
+    return (torch.tensor(q, device=device, dtype=dtype),
+            torch.tensor(k, device=device, dtype=dtype),
+            torch.tensor(v, device=device, dtype=dtype),
+            torch.tensor(tables, device=device),
+            torch.tensor(np.asarray(lengths, np.int32), device=device))
+
+
+def decode_work(lengths, H, D, ps, elt):
+    """The least ``(bytes, flops)`` of one call: the K/V rows below each
+    slot's length read once, q read and out written once, the live table
+    entries and the lengths read once; 4 flops per live K/V element (the
+    q.k and p.v multiply-adds). ``elt`` is the bytes of one element."""
+    live_pages = sum(-(-int(n) // ps) for n in lengths)
+    rows = sum(int(n) for n in lengths)
+    nbytes = (rows * H * D * 2 * elt + 2 * len(lengths) * H * D * elt
+              + live_pages * 4 + len(lengths) * 4)
+    return nbytes, 4 * H * D * rows

@@ -13,6 +13,15 @@
   ``backward_passes_per_step=2`` on quarter batches; and
   ``broadcast_parameters`` / ``broadcast_optimizer_state`` to the root's
   values exactly.
+* A second 2-rank world, with a time limit of its own, takes two
+  ``DistributedOptimizer(Adam)`` steps on a model with a parameter that
+  only rank 0 uses in the first step and no rank in the second: both
+  ranks plan the same buckets over every parameter, and each rank's
+  parameters equal ``optax.adam`` on the rank-averaged gradients with
+  zeros for the unused parameter (what the JAX package's
+  ``allreduce_gradients_transform`` feeds its chain). A frozen parameter
+  (``requires_grad`` False) under weight decay stays out of the plan,
+  gets no gradient and keeps its bits.
 """
 
 import os
@@ -147,21 +156,23 @@ def _free_port():
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("two_ranks"))
+def _run_two(worker, out, timeout):
+    """Runs ``worker(rank, port, out)`` of this module in two processes
+    (a gloo world of two); fails, after killing both, if either exits
+    with an error or outlives ``timeout`` seconds. Returns each rank's
+    saved results."""
     port = _free_port()
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import test_torch_distributed as m; m._worker({}, {}, {!r})")
+            "import test_torch_distributed as m; m.{}({}, {}, {!r})")
     procs = [subprocess.Popen(
         [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           r, port, out)],
+                                           worker, r, port, out)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(2)]
     logs = []
     try:
         for p in procs:
-            stdout, stderr = p.communicate(timeout=180)
+            stdout, stderr = p.communicate(timeout=timeout)
             logs.append(stdout + stderr)
     finally:
         for p in procs:
@@ -171,6 +182,12 @@ def two_ranks(tmp_path_factory):
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    return _run_two("_worker", str(tmp_path_factory.mktemp("two_ranks")),
+                    180)
 
 
 @pytest.fixture
@@ -351,6 +368,169 @@ def test_collectives_of_the_mpi_ops(two_ranks):
         assert ops["loss_avg"] == 0.5
         np.testing.assert_array_equal(res["x_untouched"],
                                       x * (res["rank"] + 1))
+
+
+# ------------------------------------- parameters without a gradient
+
+ADAM_LR = 0.01
+# Step 1: rank 0 uses every parameter, rank 1 leaves "b" out; step 2:
+# neither rank uses "b". A fusion threshold of 24 bytes splits the three
+# parameters (12, 16 and 8 bytes) into two buckets, [a] and [b, c], where
+# dropping "b" on one rank would leave [a, c] in one bucket.
+NONE_GRAD_SHAPES = {"a": (3,), "b": (4,), "c": (2,)}
+NONE_GRAD_THRESHOLD = 24
+NONE_GRAD_USES_B = {(0, 1): True, (1, 1): False, (0, 2): False,
+                    (1, 2): False}
+# A frozen parameter in a param group of its own with weight decay: a
+# zero gradient given to it would let the decay move it.
+FROZEN_DECAY = 0.5
+
+
+def _none_grad_init():
+    rng = np.random.default_rng(11)
+    return {n: rng.standard_normal(s).astype(np.float32)
+            for n, s in NONE_GRAD_SHAPES.items()}
+
+
+def _frozen_init():
+    return np.random.default_rng(12).standard_normal(5).astype(np.float32)
+
+
+def _none_grad_data(rank, step):
+    rng = np.random.default_rng(100 + 10 * rank + step)
+    return {n: rng.standard_normal(s).astype(np.float32)
+            for n, s in NONE_GRAD_SHAPES.items()}
+
+
+def _none_grad_loss(p, x, uses_b, xp):
+    """The loss of one rank and step, for torch (``xp=torch``) and
+    jax.numpy alike. Each gradient element is a product of a few factors
+    (no difference of large terms), so the two frameworks' float32
+    gradients agree to a few ulp."""
+    loss = xp.sum(x["a"] * p["a"] ** 2) + xp.sum(xp.tanh(p["c"]) * x["c"])
+    if uses_b:
+        loss = loss + xp.sum(x["b"] * p["b"] ** 2)
+    return loss
+
+
+def _none_grad_worker(rank, port, out):
+    """One rank: two DistributedOptimizer(Adam) steps, recording the
+    bucket plan each rank reduces over."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.distributed import fusion
+    from horovod_tpu_torch.distributed import optimizer as dopt
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=timedelta(seconds=30))
+    hvd.init(device="cpu")
+    params = {n: torch.nn.Parameter(torch.tensor(v))
+              for n, v in _none_grad_init().items()}
+    frozen = torch.nn.Parameter(torch.tensor(_frozen_init()),
+                                requires_grad=False)
+    ids = {id(p): n for n, p in params.items()}
+    ids[id(frozen)] = "frozen"
+    plans = []
+    reduce = dopt.fused_reduce
+
+    def recording(tensors, **kw):
+        plan = fusion.plan_buckets(tensors, kw["fusion_threshold"])
+        plans.append([(b.members, b.nbytes) for b in plan])
+        return reduce(tensors, **kw)
+
+    dopt.fused_reduce = recording
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam([{"params": list(params.values())},
+                          {"params": [frozen],
+                           "weight_decay": FROZEN_DECAY}], lr=ADAM_LR),
+        named_parameters=[*params.items(), ("frozen", frozen)],
+        fusion_threshold=NONE_GRAD_THRESHOLD)
+    names = [ids[id(p)] for p in opt._hvd_params]
+    for step in (1, 2):
+        opt.zero_grad()
+        x = {n: torch.tensor(v) for n, v in
+             _none_grad_data(rank, step).items()}
+        _none_grad_loss(params, x, NONE_GRAD_USES_B[(rank, step)],
+                        torch).backward()
+        opt.step()
+    torch.save({"names": names, "plans": plans,
+                "params": {n: p.detach().numpy() for n, p in
+                           params.items()},
+                "frozen": frozen.detach().numpy(),
+                "frozen_grad": frozen.grad},
+               os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def none_grad_ranks(tmp_path_factory):
+    """A 2-rank world of its own, so that a rank stuck in a collective
+    that the other rank never issues fails these cases within a minute
+    (the gloo timeout is 30 s) and leaves ``two_ranks`` alone."""
+    return _run_two("_none_grad_worker",
+                    str(tmp_path_factory.mktemp("none_grad")), 60)
+
+
+def test_none_gradients_plan_the_same_buckets_on_every_rank(
+        none_grad_ranks):
+    from horovod_tpu_torch.distributed.fusion import plan_buckets
+
+    names = [n for n in none_grad_ranks[0]["names"] if n != "frozen"]
+    assert sorted(names) == sorted(NONE_GRAD_SHAPES)
+    want = [(b.members, b.nbytes) for b in plan_buckets(
+        [torch.zeros(NONE_GRAD_SHAPES[n]) for n in names],
+        NONE_GRAD_THRESHOLD)]
+    assert len(want) == 2
+    for res in none_grad_ranks:
+        assert res["names"] == none_grad_ranks[0]["names"]
+        assert res["plans"] == [want, want]
+
+
+def test_frozen_parameter_is_not_reduced_or_moved(none_grad_ranks):
+    """A parameter with ``requires_grad`` False is left out of the bucket
+    plan (the plans above cover the three trainable ones), is given no
+    gradient, and so Adam's weight decay in its group never moves it:
+    its bits are the initial ones on every rank."""
+    for res in none_grad_ranks:
+        assert "frozen" in res["names"]
+        assert res["frozen_grad"] is None
+        np.testing.assert_array_equal(res["frozen"], _frozen_init())
+
+
+def test_none_gradients_update_as_optax_adam_on_zeros(none_grad_ranks):
+    """Each rank's parameters after both steps equal optax.adam on the
+    rank-averaged gradients, zeros standing for an unused parameter.
+    atol 1e-6: both sides run Adam in float32 on gradients of the same
+    float32 losses (torch autograd against jax.grad), which agree to a
+    few ulp. optax takes Adam's bias correction 1 - b2^t in float32
+    (1.3e-5 relative off at t = 1), torch in float64, which moves each
+    update, of about the learning rate 0.01, by about 1e-7. An update
+    that is dropped or skipped is off by more than 5e-3."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    params = {n: jnp.asarray(v) for n, v in _none_grad_init().items()}
+    tx = optax.adam(ADAM_LR)
+    state = tx.init(params)
+    for step in (1, 2):
+        grads = [jax.grad(_none_grad_loss)(
+            params, {n: jnp.asarray(v) for n, v in
+                     _none_grad_data(rank, step).items()},
+            NONE_GRAD_USES_B[(rank, step)], jnp) for rank in (0, 1)]
+        mean = jax.tree_util.tree_map(lambda g0, g1: (g0 + g1) / 2, *grads)
+        updates, state = tx.update(mean, state, params)
+        params = optax.apply_updates(params, updates)
+    start = _none_grad_init()
+    assert np.abs(np.asarray(params["b"]) - start["b"]).min() > 0.01
+    for res in none_grad_ranks:
+        for n, want in params.items():
+            np.testing.assert_allclose(res["params"][n], np.asarray(want),
+                                       rtol=0, atol=1e-6, err_msg=n)
 
 
 # ------------------------------------------------------- a world of one
