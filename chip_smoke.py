@@ -37,9 +37,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    1e-4 under ``DistributedOptimizer``, an NCCL world of one, a few
    steps on one fixed batch: the losses are finite and fall, K1 ran 12
    times per forward pass and K2/K3 12 times per backward pass, the
-   NCCL bucket collectives equal the bucket plan times the steps, and
+   NCCL bucket collectives equal the bucket plan times the steps (the
+   buckets start from gradient hooks during the backward pass), and
    one step with dense attention at batch 2 matches flash's loss and
-   gradient norm;
+   gradient norm; then, from the same weights: the fused cross-entropy
+   (``fused_ce``, no [B, L, vocab] logits) matches the unfused loss and
+   gradient norm, with both peak memories; a ``remat`` + ``fused_ce``
+   step runs K1 24 times (each block's forward again in the backward)
+   and K2/K3 12 times; three hook-mode steps equal three steps with
+   overlap off bit for bit, with the plan's collectives each step; and
+   three ZeRO-1 steps equal them, with two collectives a dtype group a
+   step;
 7. resnet: the image bench lane's step, ResNet-50 at full width with the
    JAX lane's defaults (224^2 synthetic images, 64 per card, 1000
    classes, bf16, SGD 0.01 momentum 0.9 under ``DistributedOptimizer``)
@@ -737,15 +745,159 @@ PARITY_BATCH = 2
 # gradients' global norm by less than 5%. A wrong kernel moves both by
 # far more (the loss of a broken attention is off by whole units).
 PARITY_RTOL = {"loss": 5e-3, "grad_norm": 5e-2}
+# The fused cross-entropy against the logits-then-log-softmax loss, same
+# weights and tokens: both run the float32 head in full float32 and
+# differ only in the order of the float32 sums (the chunked products and
+# logsumexp against one [B, L, V] product), a few 1e-7 relative on the
+# loss; the hidden states' gradient carries that difference into the
+# bf16 blocks, where it can flip the last bit of a bf16 value, and the
+# global norm of the gradients moves by far less than 1e-3. A wrong
+# chunk, pad or target moves the loss by whole units.
+FUSED_CE_RTOL = {"loss": 1e-5, "grad_norm": 1e-3}
+# Three ZeRO-1 steps against three DistributedOptimizer steps with
+# overlap off in a world of one: the same Adam arithmetic on a flat vector
+# instead of per parameter, and the same gradients (the step's kernels
+# are deterministic), so the parameters agree to float32 rounding; 1e-6
+# absolute is 3% of one Adam step (lr 1e-4), so a missed or doubled
+# update fails.
+ZERO_ATOL = 1e-6
+COMPARE_STEPS = 3
 
 
-def _lm(torch, attn_fn):
+def _lm(torch, attn_fn, remat=False):
     from horovod_tpu_torch.models.transformer import TransformerLM
 
     return TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
                          num_heads=HEADS, embed_dim=D_MODEL,
                          max_len=FLASH_L, dtype=torch.bfloat16,
-                         attn_fn=attn_fn, seed=0, device="cuda")
+                         attn_fn=attn_fn, remat=remat, seed=0,
+                         device="cuda")
+
+
+def _grad_norm(torch, model):
+    return float(torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                for p in model.parameters())))
+
+
+def _fused_ce_parity(torch, flash, tokens):
+    """One forward + backward of the same weights with the logits loss
+    and with the fused cross-entropy: loss, gradient norm and the peak
+    memory of each."""
+    from horovod_tpu_torch.models.train import (fused_next_token_loss,
+                                                next_token_loss)
+
+    model = _lm(torch, flash)
+    out = {}
+    for name in ("unfused", "fused"):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "fused":
+            loss = fused_next_token_loss(model, tokens)
+        else:
+            loss = next_token_loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss.detach()),
+                     "grad_norm": _grad_norm(torch, model),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del loss
+    for key, rtol in FUSED_CE_RTOL.items():
+        f, u = out["fused"][key], out["unfused"][key]
+        rel = abs(f - u) / abs(u)
+        out[f"{key}_rel_diff"] = rel
+        check(math.isfinite(f) and rel <= rtol,
+              f"training: fused and unfused cross-entropy {key} differ by "
+              f"{rel:.3e} (fused {f}, unfused {u}; rtol {rtol})")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_steps(torch, flash, tokens):
+    """``COMPARE_STEPS`` steps each, from the same weights: hook-driven
+    overlap, overlap off and ZeRO-1, with their collectives; the
+    parameters of each at the end."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.distributed.zero import (
+        shard_info, sharded_distributed_optimizer)
+    from horovod_tpu_torch.models.train import make_train_step
+
+    out, params = {}, {}
+    for mode in ("hooks", "off", "zero"):
+        model = _lm(torch, flash)
+        adam = torch.optim.Adam(model.parameters(), lr=1e-4)
+        if mode == "zero":
+            opt = sharded_distributed_optimizer(adam)
+            groups = len(shard_info(opt))
+        else:
+            opt = hvd.DistributedOptimizer(
+                adam, overlap="on" if mode == "hooks" else "off")
+            check((opt._hvd_exchange is not None) == (mode == "hooks"),
+                  f"training: {mode} optimizer hooks "
+                  f"{opt._hvd_exchange is not None}")
+        step = make_train_step(model, opt)
+        fused_reduce.collectives = 0
+        sharded_distributed_optimizer.collectives = 0
+        losses = [float(step(tokens)) for _ in range(COMPARE_STEPS)]
+        torch.cuda.synchronize()
+        out[mode] = {"losses": losses,
+                     "collectives": fused_reduce.collectives,
+                     "zero_collectives":
+                         sharded_distributed_optimizer.collectives}
+        if mode == "zero":
+            out[mode]["shard_info"] = shard_info(opt)
+            check(out[mode]["zero_collectives"]
+                  == 2 * groups * COMPARE_STEPS
+                  and out[mode]["collectives"] == 0,
+                  f"training: ZeRO ran {out[mode]} collectives, expected "
+                  f"2 x {groups} dtype groups x {COMPARE_STEPS} steps")
+        else:
+            n_plan = len(hvd.plan_buckets(list(model.parameters()),
+                                          basics.config().fusion_threshold))
+            check(out[mode]["collectives"] == n_plan * COMPARE_STEPS,
+                  f"training: {mode} ran {out[mode]['collectives']} "
+                  f"collectives, expected {n_plan} buckets x "
+                  f"{COMPARE_STEPS} steps")
+        params[mode] = [p.detach().clone() for p in model.parameters()]
+        del model, opt, step, adam
+        torch.cuda.empty_cache()
+    ref = params["off"]
+    check(all(torch.equal(a, b) for a, b in zip(params["hooks"], ref)),
+          "training: hook-mode parameters differ from overlap off's")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(params["zero"], ref))
+    out["zero_max_abs_diff"] = diff
+    check(diff <= ZERO_ATOL,
+          f"training: ZeRO parameters differ from DistributedOptimizer's "
+          f"by {diff:.3e} after {COMPARE_STEPS} steps (atol {ZERO_ATOL})")
+    return out
+
+
+def _remat_step(torch, flash, tokens, kernels):
+    """One ``remat`` + ``fused_ce`` training step: the kernels' launches
+    and the loss (the weights are the other models')."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.models.train import make_train_step
+
+    model = _lm(torch, flash, remat=True)
+    step = make_train_step(model, hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-4)), fused_ce=True)
+    for k in kernels:
+        k.launches = 0
+    loss = float(step(tokens))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches["flash_forward"] == 2 * LAYERS
+          and launches["flash_bwd_dq"] == LAYERS
+          and launches["flash_bwd_dkv"] == LAYERS,
+          f"training: a remat step launched {launches}, expected K1 "
+          f"{2 * LAYERS} (forward + recompute) and K2/K3 {LAYERS}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"loss": loss, "launches": launches}
 
 
 def _attention_parity(torch, flash, tokens):
@@ -793,7 +945,10 @@ def training_phase(torch, np, profile):
     check(hvd.size() == 1 and dist.get_backend() == "nccl",
           f"training: expected an NCCL world of one, got "
           f"{dist.get_backend()} x {hvd.size()}")
-    flash = functools.partial(fa.flash_attention, causal=True)
+    # bwd_impl pinned: K2/K3 stay on the path whatever "auto" resolves
+    # to at this length.
+    flash = functools.partial(fa.flash_attention, causal=True,
+                              bwd_impl="kernel")
     rng = np.random.default_rng(5)
     tokens = torch.tensor(rng.integers(0, VOCAB, (FLASH_B, FLASH_L)),
                           device="cuda")
@@ -856,9 +1011,48 @@ def training_phase(torch, np, profile):
         f"{collectives} NCCL bucket collectives")
     if profile:
         result["profile"] = _profile_steps(torch, step, tokens)
-    hvd.shutdown()
     del model, opt, step
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fce = _fused_ce_parity(torch, flash, tokens)
+    log(f"training: fused vs unfused cross-entropy: loss "
+        f"{fce['fused']['loss']:.7f} vs {fce['unfused']['loss']:.7f} "
+        f"(rel {fce['loss_rel_diff']:.2e}), grad norm "
+        f"{fce['fused']['grad_norm']:.6f} vs "
+        f"{fce['unfused']['grad_norm']:.6f} "
+        f"(rel {fce['grad_norm_rel_diff']:.2e}), peak memory "
+        f"{fce['fused']['peak_memory_bytes'] / 2**30:.2f} vs "
+        f"{fce['unfused']['peak_memory_bytes'] / 2**30:.2f} GiB")
+    remat = _remat_step(torch, flash, tokens, kernels)
+    rel = abs(remat["loss"] - fce["fused"]["loss"]) / fce["fused"]["loss"]
+    check(rel <= 1e-6,
+          f"training: the remat + fused_ce step's loss {remat['loss']} is "
+          f"not the fused loss {fce['fused']['loss']} of the same weights "
+          f"(rel {rel:.2e}; rtol 1e-6: remat recomputes the same "
+          f"forward)")
+    log(f"training: remat + fused_ce step: loss {remat['loss']:.7f}, "
+        f"launches {remat['launches']}")
+    cmp = _compare_steps(torch, flash, tokens)
+    log(f"training: {COMPARE_STEPS} steps each: hooks == overlap off "
+        f"bit for bit ({cmp['hooks']['collectives']} and "
+        f"{cmp['off']['collectives']} bucket collectives); ZeRO "
+        f"{cmp['zero']['zero_collectives']} collectives, "
+        f"{cmp['zero']['shard_info']}, max abs diff "
+        f"{cmp['zero_max_abs_diff']:.3e}; losses "
+        f"{json.dumps({m: cmp[m]['losses'] for m in ('hooks', 'zero')})}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    result.update({"fused_ce": fce, "remat": remat, "compare": cmp})
+    if profile:
+        model = _lm(torch, flash)
+        fstep = make_train_step(model, create_train_state(
+            model, torch.optim.Adam(model.parameters(), lr=1e-4),
+            device="cuda"), fused_ce=True)
+        result["profile_fused_ce"] = _profile_steps(
+            torch, fstep, tokens, name="training_fused_ce")
+        del model, fstep
+        torch.cuda.empty_cache()
+    hvd.shutdown()
     return result
 
 
@@ -1282,6 +1476,7 @@ def _flash_records(fres, tres, card):
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"horovod_tpu/ops/attention.py{line}",
             "launches": tres["launches"][name],
+            "launches_remat_step": tres["remat"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1366,8 +1561,9 @@ def main():
     runs, params, prompts, waves = engine_phase(torch, np)
     if profile:
         profile_phase(torch, params, prompts, waves)
-    print(json.dumps({"training": {k: v for k, v in tres.items()
-                                   if k != "profile"}}), flush=True)
+    print(json.dumps({"training": {
+        k: v for k, v in tres.items() if not k.startswith("profile")}}),
+        flush=True)
     print(json.dumps({"resnet": {k: v for k, v in rres.items()
                                  if k != "profile"}}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

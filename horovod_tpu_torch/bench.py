@@ -20,9 +20,14 @@ limit.
   32000, seq 2048, 8 sequences per card, bfloat16 compute, float32
   parameters), ``torch.optim.Adam(lr=1e-4)`` under
   ``DistributedOptimizer``, the mean next-token loss, on one fixed batch
-  of random tokens from a numpy seed; tokens/s per card.
-  ``--attention auto`` (the JAX lane's dense/flash crossover, measured
-  on a TPU) waits for the H100 crossover and raises.
+  of random tokens from a numpy seed; tokens/s per card. The JAX lane's
+  step flags: ``--fused-ce`` (the chunked fused cross-entropy, no
+  ``[B, L, V]`` logits), ``--zero`` (ZeRO-1 optimizer-state sharding;
+  ``--overlap`` does not apply), ``--remat`` (each block recomputed in
+  the backward pass), and with flash attention ``--flash-bwd
+  {auto,scan,pallas,kernel}`` (``pallas`` is the JAX spelling of
+  ``kernel``). ``--attention auto`` takes flash at every length, the
+  H100's measured crossover (:func:`resolve_attention`).
 * ``resnet18|34|50|101|152``: the JAX lane's image defaults (224x224x3
   synthetic images and 1000 classes from a numpy seed, 64 images per
   card, bfloat16 compute with float32 parameters and BatchNorm
@@ -31,7 +36,13 @@ limit.
   ``average_loss=False``); images/s per card. ``--fused-bn`` runs every
   training-mode 1x1 ConvBN through kernel K5.
 
-Flags of one lane given to the other raise, as in the JAX ``bench.py``.
+Flags of one lane given to the other raise, as in the JAX ``bench.py``;
+so do the flash-only flags without flash. The JAX flags the port has not
+taken yet (``--steps-per-dispatch``, ``--snapshot-every``,
+``--hierarchical``, ``--compression int8|fp8``, ``--bf16-momentum``,
+``--scan-layers``, and ``--flash-full-grid``: K1-K3 have no full-grid
+mode) are parsed and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -51,12 +62,15 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed.compression import Compression
 from horovod_tpu_torch.distributed.fusion import plan_buckets, plan_summary
 from horovod_tpu_torch.distributed.mpi_ops import allgather
+from horovod_tpu_torch.distributed.zero import shard_info
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.train import (create_train_state,
                                             make_image_train_step,
                                             make_train_step)
 from horovod_tpu_torch.models.transformer import TransformerLM
-from horovod_tpu_torch.ops.attention import flash_attention
+from horovod_tpu_torch.ops.attention import (flash_attention,
+                                             flash_grid_info,
+                                             resolve_bwd_impl)
 
 
 LM = "transformer_lm"
@@ -96,10 +110,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="transformer_lm attention (default dense)")
     p.add_argument("--fp32", action="store_true",
                    help="float32 compute (default bfloat16)")
+    p.add_argument("--fused-ce", action="store_true",
+                   help="transformer_lm: chunked fused cross-entropy "
+                        "(ops/xent.py), no [B, L, vocab] logits")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1 optimizer-state sharding over the ranks "
+                        "(distributed/zero.py); --overlap does not apply")
+    p.add_argument("--remat", action="store_true",
+                   help="transformer_lm: recompute each block in the "
+                        "backward pass")
+    p.add_argument("--flash-bwd", default=None,
+                   choices=["auto", "scan", "pallas", "kernel"],
+                   help="transformer_lm + flash: the backward (pallas is "
+                        "the JAX spelling of kernel, K2 + K3; auto takes "
+                        "the H100's measured crossover)")
     p.add_argument("--overlap", default=None, choices=["auto", "on", "off"],
-                   help="HOROVOD_OVERLAP for the gradient buckets")
+                   help="HOROVOD_OVERLAP for the gradient buckets; on "
+                        "starts each bucket from gradient hooks during "
+                        "the backward pass")
     p.add_argument("--compression", default="none",
-                   choices=["none", "fp16", "bf16"])
+                   choices=["none", "fp16", "bf16", "int8", "fp8"])
+    # The JAX lane's flags that the port has not taken yet: parsed, and
+    # each raises NotImplementedError naming its ROADMAP.md item.
+    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--snapshot-every", type=int, default=0)
+    p.add_argument("--hierarchical", default=None,
+                   choices=["auto", "on", "off"])
+    p.add_argument("--bf16-momentum", action="store_true")
+    p.add_argument("--scan-layers", action="store_true")
+    p.add_argument("--flash-full-grid", action="store_true")
     p.add_argument("--num-warmup-batches", type=int, default=10)
     p.add_argument("--num-batches-per-iter", type=int, default=10)
     p.add_argument("--num-iters", type=int, default=10)
@@ -128,39 +167,97 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: The JAX lane's flags the port has not taken yet: (set?, flag, the
+#: ROADMAP.md item that brings it).
+_LATER = (
+    (lambda a: a.steps_per_dispatch != 1, "--steps-per-dispatch",
+     "ROADMAP.md Queue 1, whole-step capture (CUDA graphs)"),
+    (lambda a: a.snapshot_every != 0, "--snapshot-every",
+     "ROADMAP.md Queue 1, training infrastructure (elastic)"),
+    (lambda a: a.hierarchical not in (None, "off"), "--hierarchical",
+     "ROADMAP.md Queue 1, parallelism (the hierarchical ladder)"),
+    (lambda a: a.compression in ("int8", "fp8"), "--compression int8|fp8",
+     "ROADMAP.md Queue 1, parallelism (the hierarchical ladder's codecs)"),
+    (lambda a: a.bf16_momentum, "--bf16-momentum",
+     "ROADMAP.md Queue 1, the rest of the model zoo and the image "
+     "lane's options"),
+    (lambda a: a.scan_layers, "--scan-layers",
+     "ROADMAP.md Queue 1: XLA's compile-time layer scan has no eager "
+     "PyTorch counterpart"),
+    (lambda a: a.flash_full_grid, "--flash-full-grid",
+     "ROADMAP.md Queue 2, TPU kernels: K1-K3 always skip the tiles above "
+     "the causal diagonal and have no full-grid mode"),
+)
+
+
+def resolve_attention(args) -> str:
+    """``dense``/``flash``, with ``auto`` resolved by the H100's measured
+    crossover (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 7, c1c and c5):
+    this lane at 16,384 tokens a step (``--seq-len L --batch-size
+    16384/L``) runs faster on flash at every length measured, 32
+    (1.008x) to 4096 (3.31x), and dense runs out of memory at 8192; so
+    ``auto`` is flash at every length. The JAX package's crossover, dense
+    below 4096, was measured on a TPU."""
+    return "flash" if args.attention == "auto" else args.attention
+
+
 def _check_flags(args) -> None:
-    """The JAX lane's errors for flags of the other lane."""
+    """The JAX lane's errors for flags of the other lane and for the
+    flash-only flags without flash; then the flags not taken yet
+    raise."""
     if args.model == LM:
         if args.fused_bn:
             raise ValueError("--fused-bn applies to the ResNet family "
                              f"(got --model {LM})")
-        if args.attention == "auto":
-            raise NotImplementedError(
-                "--attention auto needs the H100 dense/flash crossover, not "
-                "measured yet (ROADMAP.md); pass dense or flash")
-    elif args.attention is not None:
-        raise ValueError(f"--attention applies to {LM} only (got --model "
-                         f"{args.model})")
+        if resolve_attention(args) != "flash":
+            for flag, on in (("--flash-full-grid", args.flash_full_grid),
+                             ("--flash-bwd", args.flash_bwd is not None)):
+                if on:
+                    raise ValueError(
+                        f"{flag} requires the flash attention path "
+                        "(--attention flash or auto)")
+    else:
+        if args.attention is not None:
+            raise ValueError(f"--attention applies to {LM} only (got "
+                             f"--model {args.model})")
+        for flag, on in (("--fused-ce", args.fused_ce),
+                         ("--remat", args.remat),
+                         ("--flash-bwd", args.flash_bwd is not None),
+                         ("--flash-full-grid", args.flash_full_grid)):
+            if on:
+                raise ValueError(f"{flag} applies to {LM} only (got "
+                                 f"--model {args.model})")
+    for is_set, flag, item in _LATER:
+        if is_set(args):
+            raise NotImplementedError(f"{flag} is not ported yet ({item})")
 
 
 def _lm_lane(args, dev):
     """The LM, its step on one fixed batch per rank (no host sync: it
     returns the loss tensor), and the units a step."""
     L, B = args.seq_len, args.batch_size
-    attn_fn = None
-    if args.attention == "flash":
-        attn_fn = functools.partial(flash_attention, causal=True)
+    attention = resolve_attention(args)
+    attn_fn, flash_grid = None, None
+    if attention == "flash":
+        bwd = "kernel" if args.flash_bwd == "pallas" else args.flash_bwd
+        attn_fn = functools.partial(flash_attention, causal=True,
+                                    bwd_impl=bwd)
+        flash_grid = flash_grid_info(
+            L, L, causal=True,
+            head_dim=args.lm_dim // args.lm_heads,
+            batch_heads=B * args.lm_heads, dtype_bytes=4 if args.fp32 else 2)
+        flash_grid["bwd"] = resolve_bwd_impl(bwd, L)
     model = TransformerLM(
         vocab_size=args.vocab, num_layers=args.lm_layers,
         num_heads=args.lm_heads, embed_dim=args.lm_dim,
         max_len=max(L, 2048),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        attn_fn=attn_fn, seed=42, device=dev)
+        attn_fn=attn_fn, remat=args.remat, seed=42, device=dev)
     opt = create_train_state(
         model, torch.optim.Adam(model.parameters(), lr=1e-4),
         compression=getattr(Compression, args.compression),
-        overlap=args.overlap, device=dev)
-    step = make_train_step(model, opt)
+        overlap=args.overlap, device=dev, zero=args.zero)
+    step = make_train_step(model, opt, fused_ce=args.fused_ce)
     # One global batch of B sequences per rank, each rank its own rows
     # (the JAX lane's sharded [B * n, L] batch).
     n, r = basics.size(), basics.rank()
@@ -169,8 +266,10 @@ def _lm_lane(args, dev):
     fields = {"metric": "tokens/sec", "unit": "tokens/sec/card",
               "seq_len": L, "layers": args.lm_layers,
               "d_model": args.lm_dim, "heads": args.lm_heads,
-              "vocab": args.vocab, "attention": args.attention}
-    return model, lambda: step(tokens), B * L, fields
+              "vocab": args.vocab, "attention": attention,
+              "flash_grid": flash_grid, "fused_ce": args.fused_ce,
+              "remat": args.remat}
+    return model, opt, lambda: step(tokens), B * L, fields
 
 
 def _image_lane(args, dev):
@@ -183,7 +282,7 @@ def _image_lane(args, dev):
     opt = create_train_state(
         model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
         compression=getattr(Compression, args.compression),
-        overlap=args.overlap, device=dev)
+        overlap=args.overlap, device=dev, zero=args.zero)
     step = make_image_train_step(model, opt, average_loss=False)
     n, r, B, S = basics.size(), basics.rank(), args.batch_size, \
         args.image_size
@@ -196,7 +295,7 @@ def _image_lane(args, dev):
                               device=dev)}
     fields = {"metric": "img/sec", "unit": "img/sec/card",
               "image_size": S, "fused_bn": args.fused_bn}
-    return model, lambda: step(batch)["loss"], B, fields
+    return model, opt, lambda: step(batch)["loss"], B, fields
 
 
 def run(args, device: DeviceLike = None) -> dict:
@@ -206,12 +305,20 @@ def run(args, device: DeviceLike = None) -> dict:
     basics.init(device=dev)
     dev = basics.device()
     lane = _lm_lane if args.model == LM else _image_lane
-    model, step, units, fields = lane(args, dev)
-    wire = getattr(Compression, args.compression)
-    plan = plan_summary(plan_buckets(
-        [torch.empty(p.shape, dtype=wire.plan_dtype(p.dtype), device="meta")
-         for p in model.parameters()],
-        basics.config().fusion_threshold))
+    model, opt, step, units, fields = lane(args, dev)
+    if args.zero:
+        # ZeRO's exchange is reduce-scatter shaped; the overlap knob and
+        # the bucket plan apply to DistributedOptimizer only.
+        stamp = {"zero": shard_info(opt), "overlap": None, "buckets": None}
+    else:
+        wire = getattr(Compression, args.compression)
+        stamp = {"zero": None,
+                 "overlap": args.overlap or basics.config().overlap,
+                 "buckets": plan_summary(plan_buckets(
+                     [torch.empty(p.shape, dtype=wire.plan_dtype(p.dtype),
+                                  device="meta")
+                      for p in model.parameters() if p.requires_grad],
+                     basics.config().fusion_threshold))}
 
     for _ in range(args.num_warmup_batches):
         loss = step()
@@ -245,8 +352,7 @@ def run(args, device: DeviceLike = None) -> dict:
                               if dev.type == "cuda" else None),
         "model": args.model, "batch_size": args.batch_size, **fields,
         "dtype": "float32" if args.fp32 else "bfloat16",
-        "compression": args.compression,
-        "buckets": plan, "world_size": n,
+        "compression": args.compression, **stamp, "world_size": n,
         "replicas_in_sync": all(x == sums[0] for x in sums),
         "device": dev.type, "card": card_description(dev),
         "torch": torch.__version__,

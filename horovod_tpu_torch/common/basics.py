@@ -21,6 +21,7 @@ import torch.distributed as dist
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.common.config import Config
 from horovod_tpu_torch.common.exceptions import PreconditionError
+from horovod_tpu_torch.utils.timeline import Timeline
 
 
 class _State:
@@ -28,6 +29,7 @@ class _State:
         self.initialized = False
         self.device: Optional[torch.device] = None
         self.config: Optional[Config] = None
+        self.timeline: Optional[Timeline] = None
         self.owns_group = False
 
 
@@ -60,6 +62,9 @@ def init(device: DeviceLike = None) -> None:
         _state.owns_group = True
     _state.device = dev
     _state.config = Config.from_env()
+    _state.timeline = Timeline(_state.config.timeline_path or None,
+                               mark_cycles=_state.config.timeline_mark_cycles,
+                               enabled_rank=dist.get_rank() == 0)
     _state.initialized = True
 
 
@@ -67,12 +72,14 @@ def shutdown() -> None:
     """Leave the process group if :func:`init` created it."""
     if not _state.initialized:
         return
+    _state.timeline.close()
     if _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.initialized = False
     _state.owns_group = False
     _state.device = None
     _state.config = None
+    _state.timeline = None
 
 
 def is_initialized() -> bool:
@@ -112,3 +119,9 @@ def device() -> torch.device:
 def config() -> Config:
     """The knobs read at :func:`init`."""
     return _require_init().config
+
+
+def timeline() -> Timeline:
+    """The timeline :func:`init` opened (``HOROVOD_TIMELINE``; disabled
+    when the knob is unset and on every rank but 0)."""
+    return _require_init().timeline

@@ -26,6 +26,11 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _env_bool(name: str) -> bool:
+    v = os.environ.get(name, "")
+    return v not in ("", "0", "false", "False", "FALSE")
+
+
 def _env_choice(name: str, default: str, choices) -> str:
     v = os.environ.get(name, "").strip().lower()
     return v if v in choices else default
@@ -43,6 +48,10 @@ class Config:
     # Bucket-size floor of the reduce-scatter + all-gather form
     # (HOROVOD_OVERLAP_SCATTER_THRESHOLD, bytes).
     overlap_scatter_threshold: int = DEFAULT_OVERLAP_SCATTER_THRESHOLD
+    # Chrome-trace timeline output path (HOROVOD_TIMELINE; rank 0 writes,
+    # empty = off) and its cycle markers (HOROVOD_TIMELINE_MARK_CYCLES).
+    timeline_path: str = ""
+    timeline_mark_cycles: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -53,4 +62,6 @@ class Config:
             overlap_scatter_threshold=_env_int(
                 "HOROVOD_OVERLAP_SCATTER_THRESHOLD",
                 DEFAULT_OVERLAP_SCATTER_THRESHOLD),
+            timeline_path=os.environ.get("HOROVOD_TIMELINE", ""),
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
         )

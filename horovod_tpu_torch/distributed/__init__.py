@@ -4,7 +4,8 @@ as hvd``.
 The counterpart of ``horovod_tpu.jax`` for data-parallel training over
 ``torch.distributed`` (NCCL on the card, gloo on the CPU): lifecycle
 (:func:`init`, :func:`size`, :func:`rank`, ...), collectives, the fused
-buckets and :func:`DistributedOptimizer`.
+buckets, :func:`DistributedOptimizer` and the ZeRO-1
+:func:`sharded_distributed_optimizer`.
 """
 
 from horovod_tpu_torch.common.basics import (init, is_initialized,
@@ -23,6 +24,8 @@ from horovod_tpu_torch.distributed.mpi_ops import (Average, Max, Min,
                                                    synchronize)
 from horovod_tpu_torch.distributed.optimizer import (
     DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+from horovod_tpu_torch.distributed.zero import (shard_info,
+                                                sharded_distributed_optimizer)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "size", "rank", "local_rank",
@@ -30,5 +33,6 @@ __all__ = [
     "allreduce_async", "synchronize", "broadcast", "broadcast_object",
     "allgather", "fused_reduce", "plan_buckets", "plan_summary",
     "DistributedOptimizer", "broadcast_parameters",
-    "broadcast_optimizer_state",
+    "broadcast_optimizer_state", "sharded_distributed_optimizer",
+    "shard_info",
 ]

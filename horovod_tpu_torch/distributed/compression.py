@@ -6,7 +6,7 @@ A ``Compressor`` has ``compress(tensor) -> (tensor, ctx)`` and
 reference's; ``.bf16`` casts to bfloat16 on the wire. The low-bit codecs
 ``.int8`` and ``.fp8`` quantize only the inter-node leg of the
 hierarchical ladder, which the port does not have yet: they raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 3).
+``NotImplementedError`` (ROADMAP.md Queue 1, parallelism).
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ class _NotPortedCompressor(Compressor):
         raise NotImplementedError(
             f"{cls.__name__} quantizes the hierarchical ladder's "
             "inter-node leg, which the port does not have yet "
-            "(ROADMAP.md Queue 1 item 3)")
+            "(ROADMAP.md Queue 1, parallelism)")
 
     decompress = compress
 

@@ -11,8 +11,10 @@ before ``* g + b``; the tanh-approximated GELU (``jax.nn.gelu``'s
 default); the attention scale ``1 / math.sqrt(D)``; greedy selection as
 ``argmax`` of the float32 logits (the first maximum in both frameworks).
 
-Tensor, sequence and pipeline parallelism, the MoE variant and the
-training losses are ported by later slices (ROADMAP.md, Queue 1).
+The dense training losses (``next_token_nll`` and the chunked
+``next_token_nll_fused``) are here; tensor, sequence and pipeline
+parallelism and the MoE variant are ported by later slices (ROADMAP.md
+Queue 1, parallelism).
 """
 
 from __future__ import annotations
@@ -225,3 +227,52 @@ def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
             if i + 1 < steps:   # the last token is never fed back
                 caches, logits = lm_decode_step(params, caches, tok, Lp + i)
     return torch.stack(toks, dim=1)
+
+
+def _dense_only(sp, tp, vocab_parallel=False):
+    if sp is not None or tp is not None or vocab_parallel:
+        raise NotImplementedError(
+            "sequence- and tensor-parallel losses shard the sequence or "
+            "the head over a mesh axis, which the port does not have yet "
+            "(ROADMAP.md Queue 1, parallelism); pass sp=None, tp=None")
+
+
+def _shifted_targets(tokens, sp: Optional[str] = None):
+    """Next-token targets and validity weights for the dense path
+    (``sp=None``): ``targets [B, L]`` are the tokens shifted left by one
+    (the last position wraps to the first token, any valid id) and
+    ``valid [B, L]`` float32 masks out the last position."""
+    _dense_only(sp, None)
+    B, L = tokens.shape
+    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    valid = (torch.arange(L, device=tokens.device) < L - 1).float()
+    return tgt, valid[None, :].expand(B, L)
+
+
+def next_token_nll(logits, tokens, sp: Optional[str] = None):
+    """Mean next-token negative log-likelihood of ``logits [B, L, V]``
+    against ``tokens [B, L]``, in float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt, valid = _shifted_targets(tokens, sp)
+    nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    return (nll * valid).sum() / valid.sum()
+
+
+def next_token_nll_fused(params: Dict, hidden, tokens,
+                         sp: Optional[str] = None, tp: Optional[str] = None,
+                         vocab_parallel: bool = False, t_chunk: int = 512):
+    """:func:`next_token_nll` without the ``[B, L, V]`` logits:
+    ``hidden`` is :func:`lm_apply`'s ``return_hidden=True`` output, and
+    the vocab projection happens chunk by chunk inside
+    :func:`~horovod_tpu_torch.ops.xent.fused_cross_entropy`."""
+    from horovod_tpu_torch.ops.xent import fused_cross_entropy
+
+    _dense_only(sp, tp, vocab_parallel)
+    B, L = tokens.shape
+    tgt, valid = _shifted_targets(tokens)
+    e = hidden.shape[-1]
+    w2 = valid.reshape(B * L)
+    # params["head"] is [E, V]; the fused loss takes nn.Linear's [V, E].
+    return fused_cross_entropy(hidden.reshape(B * L, e), params["head"].t(),
+                               tgt.reshape(B * L), t_chunk, weights=w2,
+                               denom=w2.sum())

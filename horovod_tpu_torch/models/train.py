@@ -12,6 +12,11 @@ Usage (LM)::
     step = make_train_step(model, opt)
     loss = step(tokens)                               # [B, L] per rank
 
+``make_train_step(..., fused_ce=True)`` scores the tokens with the chunked
+fused cross-entropy (no ``[B, L, V]`` logits), and
+``create_train_state(..., zero=True)`` shards the optimizer state over the
+ranks (``distributed.zero``) in place of ``DistributedOptimizer``.
+
 Usage (images)::
 
     model = resnet.build("resnet50", fused_bn=True)
@@ -35,6 +40,8 @@ from horovod_tpu_torch.distributed import mpi_ops
 from horovod_tpu_torch.distributed.compression import Compression
 from horovod_tpu_torch.distributed.optimizer import (DistributedOptimizer,
                                                      broadcast_parameters)
+from horovod_tpu_torch.distributed.zero import sharded_distributed_optimizer
+from horovod_tpu_torch.ops.xent import fused_cross_entropy
 
 
 def next_token_loss(logits, tokens):
@@ -43,6 +50,33 @@ def next_token_loss(logits, tokens):
     logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
     nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())
     return nll.mean()
+
+
+# Tokens a chunk of the lane's fused loss, chosen on the card
+# (``python -m horovod_tpu_torch.tune_xent``; NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md): at the GPT-2-small head (16,376 tokens, vocab 32000)
+# the loss takes 80.7-80.9 ms at the JAX default of 512, 74.9-75.3 at
+# 2048 and 72.1-74.1 at 4096, and holds 0.40, 0.99 and 1.77 GB beyond its
+# inputs (the unfused loss 52.3-52.7 ms and 6.29 GB): 2048 is the largest
+# chunk under 1 GB.
+FUSED_CE_CHUNK = 2048
+
+
+def fused_next_token_loss(model, tokens, t_chunk: Optional[int] = None):
+    """:func:`next_token_loss` without the ``[B, L, V]`` logits, as the
+    JAX lane's ``--fused-ce`` builds it (``bench.py:449-462``): the model's
+    float32 final hidden states ``hidden[:, :-1]`` as ``[B (L - 1), E]``,
+    the float32 head ``lm_head.weight [V, E]`` and the targets
+    ``tokens[:, 1:]``, through the chunked
+    :func:`~horovod_tpu_torch.ops.xent.fused_cross_entropy`, in chunks of
+    ``t_chunk`` tokens (``FUSED_CE_CHUNK`` by default)."""
+    if t_chunk is None:
+        t_chunk = FUSED_CE_CHUNK
+    hidden = model(tokens, return_hidden=True)
+    e = hidden.shape[-1]
+    h = hidden[:, :-1].reshape(-1, e).float()
+    return fused_cross_entropy(h, model.lm_head.weight.float(),
+                               tokens[:, 1:].reshape(-1), t_chunk)
 
 
 def cross_entropy_loss(logits, labels):
@@ -60,13 +94,17 @@ def create_train_state(model: torch.nn.Module,
                        backward_passes_per_step: int = 1,
                        overlap: Optional[str] = None,
                        hierarchical: Optional[str] = None,
-                       root_rank: int = 0, device: DeviceLike = None):
+                       root_rank: int = 0, device: DeviceLike = None,
+                       zero: bool = False):
     """Ready ``model`` and ``optimizer`` for data-parallel training on
     ``device`` (``None`` = the card; raises without one): the model's
     parameters must lie there; with ``distributed`` the optimizer is
     wrapped in :func:`DistributedOptimizer` and ``root_rank``'s
-    parameters are broadcast to every rank. Returns the optimizer to
-    step with (the model holds the parameters)."""
+    parameters are broadcast to every rank. With ``zero`` it is wrapped in
+    the ZeRO-1 :func:`sharded_distributed_optimizer` instead, after the
+    broadcast; ``overlap`` and ``hierarchical`` do not apply there (as in
+    the JAX package). Returns the optimizer to step with (the model holds
+    the parameters)."""
     dev = resolve_device(device)
     basics.config()                       # raises before hvd.init()
     wrong = [n for n, p in model.named_parameters()
@@ -75,6 +113,12 @@ def create_train_state(model: torch.nn.Module,
         raise ValueError(f"parameters {wrong[:3]} are not on {dev}")
     if not distributed:
         return optimizer
+    if zero:
+        if backward_passes_per_step != 1:
+            raise ValueError("zero=True takes one backward pass a step")
+        broadcast_parameters(model.state_dict(), root_rank)
+        return sharded_distributed_optimizer(optimizer,
+                                             compression=compression)
     optimizer = DistributedOptimizer(
         optimizer, named_parameters=model.named_parameters(),
         compression=compression,
@@ -86,14 +130,18 @@ def create_train_state(model: torch.nn.Module,
 
 def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    average_loss: bool = True):
+                    average_loss: bool = True, fused_ce: bool = False):
     """The per-rank step: ``step(tokens [B, L]) -> loss``: forward, the
-    next-token loss, backward, the optimizer's (distributed) step, and
-    the loss averaged across ranks."""
+    next-token loss (:func:`fused_next_token_loss` with ``fused_ce``,
+    else :func:`next_token_loss` over the logits), backward, the
+    optimizer's (distributed) step, and the loss averaged across ranks."""
 
     def train_step(tokens):
         optimizer.zero_grad()
-        loss = next_token_loss(model(tokens), tokens)
+        if fused_ce:
+            loss = fused_next_token_loss(model, tokens)
+        else:
+            loss = next_token_loss(model(tokens), tokens)
         loss.backward()
         optimizer.step()
         loss = loss.detach()

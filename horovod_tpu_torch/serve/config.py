@@ -35,14 +35,13 @@ ADMISSIONS = ("reserve", "lazy")
 ATTENTIONS = ("gather", "paged")
 
 _NOT_PORTED = {
-    "mesh": "ROADMAP.md Queue 1, what is left, item 3 (parallelism: "
-            "TP-sharded paged decode)",
-    "speculate_k": "ROADMAP.md Queue 1, what is left, item 2 (serving "
-                   "features: speculative decoding)",
-    "draft_layers": "ROADMAP.md Queue 1, what is left, item 2 (serving "
-                    "features: speculative decoding)",
-    "prefix_caching": "ROADMAP.md Queue 1, what is left, item 2 (serving "
-                      "features: serve/prefix.py)",
+    "mesh": "ROADMAP.md Queue 1, parallelism (TP-sharded paged decode)",
+    "speculate_k": "ROADMAP.md Queue 1, serving features (speculative "
+                   "decoding)",
+    "draft_layers": "ROADMAP.md Queue 1, serving features (speculative "
+                    "decoding)",
+    "prefix_caching": "ROADMAP.md Queue 1, serving features "
+                      "(serve/prefix.py)",
 }
 
 

@@ -21,8 +21,8 @@ CUDA generators draw different numbers). It cannot reproduce ``jax.random``'s nu
 streams are pinned by same-seed determinism within the port, and only
 greedy streams are compared with the JAX package.
 
-The speculative-decoding surfaces come with that slice (ROADMAP.md,
-Queue 1, what is left, item 2).
+The speculative-decoding surfaces come with that slice (ROADMAP.md
+Queue 1, serving features).
 """
 
 from __future__ import annotations

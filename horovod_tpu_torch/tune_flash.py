@@ -2,6 +2,7 @@
 constants and schedules.
 
     python -m horovod_tpu_torch.tune_flash [variant ...]
+    python -m horovod_tpu_torch.tune_flash --crossover [Lk ...]
 
 Each variant is ``csrc/flash_attention.cu`` with some of its bf16
 constants replaced (all of :data:`VARIANTS` when none is named). The
@@ -12,6 +13,15 @@ causal, bf16), in two passes of opposite order. Prints one JSON line per
 variant and pass; the source ships the constants of the fastest. The
 ``_diag_`` variants drop one part of a kernel (results wrong, ``ok``
 false) to show where the time goes. Needs a CUDA card and ``nvcc``.
+
+``--crossover`` times the shipped backward's two implementations,
+``"scan"`` (the port of the JAX package's XLA scan backward, plain torch)
+against ``"kernel"`` (``D = rowsum(dO*O)`` then K2 and K3), at each key
+length (default 256 to 16384) with the tokens of a step fixed at the
+training slice's B*L = 16384 (B = 16384 / L, H=12, D=64, causal, bf16),
+in two passes of opposite order; one JSON line per length and pass.
+``ops.attention.resolve_bwd_impl("auto")`` follows it (the kernels at
+every length, as measured).
 """
 
 from __future__ import annotations
@@ -68,10 +78,57 @@ TOL = 2e-2
 _SYMBOLS = ("hvd_flash_fwd", "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv")
 
 
+CROSSOVER_LK = (256, 512, 1024, 2048, 4096, 8192, 16384)
+CROSSOVER_TOKENS = B * L
+
+
+def crossover(lengths):
+    """``--crossover``: the scan backward against K2 + K3 by key length."""
+    flush = flush_buffer()
+    smi = card()
+    rng = np.random.default_rng(13)
+    for order in (lengths, lengths[::-1]):
+        for lk in order:
+            b = max(1, CROSSOVER_TOKENS // lk)
+            q, k, v, do = (torch.tensor(rng.standard_normal(
+                (b, lk, H, D), dtype=np.float32), device="cuda").to(
+                    torch.bfloat16) for _ in range(4))
+            scale = 1.0 / math.sqrt(D)
+            out, lse = fa.flash_forward(q, k, v, True, scale)
+            block_k = fa._default_blocks(lk, lk)[1]
+
+            def scan():
+                return fa._flash_bwd_scan(q, k, v, out, lse, do, True, scale,
+                                          block_k, 0, 0)
+
+            def kernel():
+                d = (do.float() * out.float()).sum(-1).transpose(1, 2)
+                d = d.contiguous()
+                return (fa.flash_bwd_dq(q, k, v, do, lse, d, True, scale),
+                        *fa.flash_bwd_dkv(q, k, v, do, lse, d, True, scale))
+
+            err = max(float((a.float() - b_.float()).abs().max())
+                      for a, b_ in zip(scan(), kernel()))
+            iters = 5 if lk >= 8192 else 20
+            rec = {"seq_k": lk, "batch": b,
+                   "scan_ms": time_cold_ms(scan, flush, iters=iters,
+                                           warmup=2),
+                   "kernel_ms": time_cold_ms(kernel, flush, iters=iters,
+                                             warmup=2),
+                   "max_abs_diff": err, "card": smi}
+            rec["kernel_wins"] = rec["kernel_ms"] < rec["scan_ms"]
+            print(json.dumps(rec), flush=True)
+            del q, k, v, do, out, lse
+            torch.cuda.empty_cache()
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("tune_flash: no CUDA device")
-    names = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["--crossover"]:
+        return crossover([int(x) for x in argv[1:]] or list(CROSSOVER_LK))
+    names = argv or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         raise SystemExit(f"tune_flash: unknown variants {unknown}; choose "

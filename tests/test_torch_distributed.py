@@ -22,6 +22,17 @@
   ``allreduce_gradients_transform`` feeds its chain). A frozen parameter
   (``requires_grad`` False) under weight decay stays out of the plan,
   gets no gradient and keeps its bits.
+* Hook-driven overlap (``DistributedOptimizer`` issuing each bucket from
+  gradient hooks during the backward pass): three 2-rank Adam steps give
+  the same bits as overlap off, on the allreduce and the scatter forms
+  (``fused_reduce``'s own pin covers its post-backward issue), and every
+  rank issues the buckets in reverse plan order;
+  ``backward_passes_per_step=2`` under hooks equals the doubled batch;
+  the None-gradient and frozen cases above run under hooks (their two
+  buckets make overlap resolve on) and equal overlap off bit for bit; a
+  second wrapper of the same model takes the first one's hooks; a
+  parameter frozen after construction leaves the plan and keeps its
+  bits, as under overlap off; a backward pass beyond the count raises.
 """
 
 import os
@@ -79,16 +90,17 @@ def _model(seed=0):
     return TransformerLM(**CFG, seed=seed, device="cpu")
 
 
-def _sgd_steps(batches, k=1):
+def _sgd_steps(batches, k=1, **kw):
     """A fresh model under DistributedOptimizer(SGD) fed ``batches`` one
-    ``make_train_step`` call each; returns (params, last loss)."""
+    ``make_train_step`` call each; returns (params, last loss). ``kw``
+    goes to ``DistributedOptimizer``."""
     from horovod_tpu_torch.distributed import DistributedOptimizer
     from horovod_tpu_torch.models.train import make_train_step
 
     model = _model()
     opt = DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=LR),
                                named_parameters=model.named_parameters(),
-                               backward_passes_per_step=k)
+                               backward_passes_per_step=k, **kw)
     step = make_train_step(model, opt)
     for b in batches:
         loss = step(b)
@@ -122,6 +134,14 @@ def _worker(rank, port, out):
     res["dp"] = _sgd_steps([toks[2 * rank:2 * rank + 2]])
     res["bpps"] = _sgd_steps([toks[2 * rank:2 * rank + 1],
                               toks[2 * rank + 1:2 * rank + 2]], k=2)
+    res["bpps_hooks"] = _sgd_steps([toks[2 * rank:2 * rank + 1],
+                                    toks[2 * rank + 1:2 * rank + 2]], k=2,
+                                   overlap="on",
+                                   fusion_threshold=HOOK_THRESHOLD)
+    res["hook_modes"] = _hook_modes(rank)
+    res["rewrap"] = _rewrap(rank)
+    res["late_freeze"] = {overlap: _late_freeze(rank, overlap)
+                          for overlap in HOOK_MODES}
     model = _model(seed=rank)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     res["bcast_params"] = [p.detach().clone().numpy()
@@ -148,6 +168,148 @@ def _worker(rank, port, out):
     res["x_untouched"] = x.numpy()
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+# Hook-driven overlap: a fusion threshold that splits the tiny LM's 27
+# parameters (31,424 float32 elements) into 16 buckets.
+HOOK_THRESHOLD = 2000
+# Overlap off, and on: the gradient hooks.
+HOOK_MODES = ["off", "on"]
+
+
+def _recording_issue(log):
+    """Patch ``BucketExchange._issue`` to append ``(bucket index, issued
+    during the backward pass)`` to ``log``; returns the restore."""
+    from horovod_tpu_torch.distributed import fusion
+
+    orig = fusion.BucketExchange._issue
+
+    def issue(self, bi, fetch):
+        log.append((bi, _IN_BACKWARD[0]))
+        return orig(self, bi, fetch)
+
+    fusion.BucketExchange._issue = issue
+    return lambda: setattr(fusion.BucketExchange, "_issue", orig)
+
+
+_IN_BACKWARD = [False]
+
+
+def _hook_modes(rank):
+    """Three Adam steps on this rank's half of the batch, in each of
+    ``HOOK_MODES`` and at two scatter thresholds (the allreduce form and
+    the reduce-scatter + all-gather form): the parameters, the
+    collectives, the issue order and whether each bucket started during
+    the backward pass."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.models.train import next_token_loss
+
+    toks = _tokens()[2 * rank:2 * rank + 2]
+    cfg = basics.config()
+    default_scatter = cfg.overlap_scatter_threshold
+    out = {}
+    for scatter in (default_scatter, 0):
+        cfg.overlap_scatter_threshold = scatter
+        for overlap in HOOK_MODES:
+            model = _model()
+            opt = hvd.DistributedOptimizer(
+                torch.optim.Adam(model.parameters(), lr=1e-2),
+                overlap=overlap, fusion_threshold=HOOK_THRESHOLD)
+            log = []
+            restore = _recording_issue(log)
+            before = fused_reduce.collectives
+            try:
+                for _ in range(3):
+                    opt.zero_grad()
+                    loss = next_token_loss(model(toks), toks)
+                    _IN_BACKWARD[0] = True
+                    loss.backward()
+                    _IN_BACKWARD[0] = False
+                    opt.step()
+            finally:
+                restore()
+            out[(scatter, overlap)] = {
+                "params": [p.detach().clone().numpy()
+                           for p in model.parameters()],
+                "collectives": fused_reduce.collectives - before,
+                "issues": log,
+                "hooked": opt._hvd_exchange is not None}
+    cfg.overlap_scatter_threshold = default_scatter
+    return out
+
+
+def _adam_steps(model, opt, toks, steps, before_step=None):
+    from horovod_tpu_torch.models.train import next_token_loss
+
+    for s in range(steps):
+        if before_step is not None:
+            before_step(s)
+        opt.zero_grad()
+        next_token_loss(model(toks), toks).backward()
+        opt.step()
+
+
+def _rewrap(rank):
+    """Two hook-mode wrappers of one model, the second built after the
+    first: three Adam steps through the second. The first must have lost
+    its hooks (else it would issue collectives nobody waits for, and
+    raise on the next backward), and must not be kept alive by them."""
+    import gc
+    import weakref
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+
+    model = _model()
+    first = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-2), overlap="on",
+        fusion_threshold=HOOK_THRESHOLD)
+    first_hooked = first._hvd_exchange is not None
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=1e-2), overlap="on",
+        fusion_threshold=HOOK_THRESHOLD)
+    first_after = first._hvd_exchange is not None
+    ref = weakref.ref(first)
+    del first
+    gc.collect()
+    before = fused_reduce.collectives
+    _adam_steps(model, opt, _tokens()[2 * rank:2 * rank + 2], 3)
+    return {"params": [p.detach().clone().numpy()
+                       for p in model.parameters()],
+            "collectives": fused_reduce.collectives - before,
+            "first_hooked": (first_hooked, first_after),
+            "first_collected": ref() is None,
+            "hooked": opt._hvd_exchange is not None}
+
+
+LATE_FROZEN = 3        # the index of the parameter frozen after step 1
+
+
+def _late_freeze(rank, overlap):
+    """Three AdamW steps (weight decay 0.5), freezing one parameter
+    after the first: from then on it must keep its bits."""
+    from horovod_tpu_torch import distributed as hvd
+
+    model = _model()
+    params = list(model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-2, weight_decay=0.5),
+        overlap=overlap, fusion_threshold=HOOK_THRESHOLD)
+    frozen = {}
+
+    def freeze(s):
+        if s == 1:
+            params[LATE_FROZEN].requires_grad_(False)
+            frozen["bits"] = params[LATE_FROZEN].detach().clone().numpy()
+
+    _adam_steps(model, opt, _tokens()[2 * rank:2 * rank + 2], 3, freeze)
+    return {"params": [p.detach().clone().numpy() for p in params],
+            "frozen_at_freeze": frozen["bits"],
+            "frozen_grad": params[LATE_FROZEN].grad,
+            "plan_size": (len(opt._hvd_trainable)
+                          if opt._hvd_exchange is not None else None)}
 
 
 def _free_port():
@@ -340,6 +502,103 @@ def test_backward_passes_per_step_in_one_process(world):
     assert fused_reduce.collectives - before == 1     # one step, one bucket
 
 
+def _n_hook_plan():
+    from horovod_tpu_torch.distributed.fusion import plan_buckets
+
+    return len(plan_buckets(list(_model().parameters()), HOOK_THRESHOLD))
+
+
+def test_hook_mode_is_bitidentical_to_post_backward_and_off(two_ranks):
+    """Three Adam steps per rank: gradient hooks and overlap off give
+    the same parameters bit for bit (``fused_reduce``'s pin holds its
+    post-backward issue to the same bits), on the
+    allreduce form and on the reduce-scatter + all-gather form; each
+    issues the plan's collectives every step."""
+    n_plan = _n_hook_plan()
+    assert n_plan >= 8
+    start = [p.detach().numpy() for p in _model().parameters()]
+    for res in two_ranks:
+        modes = res["hook_modes"]
+        for scatter in {k[0] for k in modes}:
+            ref = modes[(scatter, "off")]["params"]
+            assert any(np.abs(r - s_).max() > 1e-3
+                       for r, s_ in zip(ref, start))
+            for overlap in HOOK_MODES:
+                got = modes[(scatter, overlap)]
+                assert got["hooked"] == (overlap == "on")
+                for g, r in zip(got["params"], ref):
+                    np.testing.assert_array_equal(g, r)
+                per = 2 if (scatter == 0 and overlap == "on") else 1
+                assert got["collectives"] == 3 * n_plan * per
+    for key, got in two_ranks[0]["hook_modes"].items():
+        for a, b in zip(got["params"], two_ranks[1]["hook_modes"][key]
+                        ["params"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_hooks_issue_in_reverse_plan_order(two_ranks):
+    """Every rank issues the buckets last to first, each step, and every
+    bucket starts inside the backward pass; with overlap off, first to
+    last after it."""
+    n_plan = _n_hook_plan()
+    order = list(reversed(range(n_plan))) * 3
+    for res in two_ranks:
+        for (scatter, overlap), got in res["hook_modes"].items():
+            if overlap == "off":
+                assert [b for b, _ in got["issues"]] == list(
+                    range(n_plan)) * 3
+                assert not any(d for _, d in got["issues"])
+                continue
+            assert [b for b, _ in got["issues"]] == order
+            assert all(d for _, d in got["issues"])
+
+
+def test_backward_passes_per_step_with_hooks_equals_the_doubled_batch(
+        two_ranks, world):
+    want, _ = _sgd_steps([_tokens()])
+    for res in two_ranks:
+        got, _ = res["bpps_hooks"]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(
+            np.concatenate([x.ravel() for x in got]),
+            np.concatenate([x.ravel() for x in res["bpps"][0]]))
+
+
+def test_a_second_wrapper_takes_the_first_ones_hooks(two_ranks):
+    """A second hook-mode DistributedOptimizer over the same model
+    removes the first one's hooks: its three steps equal one wrapper's
+    bit for bit with the plan's collectives only, and the first wrapper,
+    no longer hooked, is collected once dropped."""
+    n_plan = _n_hook_plan()
+    for res in two_ranks:
+        got = res["rewrap"]
+        assert got["first_hooked"] == (True, False)
+        assert got["first_collected"] and got["hooked"]
+        assert got["collectives"] == 3 * n_plan
+        ref = res["hook_modes"][(max(k[0] for k in res["hook_modes"]),
+                                 "on")]
+        for g, r in zip(got["params"], ref["params"]):
+            np.testing.assert_array_equal(g, r)
+
+
+def test_a_parameter_frozen_after_construction_keeps_its_bits(two_ranks):
+    """A parameter frozen after the first step leaves the hooks' plan at
+    the next backward pass: it gets no gradient, AdamW's weight decay
+    never moves it, and hooks equal overlap off bit for bit."""
+    n = len(list(_model().parameters()))
+    for res in two_ranks:
+        modes = res["late_freeze"]
+        assert modes["on"]["plan_size"] == n - 1
+        for overlap in HOOK_MODES:
+            got = modes[overlap]
+            assert got["frozen_grad"] is None
+            np.testing.assert_array_equal(got["params"][LATE_FROZEN],
+                                          got["frozen_at_freeze"])
+        for a, b in zip(modes["on"]["params"], modes["off"]["params"]):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_broadcasts_give_the_roots_values(two_ranks):
     root = [p.detach().numpy() for p in _model(seed=0).parameters()]
     for res in two_ranks:
@@ -415,19 +674,29 @@ def _none_grad_loss(p, x, uses_b, xp):
 
 def _none_grad_worker(rank, port, out):
     """One rank: two DistributedOptimizer(Adam) steps, recording the
-    bucket plan each rank reduces over."""
+    bucket plan each rank reduces over; the two buckets make overlap
+    resolve on, so the gradient hooks issue them. Then the same with
+    overlap off under ``post_backward``."""
     from datetime import timedelta
 
     import torch.distributed as dist
 
     from horovod_tpu_torch import distributed as hvd
-    from horovod_tpu_torch.distributed import fusion
-    from horovod_tpu_torch.distributed import optimizer as dopt
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2,
                             timeout=timedelta(seconds=30))
     hvd.init(device="cpu")
+    res = _none_grad_run(rank, overlap=None)
+    res["post_backward"] = _none_grad_run(rank, overlap="off")
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _none_grad_run(rank, overlap):
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.distributed import fusion
+
     params = {n: torch.nn.Parameter(torch.tensor(v))
               for n, v in _none_grad_init().items()}
     frozen = torch.nn.Parameter(torch.tensor(_frozen_init()),
@@ -435,35 +704,41 @@ def _none_grad_worker(rank, port, out):
     ids = {id(p): n for n, p in params.items()}
     ids[id(frozen)] = "frozen"
     plans = []
-    reduce = dopt.fused_reduce
+    finish = fusion.BucketExchange.finish
 
-    def recording(tensors, **kw):
-        plan = fusion.plan_buckets(tensors, kw["fusion_threshold"])
-        plans.append([(b.members, b.nbytes) for b in plan])
-        return reduce(tensors, **kw)
+    def recording(self, fetch):
+        plans.append([(b.members, b.nbytes) for b in self.plan])
+        return finish(self, fetch)
 
-    dopt.fused_reduce = recording
+    fusion.BucketExchange.finish = recording
     opt = hvd.DistributedOptimizer(
         torch.optim.Adam([{"params": list(params.values())},
                           {"params": [frozen],
                            "weight_decay": FROZEN_DECAY}], lr=ADAM_LR),
         named_parameters=[*params.items(), ("frozen", frozen)],
-        fusion_threshold=NONE_GRAD_THRESHOLD)
+        fusion_threshold=NONE_GRAD_THRESHOLD, overlap=overlap)
     names = [ids[id(p)] for p in opt._hvd_params]
-    for step in (1, 2):
-        opt.zero_grad()
-        x = {n: torch.tensor(v) for n, v in
-             _none_grad_data(rank, step).items()}
-        _none_grad_loss(params, x, NONE_GRAD_USES_B[(rank, step)],
-                        torch).backward()
-        opt.step()
-    torch.save({"names": names, "plans": plans,
-                "params": {n: p.detach().numpy() for n, p in
-                           params.items()},
-                "frozen": frozen.detach().numpy(),
-                "frozen_grad": frozen.grad},
-               os.path.join(out, f"rank{rank}.pt"))
-    dist.destroy_process_group()
+    issues = []
+    restore = _recording_issue(issues)
+    try:
+        for step in (1, 2):
+            opt.zero_grad()
+            x = {n: torch.tensor(v) for n, v in
+                 _none_grad_data(rank, step).items()}
+            loss = _none_grad_loss(params, x, NONE_GRAD_USES_B[(rank, step)],
+                                   torch)
+            _IN_BACKWARD[0] = True
+            loss.backward()
+            _IN_BACKWARD[0] = False
+            opt.step()
+    finally:
+        restore()
+        fusion.BucketExchange.finish = finish
+    return {"names": names, "plans": plans,
+            "params": {n: p.detach().numpy() for n, p in params.items()},
+            "frozen": frozen.detach().numpy(),
+            "frozen_grad": frozen.grad, "issues": issues,
+            "hooked": opt._hvd_exchange is not None}
 
 
 @pytest.fixture(scope="module")
@@ -533,7 +808,62 @@ def test_none_gradients_update_as_optax_adam_on_zeros(none_grad_ranks):
                                        rtol=0, atol=1e-6, err_msg=n)
 
 
+def test_none_gradients_in_hook_mode_equal_the_post_backward_issue(
+        none_grad_ranks):
+    """The cases above run with the gradient hooks (two buckets: overlap
+    resolves on). With overlap off the same two steps plan the same
+    buckets and give the same bits; with hooks, a bucket holding the
+    parameter that no rank used waits for step(), and so does every
+    bucket before it, so both ranks issue bucket 1 then bucket 0 every
+    step (overlap off issues bucket 0 then bucket 1)."""
+    for rank, res in enumerate(none_grad_ranks):
+        post = res["post_backward"]
+        assert res["hooked"] and not post["hooked"]
+        assert post["names"] == res["names"] and post["plans"] == \
+            res["plans"]
+        for n in NONE_GRAD_SHAPES:
+            np.testing.assert_array_equal(post["params"][n],
+                                          res["params"][n])
+        np.testing.assert_array_equal(post["frozen"], _frozen_init())
+        assert post["frozen_grad"] is None
+        # Step 1: rank 0 used "b", so its hooks issue both buckets inside
+        # the backward pass; rank 1 did not, so both wait for step().
+        # Step 2: no rank used "b".
+        first = rank == 0
+        assert res["issues"] == [(1, first), (0, first), (1, False),
+                                 (0, False)]
+        assert post["issues"] == [(0, False), (1, False)] * 2
+
+
 # ------------------------------------------------------- a world of one
+
+
+def test_a_backward_pass_beyond_the_count_raises(world):
+    """Under hooks a backward pass past ``backward_passes_per_step``
+    before step() raises, as does zero_grad() between backward() and
+    step(); a step() then clears the counts."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common.exceptions import PreconditionError
+    from horovod_tpu_torch.models.train import next_token_loss
+
+    toks = _tokens()
+    for k in (1, 2):
+        model = _model()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=LR), overlap="on",
+            backward_passes_per_step=k)
+        assert opt._hvd_exchange is not None
+        for _ in range(k):
+            next_token_loss(model(toks), toks).backward()
+        with pytest.raises(PreconditionError, match="more than"):
+            next_token_loss(model(toks), toks).backward()
+        if k == 1:
+            with pytest.raises(PreconditionError, match="zero_grad"):
+                opt.zero_grad()
+        for _ in range(k):
+            opt.step()
+        opt.zero_grad()
+        next_token_loss(model(toks), toks).backward()
 
 
 def test_world_of_one_runs_the_plan_and_is_identity(world):
@@ -559,10 +889,10 @@ def test_unported_paths_and_bad_arguments_raise(world):
     ts = [torch.ones(3)]
     for kw in (dict(hierarchical="on"), dict(hierarchical="auto"),
                dict(residuals=())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
             hvd.fused_reduce(ts, **kw)
     for comp in (hvd.Compression.int8, hvd.Compression.fp8):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
             hvd.fused_reduce(ts, compression=comp)
     with pytest.raises(InvalidArgumentError, match="Unsupported"):
         hvd.allreduce(ts[0], op=object)

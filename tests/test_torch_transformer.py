@@ -257,9 +257,12 @@ def test_bench_lane_runs_a_tiny_model_on_the_cpu(attention):
 def test_bench_lane_defaults_to_the_card_and_waits_for_auto(monkeypatch):
     from horovod_tpu_torch import bench
 
-    with pytest.raises(NotImplementedError, match="crossover"):
-        bench.run(bench.build_parser().parse_args(["--attention", "auto"]),
-                  device="cpu")
+    # --attention auto resolves by the H100's measured crossover: flash
+    # at every length.
+    for seq in (16, 2048, 8192):
+        args = bench.build_parser().parse_args(
+            ["--attention", "auto", "--seq-len", str(seq)])
+        assert bench.resolve_attention(args) == "flash"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--num-iters", "1"])
