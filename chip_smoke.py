@@ -57,27 +57,48 @@ Phases, each fatal on failure (exit code 1, no result line):
    steps, and one step from the same weights with unfused BatchNorm
    (cuDNN 1x1 convs, statistics as a separate pass) matches the fused
    loss, running means and gradient norm;
-8. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
-   width serving 8 staggered requests, once with ``attention="paged"``
-   and once with ``"gather"``: every request finishes, the greedy
-   streams are identical across the modes and equal ``lm_decode``'s,
-   and K4 ran once per layer per step with a live decode slot;
-9. (``--profile`` only) two training steps of each lane and the
-   engine's workload again under ``torch.profiler``: device busy time,
-   idle share, top kernels.
+8. window: the training lanes as multi-step windows
+   (``distributed.window``: one captured step replayed as a CUDA graph),
+   two windows of 5 steps against 10 eager steps from the same weights,
+   bit for bit (window means, parameters, buffers): the LM above with
+   ``capturable`` Adam under hook-driven ``DistributedOptimizer``, with
+   ZeRO-1, and with ``fused_ce`` + ``remat``; ResNet-50 ``--fused-bn``
+   (cuDNN pinned to its deterministic algorithms for this A/B). The
+   wrappers launch K1-K3 / K5 and the collectives are issued for the
+   warm-up step and the capture only; one replayed window under
+   ``torch.profiler`` traces K1 12 (24 with remat), K2/K3 12 and K5 36
+   kernels a step, and as many NCCL kernels as an eager window; step ms,
+   idle share and peak memory eager against windowed, capture time;
+9. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
+   width serving 8 staggered requests with ``attention="paged"`` and
+   ``"gather"``, each with the decode lane captured (the default) and
+   eager (``capture=False``): every request finishes, the greedy
+   streams are identical across the four runs and equal ``lm_decode``'s;
+   eager, K4 ran once per layer per step with a live decode slot;
+   captured, the wrapper launched it for the warm-up step and the
+   capture only, the lane was captured once and replayed once a live
+   decode step, and a profiled captured run traces K4's two kernels 12
+   times a live decode step; a weight swap captures the lane again and
+   serves ``lm_decode``'s stream over the new weights;
+10. (``--profile`` only) two training steps of each lane and the
+   engine's workload again (captured and eager) under
+   ``torch.profiler``: device busy time, idle share, top kernels.
 
-``--engine-only`` runs phases 1 and 8 alone, the engine phase RUNS times
+``--engine-only`` runs phases 1 and 9 alone, the engine phase RUNS times
 (default 3) with all its checks, and prints one ``{"engine_runs": [...]}``
-line of each run's tokens/s, TTFT and per-token p50/p99 per mode, and no
-kernels or ok line: copied into another checkout, it serves that
-checkout's package with the same script, to compare two commits' serving
-on one card.
+line of each run's tokens/s, TTFT and per-token p50/p99 per mode,
+captured and eager, and no kernels or ok line: copied into another
+checkout, it serves that checkout's package with the same script, to
+compare two commits' serving on one card.
 
 Each kernel's launch count is set to 0 just before the phase that drives
 its path and read just after; launches made to compare or time a kernel
-do not count.
+do not count. A CUDA graph replay runs no Python, so under replay the
+counts come from the profiler's trace (``replay_launches``).
 
-The second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
+Before the last two lines, a ``{"window": {...}}`` line holds the eager
+against captured numbers beside the card's name and power limit. The
+second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
 CUDA device, it fails.
@@ -1257,6 +1278,286 @@ def resnet_phase(torch, np, profile):
 
 # ------------------------------------------------------------- phase 8
 
+# Two windows of K steps against 2K eager steps from the same weights
+# with the same optimizer (Adam with capturable=True, which a capture
+# needs, in both). A window's first step is an eager warm-up step, then
+# the capture (which runs nothing), then replays; a replay runs the same
+# kernels in the same order on the same buffers as an eager step, so the
+# window means, the parameters and the BatchNorm statistics must be
+# equal bit for bit. cuDNN is pinned to its deterministic algorithms for
+# the ResNet A/B (a non-deterministic weight-gradient algorithm would
+# make two eager runs differ as well). The NCCL kernels of a replayed
+# window are held to an eager window's: over one rank NCCL launches no
+# kernel for an in-place all-reduce (0 in both traces, NVIDIA H100,
+# torch 2.11), so on one card the wrapper's issue count (the plan, for
+# each of the warm-up and the capture) is the check that bites.
+WINDOW_K, WINDOWS = 5, 2
+
+
+def _window_mean(torch, outs):
+    """The means of per-step metrics as ``distributed.window`` accumulates
+    them: the first cloned, the rest added in order, divided by the
+    count."""
+    if isinstance(outs[0], dict):
+        return {k: _window_mean(torch, [o[k] for o in outs]) for k in outs[0]}
+    total = outs[0].detach().clone()
+    for o in outs[1:]:
+        total = torch.add(total, o)
+    return total / len(outs)
+
+
+def _trace_counts(prof, names):
+    """Device events whose name holds each of ``names`` (case-insensitive),
+    counted over the trace."""
+    events = _device_events(prof)
+    return {n: sum(e.count for e in events if n.lower() in e.key.lower())
+            for n in names}
+
+
+def _profile_run(torch, fn, names):
+    """``fn`` once under ``torch.profiler``: wall, device busy time, idle
+    share, and the trace's counts of the named kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in _device_events(prof))
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "idle_share": 1 - busy_us / 1e6 / wall,
+            "counts": _trace_counts(prof, names)}
+
+
+def _state_of(torch, model):
+    return ([p.detach().clone() for p in model.parameters()]
+            + [b.detach().clone() for b in model.buffers()])
+
+
+def _bit_diff(torch, a, b):
+    """The largest absolute difference between two lists of tensors: 0.0
+    only when they are equal bit for bit."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            worst = max(worst, float((x.double() - y.double()).abs().max()),
+                        1e-300)
+    return worst
+
+
+def _window_ab(torch, name, build, batch, kernels, profile_names):
+    """Two windows of ``WINDOW_K`` steps against ``2 WINDOW_K`` eager
+    steps, each from a fresh ``build()`` (the same seed): the means and
+    the model state bit for bit; the step time (the second window of
+    each), the peak memory, the wrapper launches and collectives of each
+    run, and the window's captures, replays, capture and warm-up times;
+    then one more window of each under the profiler: idle share and the
+    trace's counts of ``profile_names``."""
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.distributed.window import repeat_batch, windowed
+    from horovod_tpu_torch.distributed.zero import \
+        sharded_distributed_optimizer
+
+    out, states, means = {}, {}, {}
+    for kind in ("eager", "window"):
+        model, step = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        fused_reduce.collectives = 0
+        sharded_distributed_optimizer.collectives = 0
+        if kind == "eager":
+            def run():
+                return _window_mean(torch, [step(batch)
+                                            for _ in range(WINDOW_K)])
+        else:
+            win = windowed(step, WINDOW_K)
+            stacked = repeat_batch(batch, WINDOW_K)
+
+            def run():
+                return win(stacked)
+        got, secs = [], []
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            got.append(run())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        res = {
+            "means": [{k: float(v) for k, v in m.items()}
+                      if isinstance(m, dict) else float(m) for m in got],
+            "window_s": secs, "step_ms": secs[-1] / WINDOW_K * 1e3,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k.__name__: k.launches for k in kernels},
+            "collectives": fused_reduce.collectives,
+            "zero_collectives": sharded_distributed_optimizer.collectives,
+        }
+        if kind == "window":
+            res.update(captures=win.step.captures, replays=win.step.replays,
+                       capture_s=win.step.capture_s,
+                       warmup_s=win.step.warmup_s)
+        states[kind] = _state_of(torch, model)
+        means[kind] = [v for m in got for v in (
+            m.values() if isinstance(m, dict) else [m])]
+        res["profile"] = _profile_run(torch, run, profile_names)
+        out[kind] = res
+        del model, step, run, got
+        if kind == "window":
+            del win, stacked
+        torch.cuda.empty_cache()
+    e, w = out["eager"], out["window"]
+    diff = _bit_diff(torch, states["eager"], states["window"])
+    mdiff = _bit_diff(torch, means["eager"], means["window"])
+    out["max_abs_diff"] = {"state": diff, "means": mdiff}
+    check(diff == 0.0 and mdiff == 0.0,
+          f"window[{name}]: {WINDOWS} windows of {WINDOW_K} differ from "
+          f"{WINDOWS * WINDOW_K} eager steps: state max abs diff {diff:.3e}, "
+          f"means {mdiff:.3e} (eager {e['means']}, window {w['means']})")
+    check(w["captures"] == 1 and w["replays"] == WINDOWS * WINDOW_K - 1,
+          f"window[{name}]: {w['captures']} captures and {w['replays']} "
+          f"replays, expected 1 and {WINDOWS * WINDOW_K - 1} (one warm-up "
+          "step)")
+    return out
+
+
+def _lm_window_lane(torch, flash, mode):
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.models.train import make_train_step
+
+    def build():
+        model = _lm(torch, flash, remat=mode == "fused_ce_remat")
+        adam = torch.optim.Adam(model.parameters(), lr=1e-4,
+                                capturable=True)
+        opt = (hvd.sharded_distributed_optimizer(adam) if mode == "zero"
+               else hvd.DistributedOptimizer(adam, overlap="on"))
+        return model, make_train_step(model, opt,
+                                      fused_ce=mode == "fused_ce_remat")
+
+    return build
+
+
+def window_phase(torch, np):
+    """The window lanes on the card: the LM (hooks, ZeRO, fused_ce +
+    remat) and ResNet-50 ``--fused-bn`` as replays of one captured step,
+    each against the same number of eager steps, with the wrapper
+    launches and collectives of the warm-up and the capture, and the
+    kernels the trace counts in one replayed window."""
+    import functools
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models.train import make_image_train_step
+    from horovod_tpu_torch.ops import attention as fa
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    hvd.init()
+    check(hvd.size() == 1 and dist.get_backend() == "nccl",
+          f"window: expected an NCCL world of one, got "
+          f"{dist.get_backend()} x {hvd.size()}")
+    flash = functools.partial(fa.flash_attention, causal=True,
+                              bwd_impl="kernel")
+    tokens = torch.tensor(np.random.default_rng(5).integers(
+        0, VOCAB, (FLASH_B, FLASH_L)), device="cuda")
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    lm_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "nccl")
+    result = {}
+    for mode in ("hooks", "zero", "fused_ce_remat"):
+        t0 = time.perf_counter()
+        ab = _window_ab(torch, f"lm {mode}",
+                        _lm_window_lane(torch, flash, mode), tokens,
+                        kernels, lm_names)
+        w = ab["window"]
+        k1 = 2 * LAYERS if mode == "fused_ce_remat" else LAYERS
+        check(w["launches"] == {"flash_forward": 2 * k1,
+                                "flash_bwd_dq": 2 * LAYERS,
+                                "flash_bwd_dkv": 2 * LAYERS},
+              f"window[lm {mode}]: wrapper launches {w['launches']}, "
+              f"expected K1 {k1}, K2/K3 {LAYERS} for each of the warm-up "
+              "and the capture")
+        counts = w["profile"]["counts"]
+        check(counts["flash_fwd"] == k1 * WINDOW_K
+              and counts["flash_bwd_dq"] == LAYERS * WINDOW_K
+              and counts["flash_bwd_dkv"] == LAYERS * WINDOW_K,
+              f"window[lm {mode}]: a replayed window of {WINDOW_K} traced "
+              f"{counts}, expected K1 {k1} and K2/K3 {LAYERS} a step")
+        if mode == "zero":
+            per_step = 2                  # one float32 group: RS + AG
+            issued = w["zero_collectives"]
+        else:
+            model = _lm(torch, flash)
+            per_step = len(hvd.plan_buckets(
+                list(model.parameters()), basics.config().fusion_threshold))
+            del model
+            issued = w["collectives"]
+        ab["collectives_a_step"] = per_step
+        eager_nccl = ab["eager"]["profile"]["counts"]["nccl"]
+        check(issued == 2 * per_step and counts["nccl"] == eager_nccl,
+              f"window[lm {mode}]: {issued} collectives issued (expected "
+              f"{per_step} for each of the warm-up and the capture); NCCL "
+              f"kernels traced in a window: {counts['nccl']} replayed, "
+              f"{eager_nccl} eager")
+        torch.cuda.empty_cache()
+        ab["seconds"] = time.perf_counter() - t0
+        result[f"lm_{mode}"] = ab
+        log(f"window[lm {mode}]: {json.dumps(ab)}")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    batch = {"image": torch.tensor(rng.standard_normal(
+                 (IMG_B, IMG_SIZE, IMG_SIZE, 3), dtype=np.float32),
+                 device="cuda"),
+             "label": torch.tensor(rng.integers(0, CLASSES, IMG_B),
+                                   device="cuda")}
+
+    def build_resnet():
+        model = _resnet(torch, True)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            model.parameters(), lr=0.01, momentum=0.9))
+        return model, make_image_train_step(model, opt, average_loss=False)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ab = _window_ab(torch, "resnet", build_resnet, batch,
+                        (cb.bn_stats_forward,),
+                        ("conv_bn_bf16_kernel", "nccl"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    w = ab["window"]
+    counts = w["profile"]["counts"]
+    model = _resnet(torch, True)
+    per_step = len(hvd.plan_buckets(list(model.parameters()),
+                                    basics.config().fusion_threshold))
+    del model
+    ab["collectives_a_step"] = per_step
+    check(w["launches"] == {"bn_stats_forward": 2 * 36}
+          and counts["conv_bn_bf16_kernel"] == 36 * WINDOW_K,
+          f"window[resnet]: K5 wrapper launches {w['launches']} (expected "
+          f"36 for each of the warm-up and the capture), "
+          f"{counts['conv_bn_bf16_kernel']} traced in a replayed window "
+          f"(expected 36 x {WINDOW_K})")
+    eager_nccl = ab["eager"]["profile"]["counts"]["nccl"]
+    check(w["collectives"] == 2 * per_step and counts["nccl"] == eager_nccl,
+          f"window[resnet]: {w['collectives']} bucket collectives issued "
+          f"(expected {per_step} for each of the warm-up and the capture); "
+          f"NCCL kernels traced in a window: {counts['nccl']} replayed, "
+          f"{eager_nccl} eager")
+    ab["seconds"] = time.perf_counter() - t0
+    result["resnet"] = ab
+    log(f"window[resnet]: {json.dumps(ab)}")
+    hvd.shutdown()
+    del batch, tokens
+    torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------------- phase 9
+
 
 def _requests(np):
     """8 requests, prompts of 64-256 tokens, 32 new tokens each, in three
@@ -1289,13 +1590,16 @@ def _first_divergence(a, b):
 NEW_TOKENS = 32
 
 
-def _warm_engine(torch, params, prompts, mode):
-    """An engine in ``mode``, warmed by one short request, metrics reset."""
+def _warm_engine(torch, params, prompts, mode, capture):
+    """An engine in ``mode``, warmed by one short request (on the card
+    with ``capture``: its first decode step is the warm-up step and the
+    capture of the decode lane, the rest replays), metrics reset."""
     from horovod_tpu_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, ServeConfig(
         page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
-        prefill_chunk=CHUNK, attention=mode), device="cuda")
+        prefill_chunk=CHUNK, attention=mode), device="cuda",
+        capture=capture)
     eng.submit(prompts[0][:16], 4)
     eng.run()
     torch.cuda.synchronize()
@@ -1316,6 +1620,16 @@ def _serve(torch, eng, waves):
     return reqs, time.perf_counter() - t0
 
 
+#: The engine runs: each attention mode with the decode lane captured
+#: (the engine's default on the card) and eager (``capture=False``).
+ENGINE_RUNS = (("paged", True), ("paged", False), ("gather", True),
+               ("gather", False))
+
+
+def _run_name(mode, capture):
+    return mode if capture else f"{mode}_eager"
+
+
 def engine_phase(torch, np):
     from horovod_tpu_torch.models.parallel_lm import (init_lm_params,
                                                       lm_decode)
@@ -1328,85 +1642,152 @@ def engine_phase(torch, np):
         f"float32 on the card in {time.perf_counter() - t0:.1f} s")
     prompts, waves = _requests(np)
     runs = {}
-    for mode in ("paged", "gather"):
-        eng = _warm_engine(torch, params, prompts, mode)
+    for mode, capture in ENGINE_RUNS:
+        name = _run_name(mode, capture)
+        paged_attention_decode.launches = 0
+        eng = _warm_engine(torch, params, prompts, mode, capture)
+        warm_launches = paged_attention_decode.launches
+        graph = eng.decode_graph
+        replays0 = graph.replays if graph else 0
         paged_attention_decode.launches = 0
         reqs, wall = _serve(torch, eng, waves)
         launches = paged_attention_decode.launches
         live_steps = sum(1 for s in eng.attn_len_samples if any(s))
         stats = eng.stats()
-        runs[mode] = dict(reqs=reqs, launches=launches,
+        runs[name] = dict(reqs=reqs, launches=launches,
+                          warm_launches=warm_launches,
                           live_steps=live_steps, steps=eng.steps,
                           stats=stats, wall=wall)
         check(all(r.state == "finished" and len(r.output) == NEW_TOKENS
                   for r in reqs),
-              f"{mode}: not every request finished: "
+              f"{name}: not every request finished: "
               f"{[(r.state, len(r.output)) for r in reqs]}")
-        log(f"engine[{mode}]: {len(reqs)} requests, {eng.steps} steps "
+        check((graph is not None) == capture,
+              f"{name}: decode graph {graph}, capture {capture}")
+        if graph is not None:
+            runs[name].update(captures=graph.captures,
+                              replays=graph.replays - replays0,
+                              capture_s=graph.capture_s,
+                              warmup_s=graph.warmup_s)
+            check(graph.captures == 1
+                  and graph.replays - replays0 == live_steps,
+                  f"{name}: {graph.captures} captures, "
+                  f"{graph.replays - replays0} replays while serving, "
+                  f"expected 1 and {live_steps} (one a live decode step)")
+        log(f"engine[{name}]: {len(reqs)} requests, {eng.steps} steps "
             f"({live_steps} with a live decode slot), wall {wall:.3f} s, "
             f"tokens/s {stats['tokens_per_sec_per_chip']}, TTFT ms p50 "
             f"{stats['ttft_ms']['p50']} p99 {stats['ttft_ms']['p99']}, "
             f"per-token ms p50 {stats['tbt_ms']['p50']} p99 "
-            f"{stats['tbt_ms']['p99']}, kernel launches {launches}")
+            f"{stats['tbt_ms']['p99']}, kernel launches {launches} "
+            f"(warm-up request {warm_launches})"
+            + (f", capture {graph.capture_s:.3f} s, "
+               f"{runs[name]['replays']} replays" if graph else ""))
 
-    paged, gather = runs["paged"], runs["gather"]
-    check(paged["launches"] == LAYERS * paged["live_steps"],
-          f"paged: {paged['launches']} kernel launches, expected "
-          f"{LAYERS} x {paged['live_steps']} live decode steps")
-    check(paged["launches"] > 0, "paged: the kernel never ran")
-    check(gather["launches"] == 0, "gather mode launched the kernel")
-    for i, (a, b) in enumerate(zip(paged["reqs"], gather["reqs"])):
-        j = _first_divergence(a.output, b.output)
-        if j is not None:
-            gap = _top2_gap(torch, params,
-                            list(prompts[i]) + list(b.output[:j]))
-            raise SmokeFailure(
-                f"request {i}: paged and gather streams diverge at "
-                f"generated position {j} (top-2 logit gap there {gap:.3e})")
-    log(f"engine: {len(prompts)} greedy streams identical across paged "
-        "and gather")
+    paged, eager = runs["paged"], runs["paged_eager"]
+    check(eager["launches"] == LAYERS * eager["live_steps"],
+          f"paged_eager: {eager['launches']} kernel launches, expected "
+          f"{LAYERS} x {eager['live_steps']} live decode steps")
+    check(eager["launches"] > 0, "paged_eager: the kernel never ran")
+    # Captured: the wrapper launches at the warm-up request's first decode
+    # step (the eager warm-up step, then the capture) and never again.
+    check(paged["warm_launches"] == 2 * LAYERS and paged["launches"] == 0,
+          f"paged: {paged['warm_launches']} kernel launches warming up and "
+          f"{paged['launches']} serving, expected {2 * LAYERS} (warm-up + "
+          "capture) and 0 (replays)")
+    for name in ("gather", "gather_eager"):
+        check(runs[name]["launches"] + runs[name]["warm_launches"] == 0,
+              f"{name} mode launched the kernel")
+    ref_name = "gather_eager"
+    for name in runs:
+        for i, (a, b) in enumerate(zip(runs[name]["reqs"],
+                                       runs[ref_name]["reqs"])):
+            j = _first_divergence(a.output, b.output)
+            if j is not None:
+                gap = _top2_gap(torch, params,
+                                list(prompts[i]) + list(b.output[:j]))
+                raise SmokeFailure(
+                    f"request {i}: {name} and {ref_name} streams diverge at "
+                    f"generated position {j} (top-2 logit gap there "
+                    f"{gap:.3e})")
+    log(f"engine: {len(prompts)} greedy streams identical across "
+        f"{sorted(runs)}")
     for i in (0, 1):
         ref = lm_decode(params, prompts[i][None], NEW_TOKENS,
                         device="cuda")[0].tolist()
-        j = _first_divergence(gather["reqs"][i].output, ref)
+        j = _first_divergence(runs[ref_name]["reqs"][i].output, ref)
         if j is not None:
             gap = _top2_gap(torch, params, list(prompts[i]) + ref[:j])
             raise SmokeFailure(
                 f"request {i}: engine and lm_decode diverge at generated "
                 f"position {j} (top-2 logit gap there {gap:.3e})")
     log("engine: streams 0 and 1 equal lm_decode's")
+
+    # The device-side form of the launch check: K4's two kernels in the
+    # trace of a captured run, 12 a live decode step.
+    eng = _warm_engine(torch, params, prompts, "paged", True)
+    prof = _profile_run(torch, lambda: _serve(torch, eng, waves),
+                        ("paged_split", "paged_merge"))
+    live = sum(1 for s in eng.attn_len_samples if any(s))
+    counts = prof["counts"]
+    check(counts["paged_split"] == LAYERS * live
+          and counts["paged_merge"] == LAYERS * live,
+          f"paged: a captured run traced {counts}, expected {LAYERS} x "
+          f"{live} live decode steps of each kernel")
+    paged["replay_launches"] = counts["paged_split"]
+    paged["replay_profile"] = prof
+    log(f"engine[paged]: captured run under the profiler: {counts} for "
+        f"{live} live decode steps, idle share {prof['idle_share']:.3f}")
+
+    # A weight swap re-captures the lane over the new weights.
+    other = init_lm_params(1, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+                           device="cuda")
+    eng.update_params(other)
+    req = eng.submit(prompts[0], 8)
+    eng.run()
+    ref = lm_decode(other, prompts[0][None], 8, device="cuda")[0].tolist()
+    check(req.output == ref and ref != runs["paged"]["reqs"][0].output[:8]
+          and eng.decode_graph.captures == 2,
+          f"paged: after update_params the stream {req.output} is not "
+          f"lm_decode's {ref} over the new weights, or the lane was not "
+          f"captured again ({eng.decode_graph.captures} captures)")
+    log("engine: update_params re-captured the lane; the stream equals "
+        "lm_decode's over the new weights")
+    del eng, other
+    torch.cuda.empty_cache()
     return runs, params, prompts, waves
 
 
 def profile_phase(torch, params, prompts, waves):
-    """``--profile``: the engine phase's workload again, per mode, under
-    ``torch.profiler``: device busy time (the sum of kernel and copy
-    times; one stream, so they do not overlap), the idle share of the
-    profiled wall time, and the kernels that take the most device time.
-    The profiler's own host overhead lengthens the wall time, so the
-    idle share here is an upper bound."""
+    """``--profile``: the engine phase's workload again, per mode, captured
+    and eager, under ``torch.profiler``: device busy time (the sum of
+    kernel and copy times; one stream, so they do not overlap), the idle
+    share of the profiled wall time, and the kernels that take the most
+    device time. The profiler's own host overhead lengthens the wall
+    time, so the idle share here is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for mode in ("paged", "gather"):
-        eng = _warm_engine(torch, params, prompts, mode)
+    for mode, capture in ENGINE_RUNS:
+        name = _run_name(mode, capture)
+        eng = _warm_engine(torch, params, prompts, mode, capture)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = _serve(torch, eng, waves)
         dev = _device_events(prof)
         busy_us = sum(e.self_device_time_total for e in dev)
-        check(busy_us > 0, f"profile[{mode}]: no device events traced")
+        check(busy_us > 0, f"profile[{name}]: no device events traced")
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-        out[mode] = {
+        out[name] = {
             "wall_s": wall, "steps": eng.steps,
             "device_busy_s": busy_us / 1e6,
             "idle_share": 1 - busy_us / 1e6 / wall,
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                     for e in top],
         }
-        log(f"profile[{mode}]: wall {wall:.3f} s, device busy "
+        log(f"profile[{name}]: wall {wall:.3f} s, device busy "
             f"{busy_us / 1e6:.3f} s, idle share "
-            f"{out[mode]['idle_share']:.3f}")
+            f"{out[name]['idle_share']:.3f}")
     print(json.dumps({"profile": out}), flush=True)
 
 
@@ -1424,11 +1805,15 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
-def _paged_record(kres, rate, launches, ptxas, card):
-    """The kernels line's entry of K4: launches from the engine phase, the
-    times and errors of the f32 serving shapes at the top level, bf16 and
-    the long-context geometry beside them, and ptxas's registers and
-    spills of each instance of the two kernels."""
+def _paged_record(kres, rate, runs, ptxas, card):
+    """The kernels line's entry of K4: launches from the engine phase (the
+    captured engine's wrapper calls, counted from its construction: the
+    warm-up step and the capture; the eager engine's; and the kernels a
+    captured run's trace holds), the times and errors of the f32 serving
+    shapes at the top level, bf16 and the long-context geometry beside
+    them, and ptxas's registers and spills of each instance of the two
+    kernels."""
+    paged = runs["paged"]
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "bytes", "flops")
     serving, long = kres["serving"], kres["long"]
@@ -1437,7 +1822,12 @@ def _paged_record(kres, rate, launches, ptxas, card):
         "name": "paged_attention_decode", "route": "cuda",
         "source": "horovod_tpu_torch/csrc/paged_attention.cu",
         "replaces": "horovod_tpu/ops/paged_attention.py:55",
-        "launches": launches,
+        "launches": paged["warm_launches"] + paged["launches"],
+        "launches_eager": runs["paged_eager"]["launches"],
+        "replay_launches": paged["replay_launches"],
+        "captured": "the decode lane is one CUDA graph; wrapper calls count "
+                    "its warm-up step and capture, replay_launches the "
+                    "split kernels a captured run's trace holds",
         **{k: f32[k] for k in keys},
         # ms spans the call (host gaps included); device_ms is the split
         # and merge kernels alone, as the profiler traces them.
@@ -1456,9 +1846,14 @@ def _paged_record(kres, rate, launches, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, card):
+def _flash_records(fres, tres, wres, card):
     """The kernels line's entries of K1-K3: launches from the training
-    phase, times and errors from the flash phase at the slice shapes."""
+    phase, and from the window phase the wrapper calls of a window's
+    warm-up and capture and the kernels one replayed window's trace
+    holds; times and errors from the flash phase at the slice shapes."""
+    win = wres["lm_hooks"]["window"]
+    traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+              "flash_bwd_dkv": "flash_bwd_dkv"}
     rows = [("flash_forward", ":179", ("out", "lse")),
             ("flash_bwd_dq", ":533", ("dq",)),
             ("flash_bwd_dkv", ":599", ("dk", "dv"))]
@@ -1477,6 +1872,9 @@ def _flash_records(fres, tres, card):
             "replaces": f"horovod_tpu/ops/attention.py{line}",
             "launches": tres["launches"][name],
             "launches_remat_step": tres["remat"]["launches"][name],
+            "launches_window": win["launches"][name],
+            "replay_launches": win["profile"]["counts"][traced[name]],
+            "replay_window_steps": WINDOW_K,
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1491,11 +1889,14 @@ def _flash_records(fres, tres, card):
     return out
 
 
-def _conv_bn_record(cres, rres, card):
+def _conv_bn_record(cres, rres, wres, card):
     """The kernels line's entry of K5: launches from the ResNet phase (36
-    a step), the times and the bound summed over one step's 36 launches
-    at the ResNet-50 shapes, each shape's own numbers beside them."""
+    a step) and from the window phase (a window's warm-up and capture,
+    and one replayed window's trace), the times and the bound summed over
+    one step's 36 launches at the ResNet-50 shapes, each shape's own
+    numbers beside them."""
     st = cres["step"]
+    win = wres["resnet"]["window"]
     return {
         "name": "bn_stats_forward", "route": "cuda",
         "source": "horovod_tpu_torch/csrc/conv_bn.cu",
@@ -1514,6 +1915,9 @@ def _conv_bn_record(cres, rres, card):
         "times_cover": "one ResNet-50 training step's 36 launches "
                        "(batch 64, 224^2, bf16)",
         "prologue_launches": rres["prologue_launches"],
+        "launches_window": win["launches"]["bn_stats_forward"],
+        "replay_launches": win["profile"]["counts"]["conv_bn_bf16_kernel"],
+        "replay_window_steps": WINDOW_K,
         "design": "wgmma m64nBNk16 tensor-core kernel: 128-row M tiles of "
                   "two warpgroups, 64-deep swizzled K slices through a "
                   "cp.async ring, the prologue applied in shared memory, "
@@ -1523,6 +1927,31 @@ def _conv_bn_record(cres, rres, card):
     }
 
 
+def _window_summary(wres, runs, card):
+    """Eager against captured on the card: each training lane's step ms,
+    idle share (one profiled window of each), peak memory, and the
+    window's capture and warm-up seconds; the engine's tokens/s, TTFT and
+    per-token latency per attention mode."""
+    out = {"card": card, "steps_per_window": WINDOW_K}
+    for lane, ab in wres.items():
+        e, w = ab["eager"], ab["window"]
+        out[lane] = {
+            "step_ms": {"eager": e["step_ms"], "window": w["step_ms"]},
+            "idle_share": {"eager": e["profile"]["idle_share"],
+                           "window": w["profile"]["idle_share"]},
+            "peak_memory_bytes": {"eager": e["peak_memory_bytes"],
+                                  "window": w["peak_memory_bytes"]},
+            "capture_s": w["capture_s"], "warmup_s": w["warmup_s"],
+            "max_abs_diff": ab["max_abs_diff"]}
+    for name, r in runs.items():
+        st = r["stats"]
+        out[f"engine_{name}"] = {
+            "tokens_per_sec": st["tokens_per_sec_per_chip"],
+            "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
+            "wall_s": r["wall"], "capture_s": r.get("capture_s")}
+    return out
+
+
 def engine_only(torch, np):
     """``--engine-only [RUNS]``: the engine phase RUNS times."""
     args = sys.argv[sys.argv.index("--engine-only") + 1:]
@@ -1530,11 +1959,12 @@ def engine_only(torch, np):
     out = []
     for _ in range(runs):
         res = engine_phase(torch, np)[0]
-        out.append({mode: {
+        out.append({name: {
             "tokens_per_sec": r["stats"]["tokens_per_sec_per_chip"],
             "ttft_ms": r["stats"]["ttft_ms"], "tbt_ms": r["stats"]["tbt_ms"],
             "wall_s": r["wall"], "steps": r["steps"],
-            "launches": r["launches"]} for mode, r in res.items()})
+            "launches": r["launches"], "replays": r.get("replays")}
+            for name, r in res.items()})
     print(json.dumps({"engine_runs": out}), flush=True)
 
 
@@ -1558,9 +1988,12 @@ def main():
     cres = conv_bn_phase(torch, np)
     tres = training_phase(torch, np, profile)
     rres = resnet_phase(torch, np, profile)
+    wres = window_phase(torch, np)
     runs, params, prompts, waves = engine_phase(torch, np)
     if profile:
         profile_phase(torch, params, prompts, waves)
+    print(json.dumps({"window": _window_summary(wres, runs, card)}),
+          flush=True)
     print(json.dumps({"training": {
         k: v for k, v in tres.items() if not k.startswith("profile")}}),
         flush=True)
@@ -1568,9 +2001,10 @@ def main():
                                  if k != "profile"}}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        _paged_record(kres, rate, runs["paged"]["launches"],
-                      ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, card), _conv_bn_record(cres, rres, card)]}
+        _paged_record(kres, rate, runs, ptxas.get("paged_attention", {}),
+                      card),
+        *_flash_records(fres, tres, wres, card),
+        _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,9 +36,19 @@ limit.
   ``average_loss=False``); images/s per card. ``--fused-bn`` runs every
   training-mode 1x1 ConvBN through kernel K5.
 
+Both lanes take ``--steps-per-dispatch K``: each timed iteration runs
+``--num-batches-per-iter`` windows of K steps (the warm-up
+``--num-warmup-batches`` windows), each step a CUDA graph replay of one
+captured step (:mod:`horovod_tpu_torch.distributed.window`; Adam is built
+with ``capturable=True`` on the card), and the units count the K steps.
+Its metric and unit carry the JAX lane's ``_winK`` suffix
+(``tokens/sec_win10``, ``img/sec/card_win10``) and the record stamps
+``"window": K``, so a window record never stands where a per-step record
+should; ``K = 1`` is the per-step lane and its record as they were.
+
 Flags of one lane given to the other raise, as in the JAX ``bench.py``;
 so do the flash-only flags without flash. The JAX flags the port has not
-taken yet (``--steps-per-dispatch``, ``--snapshot-every``,
+taken yet (``--snapshot-every``,
 ``--hierarchical``, ``--compression int8|fp8``, ``--bf16-momentum``,
 ``--scan-layers``, and ``--flash-full-grid``: K1-K3 have no full-grid
 mode) are parsed and raise ``NotImplementedError`` naming their
@@ -62,6 +72,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed.compression import Compression
 from horovod_tpu_torch.distributed.fusion import plan_buckets, plan_summary
 from horovod_tpu_torch.distributed.mpi_ops import allgather
+from horovod_tpu_torch.distributed.window import stage_synthetic_window
 from horovod_tpu_torch.distributed.zero import shard_info
 from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.train import (create_train_state,
@@ -130,9 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "the backward pass")
     p.add_argument("--compression", default="none",
                    choices=["none", "fp16", "bf16", "int8", "fp8"])
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="K steps a window, each a CUDA graph replay of "
+                        "one captured step (distributed/window.py); the "
+                        "metric and unit carry _winK")
     # The JAX lane's flags that the port has not taken yet: parsed, and
     # each raises NotImplementedError naming its ROADMAP.md item.
-    p.add_argument("--steps-per-dispatch", type=int, default=1)
     p.add_argument("--snapshot-every", type=int, default=0)
     p.add_argument("--hierarchical", default=None,
                    choices=["auto", "on", "off"])
@@ -170,8 +184,6 @@ def _sync(dev: torch.device) -> None:
 #: The JAX lane's flags the port has not taken yet: (set?, flag, the
 #: ROADMAP.md item that brings it).
 _LATER = (
-    (lambda a: a.steps_per_dispatch != 1, "--steps-per-dispatch",
-     "ROADMAP.md Queue 1, whole-step capture (CUDA graphs)"),
     (lambda a: a.snapshot_every != 0, "--snapshot-every",
      "ROADMAP.md Queue 1, training infrastructure (elastic)"),
     (lambda a: a.hierarchical not in (None, "off"), "--hierarchical",
@@ -227,6 +239,9 @@ def _check_flags(args) -> None:
             if on:
                 raise ValueError(f"{flag} applies to {LM} only (got "
                                  f"--model {args.model})")
+    if args.steps_per_dispatch < 1:
+        raise ValueError(f"--steps-per-dispatch must be >= 1, got "
+                         f"{args.steps_per_dispatch}")
     for is_set, flag, item in _LATER:
         if is_set(args):
             raise NotImplementedError(f"{flag} is not ported yet ({item})")
@@ -253,8 +268,12 @@ def _lm_lane(args, dev):
         max_len=max(L, 2048),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         attn_fn=attn_fn, remat=args.remat, seed=42, device=dev)
+    # A window captures the step into a CUDA graph, which needs Adam's
+    # step counts on the card; the per-step lane keeps torch's default.
     opt = create_train_state(
-        model, torch.optim.Adam(model.parameters(), lr=1e-4),
+        model, torch.optim.Adam(
+            model.parameters(), lr=1e-4,
+            capturable=args.steps_per_dispatch > 1 and dev.type == "cuda"),
         compression=getattr(Compression, args.compression),
         overlap=args.overlap, device=dev, zero=args.zero)
     step = make_train_step(model, opt, fused_ce=args.fused_ce)
@@ -269,7 +288,7 @@ def _lm_lane(args, dev):
               "vocab": args.vocab, "attention": attention,
               "flash_grid": flash_grid, "fused_ce": args.fused_ce,
               "remat": args.remat}
-    return model, opt, lambda: step(tokens), B * L, fields
+    return model, opt, step, tokens, B * L, fields
 
 
 def _image_lane(args, dev):
@@ -295,7 +314,7 @@ def _image_lane(args, dev):
                               device=dev)}
     fields = {"metric": "img/sec", "unit": "img/sec/card",
               "image_size": S, "fused_bn": args.fused_bn}
-    return model, opt, lambda: step(batch)["loss"], B, fields
+    return model, opt, step, batch, B, fields
 
 
 def run(args, device: DeviceLike = None) -> dict:
@@ -305,7 +324,14 @@ def run(args, device: DeviceLike = None) -> dict:
     basics.init(device=dev)
     dev = basics.device()
     lane = _lm_lane if args.model == LM else _image_lane
-    model, opt, step, units, fields = lane(args, dev)
+    model, opt, step_fn, batch, units, fields = lane(args, dev)
+    k = args.steps_per_dispatch
+    window_fn, staged = stage_synthetic_window(step_fn, batch, k)
+
+    def step():
+        out = window_fn(staged)
+        return out["loss"] if isinstance(out, dict) else out
+
     if args.zero:
         # ZeRO's exchange is reduce-scatter shaped; the overlap knob and
         # the bucket plan apply to DistributedOptimizer only.
@@ -320,10 +346,14 @@ def run(args, device: DeviceLike = None) -> dict:
                       for p in model.parameters() if p.requires_grad],
                      basics.config().fusion_threshold))}
 
+    if dev.type == "cuda" and k > 1:
+        # A window's memory is allocated at its capture, in the warm-up:
+        # its peak counts from there (after it, replays allocate nothing).
+        torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(args.num_warmup_batches):
         loss = step()
     _sync(dev)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and k == 1:
         torch.cuda.reset_peak_memory_stats(dev)
     rates = []
     for _ in range(args.num_iters):
@@ -331,7 +361,7 @@ def run(args, device: DeviceLike = None) -> dict:
         for _ in range(args.num_batches_per_iter):
             loss = step()
         _sync(dev)
-        rates.append(units * args.num_batches_per_iter
+        rates.append(units * k * args.num_batches_per_iter
                      / (time.perf_counter() - t0))
     mean = float(np.mean(rates))
     # Data-parallel replicas must hold identical parameters after the
@@ -340,10 +370,13 @@ def run(args, device: DeviceLike = None) -> dict:
                             for p in model.parameters()]).sum()
     sums = allgather(checksum.reshape(1)).tolist()
     n = basics.size()
+    # The JAX lane's _winK contract (bench.py metric_contract): a window
+    # record never stands where a per-step record should.
+    suffix = f"_win{k}" if k > 1 else ""
     return {
-        "metric": fields.pop("metric"),
+        "metric": fields.pop("metric") + suffix,
         "value": mean,
-        "unit": fields.pop("unit"),
+        "unit": fields.pop("unit") + suffix,
         "conf": float(1.96 * np.std(rates)),
         "peak": float(np.max(rates)),
         "step_ms": units / mean * 1e3,
@@ -356,6 +389,7 @@ def run(args, device: DeviceLike = None) -> dict:
         "replicas_in_sync": all(x == sums[0] for x in sums),
         "device": dev.type, "card": card_description(dev),
         "torch": torch.__version__,
+        **({"window": k} if k > 1 else {}),
     }
 
 

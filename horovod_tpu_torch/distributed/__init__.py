@@ -4,8 +4,9 @@ as hvd``.
 The counterpart of ``horovod_tpu.jax`` for data-parallel training over
 ``torch.distributed`` (NCCL on the card, gloo on the CPU): lifecycle
 (:func:`init`, :func:`size`, :func:`rank`, ...), collectives, the fused
-buckets, :func:`DistributedOptimizer` and the ZeRO-1
-:func:`sharded_distributed_optimizer`.
+buckets, :func:`DistributedOptimizer`, the ZeRO-1
+:func:`sharded_distributed_optimizer`, and the multi-step windows
+:func:`run_steps` / :func:`windowed` (CUDA graph replays on the card).
 """
 
 from horovod_tpu_torch.common.basics import (init, is_initialized,
@@ -24,6 +25,7 @@ from horovod_tpu_torch.distributed.mpi_ops import (Average, Max, Min,
                                                    synchronize)
 from horovod_tpu_torch.distributed.optimizer import (
     DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+from horovod_tpu_torch.distributed.window import run_steps, windowed
 from horovod_tpu_torch.distributed.zero import (shard_info,
                                                 sharded_distributed_optimizer)
 
@@ -34,5 +36,5 @@ __all__ = [
     "allgather", "fused_reduce", "plan_buckets", "plan_summary",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "sharded_distributed_optimizer",
-    "shard_info",
+    "shard_info", "run_steps", "windowed",
 ]

@@ -81,6 +81,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         release_grad_hooks(own)
         self._hvd_plan()
 
+    @property
+    def backward_passes_per_step(self) -> int:
+        """The backward passes summed into each update."""
+        return self._hvd_k
+
     def _hvd_plan(self) -> None:
         """Plan the hook exchange over the parameters that require a
         gradient now, and hook the ones that entered the set; nothing

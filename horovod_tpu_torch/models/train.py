@@ -24,6 +24,10 @@ Usage (images)::
                                                     lr=0.01, momentum=0.9))
     step = make_image_train_step(model, opt, average_loss=False)
     metrics = step({"image": images, "label": labels})  # NHWC, per rank
+
+Windows (``make_windowed_train_step`` / ``make_windowed_image_train_step``,
+or ``hvd.run_steps``) run K steps as CUDA graph replays of one captured
+step (:mod:`horovod_tpu_torch.distributed.window`).
 """
 
 from __future__ import annotations
@@ -149,6 +153,7 @@ def make_train_step(model: torch.nn.Module,
             loss = mpi_ops.allreduce(loss, average=True, name="train.loss")
         return loss
 
+    train_step.model, train_step.optimizer = model, optimizer
     return train_step
 
 
@@ -177,4 +182,41 @@ def make_image_train_step(model: torch.nn.Module,
                                          name="train.accuracy")
         return {"loss": loss, "accuracy": accuracy}
 
+    train_step.model, train_step.optimizer = model, optimizer
     return train_step
+
+
+def make_windowed_train_step(model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer,
+                             steps_per_dispatch: int,
+                             average_loss: bool = True,
+                             fused_ce: bool = False):
+    """Window form of :func:`make_train_step`
+    (:func:`horovod_tpu_torch.distributed.window.windowed`): the returned
+    function takes tokens ``[K, B, L]`` (stage them with
+    :func:`horovod_tpu_torch.data.prefetch_windows`) and returns the mean
+    loss over the K steps, each step a CUDA graph replay on the card
+    (Adam with ``capturable=True`` there). ``steps_per_dispatch=1`` is
+    exactly :func:`make_train_step`'s step. For the whole stage-and-run
+    loop use ``hvd.run_steps`` directly::
+
+        step = make_train_step(model, optimizer)
+        losses = hvd.run_steps(step, batch_iter, steps_per_dispatch=30)
+    """
+    from horovod_tpu_torch.distributed.window import windowed
+
+    return windowed(make_train_step(model, optimizer, average_loss,
+                                    fused_ce), steps_per_dispatch)
+
+
+def make_windowed_image_train_step(model: torch.nn.Module,
+                                   optimizer: torch.optim.Optimizer,
+                                   steps_per_dispatch: int,
+                                   average_loss: bool = True):
+    """Window form of :func:`make_image_train_step`: takes ``{"image":
+    [K, B, H, W, 3], "label": [K, B]}`` and returns the loss and accuracy
+    means over the K steps."""
+    from horovod_tpu_torch.distributed.window import windowed
+
+    return windowed(make_image_train_step(model, optimizer, average_loss),
+                    steps_per_dispatch)

@@ -174,7 +174,12 @@ class TransformerLM(nn.Module):
         x = x + F.embedding(pos, self.pos_embed.weight.to(self.dtype))[None]
         for blk in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(blk, x, pos_offset, use_reentrant=False)
+                # Without dropout a block draws no random numbers, so the
+                # RNG state need not be saved: reading the CUDA
+                # generator's state is refused inside a CUDA graph
+                # capture (distributed/window.py).
+                x = checkpoint(blk, x, pos_offset, use_reentrant=False,
+                               preserve_rng_state=bool(blk.dropout))
             else:
                 x = blk(x, pos_offset)
         x = self.ln_f(x)

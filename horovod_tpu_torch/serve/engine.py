@@ -29,14 +29,29 @@ per request, and the JAX engine's (tests/test_torch_serve_engine.py).
 
 **Pages are updated in place.** The JAX engine threads the page arrays
 through its compiled step functionally and never donates them. The port
-runs the step eagerly on one CUDA stream and writes new rows straight
-into the page tensors: nothing else reads a page while the step runs,
-and :meth:`ServeEngine._cow_guard` copies any shared page a step would
-write before the step starts. Rows that JAX drops through an
-out-of-bounds sentinel (``mode="drop"``: inactive decode lanes, padded
-prefill rows) are never written here: the host selects the rows to
-write, since torch indexing has no drop mode. Unmapped table entries
-gather the zero null page 0, which the masks hide downstream.
+writes new rows straight into the page tensors on one CUDA stream:
+nothing else reads a page while the step runs, and
+:meth:`ServeEngine._cow_guard` copies any shared page a step would
+write before the step starts. Unmapped table entries gather the null
+page 0, which the masks hide downstream: its rows are finite (zeros, or
+idle slots' rows, below) and a masked softmax weight is exactly 0.
+
+**The decode lane has one shape.** Every step with a live decode slot
+runs all ``decode_slots`` slots (:func:`decode_lane`), as the JAX step
+does: an idle slot computes a row that the host discards and writes its
+K/V row into page 0, the reserved null sink (the port's form of the JAX
+lane's out-of-bounds ``mode="drop"`` write: torch indexing has no drop
+mode, and page 0 is never allocated, so no idle write lands on a live
+row). Its host inputs travel as one packed int32 index
+(:func:`pack_decode`) in one host-to-device copy a step into a fixed
+device buffer, so on the card the engine captures the lane once into a
+CUDA graph (``capture=True``, the default: the counterpart of the JAX
+engine's jitted ``_step_decode``) and replays it every step; the
+sampler's device-to-host copy stays outside the graph. The prefill lane
+stays eager: its chunk start is a host integer and the rows it writes
+are chosen on the host (ROADMAP.md Queue 1 lists its capture). Rows
+that the JAX prefill lane drops (padded rows) are never written: the
+host selects the rows to write.
 
 A step with no live decode slot skips the decode lane (the JAX step
 computes it anyway on fixed shapes and discards it), so the kernel runs
@@ -55,8 +70,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
+from horovod_tpu_torch._graphs import CapturedStep
 from horovod_tpu_torch.models.parallel_lm import (
     _attn_out_residual,
     _ffn_residual,
@@ -69,7 +86,7 @@ from horovod_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
     paged_grid_info,
 )
-from horovod_tpu_torch.serve.config import ATTENTIONS, ServeConfig
+from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.kvcache import PagedKVCache, append_rows
 from horovod_tpu_torch.serve.metrics import summarize
 from horovod_tpu_torch.serve.sampling import sample_tokens
@@ -144,51 +161,56 @@ def _prefill_lane(params: Dict, pages, pre, *, page_size: int):
     return _logits(params, xp[:, last:last + 1])[0, 0]
 
 
-def serve_step(params: Dict, pages, dec, pre, *, page_size: int,
-               attention: str = "gather"):
-    """One continuous-batching step; writes the pages in place.
+#: Rows of the packed decode index after the ``[S, pps]`` page tables:
+#: token, position, live keys (t + 1; 0 = idle), write page, write offset.
+_DEC_ROWS = 5
 
-    ``dec`` holds host arrays ``tok``/``pos``/``active`` [S] and
-    ``tables`` [S, pps]; ``pre`` (or None when the prefill lane is idle)
-    holds ``tokens`` [C], ``start``/``length`` and ``table`` [pps].
-    Returns ``(dec_logits [S, V] | None, pre_logits [V] | None)``;
-    ``dec_logits`` is None when no decode slot is active (the decode
-    lane is skipped).
 
-    ``attention`` picks the decode lane's cache path: ``gather``
-    reconstructs the dense per-slot cache and inserts the new row into
-    the gathered copy; ``paged`` writes the new row into its page first
-    and reads only the live pages through
-    :func:`~horovod_tpu_torch.ops.paged_attention.paged_attention_decode`.
-    """
-    if attention not in ATTENTIONS:
-        raise ValueError(
-            f"attention must be 'gather' or 'paged', got {attention!r}")
-    ps = page_size
-    pre_logits = None
-    if pre is not None:
-        pre_logits = _prefill_lane(params, pages, pre, page_size=ps)
-
+def pack_decode(dec, page_size: int) -> np.ndarray:
+    """The decode lane's host inputs as one flat int32 array, the layout
+    :func:`decode_lane` reads: the page tables ``[S, pps]``, then rows of
+    ``S`` for the token, the position, the live keys and the page and
+    offset the new K/V row is written to. An idle slot (``active``
+    False) writes page 0, offset 0: the reserved null sink that is never
+    allocated, read only through masked or empty table entries, so the
+    duplicate writes of idle slots change no live row (the port's form of
+    the JAX lane's out-of-bounds ``mode="drop"`` write)."""
     active = np.asarray(dec["active"], bool)
-    if not active.any():
-        return None, pre_logits
-    dev = params["pos"].device
     pos = np.asarray(dec["pos"], np.int64)
     tables = np.asarray(dec["tables"], np.int32)
-    S = active.shape[0]
-    act = np.nonzero(active)[0]
-    act_t = torch.as_tensor(act, device=dev)
-    wp_t = torch.as_tensor(tables[act, pos[act] // ps].astype(np.int64),
-                           device=dev)
-    wo_t = torch.as_tensor(pos[act] % ps, device=dev)
-    t = torch.as_tensor(pos, device=dev)
-    tok = torch.as_tensor(np.asarray(dec["tok"], np.int64), device=dev)
-    tables_t = torch.as_tensor(tables, device=dev)
-    if attention == "paged":
-        # Live keys per slot (t+1; 0 = idle lane).
-        lens_t = torch.as_tensor(np.where(active, pos + 1, 0)
-                                 .astype(np.int32), device=dev)
-    slots = torch.arange(S, device=dev)
+    S, pps = tables.shape
+    slots = np.arange(S)
+    rows = np.stack([
+        np.asarray(dec["tok"], np.int64), pos,
+        np.where(active, pos + 1, 0),
+        np.where(active, tables[slots, np.minimum(pos // page_size,
+                                                  pps - 1)], 0),
+        np.where(active, pos % page_size, 0)])
+    return np.concatenate([tables.reshape(-1),
+                           rows.astype(np.int32).reshape(-1)])
+
+
+def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
+                attention: str = "gather"):
+    """The decode lane of one step at a fixed shape: all ``slots`` slots
+    run and write their new K/V row (idle ones into the null page), from
+    the packed device index of :func:`pack_decode`; returns the logits
+    ``[S, V]``. Nothing in it reads a value on the host, so on the card
+    the engine captures it into a CUDA graph once and replays it.
+
+    ``attention`` picks the cache path: ``gather`` reconstructs the dense
+    per-slot cache and inserts the new row into the gathered copy;
+    ``paged`` writes the new row into its page first and reads only the
+    live pages through
+    :func:`~horovod_tpu_torch.ops.paged_attention.paged_attention_decode`.
+    """
+    S = slots
+    pps = index.numel() // S - _DEC_ROWS
+    tables = index[:S * pps].view(S, pps)
+    cols = index[S * pps:].view(_DEC_ROWS, S)
+    lens = cols[2]                                    # int32 [S]
+    tok, t, _, wp, wo = cols.long()
+    slot_ids = torch.arange(S, device=index.device)
     xd = params["embed"][tok][:, None] + params["pos"][t][:, None]
 
     for layer, page in zip(params["layers"], pages):
@@ -198,23 +220,23 @@ def serve_step(params: Dict, pages, dec, pre, *, page_size: int,
         if attention == "paged":
             # Write the new row first; the kernel reads position t back
             # from its page and is read-only over the pages.
-            pk[wp_t, wo_t] = kd[act_t, 0]
-            pv[wp_t, wo_t] = vd[act_t, 0]
+            pk[wp, wo] = kd[:, 0]
+            pv[wp, wo] = vd[:, 0]
             attn = paged_attention_decode(
-                qd[:, 0].contiguous(), pk, pv, tables_t, lens_t,
+                qd[:, 0].contiguous(), pk, pv, tables, lens,
                 scale=scale)[:, None]                 # [S, 1, H, D]
         else:
-            ck, cv = _gather_cache_kv(pk, pv, tables_t)  # [S, Lmax, H, D]
-            ck[slots, t] = kd[:, 0]
-            cv[slots, t] = vd[:, 0]
+            ck, cv = _gather_cache_kv(pk, pv, tables)  # [S, Lmax, H, D]
+            ck[slot_ids, t] = kd[:, 0]
+            cv[slot_ids, t] = vd[:, 0]
             attn = dot_product_attention(qd, ck, cv, causal=True,
                                          scale=scale, q_offset=t)
         xd = _attn_out_residual(layer, attn, xd)
         xd = _ffn_residual(layer, xd)
         if attention != "paged":
-            pk[wp_t, wo_t] = kd[act_t, 0]
-            pv[wp_t, wo_t] = vd[act_t, 0]
-    return _logits(params, xd)[:, 0], pre_logits
+            pk[wp, wo] = kd[:, 0]
+            pv[wp, wo] = vd[:, 0]
+    return _logits(params, xd)[:, 0]
 
 
 # --------------------------------------------------------------------------
@@ -230,19 +252,40 @@ class ServeEngine:
     tensors, the scheduler, and the request lifecycle: :meth:`submit`
     queues work, :meth:`step` runs one step (False when fully idle),
     :meth:`run` drains to idle. ``clock`` is injectable for
-    deterministic tests.
+    deterministic tests. With ``capture`` (the default) the decode lane
+    runs on the card as a CUDA graph replay (:attr:`decode_graph`);
+    ``capture=False`` runs it eagerly, for an A/B against the replay.
     """
 
     def __init__(self, params: Dict, config: ServeConfig, *,
                  chips: int = 1, clock=time.perf_counter,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, capture: bool = True):
         self.device = resolve_device(device)
         self.config = config
         self.chips = chips
         self.clock = clock
-        self.params = params_to(params, self.device)
+        self._set_params(params)
         self.cache = PagedKVCache(self.params, config)
         self.scheduler = Scheduler(self.cache, config)
+        # The decode lane's inputs: one packed int32 index (pack_decode),
+        # filled on the host (pinned memory on the card) and moved by one
+        # copy a step into a fixed device buffer that the lane reads.
+        S, pps = config.decode_slots, self.cache.pages_per_seq
+        n = S * (pps + _DEC_ROWS)
+        self._index_host = torch.zeros(
+            n, dtype=torch.int32, pin_memory=self.device.type == "cuda")
+        self._index = (self._index_host if self.device.type == "cpu"
+                       else torch.zeros(n, dtype=torch.int32,
+                                        device=self.device))
+        #: The decode lane as a CUDA graph captured once per shape and
+        #: weights (``capture=True`` on the card: the counterpart of the
+        #: JAX engine's jitted decode step), else None: the lane runs
+        #: eagerly (the CPU, or ``capture=False``, the counterpart of
+        #: running the JAX engine under ``jax.disable_jit()``).
+        self.decode_graph = (CapturedStep(
+            self._decode_lane, device=self.device, key=self._decode_key,
+            name="decode lane")
+            if capture and self.device.type == "cuda" else None)
         #: Copy-on-write page copies performed (the backstop — 0 in
         #: normal operation; see :meth:`_cow_guard`).
         self.cow_copies = 0
@@ -473,10 +516,21 @@ class ServeEngine:
                     self.prefilling.prefill_pos + chunk
                     >= self.prefilling.prompt_len)
         with torch.no_grad():
-            dec_logits, pre_logits = serve_step(
-                self.params, self.cache.pages, dec, pre,
-                page_size=self.config.page_size,
-                attention=self.config.attention)
+            # The prefill lane first: its pages are written before the
+            # decode lane reads them.
+            pre_logits = (None if pre is None else _prefill_lane(
+                self.params, self.cache.pages, pre,
+                page_size=self.config.page_size))
+            dec_logits = None
+            if dec["active"].any():
+                self._index_host.numpy()[:] = pack_decode(
+                    dec, self.config.page_size)
+                if self._index is not self._index_host:
+                    # The previous step's copy is done: its tokens came
+                    # back to the host after it.
+                    self._index.copy_(self._index_host, non_blocking=True)
+                dec_logits = (self.decode_graph() if self.decode_graph
+                              else self._decode_lane())
 
         # One sampler call covers the live decode slots + the prefill
         # lane.
@@ -540,10 +594,28 @@ class ServeEngine:
         if req.done_generating or req.hit_eos(self.config.eos_token):
             self._finish(req)
 
+    def _decode_lane(self):
+        return decode_lane(self.params, self.cache.pages, self._index,
+                           slots=self.config.decode_slots,
+                           page_size=self.config.page_size,
+                           attention=self.config.attention)
+
+    def _decode_key(self):
+        """The captured decode lane's signature beyond its (argument-free)
+        call: the attention mode and the weights it reads (a swap by
+        :meth:`update_params` captures again)."""
+        return self.config.attention, self._weights
+
+    def _set_params(self, params: Dict) -> None:
+        self.params = params_to(params, self.device)
+        self._weights = tuple((p.data_ptr(), tuple(p.shape), p.dtype)
+                              for p in tree_leaves(self.params))
+
     def update_params(self, params: Dict) -> None:
-        """Swap the model weights in place. Only valid when IDLE (a live
+        """Swap the model weights. Only valid when IDLE (a live
         request's decode must never mix weights mid-stream); the
-        geometry must match."""
+        geometry must match. A captured decode lane is captured again
+        over the new weights at its next step."""
         if not self.idle:
             raise RuntimeError(
                 "update_params with requests in flight — drain the "
@@ -555,7 +627,7 @@ class ServeEngine:
                 f"{tuple(new)} vs the engine's {tuple(old)} — a "
                 "geometry change needs a fresh engine, not a weight "
                 "swap")
-        self.params = params_to(params, self.device)
+        self._set_params(params)
 
     # ------------------------------------------------------------- run
 

@@ -11,7 +11,9 @@ backward). Every flag the JAX lane has and the port has not taken yet
 raises ``NotImplementedError`` naming its ROADMAP.md item (so does
 ``--flash-full-grid``: the CUDA kernels have no full-grid mode, and the
 stamp never claims one); the flash-only flags raise without flash, and the LM-only flags on the image lane, as
-the JAX ``bench.py`` does.
+the JAX ``bench.py`` does. ``--steps-per-dispatch K`` runs windows of K
+steps (CUDA graph replays on the card, eager on the CPU) under the JAX
+lane's ``_winK`` metric contract, with every step flag.
 """
 
 import itertools
@@ -101,7 +103,6 @@ def test_fused_ce_and_remat_keep_the_loss():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--steps-per-dispatch", "4"], "whole-step capture"),
     (["--snapshot-every", "100"], "training infrastructure"),
     (["--hierarchical", "on"], "parallelism"),
     (["--hierarchical", "auto"], "parallelism"),
@@ -114,6 +115,44 @@ def test_flags_left_for_later_raise_naming_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1.*"
                                                   f"{item}"):
         _run(flags)
+    assert not basics.is_initialized()
+
+
+@pytest.mark.parametrize("model", ["lm", "resnet18"])
+def test_steps_per_dispatch_runs_windows_with_the_win_k_contract(model):
+    """``--steps-per-dispatch 3`` no longer raises: each timed iteration
+    runs a window of 3 steps, the metric and unit carry ``_win3``, the
+    record stamps ``"window": 3``, and the units count the 3 steps (the
+    step time is the window's over 3). ``K = 1``'s record keeps its keys
+    and names."""
+    lane = ([] if model == "lm" else
+            ["--model", "resnet18", "--image-size", "32"])
+    one = _run(lane)
+    win = _run(lane + ["--steps-per-dispatch", "3"])
+    assert "window" not in one and win["window"] == 3
+    assert set(win) == set(one) | {"window"}
+    for key in ("metric", "unit"):
+        assert win[key] == one[key] + "_win3"
+    assert one["metric"] == ("tokens/sec" if model == "lm" else "img/sec")
+    units = 2 * (16 if model == "lm" else 1)      # batch 2 (x seq 16)
+    np.testing.assert_allclose(win["step_ms"], units / win["value"] * 1e3)
+    assert np.isfinite(win["loss"]) and win["replicas_in_sync"]
+
+
+@pytest.mark.parametrize("flags", [
+    FLASH + ["--zero"], FLASH + ["--fused-ce", "--remat"],
+    FLASH + ["--overlap", "on"], FLASH + ["--overlap", "off"],
+    ["--model", "resnet18", "--image-size", "32", "--fused-bn"],
+], ids=lambda f: "_".join(x.strip("-") for x in f))
+def test_steps_per_dispatch_composes_with_the_step_flags(flags):
+    rec = _run(flags + ["--steps-per-dispatch", "2"])
+    assert rec["window"] == 2 and rec["metric"].endswith("_win2")
+    assert np.isfinite(rec["loss"]) and rec["replicas_in_sync"]
+
+
+def test_steps_per_dispatch_below_one_raises():
+    with pytest.raises(ValueError, match="--steps-per-dispatch must be"):
+        _run(["--steps-per-dispatch", "0"])
     assert not basics.is_initialized()
 
 

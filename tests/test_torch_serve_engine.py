@@ -12,7 +12,8 @@ decode-traffic accounting must equal the JAX engine's too.
 
 Besides: the refcounted ``PageAllocator`` against the JAX one, same-seed
 sampling determinism, lifecycle edges (EOS, rejects, deadlines, weight
-swaps), config parity, a ``device=None`` engine raising without CUDA,
+swaps), the fixed-shape decode lane's idle-slot writes (page 0 only),
+config parity, a ``device=None`` engine raising without CUDA,
 and an AST scan proving that nothing in ``horovod_tpu_torch/`` or
 ``chip_smoke.py`` imports ``jax`` or ``horovod_tpu`` (the interpreter
 imports jax at startup here, so ``sys.modules`` cannot show it).
@@ -139,8 +140,47 @@ def test_paged_mode_on_cpu_launches_no_kernel(tparams):
     eng.submit(_prompt(3, 5), 4)
     eng.run()
     assert eng.finished and tpa.paged_attention_decode.launches == before
+    assert eng.decode_graph is None     # the CPU runs the lane eagerly
     att = eng.stats()["attention"]
     assert att["mode"] == "paged" and att["kv_fetch_frac"] < 1
+
+
+def test_idle_slots_write_only_the_null_page(tparams):
+    """The decode lane runs all S slots at one shape: with one live slot
+    of three, the two idle slots write their rows into page 0 and only
+    there, the live slot's row lands in its own page, no other page
+    changes, and the live slot's logits do not depend on what the idle
+    slots hold (bit for bit)."""
+    from horovod_tpu_torch.serve.engine import decode_lane, pack_decode
+
+    ps, pps, num_pages = 4, 3, 10
+    gen = torch.Generator().manual_seed(0)
+    pages = [{kv: torch.randn(num_pages, ps, H, DH, generator=gen)
+              for kv in ("k", "v")} for _ in range(LAYERS)]
+    tables = np.zeros((3, pps), np.int32)
+    tables[1] = [5, 2, 0]
+    dec = {"tok": np.array([0, 7, 0], np.int32),
+           "pos": np.array([0, 5, 0], np.int32),
+           "active": np.array([False, True, False]), "tables": tables}
+    packed = pack_decode(dec, ps)
+    assert packed.dtype == np.int32 and packed.shape == (3 * (pps + 5),)
+    for attention in ("gather", "paged"):
+        work = [{kv: t.clone() for kv, t in pg.items()} for pg in pages]
+        logits = decode_lane(tparams, work, torch.as_tensor(packed),
+                             slots=3, page_size=ps, attention=attention)
+        other = [{kv: t.clone() for kv, t in pg.items()} for pg in pages]
+        idle = dict(dec, tok=np.array([9, 7, 3], np.int32))
+        want = decode_lane(tparams, other,
+                           torch.as_tensor(pack_decode(idle, ps)), slots=3,
+                           page_size=ps, attention=attention)
+        assert torch.equal(logits[1], want[1]), attention
+        assert not torch.equal(logits[0], want[0])
+        for before, after in zip(pages, work):
+            for kv in ("k", "v"):
+                changed = (before[kv] != after[kv]).flatten(2).any(-1)
+                # page 0 row 0 (the idle slots), page 2 row 1 (pos 5).
+                assert changed.nonzero().tolist() == [[0, 0], [2, 1]], (
+                    attention, kv)
 
 
 def test_page_allocator_matches_jax():
@@ -328,6 +368,10 @@ def _port_files():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) >= 14 and all(f.exists() for f in files)
+    names = {str(f.relative_to(REPO)) for f in files}
+    for new in ("_graphs.py", "distributed/window.py", "utils/devsync.py",
+                "data/__init__.py", "data/sharding.py", "data/prefetch.py"):
+        assert f"horovod_tpu_torch/{new}" in names, new
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
