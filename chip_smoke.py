@@ -79,13 +79,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    capture only, the lane was captured once and replayed once a live
    decode step, and a profiled captured run traces K4's two kernels 12
    times a live decode step; a weight swap captures the lane again and
-   serves ``lm_decode``'s stream over the new weights;
+   serves ``lm_decode``'s stream over the new weights; then with
+   speculative decoding (k = 4, the draft the first 6 layers; paged
+   captured and eager, gather captured, and a full-depth draft): the
+   streams equal the plain engine's, eager paged runs K4 24 times a live
+   tick and the captured lane only for its warm-up and capture, a
+   profiled captured run traces 24 of each K4 kernel a live tick, the
+   full-depth draft accepts every proposal, the draft's device-side hash
+   equals the host's and sampled streams are the same captured and
+   eager; and with the prefix cache on and off over 8 requests sharing a
+   128-token system prompt: 7 hits of 128 tokens, no copy-on-write copy,
+   the streams unchanged and equal ``lm_decode``'s;
 10. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
-``--engine-only`` runs phases 1 and 9 alone, the engine phase RUNS times
-(default 3) with all its checks, and prints one ``{"engine_runs": [...]}``
+``--engine-only`` runs phases 1 and 9 alone (and 10's engine half with
+``--profile``), the engine phase RUNS times (default 3) with all its
+checks, and prints one ``{"engine_runs": [...]}``
 line of each run's tokens/s, TTFT and per-token p50/p99 per mode,
 captured and eager, and no kernels or ok line: copied into another
 checkout, it serves that checkout's package with the same script, to
@@ -1590,15 +1601,16 @@ def _first_divergence(a, b):
 NEW_TOKENS = 32
 
 
-def _warm_engine(torch, params, prompts, mode, capture):
-    """An engine in ``mode``, warmed by one short request (on the card
-    with ``capture``: its first decode step is the warm-up step and the
-    capture of the decode lane, the rest replays), metrics reset."""
+def _warm_engine(torch, params, prompts, mode, capture, **knobs):
+    """An engine in ``mode`` (``knobs``: more ``ServeConfig`` fields),
+    warmed by one short request (on the card with ``capture``: its first
+    decode or speculative step is the warm-up step and the capture of
+    the lane, the rest replays), metrics reset."""
     from horovod_tpu_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, ServeConfig(
         page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
-        prefill_chunk=CHUNK, attention=mode), device="cuda",
+        prefill_chunk=CHUNK, attention=mode, **knobs), device="cuda",
         capture=capture)
     eng.submit(prompts[0][:16], 4)
     eng.run()
@@ -1630,10 +1642,248 @@ def _run_name(mode, capture):
     return mode if capture else f"{mode}_eager"
 
 
+#: Speculative decoding at the serving geometry: k = 4, the draft auto
+#: (half the depth: 6 layers), so K4 runs 24 times a live tick in
+#: ``paged`` mode; runs (name, attention, captured, draft layers), the
+#: last with a full-depth draft, which must accept every proposal.
+SPEC_K, SPEC_DRAFT = 4, LAYERS // 2
+SPEC_RUNS = (("spec_paged", "paged", True, 0),
+             ("spec_paged_eager", "paged", False, 0),
+             ("spec_gather", "gather", True, 0),
+             ("spec_full_paged", "paged", True, LAYERS))
+#: Prefix caching: 8 requests sharing a 128-token system prompt (8 whole
+#: pages) with distinct tails, paged and captured, the cache on and off.
+SYSTEM_PROMPT = 128
+
+
+def _check_streams(torch, params, prompts, runs, names, ref_name):
+    """Every run's greedy streams equal ``ref_name``'s; on a divergence,
+    the first position and the top-2 logit gap there."""
+    for name in names:
+        for i, (a, b) in enumerate(zip(runs[name]["reqs"],
+                                       runs[ref_name]["reqs"])):
+            j = _first_divergence(a.output, b.output)
+            if j is not None:
+                gap = _top2_gap(torch, params,
+                                list(prompts[i]) + list(b.output[:j]))
+                raise SmokeFailure(
+                    f"request {i}: {name} and {ref_name} streams diverge "
+                    f"at generated position {j} (top-2 logit gap there "
+                    f"{gap:.3e})")
+
+
+def _check_lm_decode(torch, params, prompts, reqs, what):
+    from horovod_tpu_torch.models.parallel_lm import lm_decode
+
+    for i in (0, 1):
+        ref = lm_decode(params, prompts[i][None], NEW_TOKENS,
+                        device="cuda")[0].tolist()
+        j = _first_divergence(reqs[i].output, ref)
+        if j is not None:
+            gap = _top2_gap(torch, params, list(prompts[i]) + ref[:j])
+            raise SmokeFailure(
+                f"request {i}: {what} and lm_decode diverge at generated "
+                f"position {j} (top-2 logit gap there {gap:.3e})")
+
+
+def _serve_run(torch, params, prompts, waves, name, mode, capture,
+               **knobs):
+    """One engine run of the phase: warm (with ``prompts``, the plain
+    runs' requests, so a prefix index starts cold), set K4's count to 0,
+    serve the waves, read the count; every request must finish."""
+    from horovod_tpu_torch.ops.paged_attention import paged_attention_decode
+
+    paged_attention_decode.launches = 0
+    eng = _warm_engine(torch, params, prompts, mode, capture, **knobs)
+    warm_launches = paged_attention_decode.launches
+    # Greedy requests: the lane's one graph is the one without the
+    # sampled draw.
+    graph = (eng.lane_graphs or {}).get(False)
+    replays0 = graph.replays if graph else 0
+    paged_attention_decode.launches = 0
+    reqs, wall = _serve(torch, eng, waves)
+    run = dict(reqs=reqs, launches=paged_attention_decode.launches,
+               warm_launches=warm_launches,
+               live_steps=sum(1 for s in eng.attn_len_samples if any(s)),
+               steps=eng.steps, stats=eng.stats(), wall=wall)
+    check(all(r.state == "finished" and len(r.output) == NEW_TOKENS
+              for r in reqs),
+          f"{name}: not every request finished: "
+          f"{[(r.state, len(r.output)) for r in reqs]}")
+    check((graph is not None) == capture
+          and (not capture or set(eng.lane_graphs) == {False}),
+          f"{name}: lane graphs {eng.lane_graphs}, capture {capture}")
+    if graph is not None:
+        run.update(captures=graph.captures,
+                   replays=graph.replays - replays0,
+                   capture_s=graph.capture_s, warmup_s=graph.warmup_s)
+        check(graph.captures == 1 and run["replays"] == run["live_steps"],
+              f"{name}: {graph.captures} captures, {run['replays']} "
+              f"replays while serving, expected 1 and {run['live_steps']} "
+              "(one a live step)")
+    st = run["stats"]
+    log(f"engine[{name}]: {len(reqs)} requests, {eng.steps} steps "
+        f"({run['live_steps']} with a live decode slot), wall {wall:.3f} "
+        f"s, tokens/s {st['tokens_per_sec_per_chip']}, TTFT ms p50 "
+        f"{st['ttft_ms']['p50']} p99 {st['ttft_ms']['p99']}, per-token "
+        f"ms p50 {st['tbt_ms']['p50']} p99 {st['tbt_ms']['p99']}, kernel "
+        f"launches {run['launches']} (warm-up request {warm_launches})"
+        + (f", capture {graph.capture_s:.3f} s, {run['replays']} replays"
+           if graph else ""))
+    return eng, run
+
+
+def _prefix_requests(np):
+    """The prefix runs' 8 requests: one 128-token system prompt + a tail
+    of 16-128 tokens each, in the waves of :func:`_requests`."""
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, VOCAB, SYSTEM_PROMPT).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        0, VOCAB, int(n)).astype(np.int32)]) for n in rng.integers(16, 129,
+                                                                  8)]
+    return prompts, [(prompts[0:3], 6), (prompts[3:6], 10),
+                     (prompts[6:8], 0)]
+
+
+def _sampled_spec_checks(torch, np, params, prompts):
+    """The draft's device-side draw: its counter hash on the card gives
+    the host form's bits, and three sampled requests (temperature 0.8,
+    top-k 50) draw the same streams captured and eager."""
+    from horovod_tpu_torch.serve import sampling
+
+    rng = np.random.default_rng(3)
+    seeds, pos = rng.integers(0, 2 ** 40, 256), rng.integers(0, 2 ** 33, 256)
+    for fold in (0, sampling.DRAFT_FOLD, sampling.ACCEPT_FOLD):
+        got = sampling._key_t(torch.tensor(seeds, device="cuda"),
+                              torch.tensor(pos, device="cuda"), fold)
+        want = [sampling._signed(sampling._key64(a, b, fold))
+                for a, b in zip(seeds, pos)]
+        check(got.tolist() == want,
+              f"the draft's hash on the card differs from the host's "
+              f"(fold {fold})")
+    outs = []
+    for capture in (True, False):
+        eng = _warm_engine(torch, params, prompts, "paged", capture,
+                           speculate_k=SPEC_K)
+        reqs = [eng.submit(prompts[i], NEW_TOKENS, temperature=0.8,
+                           top_k=50, seed=7 + i) for i in range(3)]
+        eng.run()
+        check(all(len(r.output) == NEW_TOKENS for r in reqs),
+              "sampled speculative requests did not finish")
+        outs.append([r.output for r in reqs])
+        if capture:
+            graphs = eng.lane_graphs
+            check(set(graphs) == {False, True}
+                  and graphs[False].captures == graphs[True].captures == 1,
+                  f"a greedy warm-up and sampled requests made the lane "
+                  f"graphs {graphs}, expected one of each, captured once")
+            lane_ms = _lane_graph_ms(torch, graphs)
+    check(outs[0] == outs[1],
+          f"sampled speculative streams differ captured and eager: {outs}")
+    log("engine: the draft's hash equals the host's on the card; three "
+        "sampled speculative streams equal captured and eager")
+    log(f"engine[spec_paged]: one replay of the speculative lane, median "
+        f"of 20 (CUDA events): {lane_ms[False]:.4f} ms without the "
+        f"sampled draw (all live slots greedy), {lane_ms[True]:.4f} ms "
+        f"with it")
+    return lane_ms
+
+
+def _lane_graph_ms(torch, graphs):
+    """Median device ms of one replay of each captured lane graph, on the
+    inputs of the engine's last tick (the engine is idle: the rows it
+    writes land in free pages)."""
+    ms = {}
+    for sampled, graph in graphs.items():
+        times = []
+        for _ in range(20):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            graph()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms[sampled] = sorted(times)[len(times) // 2]
+    return ms
+
+
+def spec_prefix_runs(torch, np, params, prompts, waves, runs):
+    """Phase 9's speculative and prefix runs (added to ``runs``): greedy
+    streams equal the plain engine's and ``lm_decode``'s; eager paged
+    speculation launches K4 ``draft_layers x k`` times a live tick and
+    the captured lane only for its warm-up and capture, and a profiled
+    captured run traces as many; the full-depth draft accepts every
+    proposal; prefix hits skip prefill with no COW copy and leave the
+    streams as they are."""
+    per_tick = SPEC_DRAFT * SPEC_K
+    for name, mode, capture, draft in SPEC_RUNS:
+        eng, runs[name] = _serve_run(
+            torch, params, prompts, waves, name, mode, capture,
+            speculate_k=SPEC_K, draft_layers=draft)
+        log(f"engine[{name}]: spec_stats {eng.spec_stats()}")
+        check(eng.draft_layers == (draft or SPEC_DRAFT),
+              f"{name}: draft of {eng.draft_layers} layers")
+    _check_streams(torch, params, prompts, runs,
+                   [n for n, *_ in SPEC_RUNS], "gather_eager")
+    log(f"engine: the speculative streams equal the plain engine's "
+        f"({[n for n, *_ in SPEC_RUNS]})")
+    eager, cap = runs["spec_paged_eager"], runs["spec_paged"]
+    check(eager["launches"] == per_tick * eager["live_steps"] > 0,
+          f"spec_paged_eager: {eager['launches']} kernel launches, "
+          f"expected {SPEC_DRAFT} x {SPEC_K} x {eager['live_steps']} live "
+          "ticks")
+    check(cap["warm_launches"] == 2 * per_tick and cap["launches"] == 0,
+          f"spec_paged: {cap['warm_launches']} kernel launches warming "
+          f"up and {cap['launches']} serving, expected {2 * per_tick} "
+          "(warm-up + capture) and 0 (replays)")
+    g = runs["spec_gather"]
+    check(g["launches"] + g["warm_launches"] == 0,
+          "spec_gather launched the kernel")
+    full = runs["spec_full_paged"]["stats"]["spec"]
+    check(full["accept_rate"] == 1.0 and full["tokens_per_step"] > 1,
+          f"spec_full_paged: a full-depth draft accepted {full}")
+    eng = _warm_engine(torch, params, prompts, "paged", True,
+                       speculate_k=SPEC_K)
+    prof = _profile_run(torch, lambda: _serve(torch, eng, waves),
+                        ("paged_split", "paged_merge"))
+    live = sum(1 for s in eng.attn_len_samples if any(s))
+    check(prof["counts"]["paged_split"] == per_tick * live
+          and prof["counts"]["paged_merge"] == per_tick * live,
+          f"spec_paged: a captured run traced {prof['counts']}, expected "
+          f"{per_tick} x {live} live ticks of each kernel")
+    cap["replay_launches"] = prof["counts"]["paged_split"]
+    cap["replay_profile"] = prof
+    log(f"engine[spec_paged]: captured run under the profiler: "
+        f"{prof['counts']} for {live} live ticks, idle share "
+        f"{prof['idle_share']:.3f}")
+    del eng
+    cap["lane_ms"] = _sampled_spec_checks(torch, np, params, prompts)
+
+    pprompts, pwaves = _prefix_requests(np)
+    for name, on in (("prefix_off", False), ("prefix_on", True)):
+        eng, runs[name] = _serve_run(torch, params, prompts, pwaves, name,
+                                     "paged", True, prefix_caching=on)
+        st = runs[name]["stats"]
+        log(f"engine[{name}]: TTFT ms p50 {st['ttft_ms']['p50']} p99 "
+            f"{st['ttft_ms']['p99']}, prefix {st.get('prefix')}")
+    _check_streams(torch, params, pprompts, runs, ["prefix_on"],
+                   "prefix_off")
+    _check_lm_decode(torch, params, pprompts, runs["prefix_on"]["reqs"],
+                     "prefix_on")
+    pst = runs["prefix_on"]["stats"]["prefix"]
+    check(pst["hits"] == len(pprompts) - 1
+          and pst["prefill_tokens_saved"] == SYSTEM_PROMPT * pst["hits"]
+          and pst["cow_copies"] == 0,
+          f"prefix_on: hits, skipped prefill tokens and COW copies {pst}")
+    log("engine: prefix hits leave the 8 streams as they are, and "
+        "streams 0 and 1 equal lm_decode's")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def engine_phase(torch, np):
     from horovod_tpu_torch.models.parallel_lm import (init_lm_params,
                                                       lm_decode)
-    from horovod_tpu_torch.ops.paged_attention import paged_attention_decode
 
     t0 = time.perf_counter()
     params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
@@ -1644,45 +1894,8 @@ def engine_phase(torch, np):
     runs = {}
     for mode, capture in ENGINE_RUNS:
         name = _run_name(mode, capture)
-        paged_attention_decode.launches = 0
-        eng = _warm_engine(torch, params, prompts, mode, capture)
-        warm_launches = paged_attention_decode.launches
-        graph = eng.decode_graph
-        replays0 = graph.replays if graph else 0
-        paged_attention_decode.launches = 0
-        reqs, wall = _serve(torch, eng, waves)
-        launches = paged_attention_decode.launches
-        live_steps = sum(1 for s in eng.attn_len_samples if any(s))
-        stats = eng.stats()
-        runs[name] = dict(reqs=reqs, launches=launches,
-                          warm_launches=warm_launches,
-                          live_steps=live_steps, steps=eng.steps,
-                          stats=stats, wall=wall)
-        check(all(r.state == "finished" and len(r.output) == NEW_TOKENS
-                  for r in reqs),
-              f"{name}: not every request finished: "
-              f"{[(r.state, len(r.output)) for r in reqs]}")
-        check((graph is not None) == capture,
-              f"{name}: decode graph {graph}, capture {capture}")
-        if graph is not None:
-            runs[name].update(captures=graph.captures,
-                              replays=graph.replays - replays0,
-                              capture_s=graph.capture_s,
-                              warmup_s=graph.warmup_s)
-            check(graph.captures == 1
-                  and graph.replays - replays0 == live_steps,
-                  f"{name}: {graph.captures} captures, "
-                  f"{graph.replays - replays0} replays while serving, "
-                  f"expected 1 and {live_steps} (one a live decode step)")
-        log(f"engine[{name}]: {len(reqs)} requests, {eng.steps} steps "
-            f"({live_steps} with a live decode slot), wall {wall:.3f} s, "
-            f"tokens/s {stats['tokens_per_sec_per_chip']}, TTFT ms p50 "
-            f"{stats['ttft_ms']['p50']} p99 {stats['ttft_ms']['p99']}, "
-            f"per-token ms p50 {stats['tbt_ms']['p50']} p99 "
-            f"{stats['tbt_ms']['p99']}, kernel launches {launches} "
-            f"(warm-up request {warm_launches})"
-            + (f", capture {graph.capture_s:.3f} s, "
-               f"{runs[name]['replays']} replays" if graph else ""))
+        runs[name] = _serve_run(torch, params, prompts, waves, name, mode,
+                                capture)[1]
 
     paged, eager = runs["paged"], runs["paged_eager"]
     check(eager["launches"] == LAYERS * eager["live_steps"],
@@ -1698,29 +1911,12 @@ def engine_phase(torch, np):
     for name in ("gather", "gather_eager"):
         check(runs[name]["launches"] + runs[name]["warm_launches"] == 0,
               f"{name} mode launched the kernel")
-    ref_name = "gather_eager"
-    for name in runs:
-        for i, (a, b) in enumerate(zip(runs[name]["reqs"],
-                                       runs[ref_name]["reqs"])):
-            j = _first_divergence(a.output, b.output)
-            if j is not None:
-                gap = _top2_gap(torch, params,
-                                list(prompts[i]) + list(b.output[:j]))
-                raise SmokeFailure(
-                    f"request {i}: {name} and {ref_name} streams diverge at "
-                    f"generated position {j} (top-2 logit gap there "
-                    f"{gap:.3e})")
+    _check_streams(torch, params, prompts, runs, list(runs),
+                   "gather_eager")
     log(f"engine: {len(prompts)} greedy streams identical across "
         f"{sorted(runs)}")
-    for i in (0, 1):
-        ref = lm_decode(params, prompts[i][None], NEW_TOKENS,
-                        device="cuda")[0].tolist()
-        j = _first_divergence(runs[ref_name]["reqs"][i].output, ref)
-        if j is not None:
-            gap = _top2_gap(torch, params, list(prompts[i]) + ref[:j])
-            raise SmokeFailure(
-                f"request {i}: engine and lm_decode diverge at generated "
-                f"position {j} (top-2 logit gap there {gap:.3e})")
+    _check_lm_decode(torch, params, prompts, runs["gather_eager"]["reqs"],
+                     "engine")
     log("engine: streams 0 and 1 equal lm_decode's")
 
     # The device-side form of the launch check: K4's two kernels in the
@@ -1747,20 +1943,22 @@ def engine_phase(torch, np):
     eng.run()
     ref = lm_decode(other, prompts[0][None], 8, device="cuda")[0].tolist()
     check(req.output == ref and ref != runs["paged"]["reqs"][0].output[:8]
-          and eng.decode_graph.captures == 2,
+          and eng.lane_graphs[False].captures == 2,
           f"paged: after update_params the stream {req.output} is not "
           f"lm_decode's {ref} over the new weights, or the lane was not "
-          f"captured again ({eng.decode_graph.captures} captures)")
+          f"captured again ({eng.lane_graphs[False].captures} captures)")
     log("engine: update_params re-captured the lane; the stream equals "
         "lm_decode's over the new weights")
     del eng, other
     torch.cuda.empty_cache()
+    spec_prefix_runs(torch, np, params, prompts, waves, runs)
     return runs, params, prompts, waves
 
 
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
-    and eager, under ``torch.profiler``: device busy time (the sum of
+    and eager, and with speculation (captured paged, the half- and the
+    full-depth draft), under ``torch.profiler``: device busy time (the sum of
     kernel and copy times; one stream, so they do not overlap), the idle
     share of the profiled wall time, and the kernels that take the most
     device time. The profiler's own host overhead lengthens the wall
@@ -1768,9 +1966,12 @@ def profile_phase(torch, params, prompts, waves):
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for mode, capture in ENGINE_RUNS:
-        name = _run_name(mode, capture)
-        eng = _warm_engine(torch, params, prompts, mode, capture)
+    runs = [(_run_name(m, c), m, c, {}) for m, c in ENGINE_RUNS] + [
+        ("spec_paged", "paged", True, {"speculate_k": SPEC_K}),
+        ("spec_full_paged", "paged", True,
+         {"speculate_k": SPEC_K, "draft_layers": LAYERS})]
+    for name, mode, capture, knobs in runs:
+        eng = _warm_engine(torch, params, prompts, mode, capture, **knobs)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = _serve(torch, eng, waves)
@@ -1825,6 +2026,14 @@ def _paged_record(kres, rate, runs, ptxas, card):
         "launches": paged["warm_launches"] + paged["launches"],
         "launches_eager": runs["paged_eager"]["launches"],
         "replay_launches": paged["replay_launches"],
+        # The speculative lane's draft scan (k = 4, 6 draft layers): the
+        # eager run's launches, the captured run's wrapper calls (warm-up
+        # + capture) and the kernels its trace holds, with the live ticks.
+        "spec_launches_eager": runs["spec_paged_eager"]["launches"],
+        "spec_live_ticks_eager": runs["spec_paged_eager"]["live_steps"],
+        "spec_launches": (runs["spec_paged"]["warm_launches"]
+                          + runs["spec_paged"]["launches"]),
+        "spec_replay_launches": runs["spec_paged"]["replay_launches"],
         "captured": "the decode lane is one CUDA graph; wrapper calls count "
                     "its warm-up step and capture, replay_launches the "
                     "split kernels a captured run's trace holds",
@@ -1955,10 +2164,10 @@ def _window_summary(wres, runs, card):
 def engine_only(torch, np):
     """``--engine-only [RUNS]``: the engine phase RUNS times."""
     args = sys.argv[sys.argv.index("--engine-only") + 1:]
-    runs = int(args[0]) if args else 3
+    runs = int(args[0]) if args and args[0].isdigit() else 3
     out = []
     for _ in range(runs):
-        res = engine_phase(torch, np)[0]
+        res, params, prompts, waves = engine_phase(torch, np)
         out.append({name: {
             "tokens_per_sec": r["stats"]["tokens_per_sec_per_chip"],
             "ttft_ms": r["stats"]["ttft_ms"], "tbt_ms": r["stats"]["tbt_ms"],
@@ -1966,6 +2175,8 @@ def engine_only(torch, np):
             "launches": r["launches"], "replays": r.get("replays")}
             for name, r in res.items()})
     print(json.dumps({"engine_runs": out}), flush=True)
+    if "--profile" in sys.argv[1:]:
+        profile_phase(torch, params, prompts, waves)
 
 
 def main():

@@ -12,9 +12,10 @@ default); the attention scale ``1 / math.sqrt(D)``; greedy selection as
 ``argmax`` of the float32 logits (the first maximum in both frameworks).
 
 The dense training losses (``next_token_nll`` and the chunked
-``next_token_nll_fused``) are here; tensor, sequence and pipeline
-parallelism and the MoE variant are ported by later slices (ROADMAP.md
-Queue 1, parallelism).
+``next_token_nll_fused``) and the speculative-decoding functions
+(``draft_params``, ``lm_verify_window``, ``lm_decode_spec``) are here;
+tensor, sequence and pipeline parallelism and the MoE variant are ported
+by later slices (ROADMAP.md Queue 1, parallelism).
 """
 
 from __future__ import annotations
@@ -227,6 +228,120 @@ def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
             if i + 1 < steps:   # the last token is never fed back
                 caches, logits = lm_decode_step(params, caches, tok, Lp + i)
     return torch.stack(toks, dim=1)
+
+
+def draft_params(params: Dict, layers: int) -> Dict:
+    """Layer-skip self-draft: the target's FIRST ``layers`` transformer
+    layers sharing the target's embed/pos/ln_f/head — the speculative
+    draft as a view of the target's dict (a list slice of the layer
+    dicts; no tensor is copied). The draft's K/V for layer ``l <
+    layers`` are computed by exactly the target's first ``l+1`` layers,
+    so the draft shares the target's KV cache rows and its weights; the
+    result plugs straight into :func:`lm_decode_step` /
+    :func:`lm_prefill`."""
+    n = len(params["layers"])
+    if not 1 <= layers <= n:
+        raise ValueError(
+            f"draft_params: layers={layers} outside 1..{n} (the target "
+            "has that many transformer layers)")
+    return {"embed": params["embed"], "pos": params["pos"],
+            "layers": params["layers"][:layers],
+            "ln_f": params["ln_f"], "head": params["head"]}
+
+
+def lm_verify_window(params: Dict, caches, toks, t: int):
+    """Speculative-decoding verify pass: ONE rectangular-causal step
+    over a ``w``-token window — write the window's K/V rows at positions
+    ``t..t+w-1`` and return the logits at all ``w`` positions, so a
+    draft's ``w-1`` proposals are verified by one target pass.
+
+    ``toks`` is ``[B, w]`` integer (row 0 = the last emitted token, rows
+    1..w-1 = the proposals), ``t`` the window's first absolute position;
+    caches are :func:`lm_prefill`'s, left unchanged (the new ones are
+    copies). Returns ``(new_caches, logits [B, w, vocab])``. Queries at
+    ``t..t+w-1`` attend the masked cache with ``q_offset=t``, so greedy
+    argmaxes match ``w`` sequential :func:`lm_decode_step` calls, and
+    ``w=1`` is :func:`lm_decode_step` op for op."""
+    w = toks.shape[1]
+    x = params["embed"][toks] + params["pos"][t:t + w][None]
+    new_caches = []
+    for layer, cache in zip(params["layers"], caches):
+        q, k, v = _project_qkv(layer, x)                 # [B, w, H, D]
+        ck = cache["k"].clone()
+        cv = cache["v"].clone()
+        ck[:, t:t + w] = k
+        cv[:, t:t + w] = v
+        new_caches.append({"k": ck, "v": cv})
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        attn = dot_product_attention(q, ck, cv, causal=True, scale=scale,
+                                     q_offset=t)
+        x = _attn_out_residual(layer, attn, x)
+        x = _ffn_residual(layer, x)
+    return new_caches, _logits(params, x)
+
+
+def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
+                   draft_layers: int, device: DeviceLike = None):
+    """Greedy speculative decoding, the model-level reference of the
+    serving engine's speculative lane: the layer-skip draft
+    (:func:`draft_params`) proposes up to ``k`` tokens a tick, the target
+    verifies them plus one bonus position in one
+    :func:`lm_verify_window` pass, and the longest prefix where draft
+    and target argmaxes agree is kept, plus the target's token at the
+    first mismatch (or the bonus when every proposal matched).
+
+    Every emitted token is ``argmax(float32 target logits | emitted
+    prefix)``, so the result equals greedy :func:`lm_decode`'s whatever
+    the draft proposed. ``prompt`` is ``[1, Lp]`` (single-row: the accept
+    rule makes rows diverge in length). Returns the generated ids
+    ``[1, steps]``."""
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
+                             device=dev)
+    B, Lp = prompt.shape
+    if B != 1:
+        raise ValueError(
+            f"lm_decode_spec is single-row (got B={B}): acceptance "
+            "lengths diverge per row")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    Lmax = params["pos"].shape[0]
+    if Lp + steps > Lmax:
+        raise ValueError(
+            f"prompt ({Lp}) + steps ({steps}) exceeds the position table "
+            f"({Lmax})")
+    dparams = draft_params(params, draft_layers)
+
+    def argmax(logits):
+        return int(torch.argmax(logits.float(), dim=-1)[0])
+
+    with torch.no_grad():
+        caches, logits_last = lm_prefill(params, prompt)
+        out = [argmax(logits_last)]
+        while len(out) < steps:
+            t = Lp + len(out) - 1
+            # Budget clamp: never verify past the generation budget.
+            k_eff = min(k, steps - len(out) - 1)
+            # The draft steps over the target's first draft_layers
+            # caches (layer-skip shares rows) on copies; the verify pass
+            # writes the rows that persist.
+            dcaches = caches[:draft_layers]
+            tok, d = out[-1], []
+            for i in range(k_eff):
+                dcaches, dlg = lm_decode_step(
+                    dparams, dcaches, torch.full((1,), tok, device=dev),
+                    t + i)
+                tok = argmax(dlg)
+                d.append(tok)
+            window = torch.tensor([[out[-1]] + d], device=dev)
+            caches, vlg = lm_verify_window(params, caches, window, t)
+            tgt = torch.argmax(vlg.float(), dim=-1)[0].tolist()
+            for i, tok in enumerate(tgt):
+                out.append(tok)
+                if i < k_eff and d[i] != tok:
+                    break   # correction emitted; the rest is stale
+    return torch.tensor([out], device=dev)
 
 
 def _dense_only(sp, tp, vocab_parallel=False):

@@ -11,18 +11,25 @@
   (``ServeConfig(attention="paged")``) or the gather reference;
 * :mod:`~horovod_tpu_torch.serve.scheduler` — request lifecycle and the
   SLO-knobbed scheduler;
-* :mod:`~horovod_tpu_torch.serve.sampling` — per-slot sampling;
+* :mod:`~horovod_tpu_torch.serve.prefix` — the copy-on-write prefix
+  cache's radix index (``ServeConfig(prefix_caching=True)``);
+* :mod:`~horovod_tpu_torch.serve.sampling` — per-slot sampling and the
+  speculative-decoding draws and acceptance rule
+  (``ServeConfig(speculate_k=k)``);
 * :mod:`~horovod_tpu_torch.serve.metrics` — TTFT / per-token latency /
   page-occupancy accounting.
 
-The fleet, prefix caching, speculative decoding, tensor-parallel serving
-and disaggregated serving are still to port (ROADMAP.md, Queue 1).
+The fleet, tensor-parallel serving and disaggregated serving are still
+to port (ROADMAP.md, Queue 1).
 """
 
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.engine import ServeEngine
 from horovod_tpu_torch.serve.kvcache import (OutOfPages, PageAllocator,
                                              PagedKVCache)
+from horovod_tpu_torch.serve.prefix import (PrefixIndex, aligned_prefix_len,
+                                            prefix_route_key,
+                                            rendezvous_rank)
 from horovod_tpu_torch.serve.scheduler import (Request, RequestState,
                                                Scheduler)
 
@@ -30,9 +37,13 @@ __all__ = [
     "OutOfPages",
     "PageAllocator",
     "PagedKVCache",
+    "PrefixIndex",
     "Request",
     "RequestState",
     "Scheduler",
     "ServeConfig",
     "ServeEngine",
+    "aligned_prefix_len",
+    "prefix_route_key",
+    "rendezvous_rank",
 ]

@@ -10,11 +10,10 @@ fields, defaults and validation. The page math contract:
   with it, and reads beyond a request's length are masked, so its
   contents are never observed — ``num_pages - 1`` pages are allocatable.
 
-Four knobs of the JAX engine have no port yet and must keep their
-defaults: ``mesh`` (tensor-parallel serving), ``speculate_k`` and
-``draft_layers`` (speculative decoding), and ``prefix_caching``. Any
-other value raises :class:`NotImplementedError` naming the ROADMAP.md
-queue item that ports it. ``FleetConfig`` comes with the fleet.
+One knob of the JAX engine has no port yet and must keep its default:
+``mesh`` (tensor-parallel serving). Any other value raises
+:class:`NotImplementedError` naming the ROADMAP.md queue item that ports
+it. ``FleetConfig`` comes with the fleet.
 """
 
 from __future__ import annotations
@@ -33,16 +32,6 @@ ADMISSIONS = ("reserve", "lazy")
 #: reference); ``paged`` reads only each slot's live pages through the
 #: paged-attention kernel (:mod:`horovod_tpu_torch.ops.paged_attention`).
 ATTENTIONS = ("gather", "paged")
-
-_NOT_PORTED = {
-    "mesh": "ROADMAP.md Queue 1, parallelism (TP-sharded paged decode)",
-    "speculate_k": "ROADMAP.md Queue 1, serving features (speculative "
-                   "decoding)",
-    "draft_layers": "ROADMAP.md Queue 1, serving features (speculative "
-                    "decoding)",
-    "prefix_caching": "ROADMAP.md Queue 1, serving features "
-                      "(serve/prefix.py)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +53,14 @@ class ServeConfig:
     the ``ceil((t+1)/page_size)`` live pages through the paged-attention
     kernel. Greedy token streams are identical either way; the prefill
     lane gathers the full cache in both modes.
+
+    ``prefix_caching`` maps a prompt's already-filled whole pages into
+    the new request read-only (:mod:`~horovod_tpu_torch.serve.prefix`),
+    so prefill starts at the first miss. ``speculate_k`` > 0 turns on
+    speculative decoding: a draft made of the target's first
+    ``draft_layers`` layers (0 = half the depth) proposes up to
+    ``speculate_k`` tokens a slot a step, and the target verifies them
+    in one pass; greedy streams stay those of the plain engine.
     """
 
     page_size: int = 16
@@ -126,13 +123,11 @@ class ServeConfig:
             raise ValueError(
                 f"default_ttl must be > 0 seconds (or None), got "
                 f"{self.default_ttl}")
-        for name, default in (("mesh", None), ("speculate_k", 0),
-                              ("draft_layers", 0),
-                              ("prefix_caching", False)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"ServeConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet; it comes with {_NOT_PORTED[name]}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"ServeConfig.mesh={self.mesh!r} is not ported yet; it "
+                "comes with ROADMAP.md Queue 1, parallelism (TP-sharded "
+                "paged decode)")
 
     @property
     def in_flight_limit(self) -> int:

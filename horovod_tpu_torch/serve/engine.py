@@ -57,9 +57,36 @@ A step with no live decode slot skips the decode lane (the JAX step
 computes it anyway on fixed shapes and discards it), so the kernel runs
 once per layer per step that has a live slot.
 
-Tensor-parallel serving, speculative decoding, the disaggregated
-handoff bay and prefix caching come with later slices (ROADMAP.md,
-Queue 1, what is left, items 2-3).
+**Speculative decoding** (``ServeConfig.speculate_k`` = k > 0) replaces
+the decode lane with :func:`spec_lane`, the counterpart of the JAX
+``serve_step_spec`` without its prefill lane (which stays eager and runs
+first, as above): a draft made of the target's first ``draft_layers``
+layers proposes k tokens a slot in k single-token steps (in ``paged``
+mode each step writes its row and reads the live pages through the
+paged-attention kernel, ``draft_layers`` launches a step; in ``gather``
+mode it runs over dense per-slot copies gathered once), then the target
+verifies each slot's ``[last token, proposals]`` window of up to k+1
+rows in one rectangular-causal pass over the gathered cache and writes
+the window's K/V rows through the page table. The lane reads nothing on
+the host, so the engine captures it exactly as it does the decode lane;
+the draft's sampled proposals are drawn on the device
+(:func:`~horovod_tpu_torch.serve.sampling.draft_sample_tokens`), and a
+tick whose live slots are all greedy replays a second graph of the lane
+that skips that draw (``spec_lane(sampled=False)``). The
+host applies :func:`~horovod_tpu_torch.serve.sampling.
+speculative_accept` per slot; greedy rows copy only the lane's argmaxes
+to the host, never their logits. Rejected rows need no rollback: a stale
+position is overwritten by a later window or hidden by the causal mask,
+and :meth:`ServeEngine._cow_guard` copies any shared page under the
+whole window first.
+
+**Prefix caching** (``ServeConfig.prefix_caching``) puts a
+:class:`~horovod_tpu_torch.serve.prefix.PrefixIndex` behind the
+scheduler's admission: a prompt's already-filled whole pages are mapped
+read-only and prefill starts at the first miss.
+
+Tensor-parallel serving and the disaggregated handoff bay come with
+later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -74,11 +101,13 @@ from torch.utils._pytree import tree_leaves
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch._graphs import CapturedStep
+from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 from horovod_tpu_torch.models.parallel_lm import (
     _attn_out_residual,
     _ffn_residual,
     _logits,
     _project_qkv,
+    draft_params,
     params_to,
 )
 from horovod_tpu_torch.ops.attention import dot_product_attention
@@ -89,7 +118,10 @@ from horovod_tpu_torch.ops.paged_attention import (
 from horovod_tpu_torch.serve.config import ServeConfig
 from horovod_tpu_torch.serve.kvcache import PagedKVCache, append_rows
 from horovod_tpu_torch.serve.metrics import summarize
-from horovod_tpu_torch.serve.sampling import sample_tokens
+from horovod_tpu_torch.serve.prefix import PrefixIndex
+from horovod_tpu_torch.serve.sampling import (draft_sample_tokens,
+                                              sample_tokens,
+                                              speculative_accept)
 from horovod_tpu_torch.serve.scheduler import (
     Request,
     RequestState,
@@ -239,6 +271,132 @@ def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
     return _logits(params, xd)[:, 0]
 
 
+#: Rows of the packed speculative index after :func:`pack_decode`'s: the
+#: verify width (k_eff + 1; 0 = idle), and the draft's top-k, seed (its
+#: low 32 bits) and output position of the first proposal.
+_SPEC_ROWS = 4
+
+
+def pack_spec(dec, page_size: int):
+    """The speculative lane's host inputs: :func:`pack_decode`'s index
+    extended by rows of ``S`` for ``width``, ``topk``, ``seed`` and
+    ``sidx``, and the draft's float temperatures ``[S]`` as a second
+    buffer. Returns ``(index int32, temps float32)``."""
+    rows = np.stack([np.asarray(dec["width"], np.int64),
+                     np.asarray(dec["topk"], np.int64),
+                     np.asarray(dec["seed"], np.int64) & 0xFFFFFFFF,
+                     np.asarray(dec["sidx"], np.int64)])
+    index = np.concatenate([pack_decode(dec, page_size),
+                            rows.astype(np.int32).reshape(-1)])
+    return index, np.asarray(dec["temp"], np.float32)
+
+
+def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
+              draft_layers: int, page_size: int, attention: str = "gather",
+              sampled: bool = True):
+    """The speculative lane of one step at a fixed shape, from
+    :func:`pack_spec`'s device buffers: a ``k``-step draft scan over the
+    first ``draft_layers`` layers, then the target's verify pass over
+    every slot's ``k+1``-row window. Returns ``(tokens [S, 2k+1] int32,
+    ver_logits [S, k+1, V], draft_logits [S, k, V])``: ``tokens`` holds
+    the verify rows' argmaxes, then the draft's proposals. Rows past a
+    slot's width, and idle slots, compute values the host discards and
+    write their K/V rows into the null page 0 only.
+
+    ``attention`` shapes the draft scan: ``paged`` writes each draft row
+    into its page (a masked row into page 0) and reads the live pages
+    through :func:`~horovod_tpu_torch.ops.paged_attention.
+    paged_attention_decode`, ``draft_layers x k`` launches; ``gather``
+    gathers the dense per-slot caches once and inserts each step's row
+    into those copies, which are discarded. The verify pass gathers in
+    both modes, as the prefill lane does, and writes the rows that
+    persist (every draft row included).
+
+    ``sampled=False`` says that no live slot samples: the draft then
+    takes its argmaxes and skips the sampled draw, whose masking and
+    noise cover the whole vocabulary (the same proposals, since greedy
+    rows take the argmax either way)."""
+    S, ps = slots, page_size
+    pps = index.numel() // S - _DEC_ROWS - _SPEC_ROWS
+    lmax = pps * ps
+    tables = index[:S * pps].view(S, pps)
+    cols = index[S * pps:].view(_DEC_ROWS + _SPEC_ROWS, S)
+    tok, t = cols[0].long(), cols[1].long()
+    width, topk, seed, sidx = cols[_DEC_ROWS:]
+    slot_ids = torch.arange(S, device=index.device)
+    dlayers = draft_params(params, draft_layers)["layers"]
+    if attention != "paged":
+        copies = [_gather_cache_kv(p["k"], p["v"], tables)
+                  for p in pages[:draft_layers]]
+
+    # The draft scan: step i feeds c_i (c_0 = the last emitted token) at
+    # position t+i and proposes c_{i+1}. A row is written only while a
+    # later proposal of the window still attends it (i < k_eff).
+    cur, draft_toks, draft_logits = tok, [], []
+    for i in range(k):
+        pos = t + i
+        safe = pos.clamp(0, lmax - 1)
+        x = params["embed"][cur][:, None] + params["pos"][safe][:, None]
+        ok = (i + 1) < width
+        wp = torch.where(ok, tables[slot_ids, safe // ps], 0).long()
+        wo = torch.where(ok, safe % ps, 0)
+        lens = torch.where(ok, pos + 1, 0).int()
+        for j, layer in enumerate(dlayers):
+            q, kk, vv = _project_qkv(layer, x)          # [S, 1, H, D]
+            scale = 1.0 / math.sqrt(q.shape[-1])
+            if attention == "paged":
+                pk, pv = pages[j]["k"], pages[j]["v"]
+                pk[wp, wo] = kk[:, 0]
+                pv[wp, wo] = vv[:, 0]
+                attn = paged_attention_decode(
+                    q[:, 0].contiguous(), pk, pv, tables, lens,
+                    scale=scale)[:, None]
+            else:
+                ck, cv = copies[j]
+                ck[slot_ids, safe] = kk[:, 0]
+                cv[slot_ids, safe] = vv[:, 0]
+                attn = dot_product_attention(q, ck, cv, causal=True,
+                                             scale=scale, q_offset=safe)
+            x = _attn_out_residual(layer, attn, x)
+            x = _ffn_residual(layer, x)
+        lg = _logits(params, x)[:, 0]                   # [S, V]
+        cur = (draft_sample_tokens(lg, temps, topk, seed, sidx + i)
+               if sampled else torch.argmax(lg.float(), dim=-1))
+        draft_toks.append(cur)
+        draft_logits.append(lg)
+    draft_toks = torch.stack(draft_toks, 1)             # [S, k]
+
+    # The verify pass: [last token, proposals] at t..t+k per slot, one
+    # rectangular-causal pass. Rows past the width enter only the
+    # gathered copy, at positions no valid query reaches (the causal
+    # mask hides them), and write into the null page.
+    rows = torch.arange(k + 1, device=index.device)
+    pos_w = t[:, None] + rows                           # [S, w]
+    safe_w = pos_w.clamp(0, lmax - 1)
+    valid = (rows[None] < width[:, None]) & (pos_w < lmax)
+    wp_w = torch.where(valid, tables.gather(1, safe_w // ps), 0).long()
+    wo_w = torch.where(valid, safe_w % ps, 0)
+    xw = (params["embed"][torch.cat([tok[:, None], draft_toks], 1)]
+          + params["pos"][safe_w])                      # [S, w, E]
+    for layer, page in zip(params["layers"], pages):
+        pk, pv = page["k"], page["v"]
+        qw, kw, vw = _project_qkv(layer, xw)            # [S, w, H, D]
+        scale = 1.0 / math.sqrt(qw.shape[-1])
+        ck, cv = _gather_cache_kv(pk, pv, tables)       # [S, Lmax, H, D]
+        ck[slot_ids[:, None], safe_w] = kw
+        cv[slot_ids[:, None], safe_w] = vw
+        attn = dot_product_attention(qw, ck, cv, causal=True, scale=scale,
+                                     q_offset=t, k_offset=0)
+        xw = _attn_out_residual(layer, attn, xw)
+        xw = _ffn_residual(layer, xw)
+        pk[wp_w, wo_w] = kw
+        pv[wp_w, wo_w] = vw
+    ver_logits = _logits(params, xw)                    # [S, w, V]
+    tokens = torch.cat([torch.argmax(ver_logits.float(), dim=-1),
+                        draft_toks], 1).int()
+    return tokens, ver_logits, torch.stack(draft_logits, 1)
+
+
 # --------------------------------------------------------------------------
 # The host-side engine.
 
@@ -252,8 +410,9 @@ class ServeEngine:
     tensors, the scheduler, and the request lifecycle: :meth:`submit`
     queues work, :meth:`step` runs one step (False when fully idle),
     :meth:`run` drains to idle. ``clock`` is injectable for
-    deterministic tests. With ``capture`` (the default) the decode lane
-    runs on the card as a CUDA graph replay (:attr:`decode_graph`);
+    deterministic tests. With ``capture`` (the default) the step's lane
+    (the decode lane, or the speculative lane when ``speculate_k`` > 0)
+    runs on the card as a CUDA graph replay (:attr:`lane_graphs`);
     ``capture=False`` runs it eagerly, for an A/B against the replay.
     """
 
@@ -265,27 +424,46 @@ class ServeEngine:
         self.chips = chips
         self.clock = clock
         self._set_params(params)
+        #: Speculative decoding (``speculate_k`` > 0): the window k and
+        #: the layer-skip draft's depth, resolved against this model at
+        #: construction (0 = auto: half the depth, at least 1).
+        self.spec_k = int(config.speculate_k)
+        self.draft_layers = 0
+        if self.spec_k:
+            n_layers = len(self.params["layers"])
+            dl = config.draft_layers or max(1, n_layers // 2)
+            try:
+                draft_params(self.params, dl)
+            except ValueError as e:
+                raise InvalidArgumentError(
+                    f"ServeConfig.draft_layers={config.draft_layers}: "
+                    f"the layer-skip draft is a prefix of the target's "
+                    f"{n_layers} layers — need 1..{n_layers}") from e
+            self.draft_layers = dl
         self.cache = PagedKVCache(self.params, config)
-        self.scheduler = Scheduler(self.cache, config)
-        # The decode lane's inputs: one packed int32 index (pack_decode),
-        # filled on the host (pinned memory on the card) and moved by one
-        # copy a step into a fixed device buffer that the lane reads.
+        #: The radix prefix index (``prefix_caching``), else None.
+        self.prefix = (PrefixIndex(self.cache.allocator, config.page_size)
+                       if config.prefix_caching else None)
+        self.scheduler = Scheduler(self.cache, config, prefix=self.prefix)
+        # The lane's inputs: one packed int32 index (pack_decode, or
+        # pack_spec and the draft's temperatures), filled on the host
+        # (pinned memory on the card) and moved by one copy a step into
+        # fixed device buffers that the lane reads.
         S, pps = config.decode_slots, self.cache.pages_per_seq
-        n = S * (pps + _DEC_ROWS)
-        self._index_host = torch.zeros(
-            n, dtype=torch.int32, pin_memory=self.device.type == "cuda")
-        self._index = (self._index_host if self.device.type == "cpu"
-                       else torch.zeros(n, dtype=torch.int32,
-                                        device=self.device))
-        #: The decode lane as a CUDA graph captured once per shape and
+        n = S * (pps + _DEC_ROWS + (_SPEC_ROWS if self.spec_k else 0))
+        self._index_host, self._index = self._buffers(n, torch.int32)
+        self._temps_host, self._temps = (
+            self._buffers(S, torch.float32) if self.spec_k else (None, None))
+        #: The step's lane (the decode lane, or the speculative lane when
+        #: ``speculate_k`` > 0) as CUDA graphs captured once per shape and
         #: weights (``capture=True`` on the card: the counterpart of the
-        #: JAX engine's jitted decode step), else None: the lane runs
-        #: eagerly (the CPU, or ``capture=False``, the counterpart of
+        #: JAX engine's jitted step), one for each value of the lane's
+        #: ``sampled`` flag: ``lane_graphs[sampled]``, made at its first
+        #: use (the decode lane has only ``False``). None: the lane runs
+        #: eagerly (the CPU, or ``capture=False`` — the counterpart of
         #: running the JAX engine under ``jax.disable_jit()``).
-        self.decode_graph = (CapturedStep(
-            self._decode_lane, device=self.device, key=self._decode_key,
-            name="decode lane")
-            if capture and self.device.type == "cuda" else None)
+        self.lane_graphs: Optional[Dict[bool, CapturedStep]] = (
+            {} if capture and self.device.type == "cuda" else None)
         #: Copy-on-write page copies performed (the backstop — 0 in
         #: normal operation; see :meth:`_cow_guard`).
         self.cow_copies = 0
@@ -300,7 +478,21 @@ class ServeEngine:
         #: lane), the input of :meth:`attention_stats`.
         self.attn_len_samples: List[List[int]] = []
         self.steps = 0
+        #: Speculation accounting, per slot per tick: proposals made and
+        #: accepted, tokens emitted (stats()["spec"]).
+        self.spec_ticks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         self._t_start = clock()
+
+    def _buffers(self, n: int, dtype):
+        """A host buffer (pinned on the card) and the device buffer a
+        lane reads (the same tensor on the CPU)."""
+        host = torch.zeros(n, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+        return host, (host if self.device.type == "cpu" else
+                      torch.zeros(n, dtype=dtype, device=self.device))
 
     # ------------------------------------------------------ submission
 
@@ -383,8 +575,13 @@ class ServeEngine:
                 self._time_out(req, now)
 
     def _evict_for(self, requester: Request) -> bool:
-        """Lazy-mode page pressure: evict the newest-admitted request
-        that is not the requester. False = nothing else to evict."""
+        """Lazy-mode page pressure: reclaim a page only the prefix index
+        holds first (a cold cached prefix costs a future re-prefill, a
+        victim a certain recompute), else evict the newest-admitted
+        request that is not the requester. False = nothing else to
+        evict."""
+        if self.prefix is not None and self.prefix.reclaim(1):
+            return True
         candidates = [s for s in self.slots if s is not None] + \
             list(self.ready)
         victim = pick_victim(candidates, requester)
@@ -411,7 +608,7 @@ class ServeEngine:
         for req in list(self.slots):
             if req is None or req not in self.slots:
                 continue
-            if not self.scheduler.ensure_pages(req, req.next_pos,
+            if not self.scheduler.ensure_pages(req, self._last_write(req),
                                                self._evict_for):
                 self._do_evict(req)
         if self.prefilling is not None:
@@ -423,15 +620,24 @@ class ServeEngine:
                                                self._evict_for):
                 self._do_evict(req)
 
+    def _last_write(self, req: Request) -> int:
+        """The last position a decode slot's step writes: its next
+        position, or the end of its verify window under speculation."""
+        return req.next_pos + (req.spec_window(self.spec_k)
+                               if self.spec_k else 0)
+
     def _cow_guard(self) -> None:
         """Copy-on-write backstop for the in-place step: no page this
-        step WRITES may be shared. Without prefix caching no page ever
-        is, so this finds nothing; any slip becomes one counted page copy
-        (``cow_copies``) instead of a corrupted stream of another
-        holder."""
+        step WRITES may be shared. By construction none is (only full
+        prompt pages are indexed, a match never covers the whole prompt,
+        and prefill and decode write past every shared slot), so this
+        finds nothing in normal operation; any slip becomes one counted
+        page copy (``cow_copies``) instead of a corrupted stream of
+        another holder. A speculative window is covered whole: a
+        rejected row must never have landed on a shared page either."""
         for req in self.slots:
             if req is not None and req.generated:
-                self._cow_range(req, req.next_pos, req.next_pos)
+                self._cow_range(req, req.next_pos, self._last_write(req))
         if self.prefilling is not None:
             req = self.prefilling
             chunk = min(self.config.prefill_chunk,
@@ -464,8 +670,26 @@ class ServeEngine:
             pos[i] = req.next_pos
             active[i] = True
             tables[i] = req.page_table
-        return {"tok": tok, "pos": pos, "active": active,
-                "tables": tables}
+        dec = {"tok": tok, "pos": pos, "active": active, "tables": tables}
+        if self.spec_k:
+            # The speculation plane: the verify width per slot (0 = idle
+            # lane) and the draft's sampling knobs.
+            width = np.zeros((S,), np.int32)
+            temp = np.zeros((S,), np.float32)
+            topk = np.zeros((S,), np.int32)
+            seed = np.zeros((S,), np.int64)
+            sidx = np.zeros((S,), np.int64)
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                width[i] = req.spec_window(self.spec_k) + 1
+                temp[i] = req.temperature
+                topk[i] = req.top_k
+                seed[i] = req.seed
+                sidx[i] = req.sample_index
+            dec.update(width=width, temp=temp, topk=topk, seed=seed,
+                       sidx=sidx)
+        return dec
 
     def _build_pre(self):
         if self.prefilling is None:
@@ -508,32 +732,80 @@ class ServeEngine:
         self._cow_guard()
         dec = self._build_dec()
         pre, chunk = self._build_pre()
+        # Live keys per slot (the verify window's under speculation).
         self.attn_len_samples.append(
-            [0 if r is None else r.next_pos + 1 for r in self.slots])
+            [0 if r is None else self._last_write(r) + 1
+             for r in self.slots])
 
-        S = self.config.decode_slots
         pre_done = (self.prefilling is not None and
                     self.prefilling.prefill_pos + chunk
                     >= self.prefilling.prompt_len)
         with torch.no_grad():
             # The prefill lane first: its pages are written before the
-            # decode lane reads them.
+            # decode (or speculative) lane reads them.
             pre_logits = (None if pre is None else _prefill_lane(
                 self.params, self.cache.pages, pre,
                 page_size=self.config.page_size))
-            dec_logits = None
+            lane_out = None
             if dec["active"].any():
-                self._index_host.numpy()[:] = pack_decode(
-                    dec, self.config.page_size)
+                if self.spec_k:
+                    index, temps = pack_spec(dec, self.config.page_size)
+                    self._temps_host.numpy()[:] = temps
+                else:
+                    index = pack_decode(dec, self.config.page_size)
+                self._index_host.numpy()[:] = index
                 if self._index is not self._index_host:
                     # The previous step's copy is done: its tokens came
                     # back to the host after it.
                     self._index.copy_(self._index_host, non_blocking=True)
-                dec_logits = (self.decode_graph() if self.decode_graph
-                              else self._decode_lane())
+                    if self.spec_k:
+                        self._temps.copy_(self._temps_host,
+                                          non_blocking=True)
+                # A speculative tick whose live slots are all greedy
+                # skips the draft's sampled draw.
+                lane_out = self._run_lane(bool(
+                    self.spec_k and (dec["temp"][dec["active"]] > 0).any()))
 
-        # One sampler call covers the live decode slots + the prefill
-        # lane.
+        if self.spec_k:
+            pre_token = None
+            if pre_logits is not None and pre_done:
+                # The prefill lane's first token is a plain draw.
+                preq = self.prefilling
+                pre_token = int(sample_tokens(
+                    pre_logits[None], [preq.temperature], [preq.top_k],
+                    [preq.seed], [preq.sample_index])[0])
+            now = (self._accept_spec(dec, *lane_out)
+                   if lane_out is not None else self.clock())
+        else:
+            pre_token, now = self._accept_decode(lane_out, pre_logits,
+                                                 pre_done)
+
+        # Prefill lane: advance; on completion emit the FIRST token.
+        if self.prefilling is not None and pre is not None:
+            req = self.prefilling
+            req.prefill_pos += chunk
+            if pre_done:
+                if self.prefix is not None:
+                    # Index the filled prompt pages BEFORE the first token
+                    # can finish the request (max_new=1: _finish releases
+                    # its pages; the index's retain must land first).
+                    self.prefix.insert(req.prompt, req.page_table)
+                self._accept_token(req, pre_token, now)
+                self.prefilling = None
+                if req.state != RequestState.FINISHED:
+                    req.state = RequestState.DECODE
+                    self.ready.append(req)
+
+        self.occupancy_samples.append(self.cache.occupancy())
+        self.steps += 1
+        return True
+
+    def _accept_decode(self, dec_logits, pre_logits, pre_done: bool):
+        """The plain decode step's host side: one sampler call covers the
+        live decode slots + the prefill lane; each live slot takes its
+        token. Returns the prefill lane's first token (or None) and the
+        clock after the device-to-host copy."""
+        S = self.config.decode_slots
         rows: List[Optional[Request]] = []
         parts = []
         if dec_logits is not None:
@@ -559,7 +831,6 @@ class ServeEngine:
         now = self.clock()      # after the device-to-host copy: a sync
         pre_token = (int(tokens[-1]) if pre_logits is not None and pre_done
                      else None)
-
         if dec_logits is not None:
             for i in range(S):
                 req = self.slots[i]
@@ -568,21 +839,40 @@ class ServeEngine:
                 self._accept_token(req, int(tokens[i]), now)
                 if req.state == RequestState.FINISHED:
                     self.slots[i] = None
+        return pre_token, now
 
-        # Prefill lane: advance; on completion emit the FIRST token.
-        if self.prefilling is not None and pre is not None:
-            req = self.prefilling
-            req.prefill_pos += chunk
-            if pre_done:
-                self._accept_token(req, pre_token, now)
-                self.prefilling = None
-                if req.state != RequestState.FINISHED:
-                    req.state = RequestState.DECODE
-                    self.ready.append(req)
-
-        self.occupancy_samples.append(self.cache.occupancy())
-        self.steps += 1
-        return True
+    def _accept_spec(self, dec, tokens, ver_logits, draft_logits) -> float:
+        """The speculative tick's host side: the lane's argmaxes and
+        proposals come back in one copy; each live slot keeps what
+        :func:`~horovod_tpu_torch.serve.sampling.speculative_accept`
+        emits (sampled slots read their logits rows on the device). A
+        request that finishes mid-window drops the rest of it. Returns
+        the clock after the copy."""
+        k = self.spec_k
+        tokens = tokens.to("cpu").numpy()
+        now = self.clock()      # after the device-to-host copy: a sync
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            wd = int(dec["width"][i])
+            emitted = speculative_accept(
+                ver_logits[i, :wd], tokens[i, k + 1:k + wd],
+                draft_logits[i, :wd - 1],
+                temperature=float(req.temperature), top_k=int(req.top_k),
+                seed=int(req.seed), position0=int(req.sample_index),
+                target_tokens=tokens[i, :wd])
+            self.spec_ticks += 1
+            self.spec_proposed += wd - 1
+            self.spec_accepted += len(emitted) - 1
+            for tok in emitted:
+                self.spec_emitted += 1
+                self._accept_token(req, int(tok), now)
+                if req.state == RequestState.FINISHED:
+                    # The stale K/V rows past the cut go with its pages.
+                    break
+            if req.state == RequestState.FINISHED:
+                self.slots[i] = None
+        return now
 
     def _accept_token(self, req: Request, token: int, now: float
                       ) -> None:
@@ -594,17 +884,38 @@ class ServeEngine:
         if req.done_generating or req.hit_eos(self.config.eos_token):
             self._finish(req)
 
-    def _decode_lane(self):
-        return decode_lane(self.params, self.cache.pages, self._index,
-                           slots=self.config.decode_slots,
-                           page_size=self.config.page_size,
-                           attention=self.config.attention)
+    def _lane(self, sampled: bool):
+        """One run of the step's lane over the packed device buffers."""
+        cfg = self.config
+        if not self.spec_k:
+            return decode_lane(self.params, self.cache.pages, self._index,
+                               slots=cfg.decode_slots,
+                               page_size=cfg.page_size,
+                               attention=cfg.attention)
+        return spec_lane(self.params, self.cache.pages, self._index,
+                         self._temps, slots=cfg.decode_slots,
+                         k=self.spec_k, draft_layers=self.draft_layers,
+                         page_size=cfg.page_size, attention=cfg.attention,
+                         sampled=sampled)
 
-    def _decode_key(self):
-        """The captured decode lane's signature beyond its (argument-free)
-        call: the attention mode and the weights it reads (a swap by
+    def _run_lane(self, sampled: bool):
+        """The lane eagerly, or as the replay of its graph for
+        ``sampled`` (captured at its first use)."""
+        if self.lane_graphs is None:
+            return self._lane(sampled)
+        graph = self.lane_graphs.get(sampled)
+        if graph is None:
+            graph = self.lane_graphs[sampled] = CapturedStep(
+                lambda: self._lane(sampled), device=self.device,
+                key=self._lane_key,
+                name="speculative lane" if self.spec_k else "decode lane")
+        return graph()
+
+    def _lane_key(self):
+        """The captured lane's signature beyond its (argument-free) call:
+        the attention mode and the weights it reads (a swap by
         :meth:`update_params` captures again)."""
-        return self.config.attention, self._weights
+        return (self.config.attention, self._weights)
 
     def _set_params(self, params: Dict) -> None:
         self.params = params_to(params, self.device)
@@ -615,7 +926,8 @@ class ServeEngine:
         """Swap the model weights. Only valid when IDLE (a live
         request's decode must never mix weights mid-stream); the
         geometry must match. A captured decode lane is captured again
-        over the new weights at its next step."""
+        over the new weights at its next step, and the prefix index is
+        flushed: K/V rows are a function of the weights."""
         if not self.idle:
             raise RuntimeError(
                 "update_params with requests in flight — drain the "
@@ -628,6 +940,8 @@ class ServeEngine:
                 "geometry change needs a fresh engine, not a weight "
                 "swap")
         self._set_params(params)
+        if self.prefix is not None:
+            self.prefix.flush()
 
     # ------------------------------------------------------------- run
 
@@ -654,6 +968,10 @@ class ServeEngine:
         self.attn_len_samples = []
         self.steps = 0
         self.cow_copies = 0
+        self.spec_ticks = self.spec_proposed = 0
+        self.spec_accepted = self.spec_emitted = 0
+        if self.prefix is not None:
+            self.prefix.reset_metrics()
         self._t_start = self.clock()
 
     def stats(self) -> Dict:
@@ -666,7 +984,49 @@ class ServeEngine:
         out = summarize(everything, self.clock() - self._t_start,
                         self.chips, self.occupancy_samples)
         out["attention"] = self.attention_stats()
+        ps = self.prefix_stats()
+        if ps is not None:
+            out["prefix"] = ps
+        sp = self.spec_stats()
+        if sp is not None:
+            out["spec"] = sp
         return out
+
+    def spec_stats(self) -> Optional[Dict]:
+        """Speculation accounting over the run (None when speculation is
+        off): ``accept_rate`` = accepted over proposed proposals,
+        ``tokens_per_step`` = tokens emitted per slot tick (k+1 at a
+        perfect draft, 1 at a useless one)."""
+        if not self.spec_k:
+            return None
+        return {
+            "k": self.spec_k,
+            "draft_layers": self.draft_layers,
+            "ticks": self.spec_ticks,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "accept_rate":
+                (round(self.spec_accepted / self.spec_proposed, 4)
+                 if self.spec_proposed else None),
+            "tokens_per_step":
+                (round(self.spec_emitted / self.spec_ticks, 4)
+                 if self.spec_ticks else None),
+        }
+
+    def prefix_stats(self) -> Optional[Dict]:
+        """Prefix-cache accounting over the run (None when the cache is
+        off): ``hit_rate`` is hits over admitted requests,
+        ``prefill_tokens_saved`` the prompt tokens whose prefill a hit
+        skipped."""
+        if self.prefix is None:
+            return None
+        s = self.prefix.stats()
+        s["hit_rate"] = (round(s["hits"] / s["lookups"], 4)
+                         if s["lookups"] else None)
+        s["prefill_tokens_saved"] = s["tokens_hit"]
+        s["cow_copies"] = self.cow_copies
+        s["pages_shared_now"] = self.cache.allocator.shared
+        return s
 
     def step_grid_info(self, lengths: List[int]) -> Dict:
         """One step's static decode-traffic accounting —

@@ -1,7 +1,7 @@
 """Request lifecycle + the SLO-knobbed scheduler.
 
-A host-only copy of ``horovod_tpu.serve.scheduler`` (the prefix-cache
-hooks wait for the prefix-caching slice). The scheduler is pure host
+A host-only copy of ``horovod_tpu.serve.scheduler`` (the fleet's
+bookkeeping waits for the fleet's slice). The scheduler is pure host
 bookkeeping between engine steps — it never touches device tensors. It
 owns three decisions per step, each behind one
 :class:`~horovod_tpu_torch.serve.config.ServeConfig` knob:
@@ -15,6 +15,10 @@ owns three decisions per step, each behind one
 * **admission** (``admission``): ``reserve`` grants a request its
   worst-case pages up front, ``lazy`` grants pages as positions cross
   page boundaries and evicts (newest-admitted-first) on exhaustion.
+
+With a :class:`~horovod_tpu_torch.serve.prefix.PrefixIndex`, admission
+maps a prompt's already-filled pages read-only and grants only the
+missed ones; prefill starts at the first miss.
 
 Lifecycle (:class:`RequestState`)::
 
@@ -84,6 +88,11 @@ class Request:                     # tracked by `is` in slot lists
     version: Optional[int] = None
     #: times this request restarted from its original prompt.
     version_restarts: int = 0
+    #: prompt tokens skipped via prefix-cache hits, cumulative across
+    #: re-admissions.
+    prefix_hit_tokens: int = 0
+    #: shared pages mapped via prefix-cache hits (same cumulation).
+    prefix_hit_pages: int = 0
 
     state: str = RequestState.QUEUED
     #: prompt tokens already prefilled (chunk progress).
@@ -157,6 +166,16 @@ class Request:                     # tracked by `is` in slot lists
     def done_generating(self) -> bool:
         return len(self.generated) >= self.max_new_tokens
 
+    def spec_window(self, k: int) -> int:
+        """Budget clamp for a speculative tick: how many draft proposals
+        this request can still use. A tick emits between 1 and
+        proposals+1 tokens, so proposals beyond ``max_new_tokens -
+        len(generated) - 1`` could only produce tokens past the budget
+        while writing K/V rows past the reserve-mode page grant. 0 = a
+        verify-only tick of exactly one token."""
+        return max(0, min(k, self.max_new_tokens
+                          - len(self.generated) - 1))
+
     def hit_eos(self, default_eos: Optional[int]) -> bool:
         eos = self.eos_token if self.eos_token is not None else default_eos
         return bool(self.generated) and eos is not None \
@@ -167,9 +186,14 @@ class Scheduler:
     """Queue + admission + the prefill gate over one
     :class:`~horovod_tpu_torch.serve.kvcache.PagedKVCache`."""
 
-    def __init__(self, cache: PagedKVCache, config: ServeConfig):
+    def __init__(self, cache: PagedKVCache, config: ServeConfig,
+                 prefix=None):
         self.cache = cache
         self.config = config
+        #: Optional :class:`~horovod_tpu_torch.serve.prefix.PrefixIndex`:
+        #: admission maps a prompt's matched pages read-only (retain) and
+        #: counts and allocates only the missed pages.
+        self.prefix = prefix
         self.queue: List[Request] = []
         self.rejected: List[Request] = []
 
@@ -248,20 +272,47 @@ class Scheduler:
     def _admit(self, req: Request) -> bool:
         if req.page_table is None:
             req.page_table = np.zeros(self.cache.pages_per_seq, np.int32)
+        # Prefix-cache probe: a pure lookup. Pages are retained only once
+        # the admission sticks (the waiting queue head re-probes every
+        # step; a failed try must not leak holders).
+        hit, matched = [], 0
+        if self.prefix is not None:
+            hit, matched = self.prefix.match(req.prompt)
         alloc = self.cache.allocator
         if self.config.admission == "reserve":
             need = self.cache.pages_needed(req.prompt_len,
                                            req.max_new_tokens)
-            if need > alloc.available:
+            if need - len(hit) > alloc.available and \
+                    self.prefix is not None:
+                # Index-only holds are the lowest-priority pages: reclaim
+                # cold leaves before making the head wait, then match
+                # again (a reclaimed leaf may have been on this chain).
+                self.prefix.reclaim(need - len(hit) - alloc.available)
+                hit, matched = self.prefix.match(req.prompt)
+            if need - len(hit) > alloc.available:
                 return False
-            grant = alloc.alloc(need)
+            grant = alloc.alloc(need - len(hit))
         else:
-            # lazy: map the first page only; grow via ensure_pages.
+            # lazy: map the hits plus the first missed page only; grow
+            # via ensure_pages.
+            if alloc.available < 1 and self.prefix is not None:
+                self.prefix.reclaim(1)
+                hit, matched = self.prefix.match(req.prompt)
             if alloc.available < 1:
                 return False
             grant = alloc.alloc(1)
+        if hit:
+            alloc.retain(hit)
+            req.pages.extend(hit)
+            req.page_table[:len(hit)] = np.asarray(hit, np.int32)
+            req.prefill_pos = matched
+            req.prefix_hit_tokens += matched
+            req.prefix_hit_pages += len(hit)
         req.pages.extend(grant)
-        req.page_table[:len(grant)] = np.asarray(grant, np.int32)
+        req.page_table[len(hit):len(hit) + len(grant)] = \
+            np.asarray(grant, np.int32)
+        if self.prefix is not None:
+            self.prefix.note_admission(len(hit), matched)
         return True
 
     def ensure_pages(self, req: Request, last_pos: int,
@@ -289,7 +340,9 @@ class Scheduler:
 
     def release(self, req: Request) -> None:
         """Drop the request's hold on every page it maps (finish OR
-        evict) through the refcounted path."""
+        evict) through the refcounted path, so a page the prefix index
+        (or another request) still holds stays alive and only
+        exclusively-held pages return to the free list."""
         if req.pages:
             self.cache.allocator.release(req.pages)
             req.pages = []

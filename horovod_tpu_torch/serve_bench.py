@@ -1,0 +1,471 @@
+"""Serving bench lane of the port: ``python -m horovod_tpu_torch.serve_bench``.
+
+The single-engine half of the JAX package's ``tools/serve_bench.py``:
+open-loop Poisson load over one continuous-batching
+:class:`~horovod_tpu_torch.serve.ServeEngine`, printing ONE JSON record
+with generated tokens/s, p50/p99 time-to-first-token, p50/p99 per-token
+latency and page occupancy, beside the card's name and power limit.
+
+Arrivals are drawn up front from a Poisson process (exponential gaps at
+``--rate``) and requests enter the engine when the wall clock passes
+their arrival time, so a saturated engine pays queueing delay in TTFT.
+Every lane warms its engine (and, on the card, captures its lane) with
+one short request before the measured window.
+
+Modes (the JAX tool's flags and defaults, one A/B per record):
+
+* (default) continuous batching; ``--static`` the static-batching
+  baseline (batches of ``--decode-slots`` that drain completely);
+  ``--ab`` both on the identical workload;
+* ``--attention gather|paged`` and ``--ab-attention``;
+* ``--speculate K`` (``--draft-layers``, 0 = half the depth) and
+  ``--ab-spec``: speculation off then on over the identical workload,
+  aborting unless every greedy stream is bit-identical across the sides;
+* ``--prefix`` and ``--ab-prefix``: prefix caching off then on over the
+  many-users-one-system-prompt workload (``--system-prompt-len``, auto =
+  4 pages), aborting unless the streams are identical, exactly one
+  prefill is cold, and the cached side saved prefill tokens;
+* ``--capture on|off`` (the port's own): the engine's lane as a CUDA
+  graph replay (the engine's default) or eager, for an A/B across two
+  records.
+
+``--pin-exact`` re-decodes every finished greedy request through
+``models.parallel_lm.lm_decode``; ``--require-finished`` fails unless
+every request finished. The JAX tool's fleet, mesh and disaggregation
+flags raise :class:`NotImplementedError` naming their ROADMAP.md item.
+On the CPU (``run(args, device="cpu")``, the tests) the numbers time
+PyTorch's CPU kernels, not the card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+
+from horovod_tpu_torch._device import DeviceLike, resolve_device
+from horovod_tpu_torch.bench import card_description
+from horovod_tpu_torch.models import parallel_lm as plm
+from horovod_tpu_torch.serve import ServeConfig, ServeEngine
+from horovod_tpu_torch.serve.prefix import prefix_route_key
+
+_FLEET = "ROADMAP.md Queue 1 item 3 (serve/router.py + serve/fleet.py)"
+#: The JAX tool's flags that the port has not taken yet: (flag, whether
+#: it is a switch, the ROADMAP.md item that brings it).
+_NOT_PORTED = [
+    ("--mesh", False, "ROADMAP.md Queue 1 item 4 (TP-sharded paged "
+                      "decode)"),
+    ("--ab-tp", True, "ROADMAP.md Queue 1 item 4 (TP-sharded paged "
+                      "decode)"),
+    ("--pools", False, "ROADMAP.md Queue 1 item 3 (serve/disagg.py)"),
+    ("--ab-disagg", True, "ROADMAP.md Queue 1 item 3 (serve/disagg.py)"),
+] + [(f, False, _FLEET) for f in (
+    "--fleet", "--fleet-transport", "--fleet-hosts", "--fleet-rpc-deadline",
+    "--fault-plan", "--rolling-update-at", "--fleet-push-chunk-bytes",
+    "--fleet-push-retries", "--fleet-max-restarts",
+    "--fleet-watchdog-timeout", "--fleet-max-queue", "--fleet-backoff")]
+
+
+def make_workload(args, system_prompt_len: int = 0):
+    """Pre-drawn open-loop workload: ``(arrival_offset_s, prompt,
+    max_new)`` triples, arrivals the cumulative sum of exponential gaps.
+    With ``system_prompt_len`` > 0 every prompt is one shared system
+    prompt + a unique tail of ``--prompt-min/max`` tokens."""
+    rng = np.random.default_rng(args.seed)
+    system = rng.integers(0, args.vocab,
+                          size=system_prompt_len).astype(np.int32)
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate,
+                                         size=args.requests))
+    out = []
+    for i in range(args.requests):
+        lp = int(rng.integers(args.prompt_min, args.prompt_max + 1))
+        n = int(rng.integers(args.new_min, args.new_max + 1))
+        tail = rng.integers(0, args.vocab, size=lp).astype(np.int32)
+        out.append((float(arrivals[i]), np.concatenate([system, tail]), n))
+    return out
+
+
+def _drain_arrivals(eng, pending, t0, now):
+    while pending and pending[0][0] <= now - t0:
+        arrival, prompt, n = pending.pop(0)
+        eng.submit(prompt, n, arrival=t0 + arrival)
+
+
+def _warm(eng, workload):
+    """Warm the engine (on the card: its lane's warm-up step and capture)
+    with a two-token request, then reset the metrics, so the measured
+    window starts warm; shared by both runners so A/B sides warm
+    alike."""
+    eng.submit(workload[0][1][:2], 2)
+    eng.run()
+    eng.reset_metrics()
+
+
+def _idle_wait(eng, pending, t0):
+    time.sleep(min(0.001, max(0.0, pending[0][0] - (eng.clock() - t0))))
+
+
+def run_continuous(params, cfg, workload, *, device, capture=True,
+                   warm=True):
+    """Continuous batching under the open-loop clock; returns the engine,
+    drained."""
+    eng = ServeEngine(params, cfg, device=device, capture=capture)
+    if warm:
+        _warm(eng, workload)
+    pending = sorted(workload, key=lambda w: w[0])
+    t0 = eng._t_start = eng.clock()
+    while pending or not eng.idle:
+        _drain_arrivals(eng, pending, t0, eng.clock())
+        if not eng.step() and pending:
+            _idle_wait(eng, pending, t0)
+    return eng
+
+
+def run_static(params, cfg, workload, *, device, capture=True, warm=True):
+    """Static batching baseline: the same engine, with requests admitted
+    in barrier batches of up to ``decode_slots``, each drained fully
+    before the next is admitted."""
+    eng = ServeEngine(params, cfg, device=device, capture=capture)
+    if warm:
+        _warm(eng, workload)
+    pending = sorted(workload, key=lambda w: w[0])
+    arrived = []
+    t0 = eng._t_start = eng.clock()
+    while pending or arrived or not eng.idle:
+        while pending and pending[0][0] <= eng.clock() - t0:
+            arrived.append(pending.pop(0))
+        if eng.idle and arrived:
+            batch, arrived = (arrived[:cfg.decode_slots],
+                              arrived[cfg.decode_slots:])
+            for arrival, prompt, n in batch:
+                eng.submit(prompt, n, arrival=t0 + arrival)
+            eng.run()        # the barrier: drain the whole batch
+        elif pending:
+            _idle_wait(eng, pending, t0)
+        else:
+            eng.run()
+    return eng
+
+
+def pin_sides(a_reqs, b_reqs, label):
+    """The A/B exactness abort: the i-th submitted request must emit the
+    bit-identical greedy stream on both sides (the same workload, so the
+    same prompts). Returns the pairs compared."""
+    if len(a_reqs) != len(b_reqs):
+        raise SystemExit(f"{label} PIN FAILED: {len(a_reqs)} requests on "
+                         f"one side, {len(b_reqs)} on the other")
+    compared = 0
+    for i, (ra, rb) in enumerate(zip(a_reqs, b_reqs)):
+        if list(ra.prompt[:ra.orig_prompt_len]) != \
+                list(rb.prompt[:rb.orig_prompt_len]):
+            raise SystemExit(f"{label} PIN FAILED: request #{i} prompts "
+                             "differ across sides")
+        if ra.temperature > 0 or ra.state != "finished" \
+                or rb.state != "finished":
+            continue
+        if ra.output != rb.output:
+            raise SystemExit(f"{label} PIN FAILED: request #{i} "
+                             f"{ra.output} vs {rb.output}")
+        compared += 1
+    if not compared:
+        raise SystemExit(f"{label} PIN FAILED: no greedy pairs finished "
+                         "on both sides")
+    return compared
+
+
+def pin_prefix_cold(reqs, page_size, label):
+    """The ``--ab-prefix`` efficiency pin: among the finished requests
+    sharing a matchable prefix, EXACTLY ONE paid a cold prefill
+    (``prefix_hit_tokens == 0``). Holds deterministically because the
+    engine admits through one prefill lane: a prefix-mate is matched only
+    after the first one's prefill indexed its pages. Returns
+    ``(unique_prefixes, cold_prefills)``."""
+    groups = {}
+    for r in reqs:
+        if r.state != "finished":
+            continue
+        key = prefix_route_key(r.prompt[:r.orig_prompt_len], page_size)
+        if key is not None:
+            groups.setdefault(key, []).append(r)
+    cold_total = 0
+    for key, grp in sorted(groups.items()):
+        cold = sum(1 for r in grp if r.prefix_hit_tokens == 0)
+        if cold != 1:
+            raise SystemExit(
+                f"PREFIX COLD PIN FAILED ({label}): {cold} cold "
+                f"prefill(s) for prefix {key[:12]} ({len(grp)} requests; "
+                "want exactly 1)")
+        cold_total += cold
+    return len(groups), cold_total
+
+
+def pin_exact(params, eng, device):
+    """Every finished greedy request must match its own ``lm_decode``."""
+    for req in eng.finished:
+        if req.temperature > 0 or not req.output:
+            continue
+        prompt = req.prompt[:req.orig_prompt_len]
+        ref = plm.lm_decode(params, prompt[None], len(req.output),
+                            device=device)[0].tolist()
+        if req.output != ref:
+            raise SystemExit(f"EXACTNESS PIN FAILED: request {req.rid} "
+                             f"engine={req.output} lm_decode={ref}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.serve_bench",
+        description="Open-loop serving bench of one ServeEngine.")
+    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--d-model", type=int, default=768)
+    ap.add_argument("--heads", type=int, default=12)
+    ap.add_argument("--vocab", type=int, default=32000)
+    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--rate", type=float, default=2.0,
+                    help="Poisson arrival rate (requests/s)")
+    ap.add_argument("--prompt-min", type=int, default=64)
+    ap.add_argument("--prompt-max", type=int, default=256)
+    ap.add_argument("--new-min", type=int, default=32)
+    ap.add_argument("--new-max", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="0 = auto: worst case for the in-flight limit")
+    ap.add_argument("--decode-slots", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--policy", choices=("fcfs", "sjf"), default="fcfs")
+    ap.add_argument("--slo", choices=("latency", "balanced", "throughput"),
+                    default="balanced")
+    ap.add_argument("--admission", choices=("reserve", "lazy"),
+                    default="reserve")
+    ap.add_argument("--attention", choices=("gather", "paged"),
+                    default="gather")
+    ap.add_argument("--ab-attention", action="store_true")
+    ap.add_argument("--speculate", type=int, default=0,
+                    help="speculative window k (0 = off)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="layers of the layer-skip draft (0 = half)")
+    ap.add_argument("--ab-spec", action="store_true")
+    ap.add_argument("--prefix", action="store_true")
+    ap.add_argument("--ab-prefix", action="store_true")
+    ap.add_argument("--system-prompt-len", type=int, default=-1,
+                    help="-1 = auto: 4 pages under --ab-prefix, else 0")
+    ap.add_argument("--static", action="store_true")
+    ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--capture", choices=("on", "off"), default="on",
+                    help="the engine's lane as a CUDA graph replay (on) "
+                         "or eager (off)")
+    ap.add_argument("--pin-exact", action="store_true")
+    ap.add_argument("--require-finished", action="store_true")
+    for flag, switch, _ in _NOT_PORTED:
+        if switch:
+            ap.add_argument(flag, action="store_true",
+                            help=argparse.SUPPRESS)
+        else:
+            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    return ap
+
+
+def _validate(ap, args) -> None:
+    """The JAX tool's argument checks for the single-engine modes
+    (``ap.error``: exit code 2)."""
+    if args.layers < 1 or args.d_model % args.heads:
+        ap.error("need --layers >= 1 and --d-model divisible by --heads")
+    if args.requests < 1 or args.rate <= 0:
+        ap.error("--requests must be >= 1 and --rate > 0")
+    if args.prompt_min < 1 or args.prompt_max < args.prompt_min or \
+            args.new_min < 1 or args.new_max < args.new_min:
+        ap.error("need 1 <= prompt-min <= prompt-max and "
+                 "1 <= new-min <= new-max")
+    if args.ab_attention and (args.ab or args.static):
+        ap.error("--ab-attention is exclusive with --ab/--static (one A/B "
+                 "per record)")
+    if args.ab_prefix and (args.ab or args.static or args.ab_attention):
+        ap.error("--ab-prefix is exclusive with --ab/--static/"
+                 "--ab-attention (one A/B per record)")
+    if args.ab_prefix and args.prefix:
+        ap.error("--ab-prefix runs both prefix sides itself; drop --prefix")
+    if args.speculate < 0:
+        ap.error("--speculate must be >= 0 (0 = off)")
+    if args.draft_layers and not args.speculate:
+        ap.error("--draft-layers sizes the speculation draft — it "
+                 "requires --speculate K")
+    if args.ab_spec:
+        if args.ab or args.static or args.ab_attention or args.ab_prefix:
+            ap.error("--ab-spec is exclusive with --ab/--static/"
+                     "--ab-attention/--ab-prefix (one A/B per record)")
+        if args.speculate < 1:
+            ap.error("--ab-spec compares speculation off against on — it "
+                     "requires --speculate K with K >= 1")
+    if args.system_prompt_len < -1:
+        ap.error("--system-prompt-len must be >= 0 (-1 = auto)")
+
+
+def run(args, device: DeviceLike = None, ap=None) -> dict:
+    """One bench record from parsed ``args`` on ``device`` (None = the
+    card)."""
+    for flag, _, item in _NOT_PORTED:
+        if getattr(args, flag[2:].replace("-", "_")):
+            raise NotImplementedError(
+                f"serve_bench {flag} is not ported yet; it comes with "
+                f"{item}")
+    _validate(ap or build_parser(), args)
+    dev = resolve_device(device)
+    capture = args.capture == "on"
+    ps = args.page_size
+    spl = args.system_prompt_len
+    if spl < 0:
+        spl = 4 * ps if args.ab_prefix else 0
+    # Lmax covers the worst request (the shared system prompt included),
+    # rounded up to whole pages.
+    lmax = -(-(spl + args.prompt_max + args.new_max) // ps) * ps
+    num_pages = args.num_pages
+    if num_pages <= 0:
+        num_pages = (args.decode_slots + 1) * (lmax // ps) + 1
+    cfg = ServeConfig(
+        page_size=ps, num_pages=num_pages, decode_slots=args.decode_slots,
+        prefill_chunk=args.prefill_chunk, policy=args.policy, slo=args.slo,
+        admission=args.admission, attention=args.attention,
+        prefix_caching=args.prefix, speculate_k=args.speculate,
+        draft_layers=args.draft_layers)
+    params = plm.init_lm_params(
+        0, args.vocab, lmax, args.layers, args.heads,
+        args.d_model // args.heads, 4 * args.d_model, device=dev)
+    workload = make_workload(args, system_prompt_len=spl)
+
+    def lane(tag, lane_cfg=cfg, runner=run_continuous):
+        eng = runner(params, lane_cfg, workload, device=dev,
+                     capture=capture)
+        stats = eng.stats()
+        p, sp = stats.get("prefix"), stats.get("spec")
+        print(f"[serve_bench] {tag}: "
+              f"{stats['tokens_per_sec_per_chip']} tok/s/chip, "
+              f"ttft p50/p99 {stats['ttft_ms']['p50']}/"
+              f"{stats['ttft_ms']['p99']} ms, "
+              f"tbt p50/p99 {stats['tbt_ms']['p50']}/"
+              f"{stats['tbt_ms']['p99']} ms, {stats['by_state']}"
+              + (f", prefix hit_rate {p['hit_rate']} "
+                 f"({p['prefill_tokens_saved']} prefill tokens saved, "
+                 f"{p['cow_copies']} COW copies)" if p else "")
+              + (f", spec k={sp['k']} dl={sp['draft_layers']} "
+                 f"accept_rate {sp['accept_rate']} tokens_per_step "
+                 f"{sp['tokens_per_step']}" if sp else ""),
+              file=sys.stderr, flush=True)
+        if args.pin_exact:
+            pin_exact(params, eng, dev)
+        if args.require_finished and \
+                stats["by_state"].get("finished") != args.requests:
+            raise SystemExit(
+                f"not all requests finished: {stats['by_state']}")
+        reqs = sorted(eng.finished + eng.evicted + eng.timed_out
+                      + eng.scheduler.rejected, key=lambda r: r.rid)
+        return stats, reqs
+
+    def ratio(a, b):
+        a, b = a["tokens_per_sec_per_chip"], b["tokens_per_sec_per_chip"]
+        return round(a / b, 3) if a and b else None
+
+    if args.ab_prefix:
+        off, off_reqs = lane("prefix=off", dataclasses.replace(
+            cfg, prefix_caching=False))
+        on, on_reqs = lane("prefix=on", dataclasses.replace(
+            cfg, prefix_caching=True))
+        compared = pin_sides(off_reqs, on_reqs, "PREFIX AB")
+        uniq, colds = pin_prefix_cold(on_reqs, ps, "cached side")
+        if not (on.get("prefix") or {}).get("prefill_tokens_saved"):
+            raise SystemExit("PREFIX AB FAILED: the cached side saved no "
+                             f"prefill tokens ({on.get('prefix')})")
+        print(f"[serve_bench] prefix pins: {compared} greedy streams "
+              f"bit-identical off vs on; {colds} cold prefill(s) for "
+              f"{uniq} unique prefix(es)", file=sys.stderr, flush=True)
+        mode, headline = "ab_prefix", on
+        serve = dict(on, mode=mode, ab_prefix={
+            "off": dict(off, prefix=None),
+            "system_prompt_tokens": spl,
+            "unique_prefixes": uniq,
+            "cold_prefills": colds,
+            "exact_pin": {"compared": compared, "identical": True},
+            "cached_over_cold": ratio(on, off),
+        })
+    elif args.ab_spec:
+        base, base_reqs = lane("spec=off", dataclasses.replace(
+            cfg, speculate_k=0, draft_layers=0))
+        spec, spec_reqs = lane(f"spec=on [k={args.speculate}]")
+        compared = pin_sides(base_reqs, spec_reqs, "SPEC AB")
+        sp = spec.get("spec") or {}
+        print(f"[serve_bench] spec pins: {compared} greedy streams "
+              f"bit-identical base vs speculative; accept_rate "
+              f"{sp.get('accept_rate')}, tokens_per_step "
+              f"{sp.get('tokens_per_step')}", file=sys.stderr, flush=True)
+        mode, headline = "ab_spec", spec
+        serve = dict(spec, mode=mode, ab_spec={
+            "base": dict(base, spec=None),
+            "k": args.speculate,
+            "draft_layers": sp.get("draft_layers"),
+            "accept_rate": sp.get("accept_rate"),
+            "tokens_per_step": sp.get("tokens_per_step"),
+            "exact_pin": {"compared": compared, "identical": True},
+            "spec_over_base": ratio(spec, base),
+        })
+    elif args.ab_attention:
+        gat, _ = lane("attention=gather",
+                      dataclasses.replace(cfg, attention="gather"))
+        pag, _ = lane("attention=paged",
+                      dataclasses.replace(cfg, attention="paged"))
+        mode, headline = "ab_attention", pag
+        serve = dict(pag, mode=mode, ab_attention={
+            "gather": gat, "paged_over_gather": ratio(pag, gat)})
+    elif args.ab:
+        cont, _ = lane("continuous")
+        stat, _ = lane("static", runner=run_static)
+        mode, headline = "ab", cont
+        serve = dict(cont, mode=mode, ab={
+            "static": stat, "continuous_over_static": ratio(cont, stat)})
+    else:
+        mode = "static" if args.static else "continuous"
+        headline = lane(mode, runner=run_static if args.static
+                        else run_continuous)[0]
+        serve = dict(headline, mode=mode)
+    return {
+        "metric": f"serve_{mode}_tokens_per_sec_per_chip",
+        "value": headline["tokens_per_sec_per_chip"],
+        "unit": "tokens/sec/chip",
+        "vs_baseline": None,
+        "serve": serve,
+        "card": card_description(dev),
+        "config": {
+            "page_size": ps, "num_pages": num_pages,
+            "decode_slots": args.decode_slots,
+            "prefill_chunk": args.prefill_chunk,
+            "policy": args.policy, "slo": args.slo,
+            "admission": args.admission,
+            "attention": "ab" if args.ab_attention else args.attention,
+            "prefix_caching": "ab" if args.ab_prefix else args.prefix,
+            "mesh": None,
+            "speculate_k": "ab" if args.ab_spec else args.speculate,
+            "draft_layers": args.draft_layers,
+            "system_prompt_len": spl,
+            "rate": args.rate,
+            "requests": args.requests,
+            "fleet": None,
+            "capture": args.capture,
+            "model": {"layers": args.layers, "d_model": args.d_model,
+                      "heads": args.heads, "vocab": args.vocab,
+                      "dtype": "float32"},
+        },
+    }
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    print(json.dumps(run(args, ap=ap)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,9 @@ decode-traffic accounting must equal the JAX engine's too.
 Besides: the refcounted ``PageAllocator`` against the JAX one, same-seed
 sampling determinism, lifecycle edges (EOS, rejects, deadlines, weight
 swaps), the fixed-shape decode lane's idle-slot writes (page 0 only),
-config parity, a ``device=None`` engine raising without CUDA,
+config parity (``mesh`` still raises; the speculative and prefix knobs
+build the JAX config's fields), a ``device=None`` engine raising without
+CUDA,
 and an AST scan proving that nothing in ``horovod_tpu_torch/`` or
 ``chip_smoke.py`` imports ``jax`` or ``horovod_tpu`` (the interpreter
 imports jax at startup here, so ``sys.modules`` cannot show it).
@@ -140,7 +142,7 @@ def test_paged_mode_on_cpu_launches_no_kernel(tparams):
     eng.submit(_prompt(3, 5), 4)
     eng.run()
     assert eng.finished and tpa.paged_attention_decode.launches == before
-    assert eng.decode_graph is None     # the CPU runs the lane eagerly
+    assert eng.lane_graphs is None      # the CPU runs the lane eagerly
     att = eng.stats()["attention"]
     assert att["mode"] == "paged" and att["kv_fetch_frac"] < 1
 
@@ -335,13 +337,26 @@ def test_config_validation_matches_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh="dp=1,tp=4"),
-                                dict(speculate_k=2, draft_layers=1),
-                                dict(prefix_caching=True)])
+@pytest.mark.parametrize("kw", [dict(mesh="dp=1,tp=4")])
 def test_unported_knobs_raise_naming_the_roadmap(kw):
     JServeConfig(**kw)      # valid in the JAX package
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         ServeConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(speculate_k=2, draft_layers=1),
+                                dict(prefix_caching=True),
+                                dict(speculate_k=4, prefix_caching=True,
+                                     attention="paged")])
+def test_ported_knobs_build_the_same_config_as_jax(kw):
+    """Speculative decoding and prefix caching construct, and every field
+    of the port's config equals the JAX config's."""
+    import dataclasses
+
+    want, got = JServeConfig(**kw), ServeConfig(**kw)
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert got.in_flight_limit == want.in_flight_limit
 
 
 def test_defaults_match_jax():
@@ -370,7 +385,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) >= 14 and all(f.exists() for f in files)
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("_graphs.py", "distributed/window.py", "utils/devsync.py",
-                "data/__init__.py", "data/sharding.py", "data/prefetch.py"):
+                "data/__init__.py", "data/sharding.py", "data/prefetch.py",
+                "serve/prefix.py", "serve_bench.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
     bad = []
     for f in files:
