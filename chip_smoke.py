@@ -5,6 +5,7 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --engine-only [RUNS]
+    python3 chip_smoke.py --fleet-only [RUNS]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -59,7 +60,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    loss, running means and gradient norm;
 8. window: the training lanes as multi-step windows
    (``distributed.window``: one captured step replayed as a CUDA graph),
-   two windows of 5 steps against 10 eager steps from the same weights,
+   two windows of 3 steps against 6 eager steps from the same weights,
    bit for bit (window means, parameters, buffers): the LM above with
    ``capturable`` Adam under hook-driven ``DistributedOptimizer``, with
    ZeRO-1, and with ``fused_ce`` + ``remat``; ResNet-50 ``--fused-bn``
@@ -90,11 +91,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    eager; and with the prefix cache on and off over 8 requests sharing a
    128-token system prompt: 7 hits of 128 tokens, no copy-on-write copy,
    the streams unchanged and equal ``lm_decode``'s;
-10. (``--profile`` only) two training steps of each lane and the
+10. fleet: ``ServeFleet`` at the engine phase's geometry and width
+   (paged, captured, the same weights and waves). Two in-process
+   replicas sharing one copy of the weights: the streams equal the
+   single engine's and ``lm_decode``'s, each replica's K4 wrapper
+   launched only for its warm-up step and capture (the card's reserved
+   memory logged at every capture) and a profiled replayed tick traces
+   12 of each K4 kernel per live replica; the same submissions with
+   ``kill:replica=1`` armed mid-decode give the same streams (one
+   ``crashed`` incident, a redispatch, a relaunch, no token emitted
+   twice); rolling updates to versions 2 and 3 (copies of the same
+   weights) mid-run keep the streams, every replica captures again over
+   the new weights, and the reserved memory after the second roll is
+   within one lane graph's pool of the first's. Then two worker
+   processes sharing the card (``--device cuda``): the weights arrive
+   over the wire (the pushed sha256 is the fleet's artifact's), the
+   card's memory outside this process grows by at least each worker's
+   weights (``nvidia-smi --query-compute-apps`` logged beside it), the
+   streams equal the in-process fleet's, clean and with a real SIGKILL
+   of worker 1 mid-decode (relaunched within the budget), each worker
+   incarnation's own K4 wrapper count is its warm-up step and capture
+   with replays after it, every worker is reaped after ``close()`` and
+   its memory freed, and each incarnation's spawn-to-first-step
+   seconds;
+11. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
-``--engine-only`` runs phases 1 and 9 alone (and 10's engine half with
+``--fleet-only [RUNS]`` runs phases 1 and 2, one captured paged engine
+run for comparison and the fleet phase RUNS times (default 1), and
+prints one ``{"fleet_runs": [...]}`` line and no kernels or ok line.
+
+``--engine-only`` runs phases 1 and 9 alone (and 11's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
 checks, and prints one ``{"engine_runs": [...]}``
 line of each run's tokens/s, TTFT and per-token p50/p99 per mode,
@@ -108,7 +136,11 @@ do not count. A CUDA graph replay runs no Python, so under replay the
 counts come from the profiler's trace (``replay_launches``).
 
 Before the last two lines, a ``{"window": {...}}`` line holds the eager
-against captured numbers beside the card's name and power limit. The
+against captured numbers beside the card's name and power limit, and a
+``{"fleet": {...}}`` line the fleet's tokens/s of the card (every
+replica shares it) and per replica, TTFT and per-token p50/p99, clean
+and faulted, in process and as workers, beside the single engine's and
+the card's name and power limit. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -120,6 +152,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -765,7 +798,7 @@ def conv_bn_phase(torch, np):
 
 # ------------------------------------------------------------- phase 6
 
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
 # The dense-attention cross-check runs one step at this batch (dense
 # attention keeps [B, H, L, L] scores per layer for the backward).
 PARITY_BATCH = 2
@@ -1127,7 +1160,7 @@ def _profile_steps(torch, step, batch, name="training", steps=2):
 
 # ------------------------------------------------------------- phase 7
 
-RESNET_STEPS = 5
+RESNET_STEPS = 3
 # Fused (K5) against unfused (cuDNN convs, statistics as a separate pass)
 # BatchNorm, same weights and batch, one bf16 forward + backward: both
 # round every conv output to bf16 from float32 sums taken in another
@@ -1302,7 +1335,7 @@ def resnet_phase(torch, np, profile):
 # kernel for an in-place all-reduce (0 in both traces, NVIDIA H100,
 # torch 2.11), so on one card the wrapper's issue count (the plan, for
 # each of the warm-up and the capture) is the check that bites.
-WINDOW_K, WINDOWS = 5, 2
+WINDOW_K, WINDOWS = 3, 2
 
 
 def _window_mean(torch, outs):
@@ -1955,6 +1988,493 @@ def engine_phase(torch, np):
     return runs, params, prompts, waves
 
 
+# ------------------------------------------------------------- phase 10
+
+#: The fleet phase's placements and budgets. Spawn covers a worker's
+#: torch import, CUDA context, the wire push of the ~538 MB float32
+#: artifact and the engine build; the first step RPC after it waits out
+#: the first capture.
+FLEET_REPLICAS = 2
+FLEET_SPAWN_S, FLEET_RPC_S = 180.0, 180.0
+FLEET_TIMEOUT_S = 300.0
+
+
+def _reserved_mib(torch):
+    return torch.cuda.memory_reserved() / 2**20
+
+
+class _FleetWatch:
+    """Counts K4's wrapper launches per replica (each replica engine's
+    ``step`` is wrapped: the counter's delta across it) and records the
+    card's reserved memory around each replica's captures."""
+
+    def __init__(self, torch, fl):
+        self.torch, self.fl = torch, fl
+        self.launches = {}
+        self.captured = {}
+        #: (replica, capture number, MiB reserved before, after)
+        self.captures = []
+
+    def wrap(self):
+        from horovod_tpu_torch.ops.paged_attention import \
+            paged_attention_decode as k4
+
+        for rep in self.fl.replicas:
+            eng = rep.engine
+            if eng is None or getattr(eng, "_watched", False):
+                continue
+            step = eng.step
+
+            def counted(step=step, rid=rep.id, eng=eng):
+                n0, mib0 = k4.launches, _reserved_mib(self.torch)
+                out = step()
+                self.launches[rid] = self.launches.get(rid, 0) + \
+                    k4.launches - n0
+                g = (eng.lane_graphs or {}).get(False)
+                caps = g.captures if g else 0
+                if caps > self.captured.get(id(eng), 0):
+                    self.captured[id(eng)] = caps
+                    mib = _reserved_mib(self.torch)
+                    self.captures.append((rid, caps, mib0, mib))
+                    log(f"fleet: replica {rid} capture {caps}: reserved "
+                        f"{mib0:.1f} -> {mib:.1f} MiB")
+                return out
+
+            eng.step = counted
+            eng._watched = True
+
+
+def _fleet_serve(torch, fl, waves, watch=None, kill_at=None):
+    """The engine phase's waves through a fleet: submit each wave, step
+    the fleet, drain; ``kill_at`` arms ``kill:replica=N`` as soon as that
+    replica holds a request mid-decode. Returns (requests, wall s)."""
+    t0 = time.perf_counter()
+    reqs = []
+    armed = kill_at is None
+
+    def tick():
+        nonlocal armed
+        if watch is not None:
+            watch.wrap()
+        progressed = fl.step()
+        if not armed:
+            rep = fl.replicas[kill_at]
+            if any(r.generated for r in rep.assigned):
+                fl.arm_fault_plan(f"kill:replica={kill_at},at=0s")
+                armed = True
+        return progressed
+
+    for wave, steps in waves:
+        reqs += [fl.submit(p, NEW_TOKENS) for p in wave]
+        for _ in range(steps):
+            tick()
+    while not fl.idle or fl.update_active:
+        check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+              f"fleet: not drained in {FLEET_TIMEOUT_S} s: "
+              f"{[r.state for r in reqs]}")
+        if not tick():
+            time.sleep(0.0005)
+    torch.cuda.synchronize()
+    check(armed, f"fleet: replica {kill_at} never held a request "
+          "mid-decode, the kill was never armed")
+    return reqs, time.perf_counter() - t0
+
+
+def _fleet_stats(fl, wall):
+    """The fleet's numbers of one run. ``stats()`` divides the tokens by
+    one chip per replica, as the reference does; here every replica
+    shares the one card, so the card's own rate is that times the
+    replicas: ``tokens_per_sec_per_card`` is the figure to hold against
+    the single engine's."""
+    st = fl.stats()
+    f = st["fleet"]
+    per_replica = st["tokens_per_sec_per_chip"]
+    return {"tokens_per_sec_per_card": round(per_replica * fl.chips, 1),
+            "tokens_per_sec_per_replica": per_replica,
+            "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
+            "wall_s": wall, "by_state": st["by_state"],
+            "incidents_by_class": f["incidents_by_class"],
+            "redispatched": f["redispatched"],
+            "tokens_recomputed": f["tokens_recomputed"],
+            "restarts_used": f["restarts_used"], "rpc_ms": f["rpc_ms"],
+            "params_push": f["params_push"]}
+
+
+def _fleet_check(torch, params, prompts, name, reqs, ref, what):
+    """Every request finished with NEW_TOKENS tokens (none emitted twice)
+    and its stream equals ``ref``'s."""
+    for i, r in enumerate(reqs):
+        check(r.state == "finished" and len(r.output) == NEW_TOKENS
+              and len(r.token_times) == NEW_TOKENS,
+              f"{name}: request {i} {r.state} with {len(r.output)} "
+              f"tokens and {len(r.token_times)} emissions")
+    for i, (a, b) in enumerate(zip(reqs, ref)):
+        j = _first_divergence(a.output, b.output)
+        if j is not None:
+            gap = _top2_gap(torch, params, list(prompts[i])
+                            + list(b.output[:j]))
+            raise SmokeFailure(
+                f"request {i}: {name} and {what} streams diverge at "
+                f"generated position {j} (top-2 logit gap there "
+                f"{gap:.3e})")
+
+
+def _fleet_cfg():
+    from horovod_tpu_torch.serve import ServeConfig
+
+    return ServeConfig(page_size=PAGE, num_pages=NUM_PAGES,
+                       decode_slots=SLOTS, prefill_chunk=CHUNK,
+                       attention="paged")
+
+
+def _clone(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(torch, v) for v in tree]
+    return tree.clone()
+
+
+def _inproc_fleet(torch, params, prompts, waves, single):
+    """10.1 and 10.3: two in-process replicas, clean, then the same
+    submissions with replica 1 killed mid-decode, then a rolling update
+    to version 2 (a copy of the same weights) mid-run and a second roll
+    to version 3."""
+    from horovod_tpu_torch.ops.paged_attention import \
+        paged_attention_decode as k4
+    from horovod_tpu_torch.serve import FleetConfig, ServeFleet
+
+    out = {}
+    mib0 = _reserved_mib(torch)
+    fl = ServeFleet(params, _fleet_cfg(), FleetConfig(
+        replicas=FLEET_REPLICAS, backoff_base=0.01, max_restarts=2),
+        device="cuda")
+    try:
+        check(all(rep.engine.params["embed"].data_ptr()
+                  == params["embed"].data_ptr() for rep in fl.replicas),
+              "fleet: in-process replicas copied the weights")
+        watch = _FleetWatch(torch, fl)
+        log(f"fleet[inproc]: reserved {mib0:.1f} MiB before, "
+            f"{_reserved_mib(torch):.1f} MiB with {FLEET_REPLICAS} "
+            "engines built")
+        k4.launches = 0
+        _fleet_warm(fl, prompts, watch)
+        reqs, wall = _fleet_serve(torch, fl, waves, watch)
+        out["clean"] = _fleet_stats(fl, wall)
+        _fleet_check(torch, params, prompts, "fleet[inproc]", reqs,
+                     single["reqs"], "the single engine")
+        out["clean_reqs"] = reqs
+        _check_lm_decode(torch, params, prompts, reqs, "fleet[inproc]")
+        check(sorted(rid for rid, *_ in watch.captures)
+              == list(range(FLEET_REPLICAS)),
+              f"fleet[inproc]: replicas captured {watch.captures}")
+        check(all(watch.launches.get(r, 0) == 2 * LAYERS
+                  for r in range(FLEET_REPLICAS)),
+              f"fleet[inproc]: K4 wrapper launches per replica "
+              f"{watch.launches}, expected {2 * LAYERS} each (warm-up + "
+              "capture; replays launch none)")
+        out["launches_per_replica"] = dict(watch.launches)
+        log(f"fleet[inproc] clean: {out['clean']}")
+
+        # One replayed tick under the profiler: K4's kernels 12 for each
+        # replica with a live decode slot.
+        fl.reset_metrics()
+        for p in prompts[:4]:
+            fl.submit(p, NEW_TOKENS)
+        for _ in range(400):
+            if all(any(s is not None for s in r.engine.slots)
+                   for r in fl.replicas):
+                break
+            fl.step()
+        before = {r.id: len(r.engine.attn_len_samples)
+                  for r in fl.replicas}
+        prof = _profile_run(torch, fl.step, ("paged_split",
+                                             "paged_merge"))
+        live = sum(1 for r in fl.replicas
+                   if len(r.engine.attn_len_samples) > before[r.id]
+                   and any(r.engine.attn_len_samples[-1]))
+        check(live >= 1 and prof["counts"]["paged_split"] == LAYERS * live
+              and prof["counts"]["paged_merge"] == LAYERS * live,
+              f"fleet[inproc]: one replayed tick traced {prof['counts']}, "
+              f"expected {LAYERS} x {live} live replicas")
+        out["tick_trace"] = {"live_replicas": live, **prof}
+        _fleet_drain(fl)
+
+        # The same submissions with replica 1 killed mid-decode.
+        fl.reset_metrics()
+        reqs_f, wall = _fleet_serve(torch, fl, waves, watch, kill_at=1)
+        out["faulted"] = _fleet_stats(fl, wall)
+        _fleet_check(torch, params, prompts, "fleet[inproc] faulted",
+                     reqs_f, reqs, "clean fleet")
+        f = out["faulted"]
+        check(f["incidents_by_class"] == {"crashed": 1}
+              and f["redispatched"] >= 1 and f["restarts_used"] == 1,
+              f"fleet[inproc] faulted: {f}")
+        log(f"fleet[inproc] faulted: {f}")
+
+        # Rolling updates: version 2 mid-run (a copy of the same weights,
+        # so the streams stay the clean run's), then version 3. Reserved
+        # memory is read after empty_cache: a graph or its pool that
+        # outlived its roll would stay reserved.
+        # Both copies are made first, so the weights' allocations do not
+        # differ between the two readings.
+        fl.reset_metrics()
+        rolled = []
+        copies = [_clone(torch, params) for _ in range(2)]
+        for version, new in ((2, copies[0]), (3, copies[1])):
+            caps0 = {r.id: r.engine.lane_graphs[False].captures
+                     for r in fl.replicas}
+            reqs_u, t0 = [], time.perf_counter()
+            for n, (wave, steps) in enumerate(waves):
+                reqs_u += [fl.submit(p, NEW_TOKENS) for p in wave]
+                for _ in range(steps):
+                    watch.wrap()
+                    fl.step()
+                if n == 0:
+                    check(fl.update_params(new) == version,
+                          f"fleet: update_params did not give v{version}")
+            _fleet_drain(fl, watch)
+            _fleet_check(torch, params, prompts,
+                         f"fleet[inproc] roll v{version}", reqs_u, reqs,
+                         "clean fleet")
+            # one short request per replica: each decodes on the new
+            # weights at least once
+            _fleet_warm(fl, prompts, watch)
+            fs = fl.stats()["fleet"]
+            caps = {r.id: r.engine.lane_graphs[False].captures
+                    for r in fl.replicas}
+            check(fs["params_version"] == version
+                  and all(r["version"] == version
+                          for r in fs["per_replica"])
+                  and all(r.engine.params["embed"].data_ptr()
+                          == new["embed"].data_ptr() for r in fl.replicas)
+                  and all(caps[r] == caps0[r] + 1 for r in caps),
+                  f"fleet: roll to v{version}: {fs['per_replica']}, "
+                  f"captures {caps} from {caps0}")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            rolled.append({
+                "version": version,
+                "request_versions": sorted({r.version for r in reqs_u}),
+                "wall_s": time.perf_counter() - t0,
+                "reserved_mib": _reserved_mib(torch)})
+            log(f"fleet[inproc]: rolled to v{version} mid-run "
+                f"{rolled[-1]}")
+        pool = max(after - before for _, c, before, after in watch.captures
+                   if c == 1)
+        growth = rolled[1]["reserved_mib"] - rolled[0]["reserved_mib"]
+        check(pool > 0 and abs(growth) <= pool,
+              f"fleet: reserved memory moved {growth:.1f} MiB from the "
+              f"first roll to the second, more than one lane graph's pool "
+              f"({pool:.1f} MiB)")
+        del copies, new
+        out.update(rolls=rolled, graph_pool_mib=pool,
+                   roll_growth_mib=growth, captures=watch.captures,
+                   fleet_launches=k4.launches)
+    finally:
+        fl.close()
+    return out
+
+
+def _fleet_warm(fl, prompts, watch=None):
+    """One short request per replica (the router spreads them), so every
+    replica has captured its lane before the measured run; then the
+    metrics reset. Returns the params pushes made until then."""
+    for _ in fl.replicas:
+        fl.submit(prompts[0][:16], 4)
+    _fleet_drain(fl, watch)
+    push = dict(fl.push_stats)
+    fl.reset_metrics()
+    return push
+
+
+def _fleet_drain(fl, watch=None):
+    t0 = time.perf_counter()
+    while not fl.idle or fl.update_active:
+        check(time.perf_counter() - t0 < FLEET_TIMEOUT_S,
+              "fleet: not drained")
+        if watch is not None:
+            watch.wrap()
+        if not fl.step():
+            time.sleep(0.0005)
+
+
+def _compute_apps():
+    """``nvidia-smi --query-compute-apps``: the pids holding a context on
+    the card, with their memory."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return [line.strip() for line in smi.stdout.splitlines()
+            if line.strip()]
+
+
+def _others_mib(torch):
+    """Memory in use on the card outside this process's allocator: the
+    contexts of every process on the card (this one's included) and what
+    other processes hold. ``cudaMemGetInfo`` sees the whole card, where
+    a container's ``nvidia-smi`` may not tell its processes apart."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free - torch.cuda.memory_reserved()) / 2**20
+
+
+def _check_worker_decode(fl, name, lane_replays=None):
+    """Each worker's own count of K4 wrapper calls: its decode lane's
+    warm-up step and capture, 2 x LAYERS, and replays after that, which
+    launch none through the wrapper. Returns the workers' replies."""
+    pongs = [rep.engine.client.call("ping") for rep in fl.replicas]
+    for rep, p in zip(fl.replicas, pongs):
+        check(p["decode_launches"] == 2 * LAYERS
+              and p["lane_captures"] == 1 and p["lane_replays"] > 0
+              and p["lane_replays"] > (lane_replays or {}).get(p["pid"], 0)
+              and p["pid"] == rep.proc.pid,
+              f"{name}: worker {rep.id} reports {p}, expected "
+              f"{2 * LAYERS} K4 wrapper calls, one capture and new replays")
+    return pongs
+
+
+def _process_fleet(torch, params, prompts, waves, clean_reqs):
+    """10.2: two worker processes sharing the card (``--device cuda``),
+    the weights pushed over the wire; a clean run, then the same
+    submissions with replica 1 SIGKILLed mid-decode."""
+    from horovod_tpu_torch.serve import FleetConfig, ServeFleet
+
+    out = {}
+    torch.cuda.synchronize()
+    others0 = _others_mib(torch)
+    t0 = time.perf_counter()
+    fl = ServeFleet(params, _fleet_cfg(), FleetConfig(
+        replicas=FLEET_REPLICAS, transport="process", backoff_base=0.01,
+        max_restarts=2, spawn_timeout=FLEET_SPAWN_S,
+        rpc_deadline=FLEET_RPC_S), device="cuda")
+    procs = []
+    try:
+        procs = [rep.proc for rep in fl.replicas]
+        out["initial_push"] = _fleet_warm(fl, prompts)
+        out["warm_s"] = time.perf_counter() - t0
+        log(f"fleet[process]: construction to warm {out['warm_s']:.1f} s, "
+            f"params pushed {out['initial_push']}")
+        sha = fl._artifact["sha256"]
+        check(all(rep.params_sha == sha and rep.version == 1
+                  for rep in fl.replicas),
+              f"fleet[process]: pushed digests "
+              f"{[rep.params_sha for rep in fl.replicas]} != {sha}")
+        pongs = [rep.engine.client.call("ping") for rep in fl.replicas]
+        check(all(p["params_sha256"] == sha for p in pongs),
+              f"fleet[process]: workers report {pongs}")
+        # Each worker holds its own context and its copy of the weights
+        # on the card beside this process's: the card's memory outside
+        # this process's allocator grows by at least the weights of each.
+        # A container's nvidia-smi may list the contexts under other pids
+        # than the workers' own, so its count is checked and the pids are
+        # only logged.
+        weights_mib = len(fl._artifact["blob"]) / 2**20
+        others1 = _others_mib(torch)
+        apps = _compute_apps()
+        pids = [str(rep.proc.pid) for rep in fl.replicas]
+        log(f"fleet[process]: worker pids {pids}; nvidia-smi compute apps "
+            f"{apps}; card memory outside this allocator {others0:.1f} -> "
+            f"{others1:.1f} MiB")
+        check(len(apps) >= 1 + FLEET_REPLICAS,
+              f"fleet[process]: nvidia-smi lists {len(apps)} compute "
+              f"apps, fewer than this process and {FLEET_REPLICAS} "
+              "workers")
+        check(others1 - others0 >= FLEET_REPLICAS * weights_mib,
+              f"fleet[process]: the card's memory outside this process "
+              f"grew {others1 - others0:.1f} MiB with {FLEET_REPLICAS} "
+              f"workers up, less than their weights ({weights_mib:.1f} "
+              "MiB each)")
+        out.update(worker_pids=pids, compute_apps=apps, artifact_sha256=sha,
+                   artifact_bytes=len(fl._artifact["blob"]),
+                   card_mib_outside={"before": others0, "up": others1})
+        reqs, wall = _fleet_serve(torch, fl, waves)
+        out["clean"] = _fleet_stats(fl, wall)
+        _fleet_check(torch, params, prompts, "fleet[process]", reqs,
+                     clean_reqs, "in-process fleet")
+        pongs = _check_worker_decode(fl, "fleet[process] clean")
+        decode = {p["pid"]: p for p in pongs}
+        log(f"fleet[process] clean: {out['clean']}")
+        fl.reset_metrics()
+        victim = fl.replicas[1].proc
+        reqs_f, wall = _fleet_serve(torch, fl, waves, kill_at=1)
+        out["faulted"] = _fleet_stats(fl, wall)
+        f = out["faulted"]
+        _fleet_check(torch, params, prompts, "fleet[process] faulted",
+                     reqs_f, clean_reqs, "in-process fleet")
+        check(victim.poll() == -signal.SIGKILL
+              and f["incidents_by_class"] == {"crashed": 1}
+              and f["redispatched"] >= 1 and f["restarts_used"] == 1
+              and fl.stats()["fleet"]["failed"] == 0,
+              f"fleet[process] faulted: exit {victim.poll()}, {f}")
+        procs = [p for p in procs] + [rep.proc for rep in fl.replicas]
+        log(f"fleet[process] faulted: {f}")
+        pongs = _check_worker_decode(
+            fl, "fleet[process] faulted",
+            {pid: p["lane_replays"] for pid, p in decode.items()})
+        decode.update((p["pid"], p) for p in pongs)
+        check(len(decode) == FLEET_REPLICAS + 1,
+              f"fleet[process]: decode evidence from {sorted(decode)}, "
+              "expected both first incarnations and the relaunched one")
+        out["worker_decode"] = [
+            {k: p[k] for k in ("pid", "decode_launches", "lane_captures",
+                               "lane_replays")} for p in decode.values()]
+        log(f"fleet[process]: K4 wrapper calls per worker incarnation "
+            f"{out['worker_decode']}")
+        out["first_steps"] = list(fl.first_steps)
+        log(f"fleet[process]: spawn to first step {fl.first_steps}")
+        check(sorted((s["replica"], s["incarnation"])
+                     for s in fl.first_steps)
+              == [(0, 1), (1, 1), (1, 2)],
+              f"fleet[process]: incarnations {fl.first_steps}")
+    finally:
+        fl.close()
+    for p in procs:
+        check(p.poll() is not None,
+              f"fleet[process]: worker {p.pid} not reaped after close()")
+    out["reaped"] = sorted({p.pid for p in procs})
+    # The driver frees a dead process's memory on its own time.
+    for _ in range(100):
+        others2 = _others_mib(torch)
+        if others2 - others0 < weights_mib:
+            break
+        time.sleep(0.1)
+    out["card_mib_outside"]["closed"] = others2
+    check(others2 - others0 < weights_mib,
+          f"fleet[process]: {others2 - others0:.1f} MiB more of the card "
+          "is in use outside this process after close() than before the "
+          "spawn: a worker's weights are still there")
+    return out
+
+
+def fleet_phase(torch, np, params, prompts, waves, single, card):
+    """Phase 10: the fleet at the engine phase's geometry and width."""
+    t0 = time.perf_counter()
+    inproc = _inproc_fleet(torch, params, prompts, waves, single)
+    torch.cuda.empty_cache()
+    proc = _process_fleet(torch, params, prompts, waves,
+                          inproc.pop("clean_reqs"))
+    st = single["stats"]
+    res = {
+        "card": card, "replicas": FLEET_REPLICAS,
+        "single_engine": {"tokens_per_sec_per_card":
+                          st["tokens_per_sec_per_chip"],
+                          "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
+                          "wall_s": single["wall"]},
+        "inproc": inproc, "process": proc,
+        # each run's tokens/s of the card over the single engine's
+        "per_card_over_single": {
+            f"{where}_{run}": round(
+                res[run]["tokens_per_sec_per_card"]
+                / st["tokens_per_sec_per_chip"], 3)
+            for where, res in (("inproc", inproc), ("process", proc))
+            for run in ("clean", "faulted")},
+        "phase_s": time.perf_counter() - t0}
+    log(f"fleet: phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -2006,7 +2526,7 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
-def _paged_record(kres, rate, runs, ptxas, card):
+def _paged_record(kres, rate, runs, fleet, ptxas, card):
     """The kernels line's entry of K4: launches from the engine phase (the
     captured engine's wrapper calls, counted from its construction: the
     warm-up step and the capture; the eager engine's; and the kernels a
@@ -2034,6 +2554,18 @@ def _paged_record(kres, rate, runs, ptxas, card):
         "spec_launches": (runs["spec_paged"]["warm_launches"]
                           + runs["spec_paged"]["launches"]),
         "spec_replay_launches": runs["spec_paged"]["replay_launches"],
+        # The fleet phase: the in-process fleet's wrapper calls (each
+        # replica's warm-up step and capture, the relaunched replica's and
+        # both rolls' captures) and per replica through the clean run,
+        # and the K4 kernels one replayed fleet tick's trace holds.
+        "fleet_launches": fleet["inproc"]["fleet_launches"],
+        "fleet_launches_per_replica":
+            fleet["inproc"]["launches_per_replica"],
+        "fleet_tick_replay_launches":
+            fleet["inproc"]["tick_trace"]["counts"]["paged_split"],
+        # each worker incarnation's own count (warm-up step + capture)
+        "fleet_worker_launches":
+            [p["decode_launches"] for p in fleet["process"]["worker_decode"]],
         "captured": "the decode lane is one CUDA graph; wrapper calls count "
                     "its warm-up step and capture, replay_launches the "
                     "split kernels a captured run's trace holds",
@@ -2179,6 +2711,24 @@ def engine_only(torch, np):
         profile_phase(torch, params, prompts, waves)
 
 
+def fleet_only(torch, np, card):
+    """``--fleet-only [RUNS]``: the fleet phase RUNS times, beside one
+    captured paged engine run at the same geometry."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+
+    args = sys.argv[sys.argv.index("--fleet-only") + 1:]
+    n = int(args[0]) if args and args[0].isdigit() else 1
+    build_phase()
+    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+                            device="cuda")
+    prompts, waves = _requests(np)
+    _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
+                           True)
+    out = [fleet_phase(torch, np, params, prompts, waves, single, card)
+           for _ in range(n)]
+    print(json.dumps({"fleet_runs": out}), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2191,16 +2741,29 @@ def main():
                            f"({e}); run from the root of a checkout")
     if "--engine-only" in sys.argv[1:]:
         return engine_only(torch, np)
+    if "--fleet-only" in sys.argv[1:]:
+        return fleet_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
-    t_start = time.perf_counter()
-    ptxas = build_phase()
-    kres, rate = kernel_phase(torch, np)
-    fres = flash_phase(torch, np)
-    cres = conv_bn_phase(torch, np)
-    tres = training_phase(torch, np, profile)
-    rres = resnet_phase(torch, np, profile)
-    wres = window_phase(torch, np)
-    runs, params, prompts, waves = engine_phase(torch, np)
+    t_start = t_phase = time.perf_counter()
+
+    def timed(name, result):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase:.1f} s")
+        t_phase = now
+        return result
+
+    ptxas = timed("build", build_phase())
+    kres, rate = timed("kernels", kernel_phase(torch, np))
+    fres = timed("flash", flash_phase(torch, np))
+    cres = timed("conv_bn", conv_bn_phase(torch, np))
+    tres = timed("training", training_phase(torch, np, profile))
+    rres = timed("resnet", resnet_phase(torch, np, profile))
+    wres = timed("window", window_phase(torch, np))
+    runs, params, prompts, waves = timed("engine",
+                                         engine_phase(torch, np))
+    fleet = timed("fleet", fleet_phase(torch, np, params, prompts, waves,
+                                       runs["paged"], card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -2210,10 +2773,11 @@ def main():
         flush=True)
     print(json.dumps({"resnet": {k: v for k, v in rres.items()
                                  if k != "profile"}}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        _paged_record(kres, rate, runs, ptxas.get("paged_attention", {}),
-                      card),
+        _paged_record(kres, rate, runs, fleet,
+                      ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)

@@ -31,6 +31,15 @@ ResNet family (:mod:`~horovod_tpu_torch.models.resnet`) on the fused
 (:mod:`~horovod_tpu_torch.ops.conv_bn`) and the bench's image lane.
 """
 
-from horovod_tpu_torch._device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Imported on first use (PEP 562), so a module that must not load
+    # torch early (the serving worker binds its socket first) can be
+    # run from this package.
+    if name == "resolve_device":
+        from horovod_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

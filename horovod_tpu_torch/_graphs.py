@@ -115,11 +115,21 @@ class CapturedStep:
         return self._static_out
 
     def _release(self) -> None:
-        """Drop the graph and its memory pool."""
+        """Drop the graph and its memory pool. The pool also holds the
+        cuBLAS workspace the capture's matmuls took, which cuBLAS keeps
+        cached after the graph is gone, so the pool would stay reserved
+        (one dead pool per recapture, e.g. each weight roll of the
+        engine): dropping cuBLAS's cached workspaces lets it go. A live
+        graph keeps its own pool's blocks, its workspace included. The
+        cache is the process's, so other engines' eager products allocate
+        a workspace again at their next call."""
+        had_graph = self._graph is not None
         self._graph = None
         self._signature = None
         self._static_in = []
         self._static_out = None
+        if had_graph:
+            torch._C._cuda_clearCublasWorkspaces()
 
     def _warm_up_and_capture(self, dev, signature, flat, spec, args):
         self._release()

@@ -17,33 +17,57 @@
   speculative-decoding draws and acceptance rule
   (``ServeConfig(speculate_k=k)``);
 * :mod:`~horovod_tpu_torch.serve.metrics` — TTFT / per-token latency /
-  page-occupancy accounting.
+  page-occupancy accounting;
+* :mod:`~horovod_tpu_torch.serve.fleet` — :class:`ServeFleet`: N engines
+  behind the least-loaded, prefix-aware router
+  (:mod:`~horovod_tpu_torch.serve.router`), in this process or as
+  worker processes (:mod:`~horovod_tpu_torch.serve.worker`) over the
+  framed RPC transport (:mod:`~horovod_tpu_torch.serve.transport`, Unix
+  socket or TCP, with :mod:`~horovod_tpu_torch.serve.netfault`'s
+  injectable faults), with drain-and-redispatch, the heartbeat
+  watchdog, budgeted relaunches, load shedding, and versioned weights
+  pushed over the wire (:mod:`~horovod_tpu_torch.serve.params_wire` on
+  :mod:`~horovod_tpu_torch.serve.chunk_stream`); sized by
+  :class:`FleetConfig`.
 
-The fleet, tensor-parallel serving and disaggregated serving are still
-to port (ROADMAP.md, Queue 1).
+Tensor-parallel serving (ROADMAP.md Queue 1 item 4) and the
+disaggregated prefill/decode pools with their KV handoff (Queue 1 item
+3: ``serve/kv_wire.py``, ``serve/disagg.py``) are still to port.
 """
 
-from horovod_tpu_torch.serve.config import ServeConfig
-from horovod_tpu_torch.serve.engine import ServeEngine
-from horovod_tpu_torch.serve.kvcache import (OutOfPages, PageAllocator,
-                                             PagedKVCache)
-from horovod_tpu_torch.serve.prefix import (PrefixIndex, aligned_prefix_len,
-                                            prefix_route_key,
-                                            rendezvous_rank)
-from horovod_tpu_torch.serve.scheduler import (Request, RequestState,
-                                               Scheduler)
+import importlib
 
-__all__ = [
-    "OutOfPages",
-    "PageAllocator",
-    "PagedKVCache",
-    "PrefixIndex",
-    "Request",
-    "RequestState",
-    "Scheduler",
-    "ServeConfig",
-    "ServeEngine",
-    "aligned_prefix_len",
-    "prefix_route_key",
-    "rendezvous_rank",
-]
+#: Public name -> the submodule that defines it, imported on first use
+#: (PEP 562): ``python -m horovod_tpu_torch.serve.worker`` then binds
+#: its socket before anything imports torch.
+_EXPORTS = {
+    "FleetConfig": "config",
+    "OutOfPages": "kvcache",
+    "PageAllocator": "kvcache",
+    "PagedKVCache": "kvcache",
+    "PrefixIndex": "prefix",
+    "ProcessReplica": "fleet",
+    "Replica": "fleet",
+    "Request": "scheduler",
+    "RequestState": "scheduler",
+    "Scheduler": "scheduler",
+    "ServeConfig": "config",
+    "ServeEngine": "engine",
+    "ServeFleet": "fleet",
+    "TcpReplica": "fleet",
+    "aligned_prefix_len": "prefix",
+    "prefix_route_key": "prefix",
+    "rendezvous_rank": "prefix",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value

@@ -13,13 +13,15 @@ fields, defaults and validation. The page math contract:
 One knob of the JAX engine has no port yet and must keep its default:
 ``mesh`` (tensor-parallel serving). Any other value raises
 :class:`NotImplementedError` naming the ROADMAP.md queue item that ports
-it. ``FleetConfig`` comes with the fleet.
+it. :class:`FleetConfig` sizes the fleet
+(:mod:`~horovod_tpu_torch.serve.fleet`), with the reference's fields,
+defaults and validation.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 #: Scheduler admission policies.
 POLICIES = ("fcfs", "sjf")
@@ -32,6 +34,58 @@ ADMISSIONS = ("reserve", "lazy")
 #: reference); ``paged`` reads only each slot's live pages through the
 #: paged-attention kernel (:mod:`horovod_tpu_torch.ops.paged_attention`).
 ATTENTIONS = ("gather", "paged")
+#: Fleet replica placements: ``inproc`` runs every engine in the
+#: router's process (the CI fast lane, zero transport overhead, NO
+#: crash isolation); ``process`` runs each replica as its own worker
+#: process (:mod:`horovod_tpu_torch.serve.worker`) behind the deadline-
+#: checked framed RPC transport (:mod:`horovod_tpu_torch.serve.transport`)
+#: — a replica crash is one SIGKILLed OS process, never the router;
+#: ``tcp`` runs the same frame protocol over TCP with a shared-secret
+#: connect handshake, placing workers across HOSTS
+#: (``FleetConfig.hosts``, ssh placement) so a whole machine is a
+#: first-class failure domain (``host_down``).
+TRANSPORTS = ("inproc", "process", "tcp")
+
+#: Host names a TCP worker can be spawned on WITHOUT ssh (and whose
+#: workers may get router-probed free ports instead of an explicit
+#: base port).
+LOCAL_HOSTS = ("localhost", "127.0.0.1")
+
+
+def parse_host_entry(entry) -> tuple:
+    """One ``FleetConfig.hosts`` entry — ``"host"`` or ``"host:port"``
+    — parsed to ``(host, port_or_None)``, validated fail-fast (the
+    construction-time contract: a malformed placement must never
+    survive to the first spawn). ``port`` is the BASE port for that
+    host's workers (worker ``i``-th on the host binds ``port + i``);
+    local hosts may omit it (the router probes free ports), remote
+    hosts must not (the router cannot probe a port over ssh)."""
+    if not isinstance(entry, str) or not entry.strip():
+        raise ValueError(
+            f"hosts entry {entry!r}: expected a 'host[:port]' string")
+    e = entry.strip()
+    if "/" in e:
+        raise ValueError(
+            f"hosts entry {entry!r} looks like a unix-socket path — "
+            "transport='tcp' places workers at 'host[:port]' network "
+            "endpoints (the unix-socket lane is transport='process')")
+    host, sep, port_s = e.rpartition(":")
+    if not sep:
+        return e, None
+    if not host:
+        raise ValueError(
+            f"hosts entry {entry!r}: missing the host part")
+    try:
+        port = int(port_s)
+    except ValueError:
+        raise ValueError(
+            f"hosts entry {entry!r}: port {port_s!r} is not an "
+            "integer") from None
+    if not 1 <= port <= 65535:
+        raise ValueError(
+            f"hosts entry {entry!r}: port {port} outside 1..65535")
+    return host, port
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,3 +190,191 @@ class ServeConfig:
         decodes."""
         return self.max_in_flight if self.max_in_flight > 0 \
             else self.decode_slots + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Knobs for :class:`horovod_tpu_torch.serve.ServeFleet` — the
+    multi-replica layer on top of one :class:`ServeConfig` (every
+    replica runs the same engine geometry).
+
+    ``max_queue`` bounds the ROUTER's admission queue — the fleet's
+    load-shedding valve: past it, new requests are rejected terminally
+    with ``reject_reason="overloaded"`` and a ``retry_after`` hint
+    instead of queueing until their TTFT diverges. 0 = unbounded (no
+    shedding).
+
+    ``max_restarts`` is the fleet-wide replica relaunch budget (the
+    elastic supervisor's discipline: a crash loop must converge, not
+    burn the host); each relaunch backs off exponentially —
+    ``backoff_base * 2**attempts_of_that_replica``, capped at
+    ``backoff_cap``. A replica whose relaunch would exceed the budget
+    is marked ``failed`` and the fleet degrades (load shedding takes
+    over).
+
+    ``watchdog_timeout`` > 0 arms the stale-heartbeat watchdog
+    (:class:`horovod_tpu_torch.elastic.supervisor.HealthWatchdog`): every
+    live replica's heartbeat stamps at the END of each fleet TICK (all
+    together, once every replica has stepped — per-step stamping would
+    let one slow step age every peer's file into a spurious kill), so
+    a replica that silently stops stepping is SIGKILL-classified
+    ``stalled`` and relaunched instead of wedging its slice of the
+    fleet forever. Size the timeout ABOVE a full fleet tick (the sum
+    of all replicas' step times in-process — a relaunch recompile is
+    one step), not one replica's step. The directory is ALWAYS
+    namespaced per fleet instance (under ``heartbeat_dir`` when
+    given) — two fleets, or a fleet and a training supervisor, on one
+    host never watch each other's files.
+
+    ``retry_after_min`` floors the overload hint so clients never get
+    told to hammer back immediately.
+
+    ``transport`` places the replicas: ``inproc`` (default — the fast,
+    CI-exercisable lane) keeps every engine in the router's process;
+    ``process`` spawns each replica as its own
+    ``python -m horovod_tpu_torch.serve.worker`` OS process behind the
+    framed Unix-socket RPC transport, so a replica crash (a REAL
+    ``SIGKILL``, an OOM, a segfault) takes down exactly one worker;
+    ``tcp`` runs the same frame protocol over TCP (plus a
+    shared-secret connect handshake — a TCP listener is
+    network-reachable) and places workers across ``hosts``: each entry
+    is ``"host"`` or ``"host:port"`` (``port`` = that host's base
+    port; its ``i``-th worker binds ``port + i``), replicas assigned
+    round-robin, remote hosts reached over ssh (the launcher's pty-HUP
+    kill discipline, secret over stdin). With ``hosts=None`` every
+    worker runs on loopback — the CI lane. A lost HOST is then one
+    failure domain: all its replicas drain and redispatch in a single
+    classified ``host_down`` incident. The transport/hosts
+    combination is validated HERE, at construction (``hosts`` without
+    ``transport="tcp"``, unix-socket-path entries, duplicate
+    host:port pairs, portless remote hosts all raise) — never at
+    first spawn.
+    Every RPC then carries ``rpc_deadline`` seconds of budget — size
+    it ABOVE the worker's one-off costs inside a call (the first
+    ``step`` poll after a (re)spawn waits out the engine build + torch
+    import behind the worker's lock) — and any transport failure is
+    converted into the replica-death path, never retried.
+    ``spawn_timeout`` bounds how long a (re)spawned worker may take to
+    start listening; ``shutdown_deadline`` is :meth:`ServeFleet.close
+    <horovod_tpu_torch.serve.fleet.ServeFleet.close>`'s budget for the
+    graceful ``shutdown`` RPC before it escalates SIGTERM → SIGKILL.
+
+    **Weight distribution** (process/tcp transports): every worker
+    incarnation receives its ServeConfig and a versioned params
+    artifact OVER THE WIRE at spawn (``put_config`` + chunked
+    ``push_*`` RPCs, :mod:`horovod_tpu_torch.serve.params_wire`) — no shared
+    filesystem. ``push_chunk_bytes`` bounds each transfer frame (its
+    base64 form must stay under the transport's 16 MiB frame cap);
+    ``push_retries`` budgets how many times one push may resume after
+    a transport failure (chunk writes are idempotent and
+    digest-verified, so the push lane is the ONE place a
+    TransportError is retried — under the same exponential backoff as
+    relaunches) before the replica takes the ordinary death path.
+
+    ``pools`` (disaggregated prefill/decode pools) keeps the
+    reference's field and default; any value but None raises
+    :class:`NotImplementedError` until ROADMAP.md Queue 1 item 3
+    (serve/disagg.py) ports it.
+    """
+
+    replicas: int = 2
+    max_queue: int = 0            # 0 = unbounded router queue
+    max_restarts: int = 2
+    backoff_base: float = 0.05
+    backoff_cap: float = 2.0
+    watchdog_timeout: float = 0.0  # 0 = watchdog disabled
+    heartbeat_dir: Optional[str] = None   # base dir; namespaced per fleet
+    retry_after_min: float = 0.05
+    transport: str = "inproc"
+    rpc_deadline: float = 60.0     # per-RPC budget (process/tcp transport)
+    spawn_timeout: float = 120.0   # worker must listen within this
+    shutdown_deadline: float = 2.0  # graceful-shutdown RPC budget
+    #: TCP placement: host entries ("host" or "host:port"), replicas
+    #: round-robin. None (with transport="tcp") = all on loopback.
+    hosts: Optional[tuple] = None
+    #: Params-transfer chunk size in bytes (process/tcp transports).
+    push_chunk_bytes: int = 1 << 20
+    #: Budgeted resume-retries per params push before replica death.
+    push_retries: int = 2
+    #: Disaggregated prefill/decode pools (None = colocated; the only
+    #: value the port takes yet).
+    pools: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(
+                f"replicas must be >= 1, got {self.replicas}")
+        if self.max_queue < 0:
+            raise ValueError(
+                f"max_queue must be >= 0 (0 = unbounded), got "
+                f"{self.max_queue}")
+        if self.max_restarts < 0:
+            raise ValueError(
+                f"max_restarts must be >= 0, got {self.max_restarts}")
+        if self.backoff_base < 0 or self.backoff_cap < self.backoff_base:
+            raise ValueError(
+                f"need 0 <= backoff_base <= backoff_cap, got "
+                f"{self.backoff_base}/{self.backoff_cap}")
+        if self.watchdog_timeout < 0:
+            raise ValueError(
+                f"watchdog_timeout must be >= 0 (0 disables), got "
+                f"{self.watchdog_timeout}")
+        if self.retry_after_min <= 0:
+            raise ValueError(
+                f"retry_after_min must be > 0, got "
+                f"{self.retry_after_min}")
+        if self.transport not in TRANSPORTS:
+            raise ValueError(
+                f"transport {self.transport!r} not in {TRANSPORTS}")
+        if self.rpc_deadline <= 0:
+            raise ValueError(
+                f"rpc_deadline must be > 0 seconds (every RPC is "
+                f"deadline-checked), got {self.rpc_deadline}")
+        if self.spawn_timeout <= 0:
+            raise ValueError(
+                f"spawn_timeout must be > 0 seconds, got "
+                f"{self.spawn_timeout}")
+        if self.shutdown_deadline <= 0:
+            raise ValueError(
+                f"shutdown_deadline must be > 0 seconds, got "
+                f"{self.shutdown_deadline}")
+        if not 1 <= self.push_chunk_bytes <= (8 << 20):
+            raise ValueError(
+                f"push_chunk_bytes must be within 1..{8 << 20} (the "
+                f"base64 form of a chunk must fit the 16 MiB transport "
+                f"frame bound), got {self.push_chunk_bytes}")
+        if self.push_retries < 0:
+            raise ValueError(
+                f"push_retries must be >= 0, got {self.push_retries}")
+        if self.hosts is not None:
+            if self.transport != "tcp":
+                raise ValueError(
+                    f"hosts= places workers over the network and needs "
+                    f"transport='tcp' (got transport="
+                    f"{self.transport!r}) — the 'process' transport is "
+                    "unix-socket, same-host by construction")
+            if isinstance(self.hosts, str):
+                raise ValueError(
+                    "hosts must be a sequence of 'host[:port]' entries, "
+                    f"not the single string {self.hosts!r} (a string "
+                    "would iterate per-character)")
+            seen = set()
+            for entry in self.hosts:
+                host, port = parse_host_entry(entry)   # raises fail-fast
+                if host not in LOCAL_HOSTS and port is None:
+                    raise ValueError(
+                        f"hosts entry {entry!r}: a remote host needs an "
+                        "explicit base port — the router cannot probe "
+                        "free ports over ssh")
+                if (host, port) in seen:
+                    raise ValueError(
+                        f"duplicate host:port entry {entry!r} — two "
+                        "hosts' workers would race for the same ports")
+                seen.add((host, port))
+            # Normalize to a tuple so the frozen config stays hashable
+            # whatever sequence the caller passed.
+            object.__setattr__(self, "hosts", tuple(self.hosts))
+        if self.pools is not None:
+            raise NotImplementedError(
+                f"FleetConfig.pools={self.pools!r} is not ported yet; it "
+                "comes with ROADMAP.md Queue 1 item 3 (serve/disagg.py)")

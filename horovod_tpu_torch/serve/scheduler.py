@@ -84,6 +84,15 @@ class Request:                     # tracked by `is` in slot lists
     #: why a REJECTED request was rejected: ``"infeasible"`` or
     #: ``"overloaded"``.
     reject_reason: Optional[str] = None
+    #: advisory seconds-until-retry for overloaded rejections (the
+    #: fleet router's load-shedding hint; None = no estimate).
+    retry_after: Optional[float] = None
+    #: times this request was drained off a dead replica and
+    #: redispatched to a survivor (fleet bookkeeping).
+    redispatches: int = 0
+    #: the fleet replica currently (or last) serving this request,
+    #: stamped at every dispatch (None = single engine).
+    replica: Optional[int] = None
     #: params version this request's decode is pinned to (None = any).
     version: Optional[int] = None
     #: times this request restarted from its original prompt.
@@ -93,6 +102,10 @@ class Request:                     # tracked by `is` in slot lists
     prefix_hit_tokens: int = 0
     #: shared pages mapped via prefix-cache hits (same cumulation).
     prefix_hit_pages: int = 0
+    #: ``prefix_hit_tokens`` when a dead replica's drain requeued this
+    #: request (None = never drained): hits gained past it happened on
+    #: the survivor, so the fleet nets them out of its recompute count.
+    prefix_hits_at_drain: Optional[int] = None
 
     state: str = RequestState.QUEUED
     #: prompt tokens already prefilled (chunk progress).

@@ -27,12 +27,22 @@ Modes (the JAX tool's flags and defaults, one A/B per record):
   prefill is cold, and the cached side saved prefill tokens;
 * ``--capture on|off`` (the port's own): the engine's lane as a CUDA
   graph replay (the engine's default) or eager, for an A/B across two
-  records.
+  records;
+* ``--fleet N``: N replicas behind the fault-tolerant router
+  (:class:`~horovod_tpu_torch.serve.ServeFleet`), placed by
+  ``--fleet-transport inproc|process|tcp`` (``--fleet-hosts`` for tcp);
+  ``--fault-plan`` (the serving fault dialect) and
+  ``--rolling-update-at`` (a zero-downtime roll to version 2 of the same
+  weights) run the fleet clean THEN faulted over the identical workload
+  and abort unless every request that finished on both sides emitted
+  the bit-identical greedy stream; ``--ab-prefix`` composes with the
+  fleet (one cold prefill per prefix per replica).
 
 ``--pin-exact`` re-decodes every finished greedy request through
 ``models.parallel_lm.lm_decode``; ``--require-finished`` fails unless
-every request finished. The JAX tool's fleet, mesh and disaggregation
-flags raise :class:`NotImplementedError` naming their ROADMAP.md item.
+every request finished (a fleet: unless every request not shed
+finished). The JAX tool's mesh and disaggregation flags raise
+:class:`NotImplementedError` naming their ROADMAP.md item.
 On the CPU (``run(args, device="cpu")``, the tests) the numbers time
 PyTorch's CPU kernels, not the card.
 """
@@ -50,24 +60,21 @@ import numpy as np
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.bench import card_description
 from horovod_tpu_torch.models import parallel_lm as plm
-from horovod_tpu_torch.serve import ServeConfig, ServeEngine
+from horovod_tpu_torch.serve import (FleetConfig, ServeConfig,
+                                     ServeEngine, ServeFleet)
+from horovod_tpu_torch.serve.config import LOCAL_HOSTS, parse_host_entry
 from horovod_tpu_torch.serve.prefix import prefix_route_key
 
-_FLEET = "ROADMAP.md Queue 1 item 3 (serve/router.py + serve/fleet.py)"
+_DISAGG = "ROADMAP.md Queue 1 item 3 (serve/kv_wire.py + serve/disagg.py)"
+_TP = "ROADMAP.md Queue 1 item 4 (TP-sharded paged decode)"
 #: The JAX tool's flags that the port has not taken yet: (flag, whether
 #: it is a switch, the ROADMAP.md item that brings it).
 _NOT_PORTED = [
-    ("--mesh", False, "ROADMAP.md Queue 1 item 4 (TP-sharded paged "
-                      "decode)"),
-    ("--ab-tp", True, "ROADMAP.md Queue 1 item 4 (TP-sharded paged "
-                      "decode)"),
-    ("--pools", False, "ROADMAP.md Queue 1 item 3 (serve/disagg.py)"),
-    ("--ab-disagg", True, "ROADMAP.md Queue 1 item 3 (serve/disagg.py)"),
-] + [(f, False, _FLEET) for f in (
-    "--fleet", "--fleet-transport", "--fleet-hosts", "--fleet-rpc-deadline",
-    "--fault-plan", "--rolling-update-at", "--fleet-push-chunk-bytes",
-    "--fleet-push-retries", "--fleet-max-restarts",
-    "--fleet-watchdog-timeout", "--fleet-max-queue", "--fleet-backoff")]
+    ("--mesh", False, _TP),
+    ("--ab-tp", True, _TP),
+    ("--pools", False, _DISAGG),
+    ("--ab-disagg", True, _DISAGG),
+]
 
 
 def make_workload(args, system_prompt_len: int = 0):
@@ -151,6 +158,68 @@ def run_static(params, cfg, workload, *, device, capture=True, warm=True):
     return eng
 
 
+def run_fleet(params, cfg, fleet_cfg, workload, *, device, fault_plan="",
+              update_at=None, warm=True):
+    """Open-loop Poisson load over a :class:`ServeFleet`; returns the
+    fleet, drained, and its requests in arrival order (the index the
+    clean-vs-faulted pin compares by). ``fault_plan`` is armed after the
+    warm-up, so fire offsets count from the first measured step; percent
+    ``at=`` forms resolve against the last arrival. ``update_at``
+    (seconds from the measured start) triggers a rolling update to
+    version 2 of the same weights, so streams stay comparable with the
+    clean run; the loop runs until the roll completes."""
+    fl = ServeFleet(params, cfg, fleet_cfg, device=device)
+    try:
+        if warm:
+            # One short request per replica: the router spreads them, so
+            # every replica warms (and captures) before the window.
+            for _ in range(fleet_cfg.replicas):
+                fl.submit(workload[0][1][:2], 2)
+            fl.run()
+            fl.reset_metrics()
+        if fault_plan:
+            fl.arm_fault_plan(fault_plan,
+                              horizon=max(w[0] for w in workload))
+        pending = sorted(workload, key=lambda w: w[0])
+        reqs = []
+        t0 = fl._t_start = fl.clock()
+        updated = update_at is None
+        while pending or not fl.idle or not updated or fl.update_active:
+            if not updated and fl.clock() - t0 >= update_at:
+                fl.update_params(params)
+                updated = True
+            while pending and pending[0][0] <= fl.clock() - t0:
+                arrival, prompt, n = pending.pop(0)
+                reqs.append(fl.submit(prompt, n, arrival=t0 + arrival))
+            if not fl.step():
+                if pending:
+                    time.sleep(min(0.001, max(0.0, pending[0][0]
+                                              - (fl.clock() - t0))))
+                else:
+                    time.sleep(0.001)   # a stall or backoff: let time pass
+    except BaseException:
+        fl.close()
+        raise
+    return fl, reqs
+
+
+def pin_redispatch_exact(clean_reqs, faulted_reqs):
+    """The drain/redispatch pin: every request that finished on BOTH the
+    clean and the faulted fleet (same workload index) emitted the
+    bit-identical greedy stream — tokens emitted before a kill were
+    never re-emitted nor diverged from. Returns the pairs compared."""
+    compared = 0
+    for i, (rc, rf) in enumerate(zip(clean_reqs, faulted_reqs)):
+        if rc.temperature > 0 or rc.state != "finished" \
+                or rf.state != "finished":
+            continue
+        if rc.output != rf.output:
+            raise SystemExit(f"REDISPATCH PIN FAILED: request #{i} "
+                             f"clean={rc.output} faulted={rf.output}")
+        compared += 1
+    return compared
+
+
 def pin_sides(a_reqs, b_reqs, label):
     """The A/B exactness abort: the i-th submitted request must emit the
     bit-identical greedy stream on both sides (the same workload, so the
@@ -179,10 +248,11 @@ def pin_sides(a_reqs, b_reqs, label):
 
 def pin_prefix_cold(reqs, page_size, label):
     """The ``--ab-prefix`` efficiency pin: among the finished requests
-    sharing a matchable prefix, EXACTLY ONE paid a cold prefill
-    (``prefix_hit_tokens == 0``). Holds deterministically because the
-    engine admits through one prefill lane: a prefix-mate is matched only
-    after the first one's prefill indexed its pages. Returns
+    sharing a matchable prefix on one replica (a single engine is one
+    replica, ``Request.replica`` None), EXACTLY ONE paid a cold prefill
+    (``prefix_hit_tokens == 0``). Holds deterministically because each
+    engine admits through one prefill lane: a prefix-mate is matched
+    only after the first one's prefill indexed its pages. Returns
     ``(unique_prefixes, cold_prefills)``."""
     groups = {}
     for r in reqs:
@@ -190,17 +260,18 @@ def pin_prefix_cold(reqs, page_size, label):
             continue
         key = prefix_route_key(r.prompt[:r.orig_prompt_len], page_size)
         if key is not None:
-            groups.setdefault(key, []).append(r)
+            groups.setdefault((key, r.replica), []).append(r)
     cold_total = 0
-    for key, grp in sorted(groups.items()):
+    for (key, home), grp in sorted(groups.items(), key=str):
         cold = sum(1 for r in grp if r.prefix_hit_tokens == 0)
         if cold != 1:
             raise SystemExit(
                 f"PREFIX COLD PIN FAILED ({label}): {cold} cold "
-                f"prefill(s) for prefix {key[:12]} ({len(grp)} requests; "
-                "want exactly 1)")
+                f"prefill(s) for prefix {key[:12]}"
+                + ("" if home is None else f" on replica {home}")
+                + f" ({len(grp)} requests; want exactly 1)")
         cold_total += cold
-    return len(groups), cold_total
+    return len({k for k, _ in groups}), cold_total
 
 
 def pin_exact(params, eng, device):
@@ -259,6 +330,41 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capture", choices=("on", "off"), default="on",
                     help="the engine's lane as a CUDA graph replay (on) "
                          "or eager (off)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="N replicas behind the fault-tolerant router "
+                         "(0 = a single engine)")
+    ap.add_argument("--fleet-transport", default="inproc",
+                    choices=("inproc", "process", "tcp"),
+                    help="replica placement: engines in this process, "
+                         "one worker process each over a Unix socket, "
+                         "or workers over TCP")
+    ap.add_argument("--fleet-hosts", default="",
+                    help="comma-separated 'host[:port]' placement for "
+                         "--fleet-transport tcp (empty = loopback)")
+    ap.add_argument("--fleet-rpc-deadline", type=float, default=60.0,
+                    help="per-RPC deadline seconds (wire transports)")
+    ap.add_argument("--fault-plan", default="",
+                    help="serving fault plan, e.g. "
+                         "'kill:replica=1,at=40%%': runs clean THEN "
+                         "faulted and pins the streams identical")
+    ap.add_argument("--rolling-update-at", default="",
+                    help="roll the fleet to version 2 of the same "
+                         "weights at this offset (seconds, '2.5s' or "
+                         "'50%%' of the arrival horizon) in the faulted "
+                         "lane")
+    ap.add_argument("--fleet-push-chunk-bytes", type=int, default=1 << 20,
+                    help="params-transfer chunk size (wire transports)")
+    ap.add_argument("--fleet-push-retries", type=int, default=2,
+                    help="resume-retries per params push")
+    ap.add_argument("--fleet-max-restarts", type=int, default=2,
+                    help="fleet-wide replica relaunch budget")
+    ap.add_argument("--fleet-watchdog-timeout", type=float, default=0.0,
+                    help="stale-heartbeat watchdog seconds (0 = off; "
+                         "stall: plans need it)")
+    ap.add_argument("--fleet-max-queue", type=int, default=0,
+                    help="router queue bound (0 = unbounded)")
+    ap.add_argument("--fleet-backoff", type=float, default=0.05,
+                    help="relaunch backoff base (doubles per attempt)")
     ap.add_argument("--pin-exact", action="store_true")
     ap.add_argument("--require-finished", action="store_true")
     for flag, switch, _ in _NOT_PORTED:
@@ -303,6 +409,76 @@ def _validate(ap, args) -> None:
                      "requires --speculate K with K >= 1")
     if args.system_prompt_len < -1:
         ap.error("--system-prompt-len must be >= 0 (-1 = auto)")
+    _validate_fleet(ap, args)
+
+
+def _validate_fleet(ap, args):
+    """The JAX tool's fleet checks (argparse errors, exit code 2); on a
+    rolling update, sets ``args.update_at`` to its ``(seconds,
+    fraction)``."""
+    from horovod_tpu_torch.elastic.faults import (FaultPlanError,
+                                                  _parse_at,
+                                                  parse_serve_fault_plan)
+
+    args.update_at = None
+    if args.fleet < 0:
+        ap.error("--fleet must be >= 0 (0 = single engine)")
+    if args.fleet and (args.ab or args.static or args.ab_attention):
+        ap.error("--fleet is exclusive with --ab/--static/"
+                 "--ab-attention (one A/B per record)")
+    if args.ab_spec and args.fleet:
+        ap.error("--ab-spec is exclusive with --fleet (one A/B per "
+                 "record; speculation composes with the fleet via "
+                 "--speculate)")
+    if args.ab_prefix and (args.fault_plan or args.rolling_update_at):
+        ap.error("--ab-prefix is exclusive with --fault-plan/"
+                 "--rolling-update-at (one A/B per record)")
+    if args.fault_plan and not args.fleet:
+        ap.error("--fault-plan requires --fleet N (faults address "
+                 "fleet replicas)")
+    if args.fleet_hosts and args.fleet_transport != "tcp":
+        ap.error("--fleet-hosts places workers over the network and "
+                 "needs --fleet-transport tcp")
+    if args.rolling_update_at:
+        if not args.fleet:
+            ap.error("--rolling-update-at rolls a FLEET's weights — it "
+                     "requires --fleet N")
+        try:
+            args.update_at = _parse_at(
+                f"--rolling-update-at={args.rolling_update_at}",
+                args.rolling_update_at)
+        except FaultPlanError as e:
+            ap.error(str(e))
+    if not args.fault_plan:
+        return
+    try:
+        actions = parse_serve_fault_plan(args.fault_plan)
+    except FaultPlanError as e:
+        ap.error(str(e))
+    n_hosts = len([h for h in args.fleet_hosts.split(",")
+                   if h.strip()]) or 1
+    for a in actions:
+        if a.replica is not None and a.replica >= args.fleet:
+            ap.error(f"fault action {a}: replica {a.replica} is outside "
+                     f"--fleet {args.fleet}")
+        if a.host is not None:
+            if args.fleet_transport != "tcp":
+                ap.error(f"fault action {a}: host-addressed faults "
+                         "(kill:host=/partition:) need --fleet-transport "
+                         "tcp — hosts are not a failure domain on the "
+                         f"{args.fleet_transport} transport")
+            if a.host >= n_hosts:
+                ap.error(f"fault action {a}: host {a.host} is outside "
+                         f"the {n_hosts}-host placement")
+        if a.kind in ("transfer", "corrupt") and \
+                args.fleet_transport == "inproc":
+            ap.error(f"fault action {a}: {a.kind} faults address the "
+                     "params-push wire — use --fleet-transport process "
+                     "or tcp")
+    if any(a.kind == "stall" for a in actions) and \
+            args.fleet_watchdog_timeout <= 0:
+        ap.error("stall: fault plans need --fleet-watchdog-timeout > 0 — "
+                 "an unwatched stall hangs the lane forever")
 
 
 def run(args, device: DeviceLike = None, ap=None) -> dict:
@@ -369,7 +545,10 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
         a, b = a["tokens_per_sec_per_chip"], b["tokens_per_sec_per_chip"]
         return round(a / b, 3) if a and b else None
 
-    if args.ab_prefix:
+    if args.fleet:
+        mode, headline, serve = fleet_record(args, params, cfg, workload,
+                                             dev, spl, ap)
+    elif args.ab_prefix:
         off, off_reqs = lane("prefix=off", dataclasses.replace(
             cfg, prefix_caching=False))
         on, on_reqs = lane("prefix=on", dataclasses.replace(
@@ -436,6 +615,8 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
         "unit": "tokens/sec/chip",
         "vs_baseline": None,
         "serve": serve,
+        "per_card": fleet_per_card(args, mode, serve) if args.fleet
+        else None,
         "card": card_description(dev),
         "config": {
             "page_size": ps, "num_pages": num_pages,
@@ -451,13 +632,175 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
             "system_prompt_len": spl,
             "rate": args.rate,
             "requests": args.requests,
-            "fleet": None,
+            "fleet": ({
+                "replicas": args.fleet,
+                "transport": args.fleet_transport,
+                "hosts": args.fleet_hosts or None,
+                "max_restarts": args.fleet_max_restarts,
+                "watchdog_timeout": args.fleet_watchdog_timeout,
+                "max_queue": args.fleet_max_queue,
+                "backoff_base": args.fleet_backoff,
+                "fault_plan": args.fault_plan or None,
+                "rolling_update_at": args.rolling_update_at or None,
+                "push_chunk_bytes": args.fleet_push_chunk_bytes,
+                "push_retries": args.fleet_push_retries,
+                "pools": None,
+            } if args.fleet else None),
             "capture": args.capture,
             "model": {"layers": args.layers, "d_model": args.d_model,
                       "heads": args.heads, "vocab": args.vocab,
                       "dtype": "float32"},
         },
     }
+
+
+def fleet_cards(args):
+    """The cards a ``--fleet`` run's replicas occupy. The fleet adds no
+    placement of its own: in process and as local workers every replica
+    runs on the host's first visible card; over tcp the replicas of one
+    host share that host's card."""
+    hosts = [h.strip() for h in args.fleet_hosts.split(",") if h.strip()]
+    if args.fleet_transport != "tcp" or not hosts:
+        return 1
+    names = [parse_host_entry(h)[0] for h in hosts]
+    used = {names[rid % len(names)] for rid in range(args.fleet)}
+    return len({"local" if h in LOCAL_HOSTS else h for h in used})
+
+
+def fleet_per_card(args, mode, serve):
+    """Each lane's tokens/s of one card. ``stats()`` divides the tokens by
+    one chip per replica, as the reference does; replicas that share a
+    card make that a share of the card, so this is the figure to hold
+    against a single engine's ``tokens_per_sec_per_chip``."""
+    cards = fleet_cards(args)
+    if mode == "fleet_fault_ab":
+        lanes = {"clean": serve["fleet_ab"]["clean"], "faulted": serve}
+    elif mode == "ab_prefix":
+        lanes = {"off": serve["ab_prefix"]["off"], "on": serve}
+    else:
+        lanes = {"clean": serve}
+    return {"cards": cards, "tokens_per_sec": {
+        name: (round(st["tokens_per_sec_per_chip"] * args.fleet / cards, 1)
+               if st["tokens_per_sec_per_chip"] else None)
+        for name, st in lanes.items()}}
+
+
+def fleet_record(args, params, cfg, workload, dev, spl, ap):
+    """The ``--fleet`` lanes: ``(mode, headline stats, serve block)`` of
+    the JAX tool's record — ``fleet`` (one clean run),
+    ``fleet_fault_ab`` (clean then faulted, ``serve.fleet_ab``) or
+    ``ab_prefix`` (prefix caching off then on over the fleet)."""
+    hosts = tuple(h.strip() for h in args.fleet_hosts.split(",")
+                  if h.strip()) or None
+    try:
+        fleet_cfg = FleetConfig(
+            replicas=args.fleet, max_queue=args.fleet_max_queue,
+            max_restarts=args.fleet_max_restarts,
+            backoff_base=args.fleet_backoff,
+            watchdog_timeout=args.fleet_watchdog_timeout,
+            transport=args.fleet_transport,
+            rpc_deadline=args.fleet_rpc_deadline,
+            push_chunk_bytes=args.fleet_push_chunk_bytes,
+            push_retries=args.fleet_push_retries, hosts=hosts)
+    except ValueError as e:
+        ap.error(str(e))
+    update_at = None
+    if args.update_at is not None:
+        secs, frac = args.update_at
+        update_at = secs if secs is not None else \
+            frac * max(w[0] for w in workload)
+
+    def lane(tag, fault_plan="", update=None, lane_cfg=cfg):
+        fl, reqs = run_fleet(params, lane_cfg, fleet_cfg, workload,
+                             device=dev, fault_plan=fault_plan,
+                             update_at=update)
+        try:
+            stats = fl.stats()
+            f = stats["fleet"]
+            push = f["params_push"]
+            print(f"[serve_bench] {tag}: "
+                  f"{stats['tokens_per_sec_per_chip']} tok/s/chip, "
+                  f"ttft p50/p99 {stats['ttft_ms']['p50']}/"
+                  f"{stats['ttft_ms']['p99']} ms, {stats['by_state']}, "
+                  f"incidents {f['incidents_by_class']}, redispatched "
+                  f"{f['redispatched']} ({f['tokens_recomputed']} KV "
+                  f"tokens recomputed), shed {f['shed']}, transport "
+                  f"{f['transport']}"
+                  + (f", rpc p50/p99 {f['rpc_ms']['p50']}/"
+                     f"{f['rpc_ms']['p99']} ms" if f.get("rpc_ms") else "")
+                  + (f", params v{push['version']}: {push['pushes']} "
+                     f"push(es) {push['bytes']}B/{push['chunks']}ck in "
+                     f"{push['ms']:.1f}ms, {push['retries']} retries"
+                     if push["pushes"] else ""),
+                  file=sys.stderr, flush=True)
+            if args.pin_exact:
+                pin_exact(params, fl, dev)
+            if args.require_finished:
+                finished = stats["by_state"].get("finished", 0)
+                rejected = stats["by_state"].get("rejected", 0)
+                if finished + rejected != args.requests or not finished:
+                    raise SystemExit(
+                        f"not every non-rejected request finished: "
+                        f"{stats['by_state']}")
+        finally:
+            fl.close()
+        return stats, reqs
+
+    n = args.fleet
+    if args.ab_prefix:
+        off, off_reqs = lane(f"fleet x{n} prefix=off", lane_cfg=(
+            dataclasses.replace(cfg, prefix_caching=False)))
+        on, on_reqs = lane(f"fleet x{n} prefix=on", lane_cfg=(
+            dataclasses.replace(cfg, prefix_caching=True)))
+        compared = pin_sides(off_reqs, on_reqs, "PREFIX AB")
+        uniq, colds = pin_prefix_cold(on_reqs, cfg.page_size,
+                                      "fleet cached side")
+        homes = len({r.replica for r in on_reqs if r.state == "finished"
+                     and prefix_route_key(r.prompt[:r.orig_prompt_len],
+                                          cfg.page_size) is not None})
+        pb = on["fleet"]["prefix"] or {}
+        if not pb.get("prefill_tokens_saved"):
+            raise SystemExit("PREFIX AB FAILED: the cached fleet side "
+                             f"saved no prefill tokens ({pb})")
+        print(f"[serve_bench] prefix pins: {compared} greedy streams "
+              f"bit-identical off vs on; {colds} cold prefill(s) for "
+              f"{uniq} unique prefix(es) across {homes} replica home(s)",
+              file=sys.stderr, flush=True)
+        a, b = off["tokens_per_sec_per_chip"], on["tokens_per_sec_per_chip"]
+        return "ab_prefix", on, dict(on, mode="ab_prefix", ab_prefix={
+            "off": dict(off, prefix=None),
+            "system_prompt_tokens": spl,
+            "unique_prefixes": uniq,
+            "replica_homes": homes,
+            "cold_prefills": colds,
+            "exact_pin": {"compared": compared, "identical": True},
+            "cached_over_cold": round(b / a, 3) if a and b else None,
+        })
+    clean, clean_reqs = lane(f"fleet x{n} clean")
+    if not (args.fault_plan or update_at is not None):
+        return "fleet", clean, dict(clean, mode="fleet")
+    tag = f"fleet x{n} faulted"
+    if args.fault_plan:
+        tag += f" [{args.fault_plan}]"
+    if update_at is not None:
+        tag += f" [rolling update at {update_at:.2f}s]"
+    faulted, faulted_reqs = lane(tag, args.fault_plan, update=update_at)
+    compared = pin_redispatch_exact(clean_reqs, faulted_reqs)
+    print(f"[serve_bench] redispatch pin: {compared} greedy streams "
+          "bit-identical clean vs faulted", file=sys.stderr, flush=True)
+    c99 = (clean.get("ttft_ms") or {}).get("p99")
+    f99 = (faulted.get("ttft_ms") or {}).get("p99")
+    return "fleet_fault_ab", faulted, dict(
+        faulted, mode="fleet_fault_ab", fleet_ab={
+            "clean": clean,
+            "fault_plan": args.fault_plan or None,
+            "rolling_update_at": args.rolling_update_at or None,
+            "redispatch_pin": {"compared": compared, "identical": True},
+            "p99_ttft_clean_ms": c99,
+            "p99_ttft_faulted_ms": f99,
+            "faulted_over_clean_p99_ttft":
+                round(f99 / c99, 3) if c99 and f99 else None,
+        })
 
 
 def main(argv=None) -> int:

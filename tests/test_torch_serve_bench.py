@@ -8,8 +8,15 @@ per-token latency and page occupancy, every stream pinned against
 saved) and ``--ab-spec`` (a full-depth draft accepts everything) carry
 both sides; the argument checks are argparse errors (exit code 2) as in
 the JAX tool, the workload is the JAX tool's draw for draw, and the JAX
-tool's fleet, mesh and disaggregation flags raise
-``NotImplementedError`` naming their ROADMAP.md item.
+tool's mesh and disaggregation flags raise ``NotImplementedError``
+naming their ROADMAP.md item.
+
+The fleet lanes (``--fleet N`` in process, as worker processes and over
+TCP, ``--fault-plan``, ``--rolling-update-at``, ``--ab-prefix`` over the
+fleet) carry the JAX tool's record: the ``serve.fleet`` block with the
+reference fleet's ``stats()`` keys, ``serve.fleet_ab`` with the
+clean-versus-faulted stream pin, ``config.fleet``; the fleet's argument
+checks are argparse errors as in the JAX tool.
 """
 
 import numpy as np
@@ -145,13 +152,17 @@ def test_bad_args_are_argparse_errors(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "dp=1,tp=4"], ["--ab-tp"], ["--fleet", "2"],
-    ["--fleet-transport", "tcp"], ["--fault-plan", "kill:replica=1,at=0s"],
-    ["--rolling-update-at", "50%"], ["--pools", "1,1"], ["--ab-disagg"],
+    ["--mesh", "dp=1,tp=4"], ["--ab-tp"], ["--pools", "1,1"],
+    ["--ab-disagg"],
 ], ids=lambda a: a[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         _run(*argv)
+    if argv[0] in ("--pools", "--ab-disagg"):
+        with pytest.raises(NotImplementedError,
+                           match=r"item 3 \(serve/kv_wire.py \+ "
+                                 r"serve/disagg.py\)"):
+            _run(*argv)
 
 
 def test_require_finished_fails_loudly():
@@ -185,3 +196,197 @@ def test_pins_fail_on_a_divergence():
     assert sb.pin_prefix_cold([req([1], 0), req([1], 8)], 8, "t") == (1, 1)
     with pytest.raises(SystemExit, match="PREFIX COLD PIN FAILED"):
         sb.pin_prefix_cold([req([1], 0), req([1], 0)], 8, "t")
+
+
+# ------------------------------------------------------------------ fleet
+
+#: Keys of the JAX tool's ``serve.fleet_ab`` block and ``config.fleet``
+#: (tools/serve_bench.py); each must appear in its source.
+FLEET_AB_KEYS = {"clean", "fault_plan", "rolling_update_at",
+                 "redispatch_pin", "p99_ttft_clean_ms",
+                 "p99_ttft_faulted_ms", "faulted_over_clean_p99_ttft"}
+CONFIG_FLEET_KEYS = {"replicas", "transport", "hosts", "max_restarts",
+                     "watchdog_timeout", "max_queue", "backoff_base",
+                     "fault_plan", "rolling_update_at", "push_chunk_bytes",
+                     "push_retries", "pools"}
+
+
+@pytest.fixture(scope="module")
+def jax_fleet_keys():
+    """The reference fleet's ``stats()`` keys, from a JAX ServeFleet over
+    the protocol stub (no model to compile)."""
+    import os
+    import sys
+
+    from horovod_tpu.serve import FleetConfig as JFleetConfig
+    from horovod_tpu.serve import ServeConfig as JServeConfig
+    from horovod_tpu.serve import ServeFleet as JServeFleet
+
+    stub = os.path.join(os.path.dirname(__file__), "serve_stub_worker.py")
+
+    def cmd(rid, sock, default):
+        dcmd, env = default
+        return [sys.executable, "-S", stub, "--socket", sock, "--rank",
+                str(rid), "--heartbeat-dir",
+                dcmd[dcmd.index("--heartbeat-dir") + 1]], env
+
+    fl = JServeFleet({"pos": np.zeros((64, 4), np.float32)},
+                     JServeConfig(page_size=8, num_pages=32),
+                     JFleetConfig(replicas=1, transport="process"),
+                     worker_cmd=cmd)
+    try:
+        return fl.stats()
+    finally:
+        fl.close()
+
+
+def _keyset(block):
+    return set(block) if isinstance(block, dict) else None
+
+
+def test_fleet_clean_record_contract(jax_fleet_keys):
+    rec = _run("--fleet", "2", "--pin-exact", "--require-finished")
+    assert rec["metric"] == "serve_fleet_tokens_per_sec_per_chip"
+    s = rec["serve"]
+    assert s["mode"] == "fleet" and s["by_state"] == {"finished": 6}
+    assert set(s) - {"mode"} == set(jax_fleet_keys)
+    f = s["fleet"]
+    assert set(f) == set(jax_fleet_keys["fleet"])
+    assert f["incidents"] == [] and f["redispatched"] == 0
+    assert f["healthy"] == 2 and f["transport"] == "inproc"
+    assert "fleet_ab" not in s
+    assert set(rec["config"]["fleet"]) == CONFIG_FLEET_KEYS
+    assert rec["config"]["fleet"]["replicas"] == 2
+    # both replicas share the one device: its rate is twice each one's
+    assert rec["per_card"] == {"cards": 1, "tokens_per_sec": {
+        "clean": round(s["tokens_per_sec_per_chip"] * 2, 1)}}
+
+
+@pytest.mark.parametrize("transport, hosts, replicas, cards", [
+    ("inproc", "", 4, 1),
+    ("process", "", 2, 1),
+    ("tcp", "", 2, 1),
+    ("tcp", "localhost,127.0.0.1", 2, 1),
+    ("tcp", "a:7000,b:7000", 2, 2),
+    ("tcp", "a:7000,b:7000,c:7000", 2, 2),
+    ("tcp", "a:7000,localhost", 3, 2),
+])
+def test_fleet_cards_are_the_hosts_the_replicas_land_on(
+        transport, hosts, replicas, cards):
+    args = sb.build_parser().parse_args([
+        "--fleet", str(replicas), "--fleet-transport", transport,
+        "--fleet-hosts", hosts])
+    assert sb.fleet_cards(args) == cards
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fault-plan", "kill:replica=1,at=50%"],
+    ["--rolling-update-at", "50%"],
+    ["--fault-plan", "slow:replica=0,at=0s,factor=2",
+     "--rolling-update-at", "0.05s"],
+], ids=["kill", "rolling_update", "slow_and_roll"])
+def test_fleet_fault_ab_record_contract(argv, jax_fleet_keys):
+    rec = _run("--rate", "200", "--fleet", "2", *argv, "--pin-exact",
+               "--require-finished")
+    assert rec["metric"] == "serve_fleet_fault_ab_tokens_per_sec_per_chip"
+    s = rec["serve"]
+    assert s["mode"] == "fleet_fault_ab" and s["by_state"] == \
+        {"finished": 6}
+    f = s["fleet"]
+    assert set(f) == set(jax_fleet_keys["fleet"]) and f["failed"] == 0
+    ab = s["fleet_ab"]
+    assert set(ab) == FLEET_AB_KEYS
+    assert rec["per_card"]["tokens_per_sec"] == {
+        side: round(st["tokens_per_sec_per_chip"] * 2, 1)
+        for side, st in (("clean", ab["clean"]), ("faulted", s))}
+    assert ab["redispatch_pin"] == {"compared": 6, "identical": True}
+    assert ab["clean"]["by_state"] == {"finished": 6}
+    assert ab["p99_ttft_clean_ms"] is not None
+    if "--fault-plan" in argv and "kill" in argv[1]:
+        assert f["incidents_by_class"] == {"crashed": 1}
+        assert f["incidents"][0]["code"] == -9
+    if "--rolling-update-at" in argv:
+        assert f["params_version"] == 2 and not f["update_active"]
+        assert all(r["version"] == 2 for r in f["per_replica"])
+        assert f["incidents_by_class"] == {}
+    c = rec["config"]["fleet"]
+    assert c["fault_plan"] == (argv[1] if argv[0] == "--fault-plan"
+                               else None)
+
+
+def test_fleet_process_transport_record_contract():
+    """One worker process per replica (``--device cpu``): the kill is a
+    real SIGKILL, both sides stamp the transport evidence and the pushed
+    weights, and no worker outlives the bench."""
+    rec = _run("--rate", "200", "--fleet", "2", "--fleet-transport",
+               "process", "--fault-plan", "kill:replica=1,at=50%",
+               "--pin-exact", "--require-finished")
+    s = rec["serve"]
+    assert s["mode"] == "fleet_fault_ab" and s["by_state"] == \
+        {"finished": 6}
+    f = s["fleet"]
+    assert f["transport"] == "process"
+    assert f["rpc_ms"]["calls"] > 0 and f["rpc_ms"]["p99"] is not None
+    assert f["incidents_by_class"] == {"crashed": 1}
+    assert f["incidents"][0]["code"] == -9
+    assert s["fleet_ab"]["redispatch_pin"]["identical"] is True
+    assert s["fleet_ab"]["clean"]["fleet"]["transport"] == "process"
+    for block in (f, s["fleet_ab"]["clean"]["fleet"]):
+        assert block["per_replica"][0]["params_sha"] == \
+            block["per_replica"][1]["params_sha"]
+    assert rec["config"]["fleet"]["transport"] == "process"
+
+
+def test_fleet_ab_prefix_record_contract():
+    rec = _run("--fleet", "2", "--ab-prefix", "--pin-exact",
+               "--require-finished")
+    assert rec["metric"] == "serve_ab_prefix_tokens_per_sec_per_chip"
+    s = rec["serve"]
+    assert s["mode"] == "ab_prefix" and s["by_state"] == {"finished": 6}
+    pb = s["fleet"]["prefix"]
+    assert pb["hits"] > 0 and pb["prefill_tokens_saved"] > 0
+    ab = s["ab_prefix"]
+    assert ab["off"]["fleet"]["prefix"] is None
+    assert set(rec["per_card"]["tokens_per_sec"]) == {"off", "on"}
+    assert ab["unique_prefixes"] == 1
+    assert ab["cold_prefills"] == ab["replica_homes"] >= 1
+    assert ab["exact_pin"] == {"compared": 6, "identical": True}
+
+
+def test_fleet_record_keys_are_the_jax_tools():
+    import pathlib
+
+    src = (pathlib.Path(__file__).parent.parent / "tools" /
+           "serve_bench.py").read_text()
+    for key in FLEET_AB_KEYS | CONFIG_FLEET_KEYS | {"fleet_fault_ab",
+                                                    "replica_homes"}:
+        assert f'"{key}"' in src, key
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fault-plan", "kill:replica=0,at=1s"],
+    ["--fleet", "2", "--fault-plan", "kill:replica=5,at=1s"],
+    ["--fleet", "2", "--fault-plan", "explode:replica=0,at=1s"],
+    ["--fleet", "2", "--fault-plan", "stall:replica=0,at=1s"],
+    ["--fleet", "2", "--fault-plan", "transfer:replica=0,at=1s"],
+    ["--fleet", "2", "--fault-plan", "kill:host=0,at=1s"],
+    ["--fleet", "2", "--fleet-transport", "tcp", "--fault-plan",
+     "kill:host=1,at=1s"],
+    ["--fleet", "2", "--fleet-hosts", "127.0.0.1"],
+    ["--fleet", "2", "--fleet-transport", "tcp", "--fleet-hosts",
+     "remotebox"],
+    ["--fleet", "2", "--ab"], ["--fleet", "2", "--ab-attention"],
+    ["--fleet", "2", "--static"], ["--fleet", "-1"],
+    ["--rolling-update-at", "50%"],
+    ["--fleet", "2", "--rolling-update-at", "soon"],
+    ["--fleet", "2", "--ab-prefix", "--fault-plan",
+     "kill:replica=1,at=50%"],
+    ["--fleet", "2", "--speculate", "2", "--ab-spec"],
+    ["--fleet", "2", "--fleet-transport", "carrier"],
+], ids=lambda a: "_".join(x.strip("-").replace(":", "")
+                          .replace(",", "").replace("=", "")
+                          for x in a)[:60])
+def test_fleet_bad_args_are_argparse_errors(argv):
+    with pytest.raises(SystemExit) as e:
+        _run(*argv)
+    assert e.value.code == 2

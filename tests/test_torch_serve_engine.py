@@ -386,8 +386,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("_graphs.py", "distributed/window.py", "utils/devsync.py",
                 "data/__init__.py", "data/sharding.py", "data/prefetch.py",
-                "serve/prefix.py", "serve_bench.py"):
+                "serve/prefix.py", "serve_bench.py", "serve/router.py",
+                "serve/fleet.py", "serve/transport.py", "serve/worker.py",
+                "serve/netfault.py", "serve/params_wire.py",
+                "serve/chunk_stream.py", "elastic/__init__.py",
+                "elastic/faults.py", "elastic/signals.py",
+                "elastic/supervisor.py", "run/__init__.py",
+                "run/driver.py", "run/network.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
+    for pkg in ("elastic", "run"):
+        assert sorted(n for n in names
+                      if n.startswith(f"horovod_tpu_torch/{pkg}/")) == \
+            sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
+                "elastic": ("__init__", "faults", "signals",
+                            "supervisor"),
+                "run": ("__init__", "driver", "network")}[pkg])
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
