@@ -6,6 +6,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --engine-only [RUNS]
     python3 chip_smoke.py --fleet-only [RUNS]
+    python3 chip_smoke.py --disagg-only [RUNS]
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -114,7 +115,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    with replays after it, every worker is reaped after ``close()`` and
    its memory freed, and each incarnation's spawn-to-first-step
    seconds;
-11. (``--profile`` only) two training steps of each lane and the
+11. disagg: disaggregated prefill/decode pools
+   (``FleetConfig(pools={"prefill": 1, "decode": 1})``) at the same
+   geometry, width, weights and waves. In process: every request is
+   admitted on replica 0 and finishes on replica 1, its stream equal to
+   the colocated fleet's, the single engine's and (requests 0 and 1)
+   ``lm_decode``'s; 8 transfers, no failure, nothing parked, the bytes
+   and chunks shipped equal to what the geometry gives (92 pages of
+   1,179,648 bytes of tiles plus 8 headers, 108 chunks of 1 MiB); the
+   decode replica's K4 wrapper launched for its warm-up step and capture
+   only, the prefill replica's never (its lane is never captured), and
+   a profiled replayed decode-pool tick traces 12 of each K4 kernel;
+   one transfer's export, codec and import timed apart. Then one
+   transfer torn on each side: the streams unchanged, a decode-side
+   tear re-exports the parked request's identical bytes with no
+   redispatch, a prefill-side tear redispatches at most once with its
+   recomputed tokens counted. Then a prefill worker and a decode worker
+   sharing the card: the streams unchanged, the bytes shipped equal to
+   the in-process run's, the decode worker's own K4 count its warm-up
+   step and capture with replays after it, the prefill worker's lane
+   never captured, the card's memory outside this process up by both
+   workers' weights and back after ``close()``;
+12. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -122,7 +144,13 @@ Phases, each fatal on failure (exit code 1, no result line):
 run for comparison and the fleet phase RUNS times (default 1), and
 prints one ``{"fleet_runs": [...]}`` line and no kernels or ok line.
 
-``--engine-only`` runs phases 1 and 9 alone (and 11's engine half with
+``--disagg-only [RUNS]`` runs phases 1 and 2, one captured paged engine
+run, and the disagg phase RUNS times (default 1) with a colocated
+in-process fleet run inside each (no colocated worker run: the
+``{"disagg"}`` line says "not measured" there), and prints one
+``{"disagg_runs": [...]}`` line and no kernels or ok line.
+
+``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
 checks, and prints one ``{"engine_runs": [...]}``
 line of each run's tokens/s, TTFT and per-token p50/p99 per mode,
@@ -140,7 +168,11 @@ against captured numbers beside the card's name and power limit, and a
 ``{"fleet": {...}}`` line the fleet's tokens/s of the card (every
 replica shares it) and per replica, TTFT and per-token p50/p99, clean
 and faulted, in process and as workers, beside the single engine's and
-the card's name and power limit. The
+the card's name and power limit, and a ``{"disagg": {...}}`` line the
+pools' tokens/s of the card, TTFT and per-token p50/p99 against the
+colocated fleet's on the same workload (in process and as workers),
+the KV transfer's p50/p99 ms, bytes and chunks, the torn runs and the
+phase's seconds. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -1358,18 +1390,30 @@ def _trace_counts(prof, names):
             for n in names}
 
 
-def _profile_run(torch, fn, names):
+def _profile_run(torch, fn, names, warmup=None):
     """``fn`` once under ``torch.profiler``: wall, device busy time, idle
-    share, and the trace's counts of the named kernels."""
-    from torch.profiler import ProfilerActivity, profile
+    share, and the trace's counts of the named kernels. With ``warmup``,
+    the profiler first traces ``warmup()`` as its warm-up step and drops
+    its events, so the tracer is running before ``fn`` starts: a trace
+    that begins with a graph replay can lose the replay's first kernels
+    (one layer's pair of K4 kernels of a fleet tick, on the card)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=(None if warmup is None else
+                           schedule(wait=0, warmup=1, active=1,
+                                    repeat=1))) as prof:
+        if warmup is not None:
+            warmup()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if warmup is not None:
+            prof.step()
     busy_us = sum(e.self_device_time_total for e in _device_events(prof))
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "idle_share": 1 - busy_us / 1e6 / wall,
@@ -2176,8 +2220,9 @@ def _inproc_fleet(torch, params, prompts, waves, single):
         out["launches_per_replica"] = dict(watch.launches)
         log(f"fleet[inproc] clean: {out['clean']}")
 
-        # One replayed tick under the profiler: K4's kernels 12 for each
-        # replica with a live decode slot.
+        # One replayed tick under the profiler (after one it traces as
+        # its warm-up): K4's kernels 12 for each replica with a live
+        # decode slot.
         fl.reset_metrics()
         for p in prompts[:4]:
             fl.submit(p, NEW_TOKENS)
@@ -2186,10 +2231,15 @@ def _inproc_fleet(torch, params, prompts, waves, single):
                    for r in fl.replicas):
                 break
             fl.step()
-        before = {r.id: len(r.engine.attn_len_samples)
-                  for r in fl.replicas}
-        prof = _profile_run(torch, fl.step, ("paged_split",
-                                             "paged_merge"))
+        before = {}
+
+        def warm_tick():
+            fl.step()
+            before.update((r.id, len(r.engine.attn_len_samples))
+                          for r in fl.replicas)
+
+        prof = _profile_run(torch, fl.step, ("paged_split", "paged_merge"),
+                            warmup=warm_tick)
         live = sum(1 for r in fl.replicas
                    if len(r.engine.attn_len_samples) > before[r.id]
                    and any(r.engine.attn_len_samples[-1]))
@@ -2434,18 +2484,25 @@ def _process_fleet(torch, params, prompts, waves, clean_reqs):
         check(p.poll() is not None,
               f"fleet[process]: worker {p.pid} not reaped after close()")
     out["reaped"] = sorted({p.pid for p in procs})
-    # The driver frees a dead process's memory on its own time.
+    out["card_mib_outside"]["closed"] = _card_freed(
+        torch, others0, weights_mib, "fleet[process]")
+    return out
+
+
+def _card_freed(torch, others0, weights_mib, name):
+    """The card's memory outside this process back within one worker's
+    weights of ``others0`` after ``close()`` (a dead process's memory
+    is freed asynchronously, so it polls); returns the last reading."""
     for _ in range(100):
         others2 = _others_mib(torch)
         if others2 - others0 < weights_mib:
             break
         time.sleep(0.1)
-    out["card_mib_outside"]["closed"] = others2
     check(others2 - others0 < weights_mib,
-          f"fleet[process]: {others2 - others0:.1f} MiB more of the card "
-          "is in use outside this process after close() than before the "
-          "spawn: a worker's weights are still there")
-    return out
+          f"{name}: {others2 - others0:.1f} MiB more of the card is in use "
+          "outside this process after close() than before the spawn: a "
+          "worker's weights are still there")
+    return others2
 
 
 def fleet_phase(torch, np, params, prompts, waves, single, card):
@@ -2453,8 +2510,8 @@ def fleet_phase(torch, np, params, prompts, waves, single, card):
     t0 = time.perf_counter()
     inproc = _inproc_fleet(torch, params, prompts, waves, single)
     torch.cuda.empty_cache()
-    proc = _process_fleet(torch, params, prompts, waves,
-                          inproc.pop("clean_reqs"))
+    clean_reqs = inproc.pop("clean_reqs")
+    proc = _process_fleet(torch, params, prompts, waves, clean_reqs)
     st = single["stats"]
     res = {
         "card": card, "replicas": FLEET_REPLICAS,
@@ -2472,6 +2529,401 @@ def fleet_phase(torch, np, params, prompts, waves, single, card):
             for run in ("clean", "faulted")},
         "phase_s": time.perf_counter() - t0}
     log(f"fleet: phase passed in {res['phase_s']:.1f} s")
+    return res, clean_reqs
+
+
+# ------------------------------------------------------------- phase 11
+
+#: Disaggregated serving: one prefill replica and one decode replica on
+#: the card, the engine phase's geometry, width and workload.
+DISAGG_POOLS = {"prefill": 1, "decode": 1}
+#: The KV transfer's chunk size (FleetConfig.push_chunk_bytes' default).
+KV_CHUNK = 1 << 20
+
+
+def _kv_blob_bytes(prompts):
+    """The HVKV blob of each prompt's pages, from the geometry alone
+    (header, then K and V tiles of every layer): ``(bytes, pages)``
+    each."""
+    out = []
+    for p in prompts:
+        n = -(-len(p) // PAGE)
+        header = json.dumps({
+            "layers": LAYERS, "page_size": PAGE, "heads": HEADS,
+            "head_dim": HEAD_DIM, "dtype": "float32", "pages": n,
+            "positions": len(p)}).encode("utf-8")
+        out.append((8 + len(header)
+                    + LAYERS * 2 * n * PAGE * HEADS * HEAD_DIM * 4, n))
+    return out
+
+
+def _disagg_cfg(**kw):
+    from horovod_tpu_torch.serve import FleetConfig
+
+    return FleetConfig(replicas=2, backoff_base=0.01, max_restarts=2,
+                       pools=DISAGG_POOLS, **kw)
+
+
+def _disagg_stats(fl, wall):
+    out = _fleet_stats(fl, wall)
+    d = fl.stats()["fleet"]["disagg"]
+    out.update(disagg=d)
+    return out
+
+
+def _spy_admissions(fl, admitted):
+    """Record which replica's scheduler each dispatch reaches."""
+    for rep in fl.replicas:
+        if rep.engine is None:
+            continue        # dead, waiting for its relaunch
+        sched = rep.engine.scheduler
+        if getattr(sched, "_spied", False):
+            continue
+        submit = sched.submit
+
+        def spied(req, submit=submit, rid=rep.id):
+            admitted.setdefault(req.rid, []).append(rid)
+            return submit(req)
+
+        sched.submit = spied
+        sched._spied = True
+
+
+def _spy_exports(fl, exports):
+    """Record the sha256 of every blob the prefill replica exports."""
+    import hashlib
+
+    eng = fl.replicas[0].engine
+    if eng is None or getattr(eng, "_spied", False):
+        return
+    export = eng.export_handoff
+
+    def spied(rid):
+        blob = export(rid)
+        exports.setdefault(rid, []).append(hashlib.sha256(blob).hexdigest())
+        return blob
+
+    eng.export_handoff = spied
+    eng._spied = True
+
+
+def _disagg_serve(torch, fl, waves, watch, admitted, exports=None):
+    """The waves through a pools fleet, every admission and (with
+    ``exports``) every export recorded; the spies are put on each
+    engine a relaunch makes too."""
+    orig = watch.wrap
+
+    def wrap():
+        orig()
+        _spy_admissions(fl, admitted)
+        if exports is not None:
+            _spy_exports(fl, exports)
+
+    watch.wrap = wrap
+    try:
+        return _fleet_serve(torch, fl, waves, watch)
+    finally:
+        watch.wrap = orig
+
+
+def _transfer_parts(torch, cache, npos):
+    """Where an in-process transfer's time goes, for a blob of ``npos``
+    positions in ``cache`` (pages borrowed from its free list and given
+    back): export (gather on the card, one copy to the host a layer and
+    K/V), the chunk codec (manifest sha256, base64 + crc32 a chunk each
+    way, the commit's sha256), and import (host-to-device copies into
+    the page tensors). Milliseconds, synchronised, each once."""
+    from horovod_tpu_torch.serve.kv_wire import KvReceiver, KvSender
+
+    pages = cache.allocator.alloc(cache.pages_needed(npos, 1))
+    grant = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = cache.export_pages(pages, npos)
+        t1 = time.perf_counter()
+        sender = KvSender(blob, 0, KV_CHUNK)
+        recv = KvReceiver(0)
+        recv.begin(sender.manifest)
+        for i in range(sender.num_chunks):
+            recv.write_chunk(sender.chunk(i))
+        check(recv.commit() == blob, "disagg: the codec changed the blob")
+        t2 = time.perf_counter()
+        grant, _ = cache.import_pages(blob)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        cache.allocator.release(pages + list(grant))
+    return {"bytes": len(blob), "export_ms": (t1 - t0) * 1e3,
+            "codec_ms": (t2 - t1) * 1e3, "import_ms": (t3 - t2) * 1e3}
+
+
+def _inproc_disagg(torch, params, prompts, waves, ref_reqs, blobs):
+    """11.1 and 11.2: the in-process pools fleet, clean, then with a
+    decode-side and a prefill-side tear of one transfer each."""
+    from horovod_tpu_torch.ops.paged_attention import \
+        paged_attention_decode as k4
+    from horovod_tpu_torch.serve import ServeFleet
+
+    out = {}
+    t0 = time.perf_counter()
+    k4.launches = 0
+    fl = ServeFleet(params, _fleet_cfg(), _disagg_cfg(), device="cuda")
+    try:
+        check([r.role for r in fl.replicas] == ["prefill", "decode"],
+              f"disagg: roles {[r.role for r in fl.replicas]}")
+        watch = _FleetWatch(torch, fl)
+        _fleet_warm(fl, prompts, watch)
+        admitted = {}
+        reqs, wall = _disagg_serve(torch, fl, waves, watch, admitted)
+        st = _disagg_stats(fl, wall)
+        d = st["disagg"]
+        _fleet_check(torch, params, prompts, "disagg[inproc]", reqs,
+                     ref_reqs, "the colocated fleet")
+        _check_lm_decode(torch, params, prompts, reqs, "disagg[inproc]")
+        check(all(admitted.get(r.rid) == [0] and r.replica == 1
+                  and r.redispatches == 0 for r in reqs),
+              f"disagg[inproc]: admissions {admitted}, finished on "
+              f"{[r.replica for r in reqs]}")
+        check(d["transfers"] == len(prompts) and d["failures"] == {}
+              and d["parked"] == 0,
+              f"disagg[inproc]: {d}")
+        want = sum(b for b, _ in blobs)
+        pages = sum(n for _, n in blobs)
+        tile = LAYERS * 2 * PAGE * HEADS * HEAD_DIM * 4
+        chunks = sum(-(-b // KV_CHUNK) for b, _ in blobs)
+        check(d["kv_bytes_shipped"] == want
+              and d["chunks_shipped"] == chunks,
+              f"disagg[inproc]: shipped {d['kv_bytes_shipped']} bytes in "
+              f"{d['chunks_shipped']} chunks, the geometry gives {want} "
+              f"({pages} pages x {tile} bytes of tiles + headers) in "
+              f"{chunks} chunks of {KV_CHUNK}")
+        pe, de = fl.replicas[0].engine, fl.replicas[1].engine
+        dg = (de.lane_graphs or {}).get(False)
+        check(watch.launches.get(1, 0) == 2 * LAYERS and dg is not None
+              and dg.captures == 1 and dg.replays > 0,
+              f"disagg[inproc]: decode replica K4 wrapper calls "
+              f"{watch.launches.get(1, 0)}, graph {dg and dg.captures} "
+              f"captures {dg and dg.replays} replays; expected "
+              f"{2 * LAYERS} (warm-up + capture), 1 capture and replays")
+        check(not pe.lane_graphs and pe.attn_len_samples
+              and not any(any(s) for s in pe.attn_len_samples),
+              f"disagg[inproc]: the prefill replica decoded "
+              f"({pe.lane_graphs})")
+        out.update(clean=st, launches_per_replica=dict(watch.launches),
+                   kv_pages=pages, kv_tile_bytes=pages * tile)
+        log(f"disagg[inproc] clean: {st}; K4 wrapper calls per replica "
+            f"{watch.launches} (prefill replica {watch.launches.get(0, 0)}"
+            f"); {pages} pages, {pages * tile} bytes of tiles")
+
+        # One replayed decode-pool tick under the profiler (after one it
+        # traces as its warm-up): 12 of each K4 kernel for the decode
+        # replica's live step, none elsewhere.
+        for p in prompts[:4]:
+            fl.submit(p, NEW_TOKENS)
+        for _ in range(400):
+            if any(s is not None for s in de.slots) and \
+                    not pe.handoff and pe.prefilling is None \
+                    and not pe.scheduler.queue:
+                break
+            fl.step()
+        n0 = []
+
+        def warm_tick():
+            fl.step()
+            n0.append(len(de.attn_len_samples))
+
+        prof = _profile_run(torch, fl.step, ("paged_split", "paged_merge"),
+                            warmup=warm_tick)
+        live = int(len(de.attn_len_samples) > n0[0]
+                   and any(de.attn_len_samples[-1]))
+        check(live == 1 and prof["counts"]["paged_split"] == LAYERS
+              and prof["counts"]["paged_merge"] == LAYERS,
+              f"disagg[inproc]: one replayed decode-pool tick traced "
+              f"{prof['counts']} with {live} live decode step, expected "
+              f"{LAYERS} of each")
+        out["tick_trace"] = prof
+        _fleet_drain(fl, watch)
+        out["launches"] = k4.launches
+        out["transfer_parts"] = _transfer_parts(
+            torch, de.cache, max(len(p) for p in prompts))
+        log(f"disagg[inproc]: one transfer's parts, the largest blob "
+            f"{out['transfer_parts']}")
+        log(f"disagg[inproc]: a replayed decode-pool tick traced "
+            f"{prof['counts']}, idle share {prof['idle_share']:.3f}")
+
+        # 11.2: one transfer torn on each side.
+        for side in ("decode", "prefill"):
+            fl.reset_metrics()
+            fl.disagg.fault_next_transfer = side
+            admitted, exports = {}, {}
+            torn, wall = _disagg_serve(torch, fl, waves, watch, admitted,
+                                       exports)
+            st = _disagg_stats(fl, wall)
+            f, d = fl.stats()["fleet"], st["disagg"]
+            _fleet_check(torch, params, prompts, f"disagg[{side} tear]",
+                         torn, ref_reqs, "the colocated fleet")
+            check(d["failures"] == {side: 1}
+                  and fl.disagg.fault_next_transfer is None
+                  and f["incidents_by_class"] == {"crashed": 1}
+                  and [r.role for r in fl.replicas]
+                  == ["prefill", "decode"],
+                  f"disagg[{side} tear]: {d}, {f['incidents_by_class']}")
+            if side == "decode":
+                again = {rid: h for rid, h in exports.items()
+                         if len(h) > 1}
+                check(f["redispatched"] == 0 and d["transfers"]
+                      == len(prompts) and len(again) == 1
+                      and all(len(set(h)) == 1 for h in again.values())
+                      and all(r.redispatches == 0 for r in torn),
+                      f"disagg[decode tear]: redispatched "
+                      f"{f['redispatched']}, transfers {d['transfers']}, "
+                      f"exports {exports}")
+            else:
+                check(1 <= f["redispatched"] and f["tokens_recomputed"] > 0
+                      and all(r.redispatches <= 1 for r in torn),
+                      f"disagg[prefill tear]: {f}")
+            out[f"{side}_tear"] = dict(
+                st, redispatched=f["redispatched"],
+                tokens_recomputed=f["tokens_recomputed"],
+                exports_repeated=sum(len(h) - 1 for h in exports.values()))
+            log(f"disagg[{side} tear]: {out[f'{side}_tear']}")
+    finally:
+        fl.close()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def _process_disagg(torch, params, prompts, waves, ref_reqs, shipped):
+    """11.3: a prefill worker and a decode worker sharing the card."""
+    from horovod_tpu_torch.serve import ServeFleet
+
+    out = {}
+    torch.cuda.synchronize()
+    others0 = _others_mib(torch)
+    t0 = time.perf_counter()
+    fl = ServeFleet(params, _fleet_cfg(), _disagg_cfg(
+        transport="process", spawn_timeout=FLEET_SPAWN_S,
+        rpc_deadline=FLEET_RPC_S), device="cuda")
+    procs = [rep.proc for rep in fl.replicas]
+    try:
+        _fleet_warm(fl, prompts)
+        out["warm_s"] = time.perf_counter() - t0
+        others1 = _others_mib(torch)
+        weights_mib = len(fl._artifact["blob"]) / 2**20
+        check(others1 - others0 >= 2 * weights_mib,
+              f"disagg[process]: the card's memory outside this process "
+              f"grew {others1 - others0:.1f} MiB with both workers up, "
+              f"less than their weights ({weights_mib:.1f} MiB each)")
+        reqs, wall = _fleet_serve(torch, fl, waves)
+        st = _disagg_stats(fl, wall)
+        d = st["disagg"]
+        _fleet_check(torch, params, prompts, "disagg[process]", reqs,
+                     ref_reqs, "the colocated fleet")
+        check(all(r.replica == 1 and r.redispatches == 0 for r in reqs)
+              and d["transfers"] == len(prompts) and d["failures"] == {}
+              and d["parked"] == 0 and d["kv_bytes_shipped"] == shipped,
+              f"disagg[process]: {d}, finished on "
+              f"{[r.replica for r in reqs]}; in process shipped {shipped}")
+        pongs = [rep.engine.client.call("ping") for rep in fl.replicas]
+        pp, dp = pongs
+        check(dp["decode_launches"] == 2 * LAYERS
+              and dp["lane_captures"] == 1 and dp["lane_replays"] > 0,
+              f"disagg[process]: the decode worker reports {dp}, expected "
+              f"{2 * LAYERS} K4 wrapper calls, one capture and replays")
+        check(pp["lane_replays"] is None and pp["lane_captures"] is None,
+              f"disagg[process]: the prefill worker decoded: {pp}")
+        out.update(clean=st, card_mib_outside={"before": others0,
+                                               "up": others1},
+                   worker_decode=[{k: p[k] for k in (
+                       "pid", "decode_launches", "lane_captures",
+                       "lane_replays")} for p in pongs])
+        log(f"disagg[process] clean: {st}; workers {out['worker_decode']}")
+    finally:
+        fl.close()
+    for p in procs:
+        check(p.poll() is not None,
+              f"disagg[process]: worker {p.pid} not reaped after close()")
+    out["card_mib_outside"]["closed"] = _card_freed(
+        torch, others0, weights_mib, "disagg[process]")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def _colocated_inproc(torch, params, prompts, waves):
+    """The colocated in-process fleet's clean run (phase 10's first),
+    for ``--disagg-only``."""
+    from horovod_tpu_torch.serve import FleetConfig, ServeFleet
+
+    fl = ServeFleet(params, _fleet_cfg(), FleetConfig(
+        replicas=FLEET_REPLICAS, backoff_base=0.01, max_restarts=2),
+        device="cuda")
+    try:
+        _fleet_warm(fl, prompts)
+        reqs, wall = _fleet_serve(torch, fl, waves)
+        return _fleet_stats(fl, wall), reqs
+    finally:
+        fl.close()
+
+
+def _latency(st):
+    return {"tokens_per_sec_per_card": st["tokens_per_sec_per_card"],
+            "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
+            "wall_s": st["wall_s"]}
+
+
+def disagg_phase(torch, np, params, prompts, waves, single, card,
+                 colocated=None):
+    """Phase 11: disaggregated prefill/decode pools at the engine phase's
+    geometry and width. ``colocated`` holds phase 10's clean runs (the
+    in-process one's streams and numbers, the workers' numbers); without
+    it the colocated in-process fleet runs here first."""
+    t0 = time.perf_counter()
+    if colocated is None:
+        st, reqs = _colocated_inproc(torch, params, prompts, waves)
+        _fleet_check(torch, params, prompts, "colocated fleet", reqs,
+                     single["reqs"], "the single engine")
+        colocated = {"reqs": reqs, "inproc": st, "process": None}
+    blobs = _kv_blob_bytes(prompts)
+    inproc = _inproc_disagg(torch, params, prompts, waves,
+                            colocated["reqs"], blobs)
+    torch.cuda.empty_cache()
+    proc = _process_disagg(torch, params, prompts, waves, colocated["reqs"],
+                           inproc["clean"]["disagg"]["kv_bytes_shipped"])
+    res = {"card": card, "pools": DISAGG_POOLS}
+    for name, dis, colo in (("inproc", inproc, colocated["inproc"]),
+                            ("process", proc, colocated["process"])):
+        d = dis["clean"]["disagg"]
+        res[name] = {
+            "disagg": _latency(dis["clean"]),
+            "colocated": _latency(colo) if colo else "not measured",
+            **{k: d[k] for k in ("transfers", "transfer_ms_p50",
+                                 "transfer_ms_p99", "kv_bytes_shipped",
+                                 "chunks_shipped")},
+            "phase_s": dis["phase_s"]}
+    res["inproc"].update(
+        tears={side: {k: inproc[f"{side}_tear"][k] for k in (
+            "tokens_per_sec_per_card", "ttft_ms", "tbt_ms", "redispatched",
+            "tokens_recomputed", "exports_repeated")}
+            for side in ("decode", "prefill")},
+        kv_pages=inproc["kv_pages"], kv_tile_bytes=inproc["kv_tile_bytes"],
+        tick_trace=inproc["tick_trace"],
+        transfer_parts=inproc["transfer_parts"])
+    res["process"].update(worker_decode=proc["worker_decode"],
+                          card_mib_outside=proc["card_mib_outside"],
+                          warm_s=proc["warm_s"])
+    res["single_engine"] = {
+        "tokens_per_sec_per_card":
+            single["stats"]["tokens_per_sec_per_chip"],
+        "ttft_ms": single["stats"]["ttft_ms"],
+        "tbt_ms": single["stats"]["tbt_ms"]}
+    res["launches"] = {
+        "inproc": inproc["launches"],
+        "inproc_per_replica": inproc["launches_per_replica"],
+        "tick_replay": inproc["tick_trace"]["counts"]["paged_split"],
+        "worker": [p["decode_launches"] for p in proc["worker_decode"]]}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"disagg: phase passed in {res['phase_s']:.1f} s")
     return res
 
 
@@ -2526,7 +2978,7 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
-def _paged_record(kres, rate, runs, fleet, ptxas, card):
+def _paged_record(kres, rate, runs, fleet, disagg, ptxas, card):
     """The kernels line's entry of K4: launches from the engine phase (the
     captured engine's wrapper calls, counted from its construction: the
     warm-up step and the capture; the eager engine's; and the kernels a
@@ -2566,6 +3018,16 @@ def _paged_record(kres, rate, runs, fleet, ptxas, card):
         # each worker incarnation's own count (warm-up step + capture)
         "fleet_worker_launches":
             [p["decode_launches"] for p in fleet["process"]["worker_decode"]],
+        # The disagg phase: the in-process pools fleet's wrapper calls
+        # (the decode replica's warm-up step and capture; the relaunched
+        # decode replica's after the decode-side tear), the kernels one
+        # replayed decode-pool tick's trace holds, and each worker's own
+        # count (the prefill worker never decodes).
+        "disagg_launches": disagg["launches"]["inproc"],
+        "disagg_launches_per_replica":
+            disagg["launches"]["inproc_per_replica"],
+        "disagg_tick_replay_launches": disagg["launches"]["tick_replay"],
+        "disagg_worker_launches": disagg["launches"]["worker"],
         "captured": "the decode lane is one CUDA graph; wrapper calls count "
                     "its warm-up step and capture, replay_launches the "
                     "split kernels a captured run's trace holds",
@@ -2724,9 +3186,28 @@ def fleet_only(torch, np, card):
     prompts, waves = _requests(np)
     _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
                            True)
-    out = [fleet_phase(torch, np, params, prompts, waves, single, card)
+    out = [fleet_phase(torch, np, params, prompts, waves, single, card)[0]
            for _ in range(n)]
     print(json.dumps({"fleet_runs": out}), flush=True)
+
+
+def disagg_only(torch, np, card):
+    """``--disagg-only [RUNS]``: the disagg phase RUNS times, beside one
+    captured paged engine run at the same geometry; the colocated
+    in-process fleet runs inside each."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+
+    args = sys.argv[sys.argv.index("--disagg-only") + 1:]
+    n = int(args[0]) if args and args[0].isdigit() else 1
+    build_phase()
+    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+                            device="cuda")
+    prompts, waves = _requests(np)
+    _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
+                           True)
+    out = [disagg_phase(torch, np, params, prompts, waves, single, card)
+           for _ in range(n)]
+    print(json.dumps({"disagg_runs": out}), flush=True)
 
 
 def main():
@@ -2743,6 +3224,8 @@ def main():
         return engine_only(torch, np)
     if "--fleet-only" in sys.argv[1:]:
         return fleet_only(torch, np, card)
+    if "--disagg-only" in sys.argv[1:]:
+        return disagg_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -2762,8 +3245,12 @@ def main():
     wres = timed("window", window_phase(torch, np))
     runs, params, prompts, waves = timed("engine",
                                          engine_phase(torch, np))
-    fleet = timed("fleet", fleet_phase(torch, np, params, prompts, waves,
-                                       runs["paged"], card))
+    fleet, colo_reqs = timed("fleet", fleet_phase(
+        torch, np, params, prompts, waves, runs["paged"], card))
+    disagg = timed("disagg", disagg_phase(
+        torch, np, params, prompts, waves, runs["paged"], card,
+        colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
+                   "process": fleet["process"]["clean"]}))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -2774,9 +3261,10 @@ def main():
     print(json.dumps({"resnet": {k: v for k, v in rres.items()
                                  if k != "profile"}}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"disagg": disagg}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        _paged_record(kres, rate, runs, fleet,
+        _paged_record(kres, rate, runs, fleet, disagg,
                       ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, card),
         _conv_bn_record(cres, rres, wres, card)]}

@@ -28,11 +28,16 @@
   watchdog, budgeted relaunches, load shedding, and versioned weights
   pushed over the wire (:mod:`~horovod_tpu_torch.serve.params_wire` on
   :mod:`~horovod_tpu_torch.serve.chunk_stream`); sized by
-  :class:`FleetConfig`.
+  :class:`FleetConfig`;
+* disaggregated prefill/decode pools (``FleetConfig(pools=...)``):
+  :mod:`~horovod_tpu_torch.serve.disagg` ships each prefilled request's
+  K/V pages from the prefill pool to the decode pool
+  (:mod:`~horovod_tpu_torch.serve.kv_wire`, the ``HVKV`` blob of
+  :meth:`PagedKVCache.export_pages`), in process or through the
+  workers' ``kv_*`` RPCs. Like the reference, the package exports no
+  name of its own for it.
 
-Tensor-parallel serving (ROADMAP.md Queue 1 item 4) and the
-disaggregated prefill/decode pools with their KV handoff (Queue 1 item
-3: ``serve/kv_wire.py``, ``serve/disagg.py``) are still to port.
+Tensor-parallel serving (ROADMAP.md Queue 1 item 4) is still to port.
 """
 
 import importlib

@@ -7,9 +7,8 @@ assembled contiguously so resume-from-offset after a torn transfer is
 exact by construction, and nothing is ever loadable until the
 whole-artifact digest verifies — lives HERE, so the params consumer
 (:mod:`~horovod_tpu_torch.serve.params_wire`, assembling to a crash-safe
-temp file) and the KV handoff still to port (ROADMAP.md Queue 1 item 3,
-``serve/kv_wire.py``, assembling to memory) share one spelling of every
-boundary case:
+temp file) and the KV handoff (:mod:`~horovod_tpu_torch.serve.kv_wire`,
+assembling to memory) share one spelling of every boundary case:
 
 * :func:`make_manifest` leads every transfer: stream kind, payload
   version, the whole-blob sha256, total/chunk byte counts (plus any

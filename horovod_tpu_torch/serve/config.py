@@ -271,10 +271,17 @@ class FleetConfig:
     TransportError is retried — under the same exponential backoff as
     relaunches) before the replica takes the ordinary death path.
 
-    ``pools`` (disaggregated prefill/decode pools) keeps the
-    reference's field and default; any value but None raises
-    :class:`NotImplementedError` until ROADMAP.md Queue 1 item 3
-    (serve/disagg.py) ports it.
+    **Disaggregated serving**: ``pools={"prefill": P, "decode": D}``
+    (``P + D == replicas``) splits the fleet into a prefill pool
+    (replica ids ``0..P-1``) and a decode pool (the rest) behind the
+    same router. The prefill pool runs each request's chunked prefill
+    to completion and ships the finished K/V pages over the wire
+    (:mod:`~horovod_tpu_torch.serve.kv_wire`) to a decode replica picked
+    by the router's ordinary load keys + prefix-affinity; the two pools
+    are scheduled independently. ``pools=None`` (default) keeps the
+    colocated layout. The mapping from replica id to pool is fixed for
+    the fleet's lifetime (relaunches keep their role), so a death on
+    either side drains and redispatches WITHIN the dead replica's pool.
     """
 
     replicas: int = 2
@@ -296,8 +303,9 @@ class FleetConfig:
     push_chunk_bytes: int = 1 << 20
     #: Budgeted resume-retries per params push before replica death.
     push_retries: int = 2
-    #: Disaggregated prefill/decode pools (None = colocated; the only
-    #: value the port takes yet).
+    #: Disaggregated prefill/decode pools: {"prefill": P, "decode": D}
+    #: with P + D == replicas (normalized to a fixed-order tuple of pairs
+    #: so the frozen config stays hashable). None = colocated (default).
     pools: Optional[Any] = None
 
     def __post_init__(self):
@@ -375,6 +383,44 @@ class FleetConfig:
             # whatever sequence the caller passed.
             object.__setattr__(self, "hosts", tuple(self.hosts))
         if self.pools is not None:
-            raise NotImplementedError(
-                f"FleetConfig.pools={self.pools!r} is not ported yet; it "
-                "comes with ROADMAP.md Queue 1 item 3 (serve/disagg.py)")
+            pools = dict(self.pools)
+            if set(pools) != {"prefill", "decode"}:
+                raise ValueError(
+                    f"pools must name exactly {{'prefill', 'decode'}} "
+                    f"(disaggregation is a two-phase split, not a "
+                    f"general pool map), got keys {sorted(pools)}")
+            for name in ("prefill", "decode"):
+                n = pools[name]
+                if not isinstance(n, int) or n < 1:
+                    raise ValueError(
+                        f"pools[{name!r}] must be an int >= 1 (an empty "
+                        f"pool starves the other side), got {n!r}")
+            total = pools["prefill"] + pools["decode"]
+            if total != self.replicas:
+                raise ValueError(
+                    f"pools must partition the fleet exactly: "
+                    f"prefill + decode = {total} but replicas = "
+                    f"{self.replicas}")
+            # Normalize to a fixed-order tuple of pairs: hashable, and
+            # the prefill count is always pools[0][1].
+            object.__setattr__(
+                self, "pools",
+                (("prefill", pools["prefill"]),
+                 ("decode", pools["decode"])))
+
+    # -- disaggregated-pool helpers (colocated fleets: pools is None) --
+
+    @property
+    def prefill_replicas(self) -> int:
+        """Size of the prefill pool (0 when colocated)."""
+        return 0 if self.pools is None else int(self.pools[0][1])
+
+    def pool_of(self, replica_id: int) -> Optional[str]:
+        """Pool of ``replica_id``: ids ``0..P-1`` prefill, the rest
+        decode; ``None`` when the fleet is colocated. The mapping is
+        positional and immutable — a relaunched replica keeps its
+        role."""
+        if self.pools is None:
+            return None
+        return "prefill" if replica_id < self.prefill_replicas \
+            else "decode"

@@ -85,8 +85,20 @@ whole window first.
 scheduler's admission: a prompt's already-filled whole pages are mapped
 read-only and prefill starts at the first miss.
 
-Tensor-parallel serving and the disaggregated handoff bay come with
-later slices (ROADMAP.md, Queue 1).
+**The disaggregated handoff bay** (``FleetConfig.pools``): a request
+admitted with ``prefill_only`` parks in :attr:`ServeEngine.handoff` when
+its prefill completes (first token emitted, pages held) instead of
+going to ``ready``. :meth:`ServeEngine.export_handoff` writes its pages
+into an ``HVKV`` blob and :meth:`ServeEngine.release_handoff` drops them
+once the decode side has committed; on the decode replica
+:meth:`ServeEngine.admit_prefilled` imports the blob in place into the
+page tensors and queues the request on ``ready`` in state DECODE. The
+next step's slot promotion packs its table into the lane's index buffer
+as it does for a locally prefilled request, so a captured decode lane
+replays over the imported pages without a new capture.
+
+Tensor-parallel serving comes with a later slice (ROADMAP.md, Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -129,6 +141,7 @@ from horovod_tpu_torch.serve.scheduler import (
     make_request,
     pick_victim,
 )
+from horovod_tpu_torch.serve.transport import FrameError
 
 # --------------------------------------------------------------------------
 # The step (functions of tensors; host index data arrives as numpy).
@@ -470,6 +483,14 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * config.decode_slots
         self.ready: List[Request] = []      # prefilled, awaiting a slot
         self.prefilling: Optional[Request] = None
+        #: Disaggregated-serving handoff bay: ``prefill_only`` requests
+        #: parked fully prefilled (first token emitted, pages held) until
+        #: the fleet ships their K/V pages to a decode replica —
+        #: :meth:`export_handoff` / :meth:`release_handoff` on this side,
+        #: :meth:`admit_prefilled` on the receiving one. Parked requests
+        #: never decode here, but they count in_flight and their
+        #: deadlines still sweep.
+        self.handoff: List[Request] = []
         self.finished: List[Request] = []
         self.evicted: List[Request] = []    # terminal (requeue off)
         self.timed_out: List[Request] = []  # terminal (deadline passed)
@@ -515,7 +536,8 @@ class ServeEngine:
     @property
     def in_flight(self) -> int:
         return (sum(1 for s in self.slots if s is not None)
-                + len(self.ready) + (1 if self.prefilling else 0))
+                + len(self.ready) + (1 if self.prefilling else 0)
+                + len(self.handoff))
 
     @property
     def idle(self) -> bool:
@@ -543,13 +565,14 @@ class ServeEngine:
             self.evicted.append(victim)
 
     def _remove_from_service(self, req: Request) -> None:
-        """Release the request's pages and detach it from slots, ready
-        and the prefill lane."""
+        """Release the request's pages and detach it from slots, ready,
+        the handoff bay and the prefill lane."""
         self.scheduler.release(req)
         for i, s in enumerate(self.slots):
             if s is req:
                 self.slots[i] = None
         self.ready = [r for r in self.ready if r is not req]
+        self.handoff = [r for r in self.handoff if r is not req]
         if self.prefilling is req:
             self.prefilling = None
 
@@ -567,7 +590,7 @@ class ServeEngine:
         step."""
         now = self.clock()
         live = ([s for s in self.slots if s is not None]
-                + list(self.ready)
+                + list(self.ready) + list(self.handoff)
                 + ([self.prefilling] if self.prefilling else [])
                 + list(self.scheduler.queue))
         for req in live:
@@ -794,7 +817,15 @@ class ServeEngine:
                 self.prefilling = None
                 if req.state != RequestState.FINISHED:
                     req.state = RequestState.DECODE
-                    self.ready.append(req)
+                    if req.prefill_only:
+                        # Disaggregated handoff: park fully prefilled
+                        # (pages held, first token emitted) until the
+                        # fleet ships the pages to a decode replica. A
+                        # request that finished on its first token never
+                        # gets here.
+                        self.handoff.append(req)
+                    else:
+                        self.ready.append(req)
 
         self.occupancy_samples.append(self.cache.occupancy())
         self.steps += 1
@@ -883,6 +914,74 @@ class ServeEngine:
         req.token_times.append(now)
         if req.done_generating or req.hit_eos(self.config.eos_token):
             self._finish(req)
+
+    # ------------------------------------- disaggregated prefill/decode
+
+    def _handoff_req(self, rid) -> Request:
+        for r in self.handoff:
+            if r.rid == rid:
+                return r
+        raise KeyError(f"no parked handoff request {rid!r} — expired, "
+                       "already released, or never parked here")
+
+    def handoff_ready(self) -> List:
+        """rids parked in the handoff bay (prefill finished, K/V pages
+        ready to ship)."""
+        return [r.rid for r in self.handoff]
+
+    def export_handoff(self, rid) -> bytes:
+        """The parked request's finished K/V pages as one deterministic
+        blob (:meth:`PagedKVCache.export_pages
+        <horovod_tpu_torch.serve.kvcache.PagedKVCache.export_pages>` over
+        the page-table prefix covering the prompt). READ-ONLY and
+        repeatable — a torn transfer re-exports identical bytes."""
+        req = self._handoff_req(rid)
+        n_exp = self.cache.pages_needed(req.prompt_len, 1)
+        pages = [int(req.page_table[j]) for j in range(n_exp)]
+        return self.cache.export_pages(pages, req.prompt_len)
+
+    def release_handoff(self, rid) -> Request:
+        """Drop the prefill side's hold once the decode replica has
+        COMMITTED the import: pages release through the refcounted path
+        (prefix-shared pages stay alive under the index) and the request
+        leaves the bay WITHOUT a terminal event — ownership moved, the
+        stream did not end. Returns the request (the in-process fleet
+        re-uses the very same object on the decode side)."""
+        req = self._handoff_req(rid)
+        self.scheduler.release(req)
+        self.handoff = [r for r in self.handoff if r is not req]
+        return req
+
+    def admit_prefilled(self, req: Request, blob: bytes) -> None:
+        """Decode-side handoff admission: import the shipped K/V pages
+        into THIS cache (in place), grant the rest of the request's
+        worst-case budget (reserve discipline), map the page table, and
+        queue the request at its handoff position (``ready``, state
+        DECODE — the next step promotes it into a slot and decodes token
+        2 onward; token 1 was emitted prefill-side). All-or-nothing:
+        :class:`~horovod_tpu_torch.serve.kvcache.OutOfPages` or a typed
+        :class:`~horovod_tpu_torch.serve.transport.FrameError` leaves
+        this engine unchanged."""
+        imported, positions = self.cache.import_pages(blob)
+        try:
+            if positions != req.prompt_len:
+                raise FrameError(
+                    f"handoff blob covers {positions} positions, "
+                    f"request prompt is {req.prompt_len} — wrong blob "
+                    "for this request")
+            total = self.cache.pages_needed(req.prompt_len,
+                                            req.max_new_tokens)
+            extra = self.cache.allocator.alloc(total - len(imported))
+        except BaseException:
+            self.cache.allocator.release(imported)
+            raise
+        req.pages = list(imported) + list(extra)
+        req.page_table = np.zeros(self.cache.pages_per_seq, np.int32)
+        req.page_table[:total] = np.asarray(req.pages, np.int32)
+        req.prefill_pos = req.prompt_len
+        req.state = RequestState.DECODE
+        req.t_admit = self.clock()
+        self.ready.append(req)
 
     def _lane(self, sampled: bool):
         """One run of the step's lane over the packed device buffers."""
@@ -977,7 +1076,7 @@ class ServeEngine:
     def stats(self) -> Dict:
         """Aggregate SLO metrics over every request seen so far."""
         everything = (self.finished + self.evicted + self.timed_out
-                      + self.ready
+                      + self.ready + self.handoff
                       + [s for s in self.slots if s is not None]
                       + ([self.prefilling] if self.prefilling else [])
                       + self.scheduler.queue + self.scheduler.rejected)

@@ -78,8 +78,15 @@ readmit — while the router pins each request's entire decode to one
 version, so a mid-stream mix of two models' tokens is impossible by
 construction.
 
-The disaggregated prefill/decode pools of the reference
-(``FleetConfig.pools``) come with ROADMAP.md Queue 1 item 3.
+**Disaggregated prefill/decode pools** (``FleetConfig.pools``): the
+first ``P`` replicas prefill, the rest decode. Every dispatch goes to the
+prefill pool stamped ``prefill_only``, and after every replica has
+stepped, :class:`~horovod_tpu_torch.serve.disagg.DisaggCoordinator`
+ships each parked request's K/V pages to a decode replica
+(:mod:`~horovod_tpu_torch.serve.kv_wire`; in process through the same
+chunk codec, over the wire through the worker's ``kv_*`` RPCs). A
+worker proxy learns its parked rids from each step reply's ``handoff``
+key. Roles are positional and survive relaunches.
 """
 
 from __future__ import annotations
@@ -146,7 +153,9 @@ class Replica:
     liveness = "file"
     #: Host failure-domain index (tcp placement only).
     host: Optional[int] = None
-    #: Disaggregated pool (always None: the port's fleet is colocated).
+    #: Disaggregated pool ("prefill"/"decode"; None = colocated).
+    #: Positional off FleetConfig.pools and IMMUTABLE for the fleet's
+    #: lifetime — a relaunched replica keeps its role.
     role: Optional[str] = None
 
     def __init__(self, rid: int, engine, heartbeat: Optional[Heartbeat]):
@@ -418,6 +427,9 @@ class _EngineProxy:
         #: (the drain baseline depends on it) — so stamps apply as
         #: deltas, never overwrites.
         self._prefix_seen: Dict[int, tuple] = {}
+        #: Router rids parked in the worker's handoff bay (last step
+        #: RPC's snapshot; always empty outside disaggregated pools).
+        self.handoff_rids: List[int] = []
 
     def _free_slots(self) -> int:
         return self._free
@@ -434,7 +446,7 @@ class _EngineProxy:
             "seed": int(req.seed),
             "age": max(0.0, now - req.arrival),
             "ttl": req.ttl,
-            "prefill_only": False,   # the protocol's colocated value
+            "prefill_only": bool(req.prefill_only),
         })
         if r.get("accepted"):
             self._streamed[req.rid] = 0
@@ -467,6 +479,7 @@ class _EngineProxy:
             self.last_hb = int(s["hb"])
         if s.get("prefix") is not None:
             self.last_prefix = s["prefix"]
+        self.handoff_rids = [int(x) for x in s.get("handoff") or ()]
         stepped = int(s["ticks"]) > self._last_ticks
         self._last_ticks = int(s["ticks"])
         if not self._by_rid:
@@ -715,7 +728,9 @@ class ServeFleet:
         self.replicas: List[Replica] = []
         try:
             for i in range(self.fleet.replicas):
-                self.replicas.append(self._spawn(i))
+                rep = self._spawn(i)
+                rep.role = self.fleet.pool_of(i)
+                self.replicas.append(rep)
         except BaseException:
             # A failed spawn mid-constructor must not orphan the
             # replicas (real OS processes!) already running — close()
@@ -728,6 +743,15 @@ class ServeFleet:
             if self._workdir:
                 shutil.rmtree(self._workdir, ignore_errors=True)
             raise
+
+        # Disaggregated prefill/decode: the KV-handoff coordinator
+        # (serve/disagg.py) runs once per tick after every replica
+        # stepped. None = colocated, zero new code paths.
+        self.disagg = None
+        if self.fleet.pools is not None:
+            from horovod_tpu_torch.serve.disagg import DisaggCoordinator
+
+            self.disagg = DisaggCoordinator(self)
 
     def close(self) -> None:
         """Tear the fleet down and release its host-side footprint.
@@ -1731,9 +1755,15 @@ class ServeFleet:
         return prefix_route_key(req.prompt, self.config.page_size)
 
     def _dispatch(self) -> None:
+        # Disaggregated pools: every admission (fresh or requeued — a
+        # rebased request needs its folded prompt re-prefilled) goes to
+        # the PREFILL pool only; the decode side receives work
+        # exclusively through the KV handoff (serve/disagg.py).
+        pool = self.replicas if self.disagg is None else \
+            self.disagg.prefill_pool()
         while self.queue:
             req = self.queue[0]
-            rep = pick_replica(self.replicas, req, self._route_key(req))
+            rep = pick_replica(pool, req, self._route_key(req))
             if rep is None:
                 if self._version_stranded(req):
                     # The explicit cross-version policy: the stream
@@ -1752,6 +1782,10 @@ class ServeFleet:
                     continue
                 break   # head waits; order (and requeue priority) holds
             self.queue.pop(0)
+            # Stamped per DISPATCH, not per request: the same request
+            # redispatched after a decode-side death prefills again on
+            # the prefill pool; colocated fleets always stamp False.
+            req.prefill_only = self.disagg is not None
             try:
                 accepted = rep.engine.scheduler.submit(req)
             except TransportError as e:
@@ -1906,6 +1940,12 @@ class ServeFleet:
             ticked.append(rep)
             self._collect(rep)
             occ.append(rep.engine.cache.occupancy())
+        if self.disagg is not None:
+            # KV handoffs AFTER every replica stepped (the handoff
+            # snapshots are this tick's truth): a completed transfer is
+            # fleet progress even when no engine generated.
+            if self.disagg.step(now):
+                progressed = True
         # Heartbeats stamp at the END of the tick, together: replicas
         # step sequentially in-process, so stamping each inside the
         # loop would let one slow step (a fresh replica's capture) age
@@ -1972,6 +2012,8 @@ class ServeFleet:
                            "retries": 0, "ms": 0.0}
         self.transfer_incidents = {}
         self.version_recomputed = 0
+        if self.disagg is not None:
+            self.disagg.reset_metrics()
         for rep in self.replicas:
             if rep.healthy and rep.engine is not None:
                 try:
@@ -2080,7 +2122,8 @@ class ServeFleet:
             "restarts_used": self.restarts_used,
             "max_restarts": self.fleet.max_restarts,
             "detect_s": round(max(detect), 4) if detect else None,
-            "disagg": None,   # colocated: disaggregation is not ported
+            "disagg": self.disagg.stats()
+            if self.disagg is not None else None,
             "per_replica": [
                 dict(replica_load(r), id=r.id, state=r.state,
                      role=r.role, steps=r.steps, restarts=r.restarts,

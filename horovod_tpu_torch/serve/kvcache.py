@@ -11,22 +11,42 @@ uses.
 Host side, this module is bookkeeping: a refcounted free-list
 :class:`PageAllocator` (verbatim from the JAX package) and
 :class:`PagedKVCache`, which ties the allocator to the page tensors on
-the engine's device and holds the admission-control page math. Export
-and import of pages for disaggregated serving come with that slice.
+the engine's device and holds the admission-control page math.
+
+For disaggregated serving, :meth:`PagedKVCache.export_pages` writes a
+request's finished pages into one deterministic ``HVKV`` blob and
+:meth:`PagedKVCache.import_pages` scatters such a blob into another
+cache. The page tensors have the reference's ``[num_pages, page_size,
+H, D]`` layout, so the blob is byte-identical to the reference's for the
+same page contents (its header names numpy's dtype, ``float32`` or
+``bfloat16``), and each package imports the other's. Import writes into
+the existing page tensors in place: a captured decode lane keeps
+reading the storage it captured.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict, List, Sequence
+import struct
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from horovod_tpu_torch.serve.transport import FrameError
 
 
 class OutOfPages(Exception):
     """Raised by :meth:`PageAllocator.alloc` when the free list cannot
     satisfy the request (all-or-nothing; nothing was allocated)."""
+
+
+#: KV-page blob container magic ("HoroVod KV pages"), the payload the
+#: disaggregated prefill-to-decode handoff chunk-streams
+#: (serve/kv_wire.py).
+KV_BLOB_MAGIC = b"HVKV"
+_KV_BLOB_HEADER = struct.Struct(">4sI")   # magic, header-JSON length
 
 
 #: Physical pages never handed out: page 0, the reserved null sink.
@@ -237,6 +257,12 @@ class PagedKVCache:
     def dtype_bytes(self) -> int:
         return torch.empty((), dtype=self.dtype).element_size()
 
+    @property
+    def dtype_name(self) -> str:
+        """numpy's name of the page dtype (``float32``, ``bfloat16``):
+        the blob header's, as the reference writes it."""
+        return str(self.dtype).rpartition(".")[2]
+
     # -------------------------------------------------- copy-on-write
 
     def cow_page(self, page: int) -> int:
@@ -250,6 +276,113 @@ class PagedKVCache:
                 layer[kv][new] = layer[kv][page]
         self.allocator.release([page])
         return new
+
+    # --------------------------------------------- export / import (kv)
+
+    def export_pages(self, pages: Sequence[int],
+                     num_positions: int) -> bytes:
+        """Serialize the finished K/V pages covering logical positions
+        ``0..num_positions-1`` into ONE deterministic byte blob, the
+        payload of the disaggregated handoff (``serve/kv_wire.py``).
+        ``pages`` is the request's physical page list in logical order;
+        the tiles ship per layer, K then V, as ``[n, page_size, H, D]``
+        in logical page order. Each layer's K (and V) is gathered on the
+        device and copied to the host once. READ-ONLY: refcounts are
+        untouched, so pages shared under COW or the prefix cache export
+        safely."""
+        ps = self.config.page_size
+        need = pages_needed(num_positions, 1, ps) \
+            if num_positions >= 1 else 0
+        if num_positions < 1 or len(pages) != need:
+            raise FrameError(
+                f"export of {len(pages)} pages for {num_positions} "
+                f"positions — geometry says {need} pages of "
+                f"{ps} positions each")
+        header = json.dumps({
+            "layers": self.num_layers,
+            "page_size": ps,
+            "heads": self.num_heads,
+            "head_dim": self.head_dim,
+            "dtype": self.dtype_name,
+            "pages": len(pages),
+            "positions": int(num_positions),
+        }).encode("utf-8")
+        parts = [_KV_BLOB_HEADER.pack(KV_BLOB_MAGIC, len(header)), header]
+        idx = torch.tensor(list(pages), dtype=torch.long,
+                           device=self.device)
+        for layer in self.pages:
+            for kv in ("k", "v"):
+                tiles = layer[kv].index_select(0, idx).cpu()
+                if tiles.dtype == torch.bfloat16:
+                    # numpy has no bfloat16: the same bytes as int16.
+                    tiles = tiles.view(torch.int16)
+                parts.append(tiles.numpy().tobytes())
+        return b"".join(parts)
+
+    def import_pages(self, blob: bytes) -> Tuple[List[int], int]:
+        """Inverse of :meth:`export_pages` against THIS cache: checks the
+        geometry (a blob of another model or page shape is a typed
+        :class:`~horovod_tpu_torch.serve.transport.FrameError`), the page
+        math and the length before allocating, allocates the pages
+        all-or-nothing (:class:`OutOfPages` with no state change), and
+        writes the tiles into the existing page tensors in place
+        (``index_copy_``: a captured lane's storage stays the one it
+        reads). Returns ``(granted_pages, num_positions)``, the granted
+        ids in logical order; any failure after the grant frees it."""
+        if len(blob) < _KV_BLOB_HEADER.size:
+            raise FrameError(
+                f"kv blob of {len(blob)} bytes is shorter than its "
+                "header — torn payload")
+        magic, hlen = _KV_BLOB_HEADER.unpack_from(blob)
+        if magic != KV_BLOB_MAGIC:
+            raise FrameError(
+                f"bad kv-blob magic {magic!r} — not a HVKV payload")
+        end = _KV_BLOB_HEADER.size + hlen
+        if len(blob) < end:
+            raise FrameError("kv blob torn inside its header")
+        try:
+            h = json.loads(blob[_KV_BLOB_HEADER.size:end].decode("utf-8"))
+            n, positions = int(h["pages"]), int(h["positions"])
+        except (ValueError, KeyError, UnicodeDecodeError) as e:
+            raise FrameError(f"undecodable kv-blob header: {e!r}"
+                             ) from None
+        ps = self.config.page_size
+        want = {"layers": self.num_layers, "page_size": ps,
+                "heads": self.num_heads, "head_dim": self.head_dim,
+                "dtype": self.dtype_name}
+        got = {k: h.get(k) for k in want}
+        if got != want:
+            raise FrameError(
+                f"kv blob geometry {got} does not match this cache "
+                f"{want} — cross-model/cross-geometry import refused")
+        if positions < 1 or n != pages_needed(positions, 1, ps):
+            raise FrameError(
+                f"kv blob claims {n} pages for {positions} positions — "
+                "inconsistent page math")
+        step = n * ps * self.num_heads * self.head_dim * self.dtype_bytes
+        total = end + self.num_layers * 2 * step
+        if len(blob) != total:
+            raise FrameError(
+                f"kv blob is {len(blob)} bytes, geometry says {total} "
+                "— torn or padded payload")
+        grant = self.allocator.alloc(n)     # all-or-nothing; OutOfPages
+        try:
+            idx = torch.tensor(grant, dtype=torch.long, device=self.device)
+            # One writable copy of the payload for torch.frombuffer.
+            buf = bytearray(memoryview(blob)[end:])
+            shape = (n, ps, self.num_heads, self.head_dim)
+            off = 0
+            for layer in self.pages:
+                for kv in ("k", "v"):
+                    tiles = torch.frombuffer(
+                        buf, dtype=self.dtype, count=step // self.dtype_bytes,
+                        offset=off).reshape(shape)
+                    off += step
+                    layer[kv].index_copy_(0, idx, tiles.to(self.device))
+        except BaseException:
+            self.allocator.free(grant)
+            raise
+        return grant, positions
 
     # ------------------------------------------------------- page math
 
@@ -266,8 +399,24 @@ class PagedKVCache:
                              page_size=self.config.page_size,
                              capacity=self.allocator.capacity)
 
+    def can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
+        """Admission control (reserve discipline): admit only when the
+        worst case is allocatable RIGHT NOW, so an admitted request can
+        always run to completion without eviction."""
+        return (self.pages_needed(prompt_len, max_new_tokens)
+                <= self.allocator.available)
+
     # ---------------------------------------------------------- stats
 
     def occupancy(self) -> float:
         """Fraction of allocatable pages currently held (0..1)."""
         return self.allocator.in_use / max(1, self.allocator.capacity)
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "pages_total": self.allocator.capacity,
+            "pages_in_use": self.allocator.in_use,
+            "pages_free": self.allocator.available,
+            "pages_shared": self.allocator.shared,
+            "occupancy": self.occupancy(),
+        }

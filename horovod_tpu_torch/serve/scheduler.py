@@ -1,9 +1,8 @@
 """Request lifecycle + the SLO-knobbed scheduler.
 
-A host-only copy of ``horovod_tpu.serve.scheduler`` (the fleet's
-bookkeeping waits for the fleet's slice). The scheduler is pure host
-bookkeeping between engine steps — it never touches device tensors. It
-owns three decisions per step, each behind one
+A host-only copy of ``horovod_tpu.serve.scheduler``. The scheduler is
+pure host bookkeeping between engine steps — it never touches device
+tensors. It owns three decisions per step, each behind one
 :class:`~horovod_tpu_torch.serve.config.ServeConfig` knob:
 
 * **queue order** (``policy``): ``fcfs`` arrival order, or ``sjf``
@@ -106,6 +105,12 @@ class Request:                     # tracked by `is` in slot lists
     #: request (None = never drained): hits gained past it happened on
     #: the survivor, so the fleet nets them out of its recompute count.
     prefix_hits_at_drain: Optional[int] = None
+    #: disaggregated serving: this admission runs PREFILL ONLY — the
+    #: engine parks the request in its handoff bay at prefill completion
+    #: (first token emitted) instead of decoding it, and the fleet ships
+    #: the K/V pages to a decode-pool replica. Stamped per dispatch by
+    #: the fleet; False everywhere else.
+    prefill_only: bool = False
 
     state: str = RequestState.QUEUED
     #: prompt tokens already prefilled (chunk progress).
@@ -251,6 +256,9 @@ class Scheduler:
             # their (grown) prompt length.
             self.queue.sort(
                 key=lambda r: (0 if r.requeued else 1, r.prompt_len))
+
+    def queued(self) -> int:
+        return len(self.queue)
 
     # --------------------------------------------------------- gating
 

@@ -46,9 +46,10 @@ The socket is bound BEFORE ``import torch`` so the router's connect
 succeeds early; the first RPCs then wait (inside their deadline) for
 engine construction. A worker that dies during startup never binds,
 never heartbeats — the router observes the connect failure plus the
-reaped exit code and classifies ``crashed``. The KV-handoff RPCs of the
-reference (``kv_*``) answer with a typed ``NotImplementedError`` until
-the disaggregated pools are ported.
+reaped exit code and classifies ``crashed``. Under disaggregated pools
+the ``kv_export_*`` RPCs ship a parked request's K/V pages out of this
+worker and the ``kv_import_*`` RPCs admit another worker's into it
+(:mod:`~horovod_tpu_torch.serve.kv_wire`).
 
 Test hooks (environment): ``HVD_SERVE_WORKER_FAIL_START`` exits with
 that code before binding; ``HVD_SERVE_WORKER_TORN_COLLECT_AFTER=N``
@@ -171,6 +172,12 @@ class WorkerHost:
         #: router rid -> the ENGINE's Request (the worker's own rids
         #: never cross the wire).
         self._requests: Dict[int, Any] = {}
+        #: Disaggregated-serving transfer state, keyed by router rid:
+        #: prefill-side senders (exported blob + manifest) and
+        #: decode-side receivers (assembler + the pending Request,
+        #: engine-admitted only at commit).
+        self._kv_senders: Dict[int, Any] = {}
+        self._kv_receivers: Dict[int, Any] = {}
         self._terminal: List[Dict] = []
         self._ticks = 0
         self._stall_pending: Optional[Dict] = None
@@ -312,11 +319,6 @@ class WorkerHost:
     # -------------------------------------------------- RPC thread
 
     def handle(self, method: str, params: Dict) -> Any:
-        if method.startswith("kv_"):
-            raise NotImplementedError(
-                f"{method}: the KV handoff is not ported yet; it comes "
-                "with ROADMAP.md Queue 1 item 3 (serve/kv_wire.py + "
-                "serve/disagg.py)")
         fn = getattr(self, "_rpc_" + method, None)
         if fn is None or not method:
             raise ValueError(f"unknown RPC method {method!r}")
@@ -453,6 +455,10 @@ class WorkerHost:
                 arrival=eng.clock() - float(p.get("age", 0.0)),
                 ttl=p.get("ttl"))
             req._router_rid = int(p["rid"])
+            # Disaggregated serving: a prefill-pool dispatch parks the
+            # request in the engine's handoff bay at prefill completion
+            # instead of decoding it here.
+            req.prefill_only = bool(p.get("prefill_only", False))
             if eng.scheduler.submit(req):
                 self._requests[int(p["rid"])] = req
                 return {"accepted": True}
@@ -474,7 +480,12 @@ class WorkerHost:
                    "occupancy": float(eng.cache.occupancy()),
                    "queue_len": len(eng.scheduler.queue),
                    "in_flight": eng.in_flight,
-                   "idle": eng.idle}
+                   "idle": eng.idle,
+                   # Disaggregated serving: router rids parked in the
+                   # handoff bay, K/V pages ready to ship.
+                   "handoff": [int(r._router_rid) for r in eng.handoff
+                               if getattr(r, "_router_rid", None)
+                               is not None]}
             # Prefix-cache snapshot (absent when caching is off — the
             # proxy, like every consumer, tolerates the missing key).
             ps = eng.prefix_stats()
@@ -551,6 +562,129 @@ class WorkerHost:
             else:
                 raise ValueError(f"unknown fault kind {kind!r} (the "
                                  "kill edition is a real signal)")
+        return {}
+
+    # ------------------------------------- disaggregated KV transfer
+    #
+    # kv_export_* (prefill side) / kv_import_* (decode side): the KV
+    # handoff lane (serve/kv_wire.py over serve/chunk_stream.py). The
+    # SAME framing/CRC/resume discipline as the params push — but NOT
+    # a retried lane: a TransportError mid-transfer takes the death
+    # path (drain -> rebase_for_recompute -> requeue, at-most-once);
+    # only a still-healthy pair resumes (begin returns have_bytes).
+    # Export (a device-to-host copy of the pages) and the commit's
+    # import (a host-to-device copy into the page tensors) hold the
+    # engine lock: the engine thread may be capturing its lane.
+
+    def _rpc_kv_export_begin(self, p: Dict) -> Dict:
+        from horovod_tpu_torch.serve.kv_wire import KvSender
+
+        eng = self._require_engine()
+        rid = int(p["rid"])
+        with self._lock:
+            req = self._requests.get(rid)
+            if req is None:
+                raise ValueError(
+                    f"kv_export_begin: rid {rid} is not live here "
+                    "(expired, finished, or never dispatched)")
+            # KeyError (typed over the wire) when not parked: the
+            # request expired or finished before the fleet asked.
+            blob = eng.export_handoff(req.rid)
+        cb = int(p.get("chunk_bytes")
+                 or params_wire.DEFAULT_CHUNK_BYTES)
+        sender = KvSender(blob, rid, cb)
+        self._kv_senders[rid] = sender
+        return {"manifest": sender.manifest}
+
+    def _rpc_kv_export_chunk(self, p: Dict) -> Dict:
+        rid = int(p["rid"])
+        sender = self._kv_senders.get(rid)
+        if sender is None:
+            raise ValueError(f"kv_export_chunk: no open export for "
+                             f"rid {rid}")
+        return {"chunk": sender.chunk(int(p["index"]))}
+
+    def _rpc_kv_export_end(self, p: Dict) -> Dict:
+        """Close one export. ``commit=True`` (the decode side ACKED its
+        digest-verified import): release the parked request's pages and
+        forget the rid WITHOUT a terminal event — ownership moved, the
+        stream did not end. ``commit=False``: drop only the sender; the
+        request stays parked for a retry or redispatch."""
+        rid = int(p["rid"])
+        self._kv_senders.pop(rid, None)
+        if not p.get("commit", True):
+            return {}
+        self._require_engine()
+        with self._lock:
+            req = self._requests.pop(rid, None)
+            if req is not None:
+                self.engine.release_handoff(req.rid)
+        return {}
+
+    def _rpc_kv_import_begin(self, p: Dict) -> Dict:
+        from horovod_tpu_torch.serve.kv_wire import KvReceiver
+        from horovod_tpu_torch.serve.scheduler import make_request
+
+        eng = self._require_engine()
+        rid = int(p["rid"])
+        r = p["req"]
+        with self._lock:
+            req = make_request(
+                eng.config, eng.clock,
+                np.asarray(r["prompt"], np.int32),
+                int(r["max_new_tokens"]),
+                temperature=float(r.get("temperature", 0.0)),
+                top_k=int(r.get("top_k", 0)),
+                eos_token=r.get("eos_token"),
+                seed=int(r.get("seed", 0)),
+                arrival=eng.clock() - float(r.get("age", 0.0)),
+                ttl=r.get("ttl"))
+            req._router_rid = rid
+            # The prefill side already emitted these (normally just the
+            # first token): they count against the budget and position
+            # the sampler, and collect(since=N) never re-streams them.
+            req.generated = [int(t) for t in r.get("generated", [])]
+            req.output = list(req.generated)
+        # A re-begin for the same rid reuses the receiver — the
+        # assembled prefix survives for resume-from-offset.
+        recv = self._kv_receivers.get(rid)
+        if recv is None:
+            recv = KvReceiver(rid)
+            self._kv_receivers[rid] = recv
+        recv.req = req
+        return {"have_bytes": recv.begin(p["manifest"])}
+
+    def _rpc_kv_import_chunk(self, p: Dict) -> Dict:
+        rid = int(p["rid"])
+        recv = self._kv_receivers.get(rid)
+        if recv is None:
+            raise ValueError(f"kv_import_chunk: no open import for "
+                             f"rid {rid}")
+        return {"have_bytes": recv.write_chunk(p["chunk"])}
+
+    def _rpc_kv_import_commit(self, p: Dict) -> Dict:
+        """Digest-verify the assembled blob and admit the request into
+        THIS engine at its handoff position. The receiver is dropped
+        only on SUCCESS — a failed admit (pages filled up since the
+        router's check) keeps the assembled bytes, so a later retry
+        re-commits without re-shipping."""
+        rid = int(p["rid"])
+        recv = self._kv_receivers.get(rid)
+        if recv is None:
+            raise ValueError(f"kv_import_commit: no open import for "
+                             f"rid {rid}")
+        blob = recv.commit()
+        self._require_engine()
+        with self._lock:
+            self.engine.admit_prefilled(recv.req, blob)
+            self._requests[rid] = recv.req
+        del self._kv_receivers[rid]
+        return {"accepted": True}
+
+    def _rpc_kv_import_abort(self, p: Dict) -> Dict:
+        recv = self._kv_receivers.pop(int(p["rid"]), None)
+        if recv is not None:
+            recv.abort()
         return {}
 
     def _rpc_shutdown(self, p: Dict) -> Dict:

@@ -36,13 +36,24 @@ Modes (the JAX tool's flags and defaults, one A/B per record):
   weights) run the fleet clean THEN faulted over the identical workload
   and abort unless every request that finished on both sides emitted
   the bit-identical greedy stream; ``--ab-prefix`` composes with the
-  fleet (one cold prefill per prefix per replica).
+  fleet (one cold prefill per prefix per replica);
+* ``--pools P,D`` splits the fleet into a prefill pool of P replicas and
+  a decode pool of D (disaggregated serving, ``serve/disagg.py``;
+  implies ``--fleet P+D``), and ``serve.fleet`` stamps the ``disagg``
+  block (transfers, bytes and chunks shipped, transfer p50/p99 ms,
+  parked, failures); ``--ab-disagg`` runs the identical workload on a
+  colocated fleet of the same size, then on the pools, aborting unless
+  every greedy stream is bit-identical across the sides, and stamps
+  ``serve.disagg``; with ``--fault-plan`` a third lane runs the pools
+  faulted and pins its streams against the clean pools.
 
-``--pin-exact`` re-decodes every finished greedy request through
+Every fleet record carries ``per_card``: each lane's tokens/s of the
+card, the figure to hold against a single engine when replicas share a
+card. ``--pin-exact`` re-decodes every finished greedy request through
 ``models.parallel_lm.lm_decode``; ``--require-finished`` fails unless
 every request finished (a fleet: unless every request not shed
-finished). The JAX tool's mesh and disaggregation flags raise
-:class:`NotImplementedError` naming their ROADMAP.md item.
+finished). The JAX tool's mesh flags raise :class:`NotImplementedError`
+naming their ROADMAP.md item.
 On the CPU (``run(args, device="cpu")``, the tests) the numbers time
 PyTorch's CPU kernels, not the card.
 """
@@ -65,15 +76,12 @@ from horovod_tpu_torch.serve import (FleetConfig, ServeConfig,
 from horovod_tpu_torch.serve.config import LOCAL_HOSTS, parse_host_entry
 from horovod_tpu_torch.serve.prefix import prefix_route_key
 
-_DISAGG = "ROADMAP.md Queue 1 item 3 (serve/kv_wire.py + serve/disagg.py)"
 _TP = "ROADMAP.md Queue 1 item 4 (TP-sharded paged decode)"
 #: The JAX tool's flags that the port has not taken yet: (flag, whether
 #: it is a switch, the ROADMAP.md item that brings it).
 _NOT_PORTED = [
     ("--mesh", False, _TP),
     ("--ab-tp", True, _TP),
-    ("--pools", False, _DISAGG),
-    ("--ab-disagg", True, _DISAGG),
 ]
 
 
@@ -246,6 +254,37 @@ def pin_sides(a_reqs, b_reqs, label):
     return compared
 
 
+def pin_disagg_sides(colo_reqs, dis_reqs):
+    """The ``--ab-disagg`` exactness abort: the i-th submitted request
+    must emit the bit-identical greedy stream on the colocated fleet and
+    on the disaggregated pools — the KV handoff ships the SAME pages the
+    prefill produced, so not one token may move. Returns pairs
+    compared."""
+    if len(colo_reqs) != len(dis_reqs):
+        raise SystemExit(
+            f"DISAGG AB PIN FAILED: {len(colo_reqs)} requests "
+            f"colocated vs {len(dis_reqs)} disaggregated")
+    compared = 0
+    for i, (rc, rd) in enumerate(zip(colo_reqs, dis_reqs)):
+        if list(rc.prompt[:rc.orig_prompt_len]) != \
+                list(rd.prompt[:rd.orig_prompt_len]):
+            raise SystemExit(
+                f"DISAGG AB PIN FAILED: request #{i} prompts differ "
+                "across sides (workload must be identical)")
+        if rc.temperature > 0 or \
+                rc.state != "finished" or rd.state != "finished":
+            continue
+        if rc.output != rd.output:
+            raise SystemExit(
+                f"DISAGG AB PIN FAILED: request #{i} "
+                f"colocated={rc.output} disagg={rd.output}")
+        compared += 1
+    if not compared:
+        raise SystemExit("DISAGG AB PIN FAILED: no greedy pairs "
+                         "finished on both sides — nothing compared")
+    return compared
+
+
 def pin_prefix_cold(reqs, page_size, label):
     """The ``--ab-prefix`` efficiency pin: among the finished requests
     sharing a matchable prefix on one replica (a single engine is one
@@ -365,6 +404,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="router queue bound (0 = unbounded)")
     ap.add_argument("--fleet-backoff", type=float, default=0.05,
                     help="relaunch backoff base (doubles per attempt)")
+    ap.add_argument("--pools", default="",
+                    help="disaggregated prefill/decode pools as 'P,D' "
+                         "(replica ids 0..P-1 prefill, the rest "
+                         "decode); implies --fleet P+D")
+    ap.add_argument("--ab-disagg", action="store_true",
+                    help="run colocated then disaggregated on the "
+                         "identical workload; abort unless every "
+                         "greedy stream is bit-identical; stamp "
+                         "serve.disagg (requires --pools)")
     ap.add_argument("--pin-exact", action="store_true")
     ap.add_argument("--require-finished", action="store_true")
     for flag, switch, _ in _NOT_PORTED:
@@ -413,23 +461,24 @@ def _validate(ap, args) -> None:
 
 
 def _validate_fleet(ap, args):
-    """The JAX tool's fleet checks (argparse errors, exit code 2); on a
-    rolling update, sets ``args.update_at`` to its ``(seconds,
-    fraction)``."""
+    """The JAX tool's fleet checks (argparse errors, exit code 2), the
+    pools' included; on a rolling update, sets ``args.update_at`` to its
+    ``(seconds, fraction)``."""
     from horovod_tpu_torch.elastic.faults import (FaultPlanError,
                                                   _parse_at,
                                                   parse_serve_fault_plan)
 
     args.update_at = None
+    if args.ab_spec and args.fleet:
+        ap.error("--ab-spec is exclusive with --fleet (one A/B per "
+                 "record; speculation composes with the fleet via "
+                 "--speculate)")
+    _validate_pools(ap, args)
     if args.fleet < 0:
         ap.error("--fleet must be >= 0 (0 = single engine)")
     if args.fleet and (args.ab or args.static or args.ab_attention):
         ap.error("--fleet is exclusive with --ab/--static/"
                  "--ab-attention (one A/B per record)")
-    if args.ab_spec and args.fleet:
-        ap.error("--ab-spec is exclusive with --fleet (one A/B per "
-                 "record; speculation composes with the fleet via "
-                 "--speculate)")
     if args.ab_prefix and (args.fault_plan or args.rolling_update_at):
         ap.error("--ab-prefix is exclusive with --fault-plan/"
                  "--rolling-update-at (one A/B per record)")
@@ -479,6 +528,42 @@ def _validate_fleet(ap, args):
             args.fleet_watchdog_timeout <= 0:
         ap.error("stall: fault plans need --fleet-watchdog-timeout > 0 — "
                  "an unwatched stall hangs the lane forever")
+
+
+def _validate_pools(ap, args):
+    """The JAX tool's ``--pools``/``--ab-disagg`` checks (argparse
+    errors); sets ``args.pools_map`` (None = colocated) and, when
+    ``--fleet`` is absent, ``args.fleet = P + D``."""
+    args.pools_map = None
+    if args.pools:
+        try:
+            p_n, d_n = (int(x) for x in args.pools.split(","))
+        except ValueError:
+            ap.error(f"--pools must be 'P,D' (two ints), got "
+                     f"{args.pools!r}")
+        if p_n < 1 or d_n < 1:
+            ap.error(f"--pools needs both pools >= 1, got {args.pools}")
+        if args.fleet and args.fleet != p_n + d_n:
+            ap.error(f"--pools {args.pools} must partition --fleet "
+                     f"{args.fleet} exactly (P + D = {p_n + d_n})")
+        args.fleet = args.fleet or (p_n + d_n)
+        args.pools_map = {"prefill": p_n, "decode": d_n}
+        if args.ab_spec:
+            ap.error("--pools drives a fleet — exclusive with "
+                     "--ab-spec (one A/B per record)")
+    if args.ab_disagg:
+        if not args.pools:
+            ap.error("--ab-disagg compares colocated against "
+                     "disaggregated pools — it requires --pools P,D")
+        if args.ab or args.static or args.ab_attention or \
+                args.ab_prefix or args.ab_spec:
+            ap.error("--ab-disagg is exclusive with --ab/--static/"
+                     "--ab-attention/--ab-prefix/--ab-tp/--ab-spec "
+                     "(one A/B per record)")
+        if args.rolling_update_at:
+            ap.error("--ab-disagg is exclusive with "
+                     "--rolling-update-at (one A/B per record; the "
+                     "faulted third lane composes via --fault-plan)")
 
 
 def run(args, device: DeviceLike = None, ap=None) -> dict:
@@ -644,7 +729,7 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
                 "rolling_update_at": args.rolling_update_at or None,
                 "push_chunk_bytes": args.fleet_push_chunk_bytes,
                 "push_retries": args.fleet_push_retries,
-                "pools": None,
+                "pools": args.pools or None,
             } if args.fleet else None),
             "capture": args.capture,
             "model": {"layers": args.layers, "d_model": args.d_model,
@@ -677,6 +762,9 @@ def fleet_per_card(args, mode, serve):
         lanes = {"clean": serve["fleet_ab"]["clean"], "faulted": serve}
     elif mode == "ab_prefix":
         lanes = {"off": serve["ab_prefix"]["off"], "on": serve}
+    elif mode == "ab_disagg":
+        lanes = {"colocated": serve["disagg"]["colocated"],
+                 "disagg": serve}
     else:
         lanes = {"clean": serve}
     return {"cards": cards, "tokens_per_sec": {
@@ -688,8 +776,10 @@ def fleet_per_card(args, mode, serve):
 def fleet_record(args, params, cfg, workload, dev, spl, ap):
     """The ``--fleet`` lanes: ``(mode, headline stats, serve block)`` of
     the JAX tool's record — ``fleet`` (one clean run),
-    ``fleet_fault_ab`` (clean then faulted, ``serve.fleet_ab``) or
-    ``ab_prefix`` (prefix caching off then on over the fleet)."""
+    ``fleet_fault_ab`` (clean then faulted, ``serve.fleet_ab``),
+    ``ab_prefix`` (prefix caching off then on over the fleet) or
+    ``ab_disagg`` (colocated then disaggregated pools,
+    ``serve.disagg``)."""
     hosts = tuple(h.strip() for h in args.fleet_hosts.split(",")
                   if h.strip()) or None
     try:
@@ -701,7 +791,8 @@ def fleet_record(args, params, cfg, workload, dev, spl, ap):
             transport=args.fleet_transport,
             rpc_deadline=args.fleet_rpc_deadline,
             push_chunk_bytes=args.fleet_push_chunk_bytes,
-            push_retries=args.fleet_push_retries, hosts=hosts)
+            push_retries=args.fleet_push_retries, hosts=hosts,
+            pools=args.pools_map)
     except ValueError as e:
         ap.error(str(e))
     update_at = None
@@ -710,8 +801,9 @@ def fleet_record(args, params, cfg, workload, dev, spl, ap):
         update_at = secs if secs is not None else \
             frac * max(w[0] for w in workload)
 
-    def lane(tag, fault_plan="", update=None, lane_cfg=cfg):
-        fl, reqs = run_fleet(params, lane_cfg, fleet_cfg, workload,
+    def lane(tag, fault_plan="", update=None, lane_cfg=cfg,
+             lane_fleet=fleet_cfg):
+        fl, reqs = run_fleet(params, lane_cfg, lane_fleet, workload,
                              device=dev, fault_plan=fault_plan,
                              update_at=update)
         try:
@@ -731,7 +823,13 @@ def fleet_record(args, params, cfg, workload, dev, spl, ap):
                   + (f", params v{push['version']}: {push['pushes']} "
                      f"push(es) {push['bytes']}B/{push['chunks']}ck in "
                      f"{push['ms']:.1f}ms, {push['retries']} retries"
-                     if push["pushes"] else ""),
+                     if push["pushes"] else "")
+                  + ((lambda d: f", disagg {d['pools']['prefill']}"
+                      f"p+{d['pools']['decode']}d: {d['transfers']} KV "
+                      f"transfer(s) {d['kv_bytes_shipped']}B, transfer "
+                      f"p50/p99 {d['transfer_ms_p50']}/"
+                      f"{d['transfer_ms_p99']} ms")(f["disagg"])
+                     if f.get("disagg") else ""),
                   file=sys.stderr, flush=True)
             if args.pin_exact:
                 pin_exact(params, fl, dev)
@@ -747,6 +845,8 @@ def fleet_record(args, params, cfg, workload, dev, spl, ap):
         return stats, reqs
 
     n = args.fleet
+    if args.ab_disagg:
+        return disagg_record(args, fleet_cfg, lane)
     if args.ab_prefix:
         off, off_reqs = lane(f"fleet x{n} prefix=off", lane_cfg=(
             dataclasses.replace(cfg, prefix_caching=False)))
@@ -801,6 +901,63 @@ def fleet_record(args, params, cfg, workload, dev, spl, ap):
             "faulted_over_clean_p99_ttft":
                 round(f99 / c99, 3) if c99 and f99 else None,
         })
+
+
+def disagg_record(args, fleet_cfg, lane):
+    """``--ab-disagg``: the identical workload on a colocated fleet of
+    the same size, then on the pools (and, with ``--fault-plan``, the
+    pools faulted); the JAX tool's ``serve.disagg`` block."""
+    pools = args.pools_map
+    colo, colo_reqs = lane(f"fleet x{args.fleet} colocated",
+                           lane_fleet=dataclasses.replace(fleet_cfg,
+                                                          pools=None))
+    dtag = (f"fleet x{args.fleet} disagg {pools['prefill']}p+"
+            f"{pools['decode']}d")
+    dis, dis_reqs = lane(dtag)
+    compared = pin_disagg_sides(colo_reqs, dis_reqs)
+    df = (dis.get("fleet") or {}).get("disagg") or {}
+    if not df.get("transfers"):
+        raise SystemExit("DISAGG AB FAILED: the disaggregated side shipped "
+                         f"no KV transfers ({df or 'no disagg block'})")
+    print(f"[serve_bench] disagg pin: {compared} greedy streams "
+          "bit-identical colocated vs disaggregated "
+          f"({df['transfers']} KV transfer(s), {df['kv_bytes_shipped']} "
+          "bytes shipped)", file=sys.stderr, flush=True)
+    redispatch_block = None
+    if args.fault_plan:
+        faulted, faulted_reqs = lane(f"{dtag} faulted [{args.fault_plan}]",
+                                     args.fault_plan)
+        rcompared = pin_redispatch_exact(dis_reqs, faulted_reqs)
+        print(f"[serve_bench] disagg redispatch pin: {rcompared} greedy "
+              "streams bit-identical disagg-clean vs disagg-faulted",
+              file=sys.stderr, flush=True)
+        redispatch_block = {
+            "fault_plan": args.fault_plan,
+            "compared": rcompared, "identical": True,
+            "incidents_by_class":
+                (faulted.get("fleet") or {}).get("incidents_by_class"),
+            "redispatched": (faulted.get("fleet") or {}).get("redispatched"),
+        }
+    c99 = (colo.get("ttft_ms") or {}).get("p99")
+    d99 = (dis.get("ttft_ms") or {}).get("p99")
+    return "ab_disagg", dis, dict(dis, mode="ab_disagg", disagg={
+        "pools": dict(pools),
+        "colocated": colo,
+        "transfers": df.get("transfers"),
+        "kv_bytes_shipped": df.get("kv_bytes_shipped"),
+        "transfer_ms_p50": df.get("transfer_ms_p50"),
+        "transfer_ms_p99": df.get("transfer_ms_p99"),
+        "ttft_ms": dis.get("ttft_ms"),
+        "tbt_ms": dis.get("tbt_ms"),
+        "colocated_ttft_ms": colo.get("ttft_ms"),
+        "colocated_tbt_ms": colo.get("tbt_ms"),
+        "exact_pin": {"compared": compared, "identical": True},
+        "redispatch_pin": redispatch_block,
+        "p99_ttft_colocated_ms": c99,
+        "p99_ttft_disagg_ms": d99,
+        "disagg_over_colocated": round(d99 / c99, 3) if c99 and d99
+        else None,
+    })
 
 
 def main(argv=None) -> int:

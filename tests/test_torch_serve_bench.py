@@ -8,15 +8,18 @@ per-token latency and page occupancy, every stream pinned against
 saved) and ``--ab-spec`` (a full-depth draft accepts everything) carry
 both sides; the argument checks are argparse errors (exit code 2) as in
 the JAX tool, the workload is the JAX tool's draw for draw, and the JAX
-tool's mesh and disaggregation flags raise ``NotImplementedError``
-naming their ROADMAP.md item.
+tool's mesh flags raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 
 The fleet lanes (``--fleet N`` in process, as worker processes and over
 TCP, ``--fault-plan``, ``--rolling-update-at``, ``--ab-prefix`` over the
-fleet) carry the JAX tool's record: the ``serve.fleet`` block with the
-reference fleet's ``stats()`` keys, ``serve.fleet_ab`` with the
-clean-versus-faulted stream pin, ``config.fleet``; the fleet's argument
-checks are argparse errors as in the JAX tool.
+fleet, ``--pools P,D`` and ``--ab-disagg``) carry the JAX tool's
+record: the ``serve.fleet`` block with the reference fleet's ``stats()``
+keys (its ``disagg`` block under pools), ``serve.fleet_ab`` with the
+clean-versus-faulted stream pin, ``serve.disagg`` with the
+colocated-versus-disaggregated pin, ``config.fleet``, and ``per_card``
+for every lane; the fleet's argument checks are argparse errors as in
+the JAX tool.
 """
 
 import numpy as np
@@ -152,17 +155,12 @@ def test_bad_args_are_argparse_errors(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "dp=1,tp=4"], ["--ab-tp"], ["--pools", "1,1"],
-    ["--ab-disagg"],
+    ["--mesh", "dp=1,tp=4"], ["--ab-tp"],
 ], ids=lambda a: a[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md Queue 1 item 4"):
         _run(*argv)
-    if argv[0] in ("--pools", "--ab-disagg"):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 3 \(serve/kv_wire.py \+ "
-                                 r"serve/disagg.py\)"):
-            _run(*argv)
 
 
 def test_require_finished_fails_loudly():
@@ -358,9 +356,104 @@ def test_fleet_record_keys_are_the_jax_tools():
 
     src = (pathlib.Path(__file__).parent.parent / "tools" /
            "serve_bench.py").read_text()
-    for key in FLEET_AB_KEYS | CONFIG_FLEET_KEYS | {"fleet_fault_ab",
-                                                    "replica_homes"}:
+    for key in FLEET_AB_KEYS | CONFIG_FLEET_KEYS | DISAGG_AB_KEYS | {
+            "fleet_fault_ab", "replica_homes", "ab_disagg"}:
         assert f'"{key}"' in src, key
+    # the fleet's disagg block: the reference coordinator's stats keys
+    ref = (pathlib.Path(__file__).parent.parent / "horovod_tpu" /
+           "serve" / "disagg.py").read_text()
+    for key in DISAGG_STATS_KEYS:
+        assert f'"{key}"' in ref, key
+
+
+#: Keys of the JAX tool's ``serve.disagg`` block and of the reference
+#: coordinator's ``stats()`` (``serve.fleet.disagg``).
+DISAGG_AB_KEYS = {"pools", "colocated", "transfers", "kv_bytes_shipped",
+                  "transfer_ms_p50", "transfer_ms_p99", "ttft_ms", "tbt_ms",
+                  "colocated_ttft_ms", "colocated_tbt_ms", "exact_pin",
+                  "redispatch_pin", "p99_ttft_colocated_ms",
+                  "p99_ttft_disagg_ms", "disagg_over_colocated"}
+DISAGG_STATS_KEYS = {"pools", "transfers", "kv_bytes_shipped",
+                     "chunks_shipped", "transfer_ms_p50", "transfer_ms_p99",
+                     "parked", "failures"}
+
+
+def test_fleet_pools_record_contract(jax_fleet_keys):
+    rec = _run("--pools", "1,1", "--pin-exact", "--require-finished")
+    assert rec["metric"] == "serve_fleet_tokens_per_sec_per_chip"
+    s = rec["serve"]
+    assert s["mode"] == "fleet" and s["by_state"] == {"finished": 6}
+    f = s["fleet"]
+    assert set(f) == set(jax_fleet_keys["fleet"])
+    d = f["disagg"]
+    assert set(d) == DISAGG_STATS_KEYS
+    assert d["pools"] == {"prefill": 1, "decode": 1}
+    assert d["transfers"] == 6 and d["failures"] == {} and d["parked"] == 0
+    assert [r["role"] for r in f["per_replica"]] == ["prefill", "decode"]
+    c = rec["config"]["fleet"]
+    assert c["replicas"] == 2 and c["pools"] == "1,1"
+    assert rec["per_card"] == {"cards": 1, "tokens_per_sec": {
+        "clean": round(s["tokens_per_sec_per_chip"] * 2, 1)}}
+
+
+@pytest.mark.parametrize("argv", [[], ["--fault-plan",
+                                       "kill:replica=0,at=50%"]],
+                         ids=["clean", "prefill_killed"])
+def test_ab_disagg_record_contract(argv):
+    rec = _run("--rate", "200", "--pools", "1,1", "--ab-disagg", *argv,
+               "--pin-exact", "--require-finished")
+    assert rec["metric"] == "serve_ab_disagg_tokens_per_sec_per_chip"
+    s = rec["serve"]
+    assert s["mode"] == "ab_disagg" and s["by_state"] == {"finished": 6}
+    d = s["disagg"]
+    assert set(d) == DISAGG_AB_KEYS
+    assert d["pools"] == {"prefill": 1, "decode": 1}
+    assert d["colocated"]["fleet"]["disagg"] is None
+    assert d["transfers"] == s["fleet"]["disagg"]["transfers"] == 6
+    assert d["kv_bytes_shipped"] > 0
+    assert d["exact_pin"] == {"compared": 6, "identical": True}
+    assert d["p99_ttft_colocated_ms"] == d["colocated"]["ttft_ms"]["p99"]
+    assert rec["per_card"] == {"cards": 1, "tokens_per_sec": {
+        name: round(st["tokens_per_sec_per_chip"] * 2, 1)
+        for name, st in (("colocated", d["colocated"]), ("disagg", s))}}
+    if argv:
+        rp = d["redispatch_pin"]
+        assert rp["identical"] is True and rp["compared"] == 6
+        assert rp["incidents_by_class"] == {"crashed": 1}
+        assert rp["redispatched"] >= 0
+    else:
+        assert d["redispatch_pin"] is None
+    assert rec["config"]["fleet"]["pools"] == "1,1"
+
+
+def test_disagg_pin_fails_on_a_divergence():
+    from horovod_tpu_torch.serve.scheduler import Request
+
+    def req(out):
+        r = Request(prompt=np.asarray([1, 2, 3]), max_new_tokens=2)
+        r.state, r.output = "finished", out
+        return r
+
+    assert sb.pin_disagg_sides([req([1, 2])], [req([1, 2])]) == 1
+    with pytest.raises(SystemExit, match="DISAGG AB PIN FAILED"):
+        sb.pin_disagg_sides([req([1, 2])], [req([1, 3])])
+    with pytest.raises(SystemExit, match="DISAGG AB PIN FAILED"):
+        sb.pin_disagg_sides([req([1, 2])], [])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--pools", "1"], ["--pools", "a,b"], ["--pools", "0,2"],
+    ["--fleet", "3", "--pools", "1,1"], ["--ab-disagg"],
+    ["--pools", "1,1", "--ab-disagg", "--ab-prefix"],
+    ["--pools", "1,1", "--ab-disagg", "--rolling-update-at", "50%"],
+    ["--pools", "1,1", "--speculate", "2", "--ab-spec"],
+    ["--pools", "1,1", "--ab"],
+], ids=lambda a: "_".join(x.strip("-").replace(",", "").replace("%", "")
+                          for x in a))
+def test_pools_bad_args_are_argparse_errors(argv):
+    with pytest.raises(SystemExit) as e:
+        _run(*argv)
+    assert e.value.code == 2
 
 
 @pytest.mark.parametrize("argv", [

@@ -389,7 +389,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/prefix.py", "serve_bench.py", "serve/router.py",
                 "serve/fleet.py", "serve/transport.py", "serve/worker.py",
                 "serve/netfault.py", "serve/params_wire.py",
-                "serve/chunk_stream.py", "elastic/__init__.py",
+                "serve/chunk_stream.py", "serve/kv_wire.py",
+                "serve/disagg.py", "elastic/__init__.py",
                 "elastic/faults.py", "elastic/signals.py",
                 "elastic/supervisor.py", "run/__init__.py",
                 "run/driver.py", "run/network.py"):

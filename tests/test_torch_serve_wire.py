@@ -6,12 +6,15 @@ codec (``encode_frame`` bytes, the typed failure of every corruption),
 RPC both ways (a port ``RpcClient`` against a reference
 ``serve_connection`` and the reverse, over Unix sockets and over TCP
 with the shared-secret handshake), the chunk stream (manifests, chunks,
-typed chunk errors, assembly), the params blob (the same bytes and
+typed chunk errors, assembly), the KV lane over it (``KvSender``
+manifests and chunks, each package's ``KvReceiver`` committing the
+other's stream, a params manifest refused typed), the params blob (the same bytes and
 sha256 for the same numpy weights in float32 and bfloat16, each package
 reading the other's blob and assembling the other's chunks), the
 network fault injector, the serving fault grammar (every plan string of
 tests/test_serve_fleet.py and tests/test_serve_fleet_tcp.py, valid and
-not, with equal actions and equal messages), ``FleetConfig``, the exit
+not, with equal actions and equal messages), ``FleetConfig`` (its
+disaggregated pools included), the exit
 taxonomy, the heartbeat and the watchdog.
 """
 
@@ -35,6 +38,7 @@ from horovod_tpu.run import driver as jdriver
 from horovod_tpu.run import network as jnetwork
 from horovod_tpu.serve import chunk_stream as jcs
 from horovod_tpu.serve import config as jconfig
+from horovod_tpu.serve import kv_wire as jkv
 from horovod_tpu.serve import netfault as jnetfault
 from horovod_tpu.serve import params_wire as jpw
 from horovod_tpu.serve import transport as jtr
@@ -46,6 +50,7 @@ from horovod_tpu_torch.run import driver as tdriver
 from horovod_tpu_torch.run import network as tnetwork
 from horovod_tpu_torch.serve import chunk_stream as tcs
 from horovod_tpu_torch.serve import config as tconfig
+from horovod_tpu_torch.serve import kv_wire as tkv
 from horovod_tpu_torch.serve import netfault as tnetfault
 from horovod_tpu_torch.serve import params_wire as tpw
 from horovod_tpu_torch.serve import transport as ttr
@@ -327,6 +332,64 @@ def test_buffer_assembler_takes_the_other_packages_chunks():
         assert asm.commit() == (blob, send.sha256_hex(blob))
 
 
+# ------------------------------------------------------------- kv lane
+
+
+def test_kv_lane_constants_equal():
+    assert (tkv.KV_KIND, tkv.KV_WIRE_VERSION) == \
+        (jkv.KV_KIND, jkv.KV_WIRE_VERSION)
+    from horovod_tpu.serve import kvcache as jkc
+    from horovod_tpu_torch.serve import kvcache as tkc
+
+    assert tkc.KV_BLOB_MAGIC == jkc.KV_BLOB_MAGIC
+
+
+@pytest.mark.parametrize("chunk_bytes", [7, 64, 1 << 20])
+def test_kv_sender_manifest_and_chunks_equal(chunk_bytes):
+    blob = b"HVKV" + np.random.default_rng(chunk_bytes).bytes(500)
+    js, ts = (jkv.KvSender(blob, 17, chunk_bytes),
+              tkv.KvSender(blob, 17, chunk_bytes))
+    assert jtr.encode_frame(ts.manifest) == jtr.encode_frame(js.manifest)
+    assert jtr.encode_frame(tkv.make_kv_manifest(
+        blob, rid=17, chunk_bytes=chunk_bytes)) == \
+        jtr.encode_frame(js.manifest)
+    assert (ts.num_chunks, ts.total_bytes) == (js.num_chunks,
+                                               js.total_bytes)
+    for i in range(min(ts.num_chunks, 12)):
+        assert ttr.encode_frame(ts.chunk(i)) == \
+            jtr.encode_frame(js.chunk(i))
+
+
+@pytest.mark.parametrize("sender,receiver", [(jkv, tkv), (tkv, jkv)],
+                         ids=["ref_to_port", "port_to_ref"])
+def test_kv_receiver_commits_the_other_packages_stream(sender, receiver):
+    blob = np.random.default_rng(3).bytes(1000)
+    snd = sender.KvSender(blob, 5, 96)
+    recv = receiver.KvReceiver(5)
+    assert recv.begin(snd.manifest) == 0
+    for i in range(4):
+        recv.write_chunk(snd.chunk(i))
+    # a re-begin of the same payload resumes from the verified prefix
+    assert recv.begin(snd.manifest) == 4 * 96 == recv.have_bytes
+    for i in range(4, snd.num_chunks):
+        recv.write_chunk(snd.chunk(i))
+    assert recv.commit() == blob
+    # one request's pages never land under another's table
+    other = receiver.KvReceiver(6)
+    with pytest.raises(Exception) as e:
+        other.begin(snd.manifest)
+    assert type(e.value).__name__ == "FrameError"
+    assert "rid 5" in str(e.value) and "rid 6" in str(e.value)
+
+
+def test_params_manifest_fed_to_a_kv_receiver_fails_alike():
+    blob = jpw.params_to_blob({"pos": np.zeros((8, 4), np.float32)})
+    man = dict(jpw.make_manifest(blob, version=1, chunk_bytes=64), rid=3)
+    _raises_alike(lambda: jkv.KvReceiver(3).begin(man),
+                  lambda: tkv.KvReceiver(3).begin(man),
+                  jtr.FrameError, ttr.FrameError)
+
+
 # --------------------------------------------------------------- params
 
 
@@ -583,10 +646,23 @@ def test_fleet_config_validation_messages_equal(kw):
                   ValueError, ValueError)
 
 
-def test_pools_name_the_disagg_item():
-    with pytest.raises(NotImplementedError,
-                       match=r"Queue 1 item 3 \(serve/disagg.py\)"):
-        tconfig.FleetConfig(pools={"prefill": 1, "decode": 1})
+@pytest.mark.parametrize("kw", [
+    dict(replicas=2, pools={"prefill": 1, "decode": 1}),
+    dict(replicas=5, pools={"decode": 3, "prefill": 2},
+         transport="process"),
+    dict(replicas=2, pools=(("prefill", 1), ("decode", 1)),
+         transport="tcp"),
+], ids=range(3))
+def test_pools_fleet_config_asdict_equal(kw):
+    t, j = tconfig.FleetConfig(**kw), jconfig.FleetConfig(**kw)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t == tconfig.FleetConfig(**dataclasses.asdict(t))
+    assert t.prefill_replicas == j.prefill_replicas
+    assert [t.pool_of(i) for i in range(t.replicas)] == \
+        [j.pool_of(i) for i in range(j.replicas)]
+
+
+def test_local_hosts_and_host_entries_equal():
     assert tconfig.LOCAL_HOSTS == jconfig.LOCAL_HOSTS
     for e in ("h", "h:1", "127.0.0.1:65535", " x:9 "):
         assert tconfig.parse_host_entry(e) == jconfig.parse_host_entry(e)

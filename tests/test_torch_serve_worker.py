@@ -5,14 +5,17 @@
   ``RpcClient``: wire init (``put_config`` + chunked push + commit, the
   engine built only after the digest verifies), submit/step/collect
   giving ``lm_decode``'s stream, stats, reset, faults, a live weight
-  swap through the push RPCs, the KV-handoff RPCs answering a typed
-  error that names their ROADMAP item;
+  swap through the push RPCs; the KV-handoff RPCs between two hosts (a
+  prefill-only request parked on one, its pages exported, shipped chunk
+  by chunk and committed on the other, which decodes ``lm_decode``'s
+  stream) and their typed refusals;
 * **file mode and the command line** — ``save_params``/``load_params``
   against the reference's artifact files, the argument and environment
   checks, and the worker module importing no torch before it binds;
 * **the real worker end to end** (``--device cpu``) — a process fleet
-  whose replica is SIGKILLed mid-decode, and a TCP fleet rolled to new
-  weights, each with every greedy stream bit-identical to ``lm_decode``.
+  whose replica is SIGKILLed mid-decode, a TCP fleet rolled to new
+  weights, and a process fleet split into a prefill and a decode pool,
+  each with every greedy stream bit-identical to ``lm_decode``.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ import numpy as np
 import pytest
 
 from horovod_tpu.models import parallel_lm as jlm
+from horovod_tpu.serve import kv_wire as jkv
 from horovod_tpu.serve import params_wire as jpw
 from horovod_tpu.serve import transport as jtr
 from horovod_tpu.serve import worker as jworker
@@ -204,25 +208,95 @@ def test_wire_init_then_serving_through_the_reference_client(
         srv.close()
 
 
-@pytest.mark.parametrize("method", ["kv_export_begin", "kv_import_commit",
-                                    "nonsense", ""])
+@pytest.mark.parametrize("method", ["nonsense", ""])
 def test_unported_and_unknown_rpcs_are_typed(method):
     srv = _Served()
     client = jtr.RpcClient(srv.path, default_timeout=5.0)
     try:
         with pytest.raises(jtr.RemoteCallError) as e:
             client.call(method, {"rid": 1})
-        kind = jtr.remote_error_kind(e.value)
-        if method.startswith("kv_"):
-            assert kind == "NotImplementedError"
-            assert "Queue 1 item 3" in str(e.value)
-            assert "serve/disagg.py" in str(e.value)
-        else:
-            assert kind == "ValueError"
+        assert jtr.remote_error_kind(e.value) == "ValueError"
         assert client.call("ping")["pid"] == os.getpid()
     finally:
         client.close()
         srv.close()
+
+
+def _wait_handoff(client, rid, timeout=30.0):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if rid in client.call("step").get("handoff", []):
+            return
+        time.sleep(0.005)
+    raise AssertionError(f"rid {rid} never parked")
+
+
+def test_kv_rpcs_hand_a_request_between_two_hosts(tparams):
+    """The KV verbs through the reference's client: a prefill-only
+    request parks on one host, its pages ship chunk by chunk to the
+    other, which decodes lm_decode's stream from them."""
+    cfg = ServeConfig(**dict(CFG, attention="paged"))
+    pre = _Served(ServeEngine(tparams, cfg, device="cpu"))
+    dec = _Served(ServeEngine(tparams, cfg, device="cpu"))
+    pcli = jtr.RpcClient(pre.path, default_timeout=20.0)
+    dcli = jtr.RpcClient(dec.path, default_timeout=20.0)
+    try:
+        p, n = _prompt(5, 13), 9
+        assert pcli.call("submit", {
+            "rid": 7, "prompt": p.tolist(), "max_new_tokens": n,
+            "prefill_only": True}) == {"accepted": True}
+        _wait_handoff(pcli, 7)
+        first = pcli.call("collect", {"since": {"7": 0}})["progress"]
+        generated = first[0]["tokens"]
+        assert len(generated) == 1
+        m = pcli.call("kv_export_begin", {"rid": 7, "chunk_bytes": 512})[
+            "manifest"]
+        with pre.host._lock:
+            blob = pre.host.engine.export_handoff(
+                pre.host._requests[7].rid)
+        assert m == jkv.make_kv_manifest(blob, rid=7, chunk_bytes=512)
+        payload = {"prompt": p.tolist(), "max_new_tokens": n,
+                   "temperature": 0.0, "top_k": 0, "eos_token": None,
+                   "seed": 0, "age": 0.0, "ttl": None,
+                   "generated": generated}
+        # a chunk with no open import, a foreign rid's manifest: typed
+        with pytest.raises(jtr.RemoteCallError) as e:
+            dcli.call("kv_import_chunk", {"rid": 7, "chunk": {}})
+        assert jtr.remote_error_kind(e.value) == "ValueError"
+        with pytest.raises(jtr.RemoteCallError) as e:
+            dcli.call("kv_import_begin", {"rid": 8, "manifest": m,
+                                          "req": payload})
+        assert jtr.remote_error_kind(e.value) == "FrameError"
+        dcli.call("kv_import_abort", {"rid": 8})
+        assert dcli.call("kv_import_begin", {
+            "rid": 7, "manifest": m, "req": payload})["have_bytes"] == 0
+        for i in range(m["num_chunks"] // 2):
+            c = pcli.call("kv_export_chunk", {"rid": 7, "index": i})
+            dcli.call("kv_import_chunk", {"rid": 7, "chunk": c["chunk"]})
+        # a torn transfer resumes from the verified prefix
+        have = dcli.call("kv_import_begin", {
+            "rid": 7, "manifest": m, "req": payload})["have_bytes"]
+        assert have == (m["num_chunks"] // 2) * 512
+        for i in range(have // 512, m["num_chunks"]):
+            c = pcli.call("kv_export_chunk", {"rid": 7, "index": i})
+            dcli.call("kv_import_chunk", {"rid": 7, "chunk": c["chunk"]})
+        # the sender closed without commit: the request stays parked
+        pcli.call("kv_export_end", {"rid": 7, "commit": False})
+        assert 7 in pcli.call("step")["handoff"]
+        assert dcli.call("kv_import_commit", {"rid": 7}) == \
+            {"accepted": True}
+        pcli.call("kv_export_end", {"rid": 7, "commit": True})
+        assert pcli.call("step")["handoff"] == []
+        assert pcli.call("drain", {"timeout": 5.0}) == {"idle": True}
+        with pytest.raises(jtr.RemoteCallError) as e:
+            pcli.call("kv_export_begin", {"rid": 7})
+        assert jtr.remote_error_kind(e.value) == "ValueError"
+        assert _collect_until_done(dcli, 7) == _ref(tparams, p, n)
+    finally:
+        pcli.close()
+        dcli.close()
+        pre.close()
+        dec.close()
 
 
 def test_file_mode_artifacts_cross_packages(tmp_path, np_params, tparams):
@@ -345,6 +419,34 @@ def test_real_worker_tcp_rolling_update_bit_exact(tparams):
         r1 = fl.submit(p1, 12)
         _fleet_run_until(fl, [r1], 60)
         assert r1.output == _ref(new, p1, 12)
+    finally:
+        fl.close()
+    _assert_reaped(fl)
+
+
+def test_real_worker_pools_fleet_bit_exact(tparams):
+    """One prefill worker and one decode worker (``--device cpu``): every
+    request prefills on worker 0, ships its pages over the KV RPCs and
+    decodes on worker 1 with lm_decode's stream."""
+    fl = ServeFleet(tparams, ServeConfig(**dict(CFG, attention="paged")),
+                    FleetConfig(replicas=2, transport="process",
+                                backoff_base=0.01, rpc_deadline=60.0,
+                                pools={"prefill": 1, "decode": 1}),
+                    device="cpu")
+    try:
+        prompts = [_prompt(30 + i, 5 + 2 * i) for i in range(4)]
+        reqs = [fl.submit(p, 10) for p in prompts]
+        _fleet_run_until(fl, reqs, 90)
+        for p, r in zip(prompts, reqs):
+            assert r.state == "finished" and r.replica == 1
+            assert r.output == _ref(tparams, p, 10)
+        f = fl.stats()["fleet"]
+        d = f["disagg"]
+        assert d["transfers"] == 4 and d["failures"] == {}
+        assert d["parked"] == 0 and d["kv_bytes_shipped"] > 0
+        assert [c["role"] for c in f["per_replica"]] == ["prefill",
+                                                          "decode"]
+        assert f["incidents_by_class"] == {}
     finally:
         fl.close()
     _assert_reaped(fl)
