@@ -7,6 +7,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --engine-only [RUNS]
     python3 chip_smoke.py --fleet-only [RUNS]
     python3 chip_smoke.py --disagg-only [RUNS]
+    python3 chip_smoke.py --hier-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -61,7 +62,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    loss, running means and gradient norm;
 8. window: the training lanes as multi-step windows
    (``distributed.window``: one captured step replayed as a CUDA graph),
-   two windows of 3 steps against 6 eager steps from the same weights,
+   two windows of 2 steps against 4 eager steps from the same weights,
    bit for bit (window means, parameters, buffers): the LM above with
    ``capturable`` Adam under hook-driven ``DistributedOptimizer``, with
    ZeRO-1, and with ``fused_ce`` + ``remat``; ResNet-50 ``--fused-bn``
@@ -136,7 +137,31 @@ Phases, each fatal on failure (exit code 1, no result line):
    step and capture with replays after it, the prefill worker's lane
    never captured, the card's memory outside this process up by both
    workers' weights and back after ``close()``;
-12. (``--profile`` only) two training steps of each lane and the
+12. hier: the hierarchical gradient exchange. The int8/fp8 codecs'
+   ``quantize``/``dequantize`` and dequantized sum on the card equal
+   the same calls on the CPU bit for bit (a 2^20 shard, an all-zero
+   shard, values at and past the caps). Then a world of 8 ranks, each a
+   process of this script (``--hier-rank``): its own card over NCCL
+   where the machine has 8, else all on the one card over gloo with
+   every tensor on the card. Each rank probes the ladder's collectives
+   (reduce-scatter, all-gather, all-to-all, all-reduce, on the world and
+   on the inner and outer groups of inner 4 and 2) on CUDA tensors; runs
+   integer-valued ``fused_reduce`` buckets through the ladder at inner 4
+   and 2 against the flat exchange (bit for bit, average on and off,
+   overlap on and off); then the LM at the training phase's width (one
+   sequence of 2048 tokens a rank) under ``DistributedOptimizer(Adam)``:
+   a warm-up and two timed steps with the flat exchange, the ladder at
+   inner 4, int8 on it (2 hosts: the all-gather exchange) and fp8 at
+   inner 2 (4 hosts: the two-stage all-to-all exchange). Every rank's
+   parameters equal rank 0's bit for bit, each loss is within its
+   tolerance of the flat run's, the residuals are non-zero with
+   ``ef_residual_specs``'s shapes, and K1-K3 ran 12 times a step on
+   every rank. Were a collective refused on CUDA tensors, the line would
+   say so with the error (``"ladder_on_card": false``), a world of one
+   would hold ``hierarchical="on"`` to ``"off"`` on the card, and the
+   exact ladder would run on CPU tensors, labelled so: nothing stages
+   through the host to get round it;
+13. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -149,6 +174,9 @@ run, and the disagg phase RUNS times (default 1) with a colocated
 in-process fleet run inside each (no colocated worker run: the
 ``{"disagg"}`` line says "not measured" there), and prints one
 ``{"disagg_runs": [...]}`` line and no kernels or ok line.
+
+``--hier-only`` runs phases 1, 2 and 12 and prints the ``{"hier"}``
+line and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -172,7 +200,12 @@ the card's name and power limit, and a ``{"disagg": {...}}`` line the
 pools' tokens/s of the card, TTFT and per-token p50/p99 against the
 colocated fleet's on the same workload (in process and as workers),
 the KV transfer's p50/p99 ms, bytes and chunks, the torn runs and the
-phase's seconds. The
+phase's seconds, and a ``{"hier": {...}}`` line each exchange
+variant's backend, ranks, cards, inner size, host count m, step ms,
+intra- and inter-host MB of its wire, the inter-host dtype and ratio,
+the largest cross-rank parameter difference and the loss against the
+flat run, beside the card's name and power limit and the caveat that on
+one shared card the step times measure host copies. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -1367,7 +1400,10 @@ def resnet_phase(torch, np, profile):
 # kernel for an in-place all-reduce (0 in both traces, NVIDIA H100,
 # torch 2.11), so on one card the wrapper's issue count (the plan, for
 # each of the warm-up and the capture) is the check that bites.
-WINDOW_K, WINDOWS = 3, 2
+# Windows of 2 (they were 3 before the hier phase, which they pay
+# toward): the first window still holds a warm-up, the capture and a
+# replay, and the second only replays.
+WINDOW_K, WINDOWS = 2, 2
 
 
 def _window_mean(torch, outs):
@@ -2927,6 +2963,455 @@ def disagg_phase(torch, np, params, prompts, waves, single, card,
     return res
 
 
+# ------------------------------------------------------------ phase 12
+
+HIER_RANKS = 8
+# Sequences of FLASH_L tokens a rank: eight full-width replicas share one
+# card's 80 GB here, so each takes one sequence (the training phase's 8
+# a card would need 8x the activations).
+HIER_SEQS = 1
+# Timed steps after one warm-up step, per variant.
+HIER_STEPS = 2
+# (name, HOROVOD_HIERARCHICAL, compression, inner size): the flat
+# exchange, the ladder at 2 hosts of 4 (m 2), int8 on it (the all-gather
+# exchange) and fp8 at 4 hosts of 2 (m 4, the two-stage all-to-all
+# exchange).
+HIER_VARIANTS = (("off", "off", "none", 0), ("on_none", "on", "none", 4),
+                 ("on_int8", "on", "int8", 4), ("on_fp8", "on", "fp8", 2))
+# Each step's loss (the rank mean) against the flat exchange's, same
+# weights and tokens. none: the ladder adds the same float32 gradients
+# in another order, which moves Adam's first updates by rounding only.
+# int8/fp8: the inter-host leg rounds each shard to 255 levels of its
+# absmax (fp8: 3 mantissa bits), so small gradients of a 64 MB bucket
+# quantize to 0 and their Adam update waits for the residual to carry
+# them: the loss after 1-3 updates at lr 1e-4 moves by well under 2%; a
+# dropped shard or a doubled sum moves it by whole units.
+HIER_LOSS_RTOL = {"none": 1e-4, "int8": 2e-2, "fp8": 2e-2}
+HIER_TIMEOUT_S = 600.0
+HIER_CAVEAT = ("8 ranks share one card over gloo: each collective stages "
+               "its CUDA tensors through host memory and loopback TCP, so "
+               "step_ms measures host copies and the host's sockets, not "
+               "NVLink or InfiniBand")
+
+
+def _hier_bases(np):
+    """Integer-valued tensors (every summation order exact) in a
+    multi-bucket plan at a 400-byte threshold."""
+    rng = np.random.RandomState(0)
+    return [np.asarray(rng.randint(-8, 8, size=s), np.float32)
+            for s in ((33,), (7, 5), (101,), (4, 4, 4), (257,))]
+
+
+def _hier_probe(torch, dist, dev, world):
+    """Each collective of the ladder on ``dev`` tensors, over the world
+    and over the inner and outer groups of inner 4 and 2: "ok" or the
+    error's text, by name."""
+    from horovod_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = "ok"
+        except Exception as e:             # noqa: BLE001 - reported
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+
+    groups = [("world", None)]
+    for inner in (4, 2):
+        try:
+            ig, og = pmesh.ladder_groups(world, inner)
+            groups += [(f"inner{inner}", ig), (f"outer{inner}", og)]
+        except Exception as e:             # noqa: BLE001 - reported
+            out[f"groups{inner}"] = f"{type(e).__name__}: {e}"[:300]
+    for gname, g in groups:
+        n = dist.get_world_size(g)
+        r = dist.get_rank(g)
+
+        def rs():
+            x = torch.arange(4 * n, dtype=torch.float32, device=dev)
+            y = torch.empty(4, device=dev)
+            dist.reduce_scatter_tensor(y, x, group=g, async_op=True).wait()
+            want = torch.arange(4 * r, 4 * r + 4, dtype=torch.float32,
+                                device=dev) * n
+            assert torch.equal(y, want), (y, want)
+
+        def ag():
+            x = torch.full((3,), r, dtype=torch.uint8, device=dev)
+            y = torch.empty(3 * n, dtype=torch.uint8, device=dev)
+            dist.all_gather_into_tensor(y, x, group=g, async_op=True).wait()
+            assert torch.equal(y.view(n, 3)[:, 0].cpu(),
+                               torch.arange(n, dtype=torch.uint8))
+
+        def a2a():
+            x = torch.arange(n, dtype=torch.uint8, device=dev) + 10 * r
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x, group=g, async_op=True).wait()
+            want = torch.arange(n, dtype=torch.uint8) * 10 + r
+            assert torch.equal(y.cpu(), want), (y, want)
+
+        def ar():
+            x = torch.ones(5, device=dev)
+            dist.all_reduce(x, group=g, async_op=True).wait()
+            assert float(x[0]) == n
+
+        for name, fn in (("reduce_scatter_tensor", rs),
+                         ("all_gather_into_tensor", ag),
+                         ("all_to_all_single", a2a), ("all_reduce", ar)):
+            attempt(f"{gname}/{name}", fn)
+    return out
+
+
+def _hier_exact(torch, np, dev, world):
+    """Integer-valued buckets through ``fused_reduce`` on ``dev``: the
+    ladder at inner 4 and 2 against the flat exchange, average on and
+    off, overlap off and on; the largest difference (must be 0)."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+
+    cfg = basics.config()
+    rank = hvd.rank()
+    ts = [torch.tensor(b, device=dev) * (rank + 1) for b in _hier_bases(np)]
+    out = {}
+    for average in (False, True):
+        flat = hvd.fused_reduce(ts, average=average, fusion_threshold=400,
+                                hierarchical="off")
+        for inner in (4, 2):
+            cfg.hierarchical_inner_size = inner
+            for overlap in ("off", "on"):
+                got = hvd.fused_reduce(ts, average=average,
+                                       fusion_threshold=400,
+                                       overlap=overlap, hierarchical="on")
+                out[f"inner{inner}_avg{int(average)}_{overlap}"] = max(
+                    float((g - f).abs().max()) for g, f in zip(got, flat))
+    cfg.hierarchical_inner_size = 0
+    return out
+
+
+def _hier_lm(torch, np, dev, world, variant):
+    """One variant's LM steps on this rank: a warm-up step, then
+    HIER_STEPS timed ones; the losses, step times, K1-K3 launches, the
+    residuals' shapes against ``ef_residual_specs``, the wire summary and
+    the largest difference of this rank's parameters from rank 0's."""
+    import functools
+    import gc
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models.train import (create_train_state,
+                                                make_train_step)
+    from horovod_tpu_torch.ops import attention as fa
+
+    name, mode, codec, inner = variant
+    cfg = basics.config()
+    cfg.hierarchical_inner_size = inner
+    comp = getattr(hvd.Compression, codec)
+    flash = functools.partial(fa.flash_attention, causal=True,
+                              bwd_impl="kernel")
+    model = _lm(torch, flash)
+    opt = create_train_state(
+        model, torch.optim.Adam(model.parameters(), lr=1e-4),
+        compression=comp, hierarchical=mode, device=dev)
+    step = make_train_step(model, opt)
+    rank = hvd.rank()
+    tokens = torch.tensor(np.random.default_rng(7).integers(
+        0, VOCAB, (world * HIER_SEQS, FLASH_L))[
+            rank * HIER_SEQS:(rank + 1) * HIER_SEQS], device=dev)
+    losses = [float(step(tokens))]
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for k in kernels:
+        k.launches = 0
+    times = []
+    for _ in range(HIER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in kernels}
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    threshold = cfg.fusion_threshold
+    got_inner = opt.hierarchical_inner
+    wire = (hvd.hier_wire_summary(hvd.plan_buckets(trainable, threshold),
+                                  world, got_inner, comp)
+            if got_inner else None)
+    res = opt.residuals
+    specs = (hvd.ef_residual_specs(trainable, threshold, world, got_inner)
+             if res is not None else [])
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    out = {
+        "inner": got_inner, "m": world // got_inner if got_inner else None,
+        "losses": losses, "step_ms": times, "launches": launches,
+        "wire": wire, "max_param_diff": float((flat - ref).abs().max()),
+        "residuals": None if res is None else {
+            "n": len(res),
+            "shapes_match": [tuple(r.shape) for r in res]
+            == [tuple(s.shape) for s in specs],
+            "nonzero": sum(int(r.count_nonzero()) for r in res),
+            "elems": sum(r.numel() for r in res),
+            "abs_max": max(float(r.abs().max()) for r in res)},
+    }
+    del model, opt, step, flat, ref, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hier_rank(argv):
+    """``--hier-rank RANK WORLD PORT DEVICE``: one rank of the hier
+    phase's world; prints ``HIER_RESULT {json}`` last. ``DEVICE`` cuda:
+    the probe, the exact ladder and the LM variants on the card (its own
+    card over NCCL when there are WORLD cards, else the first card over
+    gloo); cpu: the exact ladder on CPU tensors over gloo."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    on_card = argv[3] == "cuda"
+    own = on_card and torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if own else 0) if on_card else \
+        torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(dev)
+    backend = "nccl" if own else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    from horovod_tpu_torch import distributed as hvd
+
+    hvd.init(device=dev)
+    out = {"rank": rank, "backend": backend, "device": str(dev)}
+    try:
+        if on_card:
+            out["probe"] = _hier_probe(torch, dist, dev, world)
+            out["ladder_on_card"] = all(v == "ok"
+                                        for v in out["probe"].values())
+        if not on_card or out["ladder_on_card"]:
+            out["exact"] = _hier_exact(torch, np, dev, world)
+        if on_card and out["ladder_on_card"]:
+            out["lm"] = {v[0]: _hier_lm(torch, np, dev, world, v)
+                         for v in HIER_VARIANTS}
+    finally:
+        hvd.shutdown()
+        dist.destroy_process_group()
+    print("HIER_RESULT " + json.dumps(out), flush=True)
+
+
+def _hier_world(device):
+    """Start HIER_RANKS rank processes of this script on ``device``; wait
+    for all, kill all on a failure or past HIER_TIMEOUT_S; return each
+    rank's result."""
+    import os
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--hier-rank",
+         str(r), str(HIER_RANKS), str(port), device],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        # Eight ranks on the host's cores: one CPU thread each.
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+        for r in range(HIER_RANKS)]
+    outs = []
+    try:
+        deadline = time.monotonic() + HIER_TIMEOUT_S
+        for p in procs:
+            stdout, stderr = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+            outs.append((p.returncode, stdout, stderr))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (rc, stdout, stderr) in enumerate(outs):
+        lines = [l for l in stdout.splitlines()
+                 if l.startswith("HIER_RESULT ")]
+        check(rc == 0 and lines,
+              f"hier: rank {r} on {device} exited {rc}: "
+              f"{stderr[-3000:]}")
+        results.append(json.loads(lines[-1][len("HIER_RESULT "):]))
+    return results
+
+
+def _hier_codecs(torch, np):
+    """Int8/fp8 ``quantize``/``dequantize`` on the card against the same
+    calls on the CPU, bit for bit: a seeded shard of 2^20 values, an
+    all-zero shard, values at the caps and past them, and the
+    dequantized sum of a 4-row stack."""
+    from horovod_tpu_torch.distributed.compression import Compression
+    from horovod_tpu_torch.distributed.fusion import _dequant_sum
+
+    rng = np.random.default_rng(3)
+    cases = {
+        "normal": rng.standard_normal(1 << 20).astype(np.float32) * 3,
+        "zeros": np.zeros(4096, np.float32),
+        "at_cap": np.array([127, -127, 448, -448, 0.5, -0.5], np.float32),
+        "past_cap": np.array([1e4, -3e5, 449, 128, -1, 0, 2.5, -2.5],
+                             np.float32),
+    }
+    out = {}
+    for codec in ("int8", "fp8"):
+        c = getattr(Compression, codec)
+        for name, v in cases.items():
+            qc, sc = c.quantize(torch.tensor(v, device="cuda"))
+            qh, sh = c.quantize(torch.tensor(v))
+            same = (torch.equal(c.wire_view(qc).cpu(), c.wire_view(qh))
+                    and float(sc) == float(sh)
+                    and torch.equal(c.dequantize(qc, sc).cpu(),
+                                    c.dequantize(qh, sh)))
+            check(same, f"hier: {codec} {name}: the card's quantize/"
+                        "dequantize differ from the CPU's")
+            out[f"{codec}/{name}"] = same
+        rows = [c.quantize(torch.tensor(rng.standard_normal(4096).astype(
+            np.float32))) for _ in range(4)]
+        q = torch.stack([r[0] for r in rows])
+        s = torch.stack([r[1] for r in rows])
+        same = torch.equal(_dequant_sum(q.cuda(), s.cuda()).cpu(),
+                           _dequant_sum(q, s))
+        check(same, f"hier: {codec} dequantized sum differs on the card")
+        out[f"{codec}/dequant_sum"] = same
+    return out
+
+
+def _hier_world_of_one(torch, np):
+    """The LM under ``hierarchical="on"`` in an NCCL world of one (the
+    ladder resolves flat) against ``"off"``: two steps, bit for bit."""
+    import functools
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.models.train import (create_train_state,
+                                                make_train_step)
+    from horovod_tpu_torch.ops import attention as fa
+
+    hvd.init()
+    flash = functools.partial(fa.flash_attention, causal=True,
+                              bwd_impl="kernel")
+    tokens = torch.tensor(np.random.default_rng(7).integers(
+        0, VOCAB, (HIER_SEQS, FLASH_L)), device="cuda")
+    params = {}
+    for mode in ("off", "on"):
+        model = _lm(torch, flash)
+        step = make_train_step(model, create_train_state(
+            model, torch.optim.Adam(model.parameters(), lr=1e-4),
+            hierarchical=mode, compression=hvd.Compression.int8,
+            device="cuda"))
+        for _ in range(2):
+            step(tokens)
+        params[mode] = torch.cat([p.detach().reshape(-1)
+                                  for p in model.parameters()])
+        del model, step
+    same = torch.equal(params["on"], params["off"])
+    check(same, "hier: a world of one under hierarchical='on' differs "
+                "from 'off'")
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return same
+
+
+def hier_phase(torch, np, card):
+    """Phase 12 (module docstring): the codecs on the card, then the
+    8-rank world: the probe, the exact ladder and the LM variants."""
+    t0 = time.perf_counter()
+    res = {"card": card, "ranks": HIER_RANKS,
+           "cards": min(torch.cuda.device_count(), HIER_RANKS),
+           "codecs": _hier_codecs(torch, np)}
+    log(f"hier: codecs bit for bit on the card: {res['codecs']}")
+    ranks = _hier_world("cuda")
+    r0 = ranks[0]
+    res["backend"] = r0["backend"]
+    res["probe"] = r0["probe"]
+    res["ladder_on_card"] = all(r["ladder_on_card"] for r in ranks)
+    log(f"hier: {HIER_RANKS} ranks over {r0['backend']} on "
+        f"{res['cards']} card(s); probe {r0['probe']}")
+    if not res["ladder_on_card"]:
+        # No host staging to get round a refused collective: the ladder
+        # is checked on CPU tensors instead, and says so.
+        res["errors"] = {k: v for r in ranks for k, v in r["probe"].items()
+                         if v != "ok"}
+        res["world_of_one_on_equals_off"] = _hier_world_of_one(torch, np)
+        ranks = _hier_world("cpu")
+        res["exact_device"] = "cpu"
+    else:
+        res["exact_device"] = "cuda"
+    worst = max(v for r in ranks for v in r["exact"].values())
+    check(worst == 0.0, f"hier: the ladder differs from the flat exchange "
+                        f"on integer data by {worst} "
+                        f"({ranks[0]['exact']})")
+    res["exact_max_diff"] = worst
+    if res["ladder_on_card"]:
+        res["variants"] = _hier_check_lm(ranks)
+    res["caveat"] = HIER_CAVEAT
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"hier: phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
+def _hier_check_lm(ranks):
+    """The LM variants' checks across the ranks; returns their summary."""
+    off = ranks[0]["lm"]["off"]["losses"]
+    out = {}
+    for name, mode, codec, inner in HIER_VARIANTS:
+        runs = [r["lm"][name] for r in ranks]
+        r0 = runs[0]
+        for r, run in enumerate(runs):
+            check(run["losses"] == r0["losses"],
+                  f"hier[{name}]: rank {r}'s losses {run['losses']} are "
+                  f"not rank 0's {r0['losses']}")
+            check(run["max_param_diff"] == 0.0,
+                  f"hier[{name}]: rank {r}'s parameters differ from rank "
+                  f"0's by up to {run['max_param_diff']}")
+            check(run["inner"] == inner,
+                  f"hier[{name}]: rank {r} resolved inner {run['inner']}, "
+                  f"expected {inner}")
+            for k, n in run["launches"].items():
+                check(n == LAYERS * HIER_STEPS,
+                      f"hier[{name}]: rank {r}: {k} launched {n} times, "
+                      f"expected {LAYERS} layers x {HIER_STEPS} steps")
+            res = run["residuals"]
+            if codec in ("int8", "fp8"):
+                check(res is not None and res["n"] > 0
+                      and res["shapes_match"] and res["nonzero"] > 0,
+                      f"hier[{name}]: rank {r}'s residuals {res} are not "
+                      "the non-zero ef_residual_specs shapes")
+            else:
+                check(res is None, f"hier[{name}]: residuals {res} "
+                                   "without a low-bit codec")
+        check(all(math.isfinite(x) for x in r0["losses"]),
+              f"hier[{name}]: non-finite loss {r0['losses']}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], off)]
+        check(max(rel) <= HIER_LOSS_RTOL[codec],
+              f"hier[{name}]: losses {r0['losses']} against off's {off} "
+              f"(rel {max(rel):.2e} > {HIER_LOSS_RTOL[codec]})")
+        step_ms = sorted(t for run in runs for t in run["step_ms"])
+        wire = r0["wire"] or {}
+        out[name] = {
+            "inner": inner, "m": r0["m"], "compression": codec,
+            "step_ms": step_ms[len(step_ms) // 2],
+            "step_ms_all": [run["step_ms"] for run in runs],
+            "ici_mb": wire.get("ici_mb"), "dcn_mb": wire.get("dcn_mb"),
+            "dtype": wire.get("dtype"), "ratio": wire.get("ratio"),
+            "max_param_diff": max(run["max_param_diff"] for run in runs),
+            "losses": r0["losses"], "loss_rel_vs_off": max(rel),
+            "launches": r0["launches"],
+            "residuals": r0["residuals"],
+        }
+        log(f"hier[{name}]: inner {inner}, m {r0['m']}, step ms "
+            f"{out[name]['step_ms']:.1f}, losses {r0['losses']} (rel vs "
+            f"off {max(rel):.2e}), wire {r0['wire']}, residuals "
+            f"{r0['residuals']}")
+    return out
+
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -3049,11 +3534,13 @@ def _paged_record(kres, rate, runs, fleet, disagg, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, wres, card):
+def _flash_records(fres, tres, wres, hres, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
-    holds; times and errors from the flash phase at the slice shapes."""
+    holds, and from the hier phase rank 0's launches in each variant's
+    timed steps; times and errors from the flash phase at the slice
+    shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
               "flash_bwd_dkv": "flash_bwd_dkv"}
@@ -3078,6 +3565,9 @@ def _flash_records(fres, tres, wres, card):
             "launches_window": win["launches"][name],
             "replay_launches": win["profile"]["counts"][traced[name]],
             "replay_window_steps": WINDOW_K,
+            "launches_hier_rank0": {
+                v: r["launches"][name]
+                for v, r in hres.get("variants", {}).items()},
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3210,7 +3700,15 @@ def disagg_only(torch, np, card):
     print(json.dumps({"disagg_runs": out}), flush=True)
 
 
+def hier_only(torch, np, card):
+    """``--hier-only``: the build and the hier phase."""
+    build_phase()
+    print(json.dumps({"hier": hier_phase(torch, np, card)}), flush=True)
+
+
 def main():
+    if "--hier-rank" in sys.argv[1:]:
+        return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
     import numpy as np
     import torch
 
@@ -3226,6 +3724,8 @@ def main():
         return fleet_only(torch, np, card)
     if "--disagg-only" in sys.argv[1:]:
         return disagg_only(torch, np, card)
+    if "--hier-only" in sys.argv[1:]:
+        return hier_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -3251,6 +3751,7 @@ def main():
         torch, np, params, prompts, waves, runs["paged"], card,
         colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
                    "process": fleet["process"]["clean"]}))
+    hres = timed("hier", hier_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -3262,11 +3763,12 @@ def main():
                                  if k != "profile"}}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"disagg": disagg}), flush=True)
+    print(json.dumps({"hier": hres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg,
                       ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, wres, card),
+        *_flash_records(fres, tres, wres, hres, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,10 +46,22 @@ Its metric and unit carry the JAX lane's ``_winK`` suffix
 ``"window": K``, so a window record never stands where a per-step record
 should; ``K = 1`` is the per-step lane and its record as they were.
 
+Both lanes take ``--hierarchical auto|on|off`` (each gradient bucket as
+the intra-host reduce-scatter / inter-host exchange / intra-host
+all-gather ladder; the inner size is ``HOROVOD_HIERARCHICAL_INNER_SIZE``,
+else the ranks per host) and ``--compression int8|fp8`` (the ladder's
+inter-host leg quantized, with error feedback; lossless where no ladder
+runs). The record carries ``"hierarchical": {"mode", "inner"}`` and
+``"wire"``, the ladder's per-leg bytes (``fusion.hier_wire_summary``;
+null where the ladder does not engage, and both null under ``--zero``),
+and the same line goes to stderr as in the JAX lane::
+
+    torchrun --nproc_per_node 8 -m horovod_tpu_torch.bench \
+        --hierarchical on --compression int8
+
 Flags of one lane given to the other raise, as in the JAX ``bench.py``;
 so do the flash-only flags without flash. The JAX flags the port has not
-taken yet (``--snapshot-every``,
-``--hierarchical``, ``--compression int8|fp8``, ``--bf16-momentum``,
+taken yet (``--snapshot-every``, ``--bf16-momentum``,
 ``--scan-layers``, and ``--flash-full-grid``: K1-K3 have no full-grid
 mode) are parsed and raise ``NotImplementedError`` naming their
 ROADMAP.md item.
@@ -70,7 +82,9 @@ import torch
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed.compression import Compression
-from horovod_tpu_torch.distributed.fusion import plan_buckets, plan_summary
+from horovod_tpu_torch.distributed.fusion import (hier_wire_summary,
+                                                  plan_buckets, plan_summary,
+                                                  resolve_hierarchical)
 from horovod_tpu_torch.distributed.mpi_ops import allgather
 from horovod_tpu_torch.distributed.window import stage_synthetic_window
 from horovod_tpu_torch.distributed.zero import shard_info
@@ -140,7 +154,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "starts each bucket from gradient hooks during "
                         "the backward pass")
     p.add_argument("--compression", default="none",
-                   choices=["none", "fp16", "bf16", "int8", "fp8"])
+                   choices=["none", "fp16", "bf16", "int8", "fp8"],
+                   help="gradient wire compression: fp16/bf16 cast every "
+                        "leg; int8/fp8 quantize only the hierarchical "
+                        "inter-host leg (lossless without the ladder)")
+    p.add_argument("--hierarchical", default=None,
+                   choices=["auto", "on", "off"],
+                   help="HOROVOD_HIERARCHICAL for the gradient buckets: "
+                        "the intra-host / inter-host ladder; the record "
+                        "stamps its inner size and per-leg wire bytes")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="K steps a window, each a CUDA graph replay of "
                         "one captured step (distributed/window.py); the "
@@ -148,8 +170,6 @@ def build_parser() -> argparse.ArgumentParser:
     # The JAX lane's flags that the port has not taken yet: parsed, and
     # each raises NotImplementedError naming its ROADMAP.md item.
     p.add_argument("--snapshot-every", type=int, default=0)
-    p.add_argument("--hierarchical", default=None,
-                   choices=["auto", "on", "off"])
     p.add_argument("--bf16-momentum", action="store_true")
     p.add_argument("--scan-layers", action="store_true")
     p.add_argument("--flash-full-grid", action="store_true")
@@ -186,10 +206,6 @@ def _sync(dev: torch.device) -> None:
 _LATER = (
     (lambda a: a.snapshot_every != 0, "--snapshot-every",
      "ROADMAP.md Queue 1, training infrastructure (elastic)"),
-    (lambda a: a.hierarchical not in (None, "off"), "--hierarchical",
-     "ROADMAP.md Queue 1, parallelism (the hierarchical ladder)"),
-    (lambda a: a.compression in ("int8", "fp8"), "--compression int8|fp8",
-     "ROADMAP.md Queue 1, parallelism (the hierarchical ladder's codecs)"),
     (lambda a: a.bf16_momentum, "--bf16-momentum",
      "ROADMAP.md Queue 1, the rest of the model zoo and the image "
      "lane's options"),
@@ -211,6 +227,45 @@ def resolve_attention(args) -> str:
     ``auto`` is flash at every length. The JAX package's crossover, dense
     below 4096, was measured on a TPU."""
     return "flash" if args.attention == "auto" else args.attention
+
+
+def resolve_compression(args):
+    """The Compression class the lane runs (and stamps)."""
+    return getattr(Compression, args.compression or "none")
+
+
+def wire_leaves(leaves, compression):
+    """The leaves ``fused_reduce`` buckets: each at its
+    ``compression.plan_dtype`` (the cast compressors plan floating leaves
+    at the wire dtype; none/int8/fp8 plan them as they are), as ``meta``
+    tensors."""
+    return [torch.empty(tuple(leaf.shape),
+                        dtype=compression.plan_dtype(leaf.dtype),
+                        device="meta") for leaf in leaves]
+
+
+def wire_stamp(args, model, log=print) -> dict:
+    """The ``"hierarchical"``/``"wire"`` fields of the record: the
+    resolved ladder (mode and inner size) and its per-leg bytes over the
+    model's trainable parameters (``fusion.hier_wire_summary``); wire is
+    null where the ladder does not engage, and both are null under
+    ``--zero``."""
+    if args.zero:
+        return {"hierarchical": None, "wire": None}
+    mode = args.hierarchical or basics.config().hierarchical
+    n = basics.size()
+    inner = resolve_hierarchical(args.hierarchical, n)
+    if not inner:
+        return {"hierarchical": {"mode": mode, "inner": 0}, "wire": None}
+    comp = resolve_compression(args)
+    plan = plan_buckets(
+        wire_leaves([p for p in model.parameters() if p.requires_grad],
+                    comp), basics.config().fusion_threshold)
+    wire = hier_wire_summary(plan, n, inner, comp)
+    log(f"Hierarchical wire split: inner {inner}, ICI {wire['ici_mb']} "
+        f"MB, DCN {wire['dcn_mb']} MB @ {wire['dtype']} "
+        f"(x{wire['ratio']} vs uncompressed)", file=sys.stderr)
+    return {"hierarchical": {"mode": mode, "inner": inner}, "wire": wire}
 
 
 def _check_flags(args) -> None:
@@ -274,8 +329,8 @@ def _lm_lane(args, dev):
         model, torch.optim.Adam(
             model.parameters(), lr=1e-4,
             capturable=args.steps_per_dispatch > 1 and dev.type == "cuda"),
-        compression=getattr(Compression, args.compression),
-        overlap=args.overlap, device=dev, zero=args.zero)
+        compression=resolve_compression(args), overlap=args.overlap,
+        hierarchical=args.hierarchical, device=dev, zero=args.zero)
     step = make_train_step(model, opt, fused_ce=args.fused_ce)
     # One global batch of B sequences per rank, each rank its own rows
     # (the JAX lane's sharded [B * n, L] batch).
@@ -300,8 +355,8 @@ def _image_lane(args, dev):
         fused_bn=args.fused_bn, seed=42, device=dev)
     opt = create_train_state(
         model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
-        compression=getattr(Compression, args.compression),
-        overlap=args.overlap, device=dev, zero=args.zero)
+        compression=resolve_compression(args), overlap=args.overlap,
+        hierarchical=args.hierarchical, device=dev, zero=args.zero)
     step = make_image_train_step(model, opt, average_loss=False)
     n, r, B, S = basics.size(), basics.rank(), args.batch_size, \
         args.image_size
@@ -337,14 +392,15 @@ def run(args, device: DeviceLike = None) -> dict:
         # the bucket plan apply to DistributedOptimizer only.
         stamp = {"zero": shard_info(opt), "overlap": None, "buckets": None}
     else:
-        wire = getattr(Compression, args.compression)
         stamp = {"zero": None,
                  "overlap": args.overlap or basics.config().overlap,
                  "buckets": plan_summary(plan_buckets(
-                     [torch.empty(p.shape, dtype=wire.plan_dtype(p.dtype),
-                                  device="meta")
-                      for p in model.parameters() if p.requires_grad],
+                     wire_leaves([p for p in model.parameters()
+                                  if p.requires_grad],
+                                 resolve_compression(args)),
                      basics.config().fusion_threshold))}
+    stamp.update(wire_stamp(
+        args, model, print if basics.rank() == 0 else lambda *a, **k: None))
 
     if dev.type == "cuda" and k > 1:
         # A window's memory is allocated at its capture, in the warm-up:

@@ -5,9 +5,13 @@ One process per card. :func:`init` joins a process group: the caller's,
 when one is already initialised; the launcher's, when the environment
 names one (``RANK`` and ``WORLD_SIZE``, with ``MASTER_ADDR`` and
 ``MASTER_PORT``, as ``torchrun`` sets them); otherwise a world of one
-(``store=HashStore(), rank=0, world_size=1``). The backend is NCCL on
-the card and gloo on the CPU. The state is the process's own, as the
-process group is.
+(``store=HashStore(), rank=0, world_size=1``). A world that ``init``
+makes runs NCCL on the card and gloo on the CPU. A caller's gloo group
+is taken on the card too, with the tensors staying on the card: ranks
+that share one card cannot form an NCCL world (NCCL refuses two ranks
+on one device), and gloo carries every collective of the port on CUDA
+tensors (PERF.md). The state is the process's own, as the process
+group is.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class _State:
         self.config: Optional[Config] = None
         self.timeline: Optional[Timeline] = None
         self.owns_group = False
+        self.backend: Optional[str] = None
 
 
 _state = _State()
@@ -48,10 +53,13 @@ def init(device: DeviceLike = None) -> None:
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     if dist.is_initialized():
-        if dist.get_backend() != backend:
+        # gloo carries CUDA tensors as well; NCCL carries no CPU tensor.
+        takes = (backend, "gloo") if dev.type == "cuda" else (backend,)
+        if dist.get_backend() not in takes:
             raise PreconditionError(
                 f"the process group runs {dist.get_backend()}, but device "
-                f"{dev} needs {backend}")
+                f"{dev} needs {' or '.join(takes)}")
+        backend = dist.get_backend()
         _state.owns_group = False
     else:
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
@@ -61,6 +69,7 @@ def init(device: DeviceLike = None) -> None:
                                     rank=0, world_size=1)
         _state.owns_group = True
     _state.device = dev
+    _state.backend = backend
     _state.config = Config.from_env()
     _state.timeline = Timeline(_state.config.timeline_path or None,
                                mark_cycles=_state.config.timeline_mark_cycles,
@@ -78,6 +87,7 @@ def shutdown() -> None:
     _state.initialized = False
     _state.owns_group = False
     _state.device = None
+    _state.backend = None
     _state.config = None
     _state.timeline = None
 
@@ -114,6 +124,11 @@ def local_rank() -> int:
 def device() -> torch.device:
     """The device :func:`init` resolved."""
     return _require_init().device
+
+
+def backend() -> str:
+    """The process group's backend (``"nccl"`` or ``"gloo"``)."""
+    return _require_init().backend
 
 
 def config() -> Config:

@@ -14,6 +14,14 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_OVERLAP_SCATTER_THRESHOLD = 4 * 1024 * 1024
 # HOROVOD_OVERLAP values (fusion.resolve_overlap).
 OVERLAP_MODES = ("auto", "on", "off")
+# HOROVOD_HIERARCHICAL values (fusion.resolve_hierarchical): run each
+# fused bucket as the two-level intra-host reduce-scatter -> inter-host
+# exchange -> intra-host all-gather ladder instead of one flat
+# collective. "auto" (default) engages only when the ranks span more
+# than one host (parallel.mesh.dcn_present); "on" forces the ladder with
+# HOROVOD_HIERARCHICAL_INNER_SIZE (or the ranks per host) as the inner
+# size; "off" is the flat collective.
+HIERARCHICAL_MODES = ("auto", "on", "off")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -52,6 +60,18 @@ class Config:
     # empty = off) and its cycle markers (HOROVOD_TIMELINE_MARK_CYCLES).
     timeline_path: str = ""
     timeline_mark_cycles: bool = False
+    # Hierarchical bucket collectives (HOROVOD_HIERARCHICAL=auto|on|off;
+    # HIERARCHICAL_MODES above).
+    hierarchical: str = "auto"
+    # The legacy boolean spelling (HOROVOD_HIERARCHICAL_ALLREDUCE=1 is
+    # read as HOROVOD_HIERARCHICAL=on) and the two-phase allgather
+    # (HOROVOD_HIERARCHICAL_ALLGATHER).
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # Inner (one host's) size of the ladder; 0 = the ranks per host
+    # (HOROVOD_HIERARCHICAL_INNER_SIZE), so that one host's ranks can
+    # stand for several.
+    hierarchical_inner_size: int = 0
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -64,4 +84,12 @@ class Config:
                 DEFAULT_OVERLAP_SCATTER_THRESHOLD),
             timeline_path=os.environ.get("HOROVOD_TIMELINE", ""),
             timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+            hierarchical=_env_choice("HOROVOD_HIERARCHICAL", "auto",
+                                     HIERARCHICAL_MODES),
+            hierarchical_allreduce=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLREDUCE"),
+            hierarchical_allgather=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLGATHER"),
+            hierarchical_inner_size=_env_int(
+                "HOROVOD_HIERARCHICAL_INNER_SIZE", 0),
         )

@@ -5,7 +5,10 @@ Each op runs on the process group that ``hvd.init()`` joined: NCCL on the
 card, gloo on the CPU. With one process every op returns its input, the
 reference's ``size() == 1`` semantics (the tensor itself, not a copy).
 ``Average`` sums in the wire dtype and divides after decompression, as
-the JAX function does.
+the JAX function does. ``allreduce(hierarchical=...)`` runs one tensor
+through the fused buckets' two-level ladder, and ``allgather`` under
+``HOROVOD_HIERARCHICAL_ALLGATHER`` gathers inside each host first, then
+across hosts (:mod:`horovod_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -84,14 +87,29 @@ def synchronize(handle: Handle):
 
 
 def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
-                    compression=Compression.none, op=None) -> Handle:
+                    compression=Compression.none, op=None,
+                    hierarchical: Optional[str] = None) -> Handle:
     """Start reducing ``tensor`` across ranks; :func:`synchronize` the
-    handle for the result. ``name`` is accepted for parity."""
-    del name
+    handle for the result. ``name`` is accepted for parity.
+
+    ``hierarchical`` (auto|on|off, as ``fused_reduce`` resolves it;
+    ``None`` is the flat collective) runs a Sum/Average through the
+    ladder as a one-tensor bucket, with the bucket's semantics (int8/fp8
+    quantize its inter-host leg, without feedback)."""
     op = resolve_op(op, average)
     n = basics.size()
     if n == 1:
         return Handle(None, lambda: tensor)
+    if hierarchical is not None and op in (Sum, Average):
+        from horovod_tpu_torch.distributed.fusion import BucketExchange
+
+        ex = BucketExchange([tensor], average=op is Average,
+                            compression=compression, op=op, name=name,
+                            overlap="on", hierarchical=hierarchical)
+        if ex.hier:
+            fetch = [tensor].__getitem__
+            ex.ready(0, fetch)
+            return Handle(None, lambda: ex.finish(fetch)[0])
     buf, ctx = compression.compress(tensor)
     buf = buf.clone()
     work = dist.all_reduce(buf, op=REDUCE_OPS[op], async_op=True)
@@ -104,9 +122,12 @@ def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
 
 
 def allreduce(tensor, average: bool = True, name: Optional[str] = None,
-              compression=Compression.none, op=None):
-    """Sum (or average, min, max, product) ``tensor`` across all ranks."""
-    return allreduce_async(tensor, average, name, compression, op).wait()
+              compression=Compression.none, op=None,
+              hierarchical: Optional[str] = None):
+    """Sum (or average, min, max, product) ``tensor`` across all ranks;
+    ``hierarchical`` as in :func:`allreduce_async`."""
+    return allreduce_async(tensor, average, name, compression, op,
+                           hierarchical).wait()
 
 
 def broadcast(tensor, root_rank: int, name: Optional[str] = None):
@@ -138,11 +159,22 @@ def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
 
 def allgather(tensor, name: Optional[str] = None):
     """Concatenate ``tensor`` from all ranks along dimension 0 (equal
-    shapes on every rank)."""
+    shapes on every rank). Under ``HOROVOD_HIERARCHICAL_ALLGATHER`` the
+    gather runs in two phases, inside each host and then across hosts
+    (inner size ``HOROVOD_HIERARCHICAL_INNER_SIZE``, else the ranks per
+    host), with the same rank-major result."""
     del name
     n = basics.size()
     if n == 1:
         return tensor
+    if basics.config().hierarchical_allgather:
+        from horovod_tpu_torch.distributed.fusion import _hierarchical_inner
+        from horovod_tpu_torch.parallel.mesh import (
+            hierarchical_allgather_in_axis)
+
+        inner = _hierarchical_inner(n)
+        if inner:
+            return hierarchical_allgather_in_axis(tensor, inner)
     src = tensor.contiguous()
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype,
                       device=src.device)

@@ -21,6 +21,16 @@ gets zeros first), then waits for every bucket and unpacks it. The
 numbers are those of overlap off, bit for bit. A parameter holds the
 hook of one wrapper at a time: a new wrapper of the same parameters
 removes the old one's hooks.
+
+``hierarchical`` (auto|on|off) runs each bucket as the intra-host /
+inter-host ladder (:mod:`horovod_tpu_torch.distributed.fusion`), from
+the hooks as well. Under ``Compression.int8``/``.fp8`` with the ladder
+engaged, the wrapper holds error-feedback residuals (:attr:`residuals`):
+zeros at construction, one float32 vector per quantized stage per
+floating bucket, each this rank's own shard, on the parameters' device;
+every update feeds them through the exchange and keeps the new ones.
+They travel in ``state_dict()`` under ``"hvd_residuals"``, and
+:func:`broadcast_optimizer_state` leaves each rank its own.
 """
 
 from __future__ import annotations
@@ -34,7 +44,8 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
                                                  PreconditionError)
 from horovod_tpu_torch.distributed import mpi_ops
-from horovod_tpu_torch.distributed.compression import Compression
+from horovod_tpu_torch.distributed.compression import (Compression,
+                                                       is_dcn_wire)
 from horovod_tpu_torch.distributed.fusion import (BucketExchange,
                                                   fused_reduce, hook_grad,
                                                   release_grad_hooks,
@@ -71,8 +82,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                 op=op, fusion_threshold=fusion_threshold,
                                 overlap=overlap, hierarchical=hierarchical,
                                 name="grads")
-        # The hierarchical ladder is not ported: fused_reduce raises.
-        self._hvd_hooks_on = hierarchical in (None, "off")
+        self._hvd_hooks_on = True
         self._hvd_exchange = None
         self._hvd_trainable: list = []
         self._hvd_planned = None
@@ -80,6 +90,66 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._hvd_fired = 0
         release_grad_hooks(own)
         self._hvd_plan()
+        self._hvd_residuals = None
+        if is_dcn_wire(compression):
+            trainable = [p for p in own if p.requires_grad]
+            ex = self._hvd_exchange or BucketExchange(trainable,
+                                                      **self._hvd_reduce)
+            if ex.hier:
+                dev = trainable[0].device if trainable else basics.device()
+                self._hvd_residuals = [torch.zeros_like(spec, device=dev)
+                                       for spec in ex.residual_specs()]
+                self._hvd_res_ids = [id(p) for p in trainable]
+
+    @property
+    def residuals(self):
+        """The error-feedback residuals (a list of this rank's float32
+        vectors), or ``None`` when no quantized ladder runs."""
+        return self._hvd_residuals
+
+    @property
+    def hierarchical_inner(self) -> int:
+        """The ladder's inner size for the current plan (0: flat)."""
+        trainable = [p for p in self._hvd_params if p.requires_grad]
+        return (self._hvd_exchange or BucketExchange(
+            trainable, **self._hvd_reduce)).hier
+
+    def _hvd_ef(self):
+        """The residuals to feed the next exchange; raises when the
+        trainable parameters are no longer those they were made for."""
+        res = self._hvd_residuals
+        if res is not None and [id(p) for p in self._hvd_params
+                                if p.requires_grad] != self._hvd_res_ids:
+            raise InvalidArgumentError(
+                "the trainable parameters changed since the "
+                "error-feedback residuals were made for them; build a new "
+                "DistributedOptimizer for the new set")
+        return res
+
+    def state_dict(self):
+        state = super(self.__class__, self).state_dict()
+        if self._hvd_residuals is not None:
+            state["hvd_residuals"] = [r.detach().clone()
+                                      for r in self._hvd_residuals]
+        return state
+
+    def load_state_dict(self, state_dict):
+        state = dict(state_dict)
+        res = state.pop("hvd_residuals", None)
+        super(self.__class__, self).load_state_dict(state)
+        if res is None:
+            return
+        own = self._hvd_residuals
+        if own is None or [tuple(r.shape) for r in res] != [
+                tuple(r.shape) for r in own]:
+            raise InvalidArgumentError(
+                "the state's error-feedback residuals "
+                f"{[tuple(r.shape) for r in res]} are not this "
+                "optimizer's "
+                f"{None if own is None else [tuple(r.shape) for r in own]}")
+        with torch.no_grad():
+            for r, x in zip(own, res):
+                r.copy_(x)
 
     @property
     def backward_passes_per_step(self) -> int:
@@ -100,9 +170,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         if ids == self._hvd_planned:
             return
         self._hvd_planned = ids
-        kw = {k: v for k, v in self._hvd_reduce.items()
-              if k != "hierarchical"}
-        exchange = BucketExchange(trainable, **kw)
+        exchange = BucketExchange(trainable, **self._hvd_reduce)
         if not (exchange.overlap and trainable):
             exchange, trainable = None, []
         self._hvd_exchange = exchange
@@ -154,6 +222,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._hvd_plan()
             if self._hvd_exchange is None:
                 return
+            self._hvd_exchange.set_residuals(self._hvd_ef())
         self._hvd_fired += 1
         i = self._hvd_index[id(p)]
         c = self._hvd_counts[i] + 1
@@ -185,6 +254,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         rank."""
         if not self._hvd_fired:
             self._hvd_plan()
+            if self._hvd_exchange is not None:
+                self._hvd_exchange.set_residuals(self._hvd_ef())
         self._hvd_fired = 0
         ex = self._hvd_exchange
         if ex is None:
@@ -200,9 +271,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                  else p.grad / k for i, p in enumerate(params)]
         basics.timeline().mark_cycle_start()
         if ex is None:
-            reduced = fused_reduce(grads, **self._hvd_reduce)
+            res = self._hvd_ef()
+            if res is None:
+                reduced = fused_reduce(grads, **self._hvd_reduce)
+            else:
+                reduced, res = fused_reduce(grads, residuals=res,
+                                            **self._hvd_reduce)
+                self._hvd_residuals = list(res)
         else:
             reduced = ex.finish(grads.__getitem__)
+            if self._hvd_residuals is not None:
+                self._hvd_residuals = ex.residuals
         with torch.no_grad():
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
@@ -296,6 +375,11 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         raise InvalidArgumentError(
             "a ZeRO optimizer holds each rank's own slice of the state; "
             "broadcasting one rank's would overwrite the others' slices")
-    state = mpi_ops.broadcast_object(optimizer.state_dict(), root_rank)
+    own = optimizer.state_dict()
+    residuals = own.pop("hvd_residuals", None)
+    state = mpi_ops.broadcast_object(own, root_rank)
     if basics.size() > 1:
+        # Error-feedback residuals are each rank's own shard: kept.
+        if residuals is not None:
+            state["hvd_residuals"] = residuals
         optimizer.load_state_dict(state)

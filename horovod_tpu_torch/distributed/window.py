@@ -39,7 +39,11 @@ raised with its cause by the capture):
 * ``backward_passes_per_step == 1``: ``DistributedOptimizer`` counts the
   passes of an update in Python, which a replay does not run, so a window
   over an accumulating optimizer raises ``NotImplementedError`` (the JAX
-  window scans ``optax.MultiSteps``, whose counter is device state).
+  window scans ``optax.MultiSteps``, whose counter is device state);
+* no error-feedback residuals: an optimizer on the int8/fp8 hierarchical
+  ladder rebinds its residuals in Python each update, so a window over it
+  raises ``NotImplementedError`` (the JAX window carries them as scan
+  state).
 
 A step built by :func:`~horovod_tpu_torch.models.train.make_train_step`
 or ``make_image_train_step`` carries its ``model`` and ``optimizer`` as
@@ -48,8 +52,8 @@ capture's signature (parameters frozen or replaced, hyperparameters
 changed: the step is captured again). A step of your own can set the
 same two attributes.
 
-``stacked_specs`` is not ported: the port has no device mesh, so a batch
-has no partition spec to shift under the window axis.
+``stacked_specs`` is not ported: the data-parallel window's batch is
+each rank's own, with no partition spec to shift under the window axis.
 """
 
 from __future__ import annotations
@@ -80,6 +84,14 @@ def _check_optimizer(optimizer, device: torch.device) -> None:
             "DistributedOptimizer counts the passes of an update in "
             "Python, which a CUDA graph replay does not run (ROADMAP.md "
             "Queue 3, deliberate differences)")
+    if getattr(optimizer, "residuals", None) is not None:
+        raise NotImplementedError(
+            "a window over DistributedOptimizer's quantized hierarchical "
+            "ladder: the error-feedback residuals are rebound in Python "
+            "each update, which a CUDA graph replay does not run, and a "
+            "captured ladder needs NCCL sub-communicators inside the "
+            "graph, which no one-card run can show (ROADMAP.md Queue 3, "
+            "deliberate differences)")
     if device.type == "cuda":
         off = [i for i, g in enumerate(optimizer.param_groups)
                if g.get("capturable") is False]

@@ -108,7 +108,14 @@ def create_train_state(model: torch.nn.Module,
     the ZeRO-1 :func:`sharded_distributed_optimizer` instead, after the
     broadcast; ``overlap`` and ``hierarchical`` do not apply there (as in
     the JAX package). Returns the optimizer to step with (the model holds
-    the parameters)."""
+    the parameters).
+
+    ``hierarchical`` (auto|on|off) runs each gradient bucket as the
+    intra-host / inter-host ladder; with ``compression=Compression.int8``
+    or ``.fp8`` on an engaged ladder the returned optimizer holds this
+    rank's error-feedback residuals (``optimizer.residuals``), which every
+    step of :func:`make_train_step` feeds through the exchange and
+    ``state_dict()`` carries."""
     dev = resolve_device(device)
     basics.config()                       # raises before hvd.init()
     wrong = [n for n, p in model.named_parameters()

@@ -1,0 +1,35 @@
+"""Parallelism over ``torch.distributed``: the port of
+``horovod_tpu.parallel``.
+
+Ported: the logical-axis layer (:mod:`~horovod_tpu_torch.parallel.
+logical`: the axis vocabulary, ``LogicalMesh`` and its rules table) and
+the mesh layer (:mod:`~horovod_tpu_torch.parallel.mesh`: rank-grid
+meshes, the host topology, and the two-level intra-host / inter-host
+ladder that the fused gradient buckets run under
+``HOROVOD_HIERARCHICAL``).
+
+Not ported yet: tensor parallelism (``tp``) and TP-sharded paged decode
+(ROADMAP.md Queue 1, item 4.3); sequence parallelism (``ulysses``,
+``ring_attention``, item 4.4); pipeline parallelism (``pipeline``, item
+4.5); expert parallelism (``moe``, item 4.6); and the SPMD harness
+(``spmd``, item 4.7).
+"""
+
+from horovod_tpu_torch.parallel.logical import (  # noqa: F401
+    DATA_AXIS,
+    DCN_AXIS,
+    DEFAULT_RULES,
+    ICI_AXIS,
+    LogicalMesh,
+    bind,
+    current_logical_mesh,
+    format_mesh_config,
+    logical_partition_specs,
+    module_axis,
+    parse_mesh_config,
+)
+from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
+    hierarchical_allreduce,
+    hierarchical_mesh,
+    make_mesh,
+)

@@ -7,7 +7,11 @@ CPU at a tiny size, and the
 record carries its stamps (``fused_ce``, ``remat``, ``zero`` as
 ``shard_info``, ``overlap`` and ``buckets``, both None under ZeRO as the
 JAX ``overlap_stamp`` has them, and ``flash_grid`` with the resolved
-backward). Every flag the JAX lane has and the port has not taken yet
+backward). ``--hierarchical`` and ``--compression int8|fp8`` run, and
+the record's ``hierarchical``/``wire`` fields equal the JAX
+``wire_stamp``'s, in a world of one and at an injected world size and
+inner size; bad values and stale error-feedback state fail loudly.
+Every flag the JAX lane has and the port has not taken yet
 raises ``NotImplementedError`` naming its ROADMAP.md item (so does
 ``--flash-full-grid``: the CUDA kernels have no full-grid mode, and the
 stamp never claims one); the flash-only flags raise without flash, and the LM-only flags on the image lane, as
@@ -104,10 +108,6 @@ def test_fused_ce_and_remat_keep_the_loss():
 
 @pytest.mark.parametrize("flags,item", [
     (["--snapshot-every", "100"], "training infrastructure"),
-    (["--hierarchical", "on"], "parallelism"),
-    (["--hierarchical", "auto"], "parallelism"),
-    (["--compression", "int8"], "parallelism"),
-    (["--compression", "fp8"], "parallelism"),
     (["--bf16-momentum"], "model zoo"),
     (["--scan-layers"], "layer scan"),
 ])
@@ -116,6 +116,128 @@ def test_flags_left_for_later_raise_naming_their_item(flags, item):
                                                   f"{item}"):
         _run(flags)
     assert not basics.is_initialized()
+
+
+HIER_FLAGS = [["--hierarchical", "on"], ["--hierarchical", "auto"],
+              ["--hierarchical", "off"], ["--compression", "int8"],
+              ["--compression", "fp8"],
+              ["--hierarchical", "on", "--compression", "int8"],
+              ["--hierarchical", "on", "--compression", "fp8"],
+              ["--hierarchical", "on", "--compression", "bf16"]]
+
+
+def _jax_wire_stamp(flags, size, inner):
+    """The JAX bench's ``wire_stamp`` for ``flags`` over the tiny LM's
+    parameter shapes, at world ``size`` and inner size ``inner``."""
+    import types
+
+    import bench as jbench
+    import horovod_tpu.jax as jhvd
+    from horovod_tpu.common import state
+
+    jhvd.init()
+    opts = dict(zip(flags[::2], flags[1::2]))
+    args = types.SimpleNamespace(
+        hierarchical=opts.get("--hierarchical"), zero=False,
+        compression=opts.get("--compression", "none"))
+    shapes = [tuple(p.shape) for p in TransformerLM(
+        vocab_size=32, num_layers=2, num_heads=2, embed_dim=16,
+        max_len=2048, dtype=torch.float32, device="cpu").parameters()]
+    cfg = state.global_state().config
+    saved = (cfg.hierarchical_inner_size, jhvd.size)
+    cfg.hierarchical_inner_size = inner
+    jhvd.size = lambda: size
+    try:
+        return jbench.wire_stamp(
+            args, {"params": [np.zeros(s, np.float32) for s in shapes]},
+            lambda *a, **k: None)
+    finally:
+        cfg.hierarchical_inner_size, jhvd.size = saved
+
+
+@pytest.mark.parametrize("flags", HIER_FLAGS,
+                         ids=lambda f: "_".join(x.strip("-") for x in f))
+def test_hierarchical_and_low_bit_flags_run_and_stamp_as_jax(flags):
+    """The ladder's flags run the lane in a world of one, where the
+    ladder resolves flat (and int8/fp8 are lossless): the record's
+    ``hierarchical`` and ``wire`` fields are the JAX ``wire_stamp``'s at
+    world size 1."""
+    rec = _run(flags)
+    assert np.isfinite(rec["loss"]) and rec["replicas_in_sync"]
+    want = _jax_wire_stamp(flags, 1, 0)
+    assert rec["hierarchical"] == want["hierarchical"]
+    assert rec["wire"] is None and want["wire"] is None
+    assert rec["compression"] == dict(zip(flags[::2], flags[1::2])).get(
+        "--compression", "none")
+
+
+@pytest.mark.parametrize("flags", HIER_FLAGS,
+                         ids=lambda f: "_".join(x.strip("-") for x in f))
+def test_wire_stamp_at_an_injected_inner_size_equals_jax(flags,
+                                                        monkeypatch):
+    """``wire_stamp`` as an 8-rank world with inner size 4 sees it (the
+    world size injected): the same ``hierarchical`` and ``wire`` fields
+    as the JAX ``wire_stamp`` at size 8, inner 4; under ``--zero`` both
+    are null."""
+    basics.init(device="cpu")
+    try:
+        basics.config().hierarchical_inner_size = 4
+        monkeypatch.setattr(basics, "size", lambda: 8)
+        args = bench.build_parser().parse_args(TINY + flags)
+        model = TransformerLM(vocab_size=32, num_layers=2, num_heads=2,
+                              embed_dim=16, max_len=2048,
+                              dtype=torch.float32, device="cpu")
+        lines = []
+        got = bench.wire_stamp(args, model,
+                               lambda *a, **k: lines.append(a[0]))
+        want = _jax_wire_stamp(flags, 8, 4)
+        assert got == want
+        assert (got["wire"] is not None) == (len(lines) == 1)
+        args.zero = True
+        assert bench.wire_stamp(args, model) == {"hierarchical": None,
+                                                 "wire": None}
+    finally:
+        basics.shutdown()
+
+
+@pytest.mark.parametrize("bad", [["--hierarchical", "sometimes"],
+                                 ["--compression", "int4"]])
+def test_bad_ladder_flag_values_are_refused(bad):
+    with pytest.raises(SystemExit):
+        bench.build_parser().parse_args(TINY + bad)
+
+
+def test_bad_ladder_mode_and_stale_residuals_fail_loudly():
+    """What the parser cannot refuse raises as the JAX package does: an
+    unknown mode, error-feedback residuals where the ladder resolves
+    flat (a world of one), and a window over an optimizer that holds
+    residuals."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+    from horovod_tpu_torch.distributed.window import windowed
+    from horovod_tpu_torch.models.train import make_train_step
+
+    basics.init(device="cpu")
+    try:
+        with pytest.raises(InvalidArgumentError, match="one of"):
+            hvd.resolve_hierarchical("sometimes", 8)
+        with pytest.raises(InvalidArgumentError, match="resolves to FLAT"):
+            hvd.fused_reduce([torch.ones(3)], hierarchical="on",
+                             compression=hvd.Compression.int8,
+                             residuals=(torch.zeros(3),))
+        model = TransformerLM(vocab_size=32, num_layers=1, num_heads=2,
+                              embed_dim=16, max_len=16,
+                              dtype=torch.float32, device="cpu")
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            compression=hvd.Compression.int8, hierarchical="on")
+        assert opt.residuals is None and opt.hierarchical_inner == 0
+        opt._hvd_residuals = [torch.zeros(4)]
+        with pytest.raises(NotImplementedError, match="Queue 3"):
+            windowed(make_train_step(model, opt), 2)(
+                torch.zeros((2, 1, 8), dtype=torch.long))
+    finally:
+        basics.shutdown()
 
 
 @pytest.mark.parametrize("model", ["lm", "resnet18"])

@@ -887,13 +887,20 @@ def test_unported_paths_and_bad_arguments_raise(world):
     from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 
     ts = [torch.ones(3)]
+    # The ladder and the low-bit codecs run; in a world of one the ladder
+    # resolves flat, so int8/fp8 are lossless and residuals pass through.
     for kw in (dict(hierarchical="on"), dict(hierarchical="auto"),
-               dict(residuals=())):
-        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
-            hvd.fused_reduce(ts, **kw)
+               dict(compression=hvd.Compression.int8),
+               dict(compression=hvd.Compression.fp8)):
+        assert torch.equal(hvd.fused_reduce(ts, **kw)[0], ts[0])
+    out, res = hvd.fused_reduce(ts, residuals=())
+    assert torch.equal(out[0], ts[0]) and res == ()
+    with pytest.raises(InvalidArgumentError, match="one of"):
+        hvd.fused_reduce(ts, hierarchical="sometimes")
     for comp in (hvd.Compression.int8, hvd.Compression.fp8):
-        with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
-            hvd.fused_reduce(ts, compression=comp)
+        with pytest.raises(InvalidArgumentError, match="resolves to FLAT"):
+            hvd.fused_reduce(ts, compression=comp, hierarchical="on",
+                             residuals=(torch.zeros(3),))
     with pytest.raises(InvalidArgumentError, match="Unsupported"):
         hvd.allreduce(ts[0], op=object)
     with pytest.raises(InvalidArgumentError, match="root_rank"):

@@ -393,7 +393,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/disagg.py", "elastic/__init__.py",
                 "elastic/faults.py", "elastic/signals.py",
                 "elastic/supervisor.py", "run/__init__.py",
-                "run/driver.py", "run/network.py"):
+                "run/driver.py", "run/network.py",
+                "parallel/__init__.py", "parallel/logical.py",
+                "parallel/mesh.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
     for pkg in ("elastic", "run"):
         assert sorted(n for n in names
