@@ -8,6 +8,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --fleet-only [RUNS]
     python3 chip_smoke.py --disagg-only [RUNS]
     python3 chip_smoke.py --hier-only
+    python3 chip_smoke.py --tp-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -20,7 +21,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    sizes and lengths on the edges of its row chunks, bit for bit the
    same on a second launch, then at the serving path's shapes and at a
    long-context geometry (32 slots of up to 2048 keys), float32 and
-   bfloat16, with its time, its kernels' profiled device time, the
+   bfloat16, with all 12 heads and with a tensor-parallel rank's 6 and 3
+   (tp = 2 and 4), with its time, its kernels' profiled device time, the
    plain version's time, a library yardstick's and the least time the
    card could take (bytes over the HBM peak or operations over the peak
    rate, whichever is larger);
@@ -150,7 +152,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    and 2 against the flat exchange (bit for bit, average on and off,
    overlap on and off); then the LM at the training phase's width (one
    sequence of 2048 tokens a rank) under ``DistributedOptimizer(Adam)``:
-   a warm-up and two timed steps with the flat exchange, the ladder at
+   a warm-up and one timed step with the flat exchange, the ladder at
    inner 4, int8 on it (2 hosts: the all-gather exchange) and fp8 at
    inner 2 (4 hosts: the two-stage all-to-all exchange). Every rank's
    parameters equal rank 0's bit for bit, each loss is within its
@@ -161,7 +163,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    would hold ``hierarchical="on"`` to ``"off"`` on the card, and the
    exact ladder would run on CPU tensors, labelled so: nothing stages
    through the host to get round it;
-13. (``--profile`` only) two training steps of each lane and the
+13. tp: tensor parallelism. A world of 4 ranks, each a process of this
+   script (``--tp-rank``): its own card over NCCL where the machine has
+   4, else all on the one card over gloo with every tensor on the card.
+   Rank 0 serves the engine phase's requests and waves through
+   ``ServeEngine(..., attention="paged", mesh="dp=1,tp=4",
+   capture=False)`` (heads, MLP features and vocab sharded; each rank's
+   pages ``[num_pages, 16, 3, 64]``, a tensor of their own) and the
+   others follow: every request finishes, every greedy stream equals the
+   single-card paged engine's (else the first diverging position and
+   the top-2 logit gap there), every rank launches K4 12 times a live
+   decode tick over its 3 heads, and ``kv_bytes_per_chip`` is at most a
+   quarter of the single card's. Then each rank takes one TP training
+   step at the same width (``lm_apply(tp)``, the vocab-parallel fused
+   loss, ``reduce_grads``; batch 2 x 256): its loss within 1e-5 relative
+   of the dense step's on the same weights and each gradient shard
+   within 1e-4 (of the leaf's largest entry) of the dense gradient's
+   slice;
+14. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -177,6 +196,10 @@ in-process fleet run inside each (no colocated worker run: the
 
 ``--hier-only`` runs phases 1, 2 and 12 and prints the ``{"hier"}``
 line and no kernels or ok line.
+
+``--tp-only`` runs phases 1 and 2, one captured paged engine run for the
+reference streams and phase 13, and prints the ``{"tp"}`` line and no
+kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -205,7 +228,12 @@ variant's backend, ranks, cards, inner size, host count m, step ms,
 intra- and inter-host MB of its wire, the inter-host dtype and ratio,
 the largest cross-rank parameter difference and the loss against the
 flat run, beside the card's name and power limit and the caveat that on
-one shared card the step times measure host copies. The
+one shared card the step times measure host copies, and a ``{"tp":
+...}`` line the degree, backend and cards, the streams compared and
+equal, the tokens/s of the card against the single engine's, TTFT and
+per-token p50/p99, ``kv_bytes_per_chip`` against the single card's, K4's
+launches and live ticks on every rank, the training step's losses and
+gradient errors and the phase's seconds, with the same caveat. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -385,11 +413,20 @@ def _copy_rate(torch):
     return rate
 
 
+#: K4's timed shapes: (result key, geometry, heads). The tp phase's
+#: shards run it over 12 / tp heads: 6 at tp = 2, 3 at tp = 4.
+K4_SHAPES = (("serving", "serving", HEADS), ("long", "long", HEADS),
+             ("serving_h6", "serving", HEADS // 2),
+             ("serving_h3", "serving", HEADS // 4),
+             ("long_h6", "long", HEADS // 2), ("long_h3", "long", HEADS // 4))
+
+
 def kernel_phase(torch, np):
     """K4 at the serving shapes and at the long-context geometry, f32 and
-    bf16: agreement with the plain version, then the cold-L2 time of the
-    call (``ms``), its two kernels' profiled time (``device_ms``), the
-    plain version's and the library yardstick's times, and the bound."""
+    bf16, with all 12 heads and with a tensor-parallel rank's 6 and 3:
+    agreement with the plain version, then the cold-L2 time of the call
+    (``ms``), its two kernels' profiled time (``device_ms``), the plain
+    version's and the library yardstick's times, and the bound."""
     import torch.nn.functional as F
 
     from horovod_tpu_torch._timing import (device_ms, flush_buffer,
@@ -401,8 +438,9 @@ def kernel_phase(torch, np):
     log(f"device copy rate: {rate / 1e9:.1f} GB/s")
     flush = flush_buffer()
     results = {}
-    for geom in ("serving", "long"):
+    for key, geom, heads in K4_SHAPES:
         g = pa.geometry(geom)
+        g["H"] = heads
         lens = g["lengths"]
         S, H, D, ps = len(lens), g["H"], g["D"], g["ps"]
         for dtype in (torch.float32, torch.bfloat16):
@@ -413,7 +451,7 @@ def kernel_phase(torch, np):
             out = pa.paged_attention_decode(*args, scale)
             ref = pa.paged_attention_decode_reference(*args, scale)
             torch.cuda.synchronize()
-            what = f"{geom} {dname}"
+            what = f"{key} {dname}"
             check(bool(torch.isfinite(out).all()),
                   f"{what}: NaN/inf in the kernel's output (null page or "
                   "stale rows read)")
@@ -454,7 +492,7 @@ def kernel_phase(torch, np):
             nbytes, flops = pa.decode_work(lens, H, D, ps, kp.element_size())
             t_bytes = nbytes / HBM_PEAK_BYTES_S * 1e3
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
-            results.setdefault(geom, {"shape": {
+            results.setdefault(key, {"shape": {
                 "S": S, "H": H, "D": D, "page_size": ps,
                 "pages_per_seq": g["pps"], "num_pages": P,
                 "lengths": lens}})[dname] = {
@@ -2970,8 +3008,10 @@ HIER_RANKS = 8
 # card's 80 GB here, so each takes one sequence (the training phase's 8
 # a card would need 8x the activations).
 HIER_SEQS = 1
-# Timed steps after one warm-up step, per variant.
-HIER_STEPS = 2
+# Timed steps after one warm-up step, per variant (2 until the tp phase
+# came: one step pays for part of it; the loss after the first update
+# already holds each codec to the flat exchange).
+HIER_STEPS = 1
 # (name, HOROVOD_HIERARCHICAL, compression, inner size): the flat
 # exchange, the ladder at 2 hosts of 4 (m 2), int8 on it (the all-gather
 # exchange) and fp8 at 4 hosts of 2 (m 4, the two-stage all-to-all
@@ -3412,6 +3452,292 @@ def _hier_check_lm(ranks):
 
 
 
+# ------------------------------------------------------------ phase 13
+
+TP_RANKS = 4
+TP_TIMEOUT_S = 300.0
+# The training check: one step of the tp LM at the engine's width on a
+# batch of 2 x 256 tokens (numpy seed 9), against the dense step on the
+# same weights. Both run float32 with no TF32; the row-parallel sums add
+# the same products in another order, so the loss moves by float32
+# rounding (a few 1e-7 relative) and each gradient leaf's largest error
+# stays well under 1e-4 of its largest entry; a shard summed twice or a
+# missing conjugate moves them by whole factors.
+TP_BATCH, TP_SEQ = 2, 256
+TP_LOSS_RTOL = 1e-5
+TP_GRAD_RTOL = 1e-4
+TP_CAVEAT = ("4 ranks share one card over gloo: each collective stages "
+             "its CUDA tensors through host memory and loopback TCP, so "
+             "the tokens/s is that of host copies and sockets, not of "
+             "NVLink")
+
+
+def _tp_train(torch, np, params, world, rank, dev):
+    """One TP training step (``lm_apply(tp)`` + the vocab-parallel fused
+    loss + ``reduce_grads``) against the dense step on the same weights:
+    the losses and the largest error of each gradient shard against the
+    dense gradient's slice, relative to the slice's largest entry."""
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.parallel.logical import LogicalMesh, bind
+
+    tokens = torch.tensor(np.random.default_rng(9).integers(
+        0, VOCAB, (TP_BATCH, TP_SEQ)), device=dev)
+    specs = plm.lm_param_specs(LAYERS, "tp", vocab_parallel=True)
+
+    def tree(fn, t):
+        if isinstance(t, dict):
+            return {k: tree(fn, v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [tree(fn, v) for v in t]
+        return fn(t)
+
+    def step(p, tp):
+        tree(lambda x: x.requires_grad_(True), p)
+        hidden = plm.lm_apply(p, tokens, tp=tp, return_hidden=True)
+        loss = plm.next_token_nll_fused(p, hidden, tokens, tp=tp,
+                                        vocab_parallel=tp is not None)
+        loss.backward()
+        return float(loss), plm.reduce_grads(tree(lambda x: x.grad, p))
+
+    # A world of one's "shard" is a copy of the dense weights.
+    dense_loss, dense_g = step(plm.shard_lm_params(params, specs, 1, 0),
+                               None)
+    with bind(LogicalMesh.from_config(f"dp=1,tp={world}")):
+        tp_loss, tp_g = step(plm.shard_lm_params(params, specs, world,
+                                                 rank), "tp")
+    cut = plm.shard_lm_params(dense_g, specs, world, rank)
+    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(_leaves(tp_g), _leaves(cut))]
+    torch.cuda.synchronize()
+    return {"loss": tp_loss, "dense_loss": dense_loss,
+            "loss_rel": abs(tp_loss - dense_loss) / abs(dense_loss),
+            "grad_rel_max": max(errs), "leaves": len(errs)}
+
+
+def tp_rank(argv):
+    """``--tp-rank RANK WORLD PORT FILE``: one rank of the tp phase's
+    world: its own card over NCCL when there are WORLD cards, else the
+    first card over gloo. Rank 0 serves ``FILE``'s requests through a
+    ``mesh="dp=1,tp=WORLD"`` paged engine (eager) and the others follow;
+    then every rank takes the TP training step. Prints ``TP_RESULT
+    {json}`` last."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    with open(argv[3]) as f:
+        job = json.load(f)
+    own = torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if own else 0)
+    torch.cuda.set_device(dev)
+    backend = "nccl" if own else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+    from horovod_tpu_torch.ops.paged_attention import paged_attention_decode
+    from horovod_tpu_torch.serve import ServeConfig, ServeEngine
+
+    out = {"rank": rank, "backend": backend, "device": str(dev)}
+    try:
+        params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM,
+                                FFN, device=dev)
+        eng = ServeEngine(params, ServeConfig(
+            page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
+            prefill_chunk=CHUNK, attention="paged",
+            mesh=f"dp=1,tp={world}"), device=dev, capture=False,
+            chips=world)
+        out["page_shape"] = list(eng.cache.pages[0]["k"].shape)
+        out["pages_contiguous"] = all(
+            t.is_contiguous() for layer in eng.cache.pages
+            for t in layer.values())
+        prompts = [np.asarray(p, np.int32) for p in job["prompts"]]
+        # K4's count from just before the engine serves to just after.
+        paged_attention_decode.launches = 0
+        t0 = time.perf_counter()
+        if eng.is_controller:
+            eng.submit(prompts[0][:16], 4)
+            eng.run()
+            eng.reset_metrics()
+            t1 = time.perf_counter()
+            reqs = []
+            for idx, steps in job["waves"]:
+                reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
+                for _ in range(steps):
+                    eng.step()
+            eng.run(max_steps=2000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            eng.close()
+            out["streams"] = [r.output for r in reqs]
+            out["states"] = [r.state for r in reqs]
+            out["stats"] = eng.stats()
+            out["wall"] = wall
+            refs = job["refs"]
+            out["divergence"] = None
+            for i, (r, ref) in enumerate(zip(reqs, refs)):
+                j = _first_divergence(r.output, ref)
+                if j is not None:
+                    out["divergence"] = {
+                        "request": i, "position": j,
+                        "top2_gap": _top2_gap(torch, params,
+                                              list(prompts[i]) + ref[:j])}
+                    break
+        else:
+            eng.follow()
+        out["lane_ticks"] = eng.lane_ticks
+        out["launches"] = paged_attention_decode.launches
+        out["serve_s"] = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        out["train"] = _tp_train(torch, np, params, world, rank, dev)
+    finally:
+        dist.destroy_process_group()
+    print("TP_RESULT " + json.dumps(out), flush=True)
+
+
+def _tp_world(job):
+    """Start TP_RANKS rank processes of this script over ``job`` (written
+    to a file); wait for all, kill all as soon as one fails or past
+    TP_TIMEOUT_S; return each rank's result."""
+    import os
+    import socket
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tp_job.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        logs = [(open(os.path.join(tmp, f"r{r}.out"), "w+"),
+                 open(os.path.join(tmp, f"r{r}.err"), "w+"))
+                for r in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--tp-rank", str(r), str(TP_RANKS), str(port), path],
+            cwd=here, stdout=o, stderr=e, text=True,
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+            for r, (o, e) in enumerate(logs)]
+        try:
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            while any(p.poll() is None for p in procs):
+                failed = [p for p in procs if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        results = []
+        for r, (p, (o, e)) in enumerate(zip(procs, logs)):
+            o.seek(0)
+            e.seek(0)
+            stdout, stderr = o.read(), e.read()
+            o.close()
+            e.close()
+            lines = [l for l in stdout.splitlines()
+                     if l.startswith("TP_RESULT ")]
+            check(p.returncode == 0 and lines,
+                  f"tp: rank {r} exited {p.returncode}: {stderr[-3000:]}")
+            results.append(json.loads(lines[-1][len("TP_RESULT "):]))
+    return results
+
+
+def tp_phase(torch, np, runs, prompts, waves, card):
+    """Phase 13 (module docstring): the engine phase's requests through a
+    4-rank tensor-parallel paged engine, against the single-card paged
+    engine's streams; K4 on every rank's 3-head shard; the TP training
+    step against the dense one."""
+    t0 = time.perf_counter()
+    index = {id(p): i for i, p in enumerate(prompts)}
+    single = runs["paged"]
+    job = {"prompts": [p.tolist() for p in prompts],
+           "waves": [([index[id(p)] for p in wave], steps)
+                     for wave, steps in waves],
+           "refs": [r.output for r in single["reqs"]]}
+    ranks = _tp_world(job)
+    r0 = ranks[0]
+    check(all(s == "finished" for s in r0["states"]),
+          f"tp: not every request finished: {r0['states']}")
+    div = r0["divergence"]
+    check(div is None,
+          f"tp: request {div and div['request']}: the tp={TP_RANKS} "
+          f"stream and the single-card paged stream diverge at generated "
+          f"position {div and div['position']} (top-2 logit gap there "
+          f"{div and div['top2_gap']})")
+    heads = HEADS // TP_RANKS
+    for r in ranks:
+        check(r["page_shape"] == [NUM_PAGES, PAGE, heads, HEAD_DIM]
+              and r["pages_contiguous"],
+              f"tp: rank {r['rank']}'s pages {r['page_shape']} (contiguous "
+              f"{r['pages_contiguous']}), expected [{NUM_PAGES}, {PAGE}, "
+              f"{heads}, {HEAD_DIM}] each its own tensor")
+        check(r["lane_ticks"] == r0["lane_ticks"] > 0
+              and r["launches"] == LAYERS * r["lane_ticks"],
+              f"tp: rank {r['rank']} launched K4 {r['launches']} times "
+              f"over {r['lane_ticks']} live decode ticks (rank 0: "
+              f"{r0['lane_ticks']}), expected {LAYERS} a tick")
+        t = r["train"]
+        check(t["loss_rel"] <= TP_LOSS_RTOL and math.isfinite(t["loss"]),
+              f"tp: rank {r['rank']}'s TP loss {t['loss']} against the "
+              f"dense {t['dense_loss']} (rel {t['loss_rel']:.2e} > "
+              f"{TP_LOSS_RTOL})")
+        check(t["grad_rel_max"] <= TP_GRAD_RTOL,
+              f"tp: rank {r['rank']}'s gradient shards differ from the "
+              f"dense gradient's slices by up to {t['grad_rel_max']:.2e} "
+              f"of their largest entry (> {TP_GRAD_RTOL})")
+    st, st1 = r0["stats"], single["stats"]
+    kv, kv1 = (st["attention"]["kv_bytes_per_chip"],
+               st1["attention"]["kv_bytes_per_chip"])
+    check(kv <= kv1 / TP_RANKS * 1.001,
+          f"tp: kv_bytes_per_chip {kv} above the single card's {kv1} / "
+          f"{TP_RANKS}")
+    cards = max(1, min(torch.cuda.device_count(), TP_RANKS))
+    res = {
+        "degree": TP_RANKS, "backend": r0["backend"], "cards": cards,
+        "card": card, "mesh": f"dp=1,tp={TP_RANKS}", "attention": "paged",
+        "capture": False,
+        "streams_compared": len(r0["streams"]),
+        "streams_equal": sum(a == b for a, b in zip(r0["streams"],
+                                                    job["refs"])),
+        # chips=TP_RANKS: the engine's tokens over its ranks; over the
+        # card(s) they share.
+        "tokens_per_sec_per_card": (st["tokens_per_sec_per_chip"]
+                                    * TP_RANKS / cards
+                                    if st["tokens_per_sec_per_chip"]
+                                    else None),
+        "single_tokens_per_sec": st1["tokens_per_sec_per_chip"],
+        "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
+        "wall_s": r0["wall"],
+        "kv_bytes_per_chip": kv, "kv_bytes_per_chip_single": kv1,
+        "k4_launches": [r["launches"] for r in ranks],
+        "lane_ticks": [r["lane_ticks"] for r in ranks],
+        "k4_heads": heads,
+        "page_shape": r0["page_shape"],
+        "train": {k: [r["train"][k] for r in ranks]
+                  for k in ("loss", "dense_loss", "loss_rel",
+                            "grad_rel_max")},
+        "train_shape": [TP_BATCH, TP_SEQ],
+        "caveat": TP_CAVEAT if r0["backend"] == "gloo" else None,
+    }
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"tp: {TP_RANKS} ranks over {res['backend']} on {cards} card(s): "
+        f"{res['streams_equal']}/{res['streams_compared']} streams equal "
+        f"the single card's; K4 {res['k4_launches']} launches over "
+        f"{res['lane_ticks']} live ticks ({heads} heads a rank); "
+        f"kv_bytes_per_chip {kv} vs {kv1}; tokens/s a card "
+        f"{res['tokens_per_sec_per_card']}; train loss rel "
+        f"{max(res['train']['loss_rel']):.2e}, grad rel "
+        f"{max(res['train']['grad_rel_max']):.2e}; phase passed in "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -3463,7 +3789,7 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
-def _paged_record(kres, rate, runs, fleet, disagg, ptxas, card):
+def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
     """The kernels line's entry of K4: launches from the engine phase (the
     captured engine's wrapper calls, counted from its construction: the
     warm-up step and the capture; the eager engine's; and the kernels a
@@ -3513,6 +3839,10 @@ def _paged_record(kres, rate, runs, fleet, disagg, ptxas, card):
             disagg["launches"]["inproc_per_replica"],
         "disagg_tick_replay_launches": disagg["launches"]["tick_replay"],
         "disagg_worker_launches": disagg["launches"]["worker"],
+        # The tp phase: each rank's launches over its 3-head shard (eager:
+        # 12 a live decode tick), with the live ticks.
+        "tp_launches_per_rank": tpres["k4_launches"],
+        "tp_live_ticks_per_rank": tpres["lane_ticks"],
         "captured": "the decode lane is one CUDA graph; wrapper calls count "
                     "its warm-up step and capture, replay_launches the "
                     "split kernels a captured run's trace holds",
@@ -3530,6 +3860,11 @@ def _paged_record(kres, rate, runs, fleet, disagg, ptxas, card):
         "long_context": {"shape": long["shape"],
                          "float32": {k: long["float32"][k] for k in keys},
                          "bfloat16": {k: long["bfloat16"][k] for k in keys}},
+        # A tensor-parallel rank's head shard: 6 heads (tp = 2), 3 (tp = 4).
+        "tp_shapes": {name: {"shape": kres[name]["shape"],
+                             **{d: {k: kres[name][d][k] for k in keys}
+                                for d in ("float32", "bfloat16")}}
+                      for name, _, heads in K4_SHAPES if heads != HEADS},
         "ptxas": ptxas, "card": card,
     }
 
@@ -3706,9 +4041,28 @@ def hier_only(torch, np, card):
     print(json.dumps({"hier": hier_phase(torch, np, card)}), flush=True)
 
 
+def tp_only(torch, np, card):
+    """``--tp-only``: the build, one captured paged engine run (the
+    reference streams) and the tp phase."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+
+    build_phase()
+    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+                            device="cuda")
+    prompts, waves = _requests(np)
+    _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
+                           True)
+    del params
+    torch.cuda.empty_cache()
+    res = tp_phase(torch, np, {"paged": single}, prompts, waves, card)
+    print(json.dumps({"tp": res}), flush=True)
+
+
 def main():
     if "--hier-rank" in sys.argv[1:]:
         return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
+    if "--tp-rank" in sys.argv[1:]:
+        return tp_rank(sys.argv[sys.argv.index("--tp-rank") + 1:])
     import numpy as np
     import torch
 
@@ -3726,6 +4080,8 @@ def main():
         return disagg_only(torch, np, card)
     if "--hier-only" in sys.argv[1:]:
         return hier_only(torch, np, card)
+    if "--tp-only" in sys.argv[1:]:
+        return tp_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -3752,6 +4108,7 @@ def main():
         colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
                    "process": fleet["process"]["clean"]}))
     hres = timed("hier", hier_phase(torch, np, card))
+    tpres = timed("tp", tp_phase(torch, np, runs, prompts, waves, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -3764,9 +4121,10 @@ def main():
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"disagg": disagg}), flush=True)
     print(json.dumps({"hier": hres}), flush=True)
+    print(json.dumps({"tp": tpres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        _paged_record(kres, rate, runs, fleet, disagg,
+        _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, hres, card),
         _conv_bn_record(cres, rres, wres, card)]}

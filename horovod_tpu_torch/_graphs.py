@@ -43,6 +43,7 @@ caller asked for the CPU.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Optional
 
@@ -150,6 +151,12 @@ class CapturedStep:
                      else x for x in flat]
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # A graph destroyed while this stream captures (another engine's,
+        # freed by the cycle collector) invalidates the capture: the
+        # collector stays off until it ends (torch.cuda.graph collects
+        # once just before the capture begins).
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
                 static_out = self.fn(*tree_unflatten(static_in, spec))
@@ -158,6 +165,9 @@ class CapturedStep:
                 f"{self.name}: CUDA graph capture failed ({type(e).__name__}"
                 f": {e}); the step must run without host syncs and with "
                 "capturable optimizers and process groups") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_s = time.perf_counter() - t0
         self._graph, self._signature = graph, signature
         self._static_in, self._static_out = static_in, static_out

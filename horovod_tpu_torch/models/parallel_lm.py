@@ -1,5 +1,5 @@
-"""GPT-style LM, dense path: the port of ``horovod_tpu.models.parallel_lm``
-with ``sp=tp=None``.
+"""GPT-style LM: the port of ``horovod_tpu.models.parallel_lm``, dense
+and tensor-parallel.
 
 Plain functions over a parameter dict of tensors whose structure and
 layouts are exactly the JAX pytree's (``wqkv [E, 3, H, Dh]``, ``wo [H,
@@ -11,11 +11,22 @@ before ``* g + b``; the tanh-approximated GELU (``jax.nn.gelu``'s
 default); the attention scale ``1 / math.sqrt(D)``; greedy selection as
 ``argmax`` of the float32 logits (the first maximum in both frameworks).
 
-The dense training losses (``next_token_nll`` and the chunked
+The training losses (``next_token_nll`` and the chunked
 ``next_token_nll_fused``) and the speculative-decoding functions
-(``draft_params``, ``lm_verify_window``, ``lm_decode_spec``) are here;
-tensor, sequence and pipeline parallelism and the MoE variant are ported
-by later slices (ROADMAP.md Queue 1, parallelism).
+(``draft_params``, ``lm_verify_window``, ``lm_decode_spec``) are here.
+
+**Tensor parallelism** (``tp`` = a tensor axis of the bound
+:class:`~horovod_tpu_torch.parallel.logical.LogicalMesh`): heads and MLP
+features shard Megatron-style over ``torch.distributed``. Each rank
+holds the shard :func:`shard_lm_params` cuts from the dense dict along
+:func:`lm_param_specs` (the JAX ``device_put(NamedSharding)``), and
+calls the same functions with ``tp=axis``: column-parallel QKV and
+up-projections (no communication), row-parallel output and down
+projections (one all-reduce each). With ``vocab_parallel`` the head is
+column-sharded too and :func:`next_token_nll_fused` takes the
+vocab-parallel loss. :func:`reduce_grads` pairs with it. Sequence and
+pipeline parallelism and the MoE variant are ported by later slices
+(ROADMAP.md Queue 1, items 4.4-4.6).
 """
 
 from __future__ import annotations
@@ -29,6 +40,10 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.ops.attention import dot_product_attention
+from horovod_tpu_torch.parallel.tp import (shard_columns, shard_rows,
+                                           tp_mlp, tp_region_input,
+                                           tp_region_output,
+                                           vocab_parallel_logits)
 
 
 def init_lm_params(seed: int, vocab: int, max_len: int, layers: int,
@@ -89,6 +104,72 @@ def params_from_numpy(tree, device: DeviceLike, dtype=None):
     return conv(tree)
 
 
+def lm_param_specs(layers: int, tp_axis: Optional[str],
+                   vocab_parallel: bool = False):
+    """The partition specs of :func:`init_lm_params`' dict: per leaf a
+    tuple with one physical axis name (or ``None``) per dimension, entry
+    for entry the JAX ``PartitionSpec`` (``()`` = replicated). Heads and
+    MLP features shard over ``tp_axis``; ``vocab_parallel`` also shards
+    the head ``[E, V]`` by columns (pair it with
+    :func:`next_token_nll_fused`'s vocab-parallel loss or the serving
+    lanes' vocab all-gather). ``tp_axis=None`` replicates everything."""
+    t = tp_axis
+    layer_spec = {
+        "ln1": {"g": (), "b": ()},
+        "wqkv": (None, None, t, None),
+        "wo": (t, None, None),
+        "bo": (),
+        "ln2": {"g": (), "b": ()},
+        "wup": (None, t),
+        "bup": (t,),
+        "wdn": (t, None),
+        "bdn": (),
+    }
+    return {
+        "embed": (),
+        "pos": (),
+        "layers": [dict(layer_spec) for _ in range(layers)],
+        "ln_f": {"g": (), "b": ()},
+        "head": (None, t) if vocab_parallel else (),
+    }
+
+
+def _shard_leaf(x, spec, tp: int, index: int):
+    """One leaf's shard: every dimension whose spec entry names an axis
+    splits into ``tp`` parts (the last dimension by
+    :func:`~horovod_tpu_torch.parallel.tp.shard_columns`, the first by
+    :func:`~horovod_tpu_torch.parallel.tp.shard_rows`, a middle one
+    alike), returned as a tensor of its own."""
+    x = x if torch.is_tensor(x) else torch.tensor(np.asarray(x))
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        if dim == x.dim() - 1:
+            x = shard_columns(x, tp, index)
+        elif dim == 0:
+            x = shard_rows(x, tp, index)
+        else:
+            x = shard_columns(x.movedim(dim, -1), tp, index).movedim(-1,
+                                                                     dim)
+    return x.contiguous() if not x.is_contiguous() else x.clone()
+
+
+def shard_lm_params(params, specs, tp: int, index: int):
+    """Rank ``index``'s shard of the dense dict ``params`` (tensors, or
+    numpy arrays as :func:`params_from_numpy` takes them) along
+    ``specs`` (:func:`lm_param_specs`) over a tensor axis of size
+    ``tp``: the counterpart of the JAX package's ``device_put`` with a
+    ``NamedSharding``. Each leaf of the result is a tensor of its own on
+    the leaf's device (the dense tensors can be freed)."""
+    if isinstance(params, dict):
+        return {k: shard_lm_params(v, specs[k], tp, index)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [shard_lm_params(v, s, tp, index)
+                for v, s in zip(params, specs)]
+    return _shard_leaf(params, specs, tp, index)
+
+
 def params_to(params, device: torch.device):
     """The same parameter dict with every tensor on ``device`` (leaves
     already there are returned as they are)."""
@@ -106,21 +187,31 @@ def _layernorm(x, g, b):
     return ((x32 - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype) * g + b
 
 
-def _project_qkv(layer, x):
-    """ln1 -> fused QKV projection: ``[B, L, E] -> 3 x [B, L, H, D]``."""
+def _project_qkv(layer, x, tp=None):
+    """ln1 -> (Megatron ``f``) -> fused QKV projection onto the local
+    heads: ``[B, L, E] -> 3 x [B, L, H/P, D]``."""
     a = _layernorm(x, layer["ln1"]["g"], layer["ln1"]["b"])
+    if tp:
+        # The upstream gradients sum the head shards' cotangents.
+        a = tp_region_input(a, tp)
     qkv = torch.einsum("ble,ethd->blthd", a, layer["wqkv"])
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _attn_out_residual(layer, attn, x):
-    """Output projection + residual."""
+def _attn_out_residual(layer, attn, x, tp=None):
+    """Row-parallel output projection (Megatron ``g``) + residual."""
     proj = torch.einsum("blhd,hde->ble", attn, layer["wo"])
+    if tp:
+        proj = tp_region_output(proj, tp)
     return x + proj + layer["bo"]
 
 
-def _ffn_residual(layer, x):
+def _ffn_residual(layer, x, tp=None):
     m = _layernorm(x, layer["ln2"]["g"], layer["ln2"]["b"])
+    if tp:
+        m = tp_region_input(m, tp)
+        return x + tp_mlp(m, layer["wup"], layer["bup"], layer["wdn"],
+                          layer["bdn"], axis=tp)
     h = F.gelu(m @ layer["wup"] + layer["bup"], approximate="tanh")
     return x + h @ layer["wdn"] + layer["bdn"]
 
@@ -129,28 +220,40 @@ def _final_hidden(params, x):
     return _layernorm(x, params["ln_f"]["g"], params["ln_f"]["b"])
 
 
-def _logits(params, x):
-    """Final LayerNorm + vocab projection -> full-vocab logits."""
-    return _final_hidden(params, x) @ params["head"]
+def _logits(params, x, tp=None, vocab_parallel: bool = False):
+    """Final LayerNorm + vocab projection -> full-vocab logits. With
+    ``vocab_parallel`` the head arrives column-sharded ``[E, V/P]`` and
+    the full row is assembled by one all-gather
+    (:func:`~horovod_tpu_torch.parallel.tp.vocab_parallel_logits`)."""
+    h = _final_hidden(params, x)
+    if vocab_parallel:
+        if not tp:
+            raise ValueError("vocab_parallel logits need a tp axis")
+        return vocab_parallel_logits(h, params["head"], axis=tp)
+    return h @ params["head"]
 
 
-def lm_apply(params: Dict, tokens, return_hidden: bool = False):
+def lm_apply(params: Dict, tokens, sp: Optional[str] = None,
+             tp: Optional[str] = None, return_hidden: bool = False):
     """Token ids ``[B, L]`` -> logits ``[B, L, vocab]`` (or the final
-    hidden state ``[B, L, E]`` with ``return_hidden``)."""
+    hidden state ``[B, L, E]`` with ``return_hidden``, for
+    :func:`next_token_nll_fused`). ``tp`` names the tensor axis: the
+    params are this rank's :func:`shard_lm_params` shard."""
+    _dense_only(sp)
     B, L = tokens.shape
     x = params["embed"][tokens] + params["pos"][:L][None]
     for layer in params["layers"]:
-        q, k, v = _project_qkv(layer, x)
+        q, k, v = _project_qkv(layer, x, tp)
         scale = 1.0 / math.sqrt(q.shape[-1])
         attn = dot_product_attention(q, k, v, causal=True, scale=scale)
-        x = _attn_out_residual(layer, attn, x)
-        x = _ffn_residual(layer, x)
+        x = _attn_out_residual(layer, attn, x, tp)
+        x = _ffn_residual(layer, x, tp)
     if return_hidden:
         return _final_hidden(params, x)
     return _logits(params, x)
 
 
-def lm_prefill(params: Dict, prompt):
+def lm_prefill(params: Dict, prompt, tp: Optional[str] = None):
     """Full forward over the prompt ``[B, Lp]``, capturing each layer's
     K/V into fixed-size ``[B, Lmax, H, D]`` caches (Lmax = the position
     table). Returns ``(caches, logits_last [B, vocab])``."""
@@ -159,17 +262,18 @@ def lm_prefill(params: Dict, prompt):
     x = params["embed"][prompt] + params["pos"][None, :Lp]
     caches = []
     for layer in params["layers"]:
-        q, k, v = _project_qkv(layer, x)
+        q, k, v = _project_qkv(layer, x, tp)
         scale = 1.0 / math.sqrt(q.shape[-1])
         pad = (0, 0, 0, 0, 0, Lmax - Lp)
         caches.append({"k": F.pad(k, pad), "v": F.pad(v, pad)})
         attn = dot_product_attention(q, k, v, causal=True, scale=scale)
-        x = _attn_out_residual(layer, attn, x)
-        x = _ffn_residual(layer, x)
+        x = _attn_out_residual(layer, attn, x, tp)
+        x = _ffn_residual(layer, x, tp)
     return caches, _logits(params, x[:, -1:])[:, 0]
 
 
-def lm_decode_step(params: Dict, caches, tok, t: int):
+def lm_decode_step(params: Dict, caches, tok, t: int,
+                   tp: Optional[str] = None):
     """One KV-cache decode step: write ``tok``'s K/V at position ``t``,
     attend the new token against the masked cache, return ``(new_caches,
     logits [B, vocab])``. ``tok`` is ``[B]`` integer; the input caches
@@ -177,7 +281,7 @@ def lm_decode_step(params: Dict, caches, tok, t: int):
     x = params["embed"][tok][:, None] + params["pos"][t:t + 1][None]
     new_caches = []
     for layer, cache in zip(params["layers"], caches):
-        q, k, v = _project_qkv(layer, x)                 # [B, 1, H, D]
+        q, k, v = _project_qkv(layer, x, tp)             # [B, 1, H, D]
         ck = cache["k"].clone()
         cv = cache["v"].clone()
         ck[:, t] = k[:, 0]
@@ -186,21 +290,23 @@ def lm_decode_step(params: Dict, caches, tok, t: int):
         scale = 1.0 / math.sqrt(q.shape[-1])
         attn = dot_product_attention(q, ck, cv, causal=True, scale=scale,
                                      q_offset=t)
-        x = _attn_out_residual(layer, attn, x)
-        x = _ffn_residual(layer, x)
+        x = _attn_out_residual(layer, attn, x, tp)
+        x = _ffn_residual(layer, x, tp)
     return new_caches, _logits(params, x)[:, 0]
 
 
 def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
               generator: Optional[torch.Generator] = None,
-              device: DeviceLike = None):
+              device: DeviceLike = None, tp: Optional[str] = None):
     """Autoregressive generation with a static-shape KV cache: prefill,
     then ``steps`` single-token decode steps. ``prompt`` is ``[B, Lp]``
     token ids (any integer array); the parameters and the prompt are
     moved to ``device`` (``None`` = the card). ``temperature=0`` is
     greedy argmax; otherwise categorical sampling with ``generator``
     (a ``torch.Generator`` on ``device``). Returns the generated ids
-    ``[B, steps]``."""
+    ``[B, steps]``. ``tp`` names the tensor axis when ``params`` is a
+    rank's :func:`shard_lm_params` shard (every rank of the axis calls
+    it with the same prompt and draws)."""
     dev = resolve_device(device)
     params = params_to(params, dev)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
@@ -215,7 +321,7 @@ def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
         raise ValueError("temperature > 0 requires a torch.Generator")
 
     with torch.no_grad():
-        caches, logits = lm_prefill(params, prompt)
+        caches, logits = lm_prefill(params, prompt, tp)
         toks = []
         for i in range(steps):
             lg = logits.float()
@@ -226,7 +332,8 @@ def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
                 tok = torch.argmax(lg, dim=-1)
             toks.append(tok)
             if i + 1 < steps:   # the last token is never fed back
-                caches, logits = lm_decode_step(params, caches, tok, Lp + i)
+                caches, logits = lm_decode_step(params, caches, tok, Lp + i,
+                                                tp)
     return torch.stack(toks, dim=1)
 
 
@@ -249,7 +356,8 @@ def draft_params(params: Dict, layers: int) -> Dict:
             "ln_f": params["ln_f"], "head": params["head"]}
 
 
-def lm_verify_window(params: Dict, caches, toks, t: int):
+def lm_verify_window(params: Dict, caches, toks, t: int,
+                     tp: Optional[str] = None):
     """Speculative-decoding verify pass: ONE rectangular-causal step
     over a ``w``-token window — write the window's K/V rows at positions
     ``t..t+w-1`` and return the logits at all ``w`` positions, so a
@@ -266,7 +374,7 @@ def lm_verify_window(params: Dict, caches, toks, t: int):
     x = params["embed"][toks] + params["pos"][t:t + w][None]
     new_caches = []
     for layer, cache in zip(params["layers"], caches):
-        q, k, v = _project_qkv(layer, x)                 # [B, w, H, D]
+        q, k, v = _project_qkv(layer, x, tp)             # [B, w, H, D]
         ck = cache["k"].clone()
         cv = cache["v"].clone()
         ck[:, t:t + w] = k
@@ -275,13 +383,14 @@ def lm_verify_window(params: Dict, caches, toks, t: int):
         scale = 1.0 / math.sqrt(q.shape[-1])
         attn = dot_product_attention(q, ck, cv, causal=True, scale=scale,
                                      q_offset=t)
-        x = _attn_out_residual(layer, attn, x)
-        x = _ffn_residual(layer, x)
+        x = _attn_out_residual(layer, attn, x, tp)
+        x = _ffn_residual(layer, x, tp)
     return new_caches, _logits(params, x)
 
 
 def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
-                   draft_layers: int, device: DeviceLike = None):
+                   draft_layers: int, device: DeviceLike = None,
+                   tp: Optional[str] = None):
     """Greedy speculative decoding, the model-level reference of the
     serving engine's speculative lane: the layer-skip draft
     (:func:`draft_params`) proposes up to ``k`` tokens a tick, the target
@@ -317,7 +426,7 @@ def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
         return int(torch.argmax(logits.float(), dim=-1)[0])
 
     with torch.no_grad():
-        caches, logits_last = lm_prefill(params, prompt)
+        caches, logits_last = lm_prefill(params, prompt, tp)
         out = [argmax(logits_last)]
         while len(out) < steps:
             t = Lp + len(out) - 1
@@ -331,11 +440,11 @@ def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
             for i in range(k_eff):
                 dcaches, dlg = lm_decode_step(
                     dparams, dcaches, torch.full((1,), tok, device=dev),
-                    t + i)
+                    t + i, tp)
                 tok = argmax(dlg)
                 d.append(tok)
             window = torch.tensor([[out[-1]] + d], device=dev)
-            caches, vlg = lm_verify_window(params, caches, window, t)
+            caches, vlg = lm_verify_window(params, caches, window, t, tp)
             tgt = torch.argmax(vlg.float(), dim=-1)[0].tolist()
             for i, tok in enumerate(tgt):
                 out.append(tok)
@@ -344,20 +453,20 @@ def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
     return torch.tensor([out], device=dev)
 
 
-def _dense_only(sp, tp, vocab_parallel=False):
-    if sp is not None or tp is not None or vocab_parallel:
+def _dense_only(sp):
+    if sp is not None:
         raise NotImplementedError(
-            "sequence- and tensor-parallel losses shard the sequence or "
-            "the head over a mesh axis, which the port does not have yet "
-            "(ROADMAP.md Queue 1, parallelism); pass sp=None, tp=None")
+            "sequence parallelism shards the sequence over a mesh axis, "
+            "which comes with ROADMAP.md Queue 1 item 4.4 (ring "
+            "attention, Ulysses); pass sp=None")
 
 
 def _shifted_targets(tokens, sp: Optional[str] = None):
-    """Next-token targets and validity weights for the dense path
+    """Next-token targets and validity weights, without a sequence axis
     (``sp=None``): ``targets [B, L]`` are the tokens shifted left by one
     (the last position wraps to the first token, any valid id) and
     ``valid [B, L]`` float32 masks out the last position."""
-    _dense_only(sp, None)
+    _dense_only(sp)
     B, L = tokens.shape
     tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     valid = (torch.arange(L, device=tokens.device) < L - 1).float()
@@ -379,15 +488,67 @@ def next_token_nll_fused(params: Dict, hidden, tokens,
     """:func:`next_token_nll` without the ``[B, L, V]`` logits:
     ``hidden`` is :func:`lm_apply`'s ``return_hidden=True`` output, and
     the vocab projection happens chunk by chunk inside
-    :func:`~horovod_tpu_torch.ops.xent.fused_cross_entropy`."""
-    from horovod_tpu_torch.ops.xent import fused_cross_entropy
+    :func:`~horovod_tpu_torch.ops.xent.fused_cross_entropy`. With
+    ``vocab_parallel`` the head arrives ``[E, V/P]``-sharded over ``tp``
+    (:func:`lm_param_specs` ``vocab_parallel=True``) and
+    :func:`~horovod_tpu_torch.ops.xent.tp_vocab_cross_entropy` assembles
+    the normaliser over the axis: the same loss on every rank."""
+    from horovod_tpu_torch.ops.xent import (fused_cross_entropy,
+                                            tp_vocab_cross_entropy)
 
-    _dense_only(sp, tp, vocab_parallel)
     B, L = tokens.shape
-    tgt, valid = _shifted_targets(tokens)
+    tgt, valid = _shifted_targets(tokens, sp)
     e = hidden.shape[-1]
     w2 = valid.reshape(B * L)
-    # params["head"] is [E, V]; the fused loss takes nn.Linear's [V, E].
-    return fused_cross_entropy(hidden.reshape(B * L, e), params["head"].t(),
-                               tgt.reshape(B * L), t_chunk, weights=w2,
-                               denom=w2.sum())
+    # params["head"] is [E, V]; the fused losses take nn.Linear's [V, E].
+    args = (hidden.reshape(B * L, e), params["head"].t(), tgt.reshape(B * L))
+    if vocab_parallel:
+        if not tp:
+            raise ValueError("vocab_parallel needs a tp axis")
+        return tp_vocab_cross_entropy(*args, tp, t_chunk, weights=w2,
+                                      denom=w2.sum())
+    return fused_cross_entropy(*args, t_chunk, weights=w2, denom=w2.sum())
+
+
+def reduce_grads(grads, dp: Optional[str] = None, sp: Optional[str] = None):
+    """The gradient reduction that pairs with :func:`next_token_nll` and
+    :func:`next_token_nll_fused`, on a gradient dict of the params'
+    structure (this rank's shard's gradients):
+
+    * ``dp``: MEAN over the data axis of the bound mesh — the global
+      loss is the mean of the data shards' means;
+    * ``tp``: nothing — the tensor axis's ranks see the same data, so
+      replicated leaves get the same gradients (the ``f``/``g``
+      conjugates sum the shards' terms) and sharded leaves' gradients
+      are exactly their slices;
+    * ``sp``: comes with sequence parallelism (ROADMAP.md Queue 1 item
+      4.4) and raises.
+
+    Returns a new dict; the inputs are left unchanged."""
+    _dense_only(sp)
+    if not dp:
+        return grads
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+    from horovod_tpu_torch.parallel.logical import current_logical_mesh
+
+    lm = current_logical_mesh()
+    if lm is None or not lm.defines(dp):
+        raise InvalidArgumentError(
+            f"reduce_grads(dp={dp!r}) needs a bound LogicalMesh with a "
+            f"{dp!r} axis")
+    if lm.axes[dp] == 1:
+        return grads
+    import torch.distributed as dist
+
+    group, n = lm.mesh.get_group(dp), lm.axes[dp]
+
+    def mean(g):
+        if isinstance(g, dict):
+            return {k: mean(v) for k, v in g.items()}
+        if isinstance(g, (list, tuple)):
+            return [mean(v) for v in g]
+        out = g.clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    return mean(grads)

@@ -6,11 +6,12 @@ logical`: the axis vocabulary, ``LogicalMesh`` and its rules table) and
 the mesh layer (:mod:`~horovod_tpu_torch.parallel.mesh`: rank-grid
 meshes, the host topology, and the two-level intra-host / inter-host
 ladder that the fused gradient buckets run under
-``HOROVOD_HIERARCHICAL``).
+``HOROVOD_HIERARCHICAL``), and tensor parallelism
+(:mod:`~horovod_tpu_torch.parallel.tp`: Megatron's column/row-parallel
+layers and their conjugate collectives over a mesh's tensor axis).
 
-Not ported yet: tensor parallelism (``tp``) and TP-sharded paged decode
-(ROADMAP.md Queue 1, item 4.3); sequence parallelism (``ulysses``,
-``ring_attention``, item 4.4); pipeline parallelism (``pipeline``, item
+Not ported yet: sequence parallelism (``ulysses``, ``ring_attention``,
+ROADMAP.md Queue 1 item 4.4); pipeline parallelism (``pipeline``, item
 4.5); expert parallelism (``moe``, item 4.6); and the SPMD harness
 (``spmd``, item 4.7).
 """
@@ -32,4 +33,15 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     hierarchical_allreduce,
     hierarchical_mesh,
     make_mesh,
+)
+from horovod_tpu_torch.parallel.tp import (  # noqa: F401
+    column_parallel,
+    row_parallel,
+    shard_columns,
+    shard_rows,
+    sum_across,
+    tp_mlp,
+    tp_region_input,
+    tp_region_output,
+    vocab_parallel_logits,
 )

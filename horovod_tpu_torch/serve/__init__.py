@@ -37,7 +37,12 @@
   workers' ``kv_*`` RPCs. Like the reference, the package exports no
   name of its own for it.
 
-Tensor-parallel serving (ROADMAP.md Queue 1 item 4) is still to port.
+* tensor-parallel serving (``ServeConfig(mesh="dp=1,tp=N")``): one
+  engine over the N ranks of a ``torch.distributed`` world, rank 0 the
+  controller and the others :meth:`ServeEngine.follow`-ing
+  (:func:`~horovod_tpu_torch.serve.engine.resolve_tp_mesh`); a fleet or
+  pool of such engines is still to port (ROADMAP.md Queue 1 item 4.3's
+  follow-ups).
 """
 
 import importlib

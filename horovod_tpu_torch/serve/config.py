@@ -10,12 +10,14 @@ fields, defaults and validation. The page math contract:
   with it, and reads beyond a request's length are masked, so its
   contents are never observed — ``num_pages - 1`` pages are allocatable.
 
-One knob of the JAX engine has no port yet and must keep its default:
-``mesh`` (tensor-parallel serving). Any other value raises
-:class:`NotImplementedError` naming the ROADMAP.md queue item that ports
-it. :class:`FleetConfig` sizes the fleet
+``mesh`` (``"dp=1,tp=4"``) shards one engine's heads, MLP features
+and vocab over the ranks of a ``torch.distributed`` world
+(:func:`~horovod_tpu_torch.serve.engine.resolve_tp_mesh`), validated
+here as the reference validates it (:meth:`ServeConfig.mesh_axes`).
+:class:`FleetConfig` sizes the fleet
 (:mod:`~horovod_tpu_torch.serve.fleet`), with the reference's fields,
-defaults and validation.
+defaults and validation; a fleet of tensor-parallel engines is not
+ported yet (:func:`refuse_tp_fleet`).
 """
 
 from __future__ import annotations
@@ -178,10 +180,49 @@ class ServeConfig:
                 f"default_ttl must be > 0 seconds (or None), got "
                 f"{self.default_ttl}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                f"ServeConfig.mesh={self.mesh!r} is not ported yet; it "
-                "comes with ROADMAP.md Queue 1, parallelism (TP-sharded "
-                "paged decode)")
+            self.mesh_axes()   # fail-fast: syntax + axis-shape errors
+
+    def mesh_axes(self) -> Optional[dict]:
+        """The parsed ``mesh`` axes (``None`` when unsharded), validated
+        for the serve shape: the canonical ``name=size`` syntax, fully
+        specified sizes (no ``-1`` wildcard: the engine must know its
+        rank budget before it touches one), and only the tensor role
+        axis above size 1. Raises
+        :class:`~horovod_tpu_torch.common.exceptions.InvalidArgumentError`
+        at construction, with the reference's messages."""
+        if self.mesh is None:
+            return None
+        from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+        from horovod_tpu_torch.parallel.logical import (ROLE_AXES,
+                                                        parse_mesh_config)
+
+        axes = parse_mesh_config(self.mesh)    # raises on bad syntax
+        tensor = ROLE_AXES["tensor"]
+        for name, size in axes.items():
+            if size == -1:
+                raise InvalidArgumentError(
+                    f"ServeConfig.mesh {self.mesh!r}: the serve mesh "
+                    f"must be fully specified — '-1' wildcards resolve "
+                    "against a device count the config does not know")
+            if name != tensor and size != 1:
+                raise InvalidArgumentError(
+                    f"ServeConfig.mesh {self.mesh!r}: axis {name!r} has "
+                    f"size {size}, but one engine shards over the "
+                    f"tensor axis ({tensor!r}) only — data parallelism "
+                    "is the FLEET's job (one engine per mesh is one "
+                    "logical replica)")
+        return axes
+
+    @property
+    def tp_degree(self) -> int:
+        """The tensor-parallel degree the ``mesh`` string names (1 when
+        unsharded)."""
+        axes = self.mesh_axes()
+        if not axes:
+            return 1
+        from horovod_tpu_torch.parallel.logical import ROLE_AXES
+
+        return axes.get(ROLE_AXES["tensor"], 1)
 
     @property
     def in_flight_limit(self) -> int:
@@ -190,6 +231,19 @@ class ServeConfig:
         decodes."""
         return self.max_in_flight if self.max_in_flight > 0 \
             else self.decode_slots + 1
+
+
+def refuse_tp_fleet(config: ServeConfig) -> None:
+    """A fleet or pool of tensor-parallel engines is not ported yet:
+    raise :class:`NotImplementedError` when ``config`` shards over more
+    than one rank (the reference's own tool refuses ``--mesh`` with
+    ``--fleet``)."""
+    if config.tp_degree > 1:
+        raise NotImplementedError(
+            f"ServeConfig.mesh={config.mesh!r}: a fleet of tensor-"
+            "parallel replicas (and a pool of them) is not ported yet; "
+            "it comes with ROADMAP.md Queue 1 item 4.3's follow-ups (TP "
+            "replicas in fleets and pools)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -97,30 +97,56 @@ next step's slot promotion packs its table into the lane's index buffer
 as it does for a locally prefilled request, so a captured decode lane
 replays over the imported pages without a new capture.
 
-Tensor-parallel serving comes with a later slice (ROADMAP.md, Queue 1
-item 4).
+**Tensor-parallel serving** (``ServeConfig.mesh``, e.g. ``"dp=1,tp=4"``,
+over a ``torch.distributed`` world of that many ranks): heads, MLP
+features and the vocab projection shard Megatron-style
+(:func:`~horovod_tpu_torch.models.parallel_lm.lm_param_specs` with
+``vocab_parallel``), each rank's page tensors hold its head shard
+``[num_pages, page_size, H/tp, D]`` and its paged-attention kernel runs
+over those ``H/tp`` heads, and every lane ends with the vocab all-gather
+(:func:`~horovod_tpu_torch.parallel.tp.vocab_parallel_logits`), so every
+rank holds the same full-vocab float32 rows. The JAX engine drives its
+chips from one process; here each rank is a process, so the engine is a
+controller and followers. Rank 0 of the tensor axis (the controller)
+owns the control plane: the scheduler, the allocator, the prefix index,
+sampling and stats (:meth:`ServeEngine.submit`, :meth:`~ServeEngine.step`,
+:meth:`~ServeEngine.run`, :meth:`~ServeEngine.stats`). Every rank owns
+its slice of the data plane. Each data-plane action — a step's prefill
+chunk and lane, a copy-on-write page copy — is broadcast over the tensor
+group first: a fixed int32 header (op, flags), then the action's inputs
+(the prefill chunk packed as int32, the lane's packed index and the
+draft's temperatures). A follower (:meth:`ServeEngine.follow`) runs the
+same lane functions on its shards until the controller's
+:meth:`ServeEngine.close`, so no rank reads a page another rank's
+allocator placed differently. A tensor-parallel lane runs eagerly:
+``capture=True`` raises (ROADMAP.md Queue 1 item 4.3's follow-ups).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_leaves
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch._graphs import CapturedStep
-from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
+                                                 PreconditionError)
 from horovod_tpu_torch.models.parallel_lm import (
     _attn_out_residual,
     _ffn_residual,
     _logits,
     _project_qkv,
     draft_params,
+    lm_param_specs,
     params_to,
+    shard_lm_params,
 )
 from horovod_tpu_torch.ops.attention import dot_product_attention
 from horovod_tpu_torch.ops.paged_attention import (
@@ -159,13 +185,17 @@ def _gather_cache_kv(pk, pv, table):
     return pk.reshape(P * ps, H, D)[rows], pv.reshape(P * ps, H, D)[rows]
 
 
-def _prefill_lane(params: Dict, pages, pre, *, page_size: int):
+def _prefill_lane(params: Dict, pages, pre, *, page_size: int, tp=None,
+                  vocab_parallel: bool = False):
     """The chunked-prefill pass of one step: one rectangular-causal chunk
     (queries at ``start..start+C-1`` over the full gathered cache,
     ``q_offset=start, k_offset=0``) whose valid K/V rows are written in
     place through the page table. ``pre`` holds host arrays:
     ``tokens`` [C], ``start``, ``length`` and ``table`` [pps]. Returns
-    the logits ``[V]`` of the chunk's last valid row."""
+    the logits ``[V]`` of the chunk's last valid row. ``tp`` names the
+    tensor axis over head-sharded params and pages, and
+    ``vocab_parallel`` gathers the full-vocab row from a column-sharded
+    head, as in the JAX ``serve_step``."""
     dev = params["pos"].device
     ps = page_size
     num_pages = pages[0]["k"].shape[0]
@@ -188,7 +218,7 @@ def _prefill_lane(params: Dict, pages, pre, *, page_size: int):
           + params["pos"][on_dev(safe_pos)][None])  # [1, C, E]
     for layer, page in zip(params["layers"], pages):
         pk, pv = page["k"], page["v"]
-        qp, kp, vp = _project_qkv(layer, xp)         # [1, C, H, D]
+        qp, kp, vp = _project_qkv(layer, xp, tp)     # [1, C, H, D]
         scale = 1.0 / math.sqrt(qp.shape[-1])
         # The chunk's own rows enter the gathered copy, then queries at
         # start+i attend keys 0..start+i.
@@ -198,12 +228,12 @@ def _prefill_lane(params: Dict, pages, pre, *, page_size: int):
         attn = dot_product_attention(qp, ck[None], cv[None], causal=True,
                                      scale=scale, q_offset=start,
                                      k_offset=0)
-        xp = _attn_out_residual(layer, attn, xp)
-        xp = _ffn_residual(layer, xp)
+        xp = _attn_out_residual(layer, attn, xp, tp)
+        xp = _ffn_residual(layer, xp, tp)
         pk[wp_t, wo_t] = kp[0, ok_t]
         pv[wp_t, wo_t] = vp[0, ok_t]
     last = min(max(length - 1, 0), C - 1)
-    return _logits(params, xp[:, last:last + 1])[0, 0]
+    return _logits(params, xp[:, last:last + 1], tp, vocab_parallel)[0, 0]
 
 
 #: Rows of the packed decode index after the ``[S, pps]`` page tables:
@@ -236,7 +266,8 @@ def pack_decode(dec, page_size: int) -> np.ndarray:
 
 
 def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
-                attention: str = "gather"):
+                attention: str = "gather", tp=None,
+                vocab_parallel: bool = False):
     """The decode lane of one step at a fixed shape: all ``slots`` slots
     run and write their new K/V row (idle ones into the null page), from
     the packed device index of :func:`pack_decode`; returns the logits
@@ -248,6 +279,8 @@ def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
     ``paged`` writes the new row into its page first and reads only the
     live pages through
     :func:`~horovod_tpu_torch.ops.paged_attention.paged_attention_decode`.
+    ``tp`` / ``vocab_parallel``: as in :func:`_prefill_lane` (the kernel
+    then runs over the rank's ``H/tp`` heads).
     """
     S = slots
     pps = index.numel() // S - _DEC_ROWS
@@ -260,7 +293,7 @@ def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
 
     for layer, page in zip(params["layers"], pages):
         pk, pv = page["k"], page["v"]
-        qd, kd, vd = _project_qkv(layer, xd)          # [S, 1, H, D]
+        qd, kd, vd = _project_qkv(layer, xd, tp)      # [S, 1, H, D]
         scale = 1.0 / math.sqrt(qd.shape[-1])
         if attention == "paged":
             # Write the new row first; the kernel reads position t back
@@ -276,12 +309,12 @@ def decode_lane(params: Dict, pages, index, *, slots: int, page_size: int,
             cv[slot_ids, t] = vd[:, 0]
             attn = dot_product_attention(qd, ck, cv, causal=True,
                                          scale=scale, q_offset=t)
-        xd = _attn_out_residual(layer, attn, xd)
-        xd = _ffn_residual(layer, xd)
+        xd = _attn_out_residual(layer, attn, xd, tp)
+        xd = _ffn_residual(layer, xd, tp)
         if attention != "paged":
             pk[wp, wo] = kd[:, 0]
             pv[wp, wo] = vd[:, 0]
-    return _logits(params, xd)[:, 0]
+    return _logits(params, xd, tp, vocab_parallel)[:, 0]
 
 
 #: Rows of the packed speculative index after :func:`pack_decode`'s: the
@@ -306,7 +339,7 @@ def pack_spec(dec, page_size: int):
 
 def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
               draft_layers: int, page_size: int, attention: str = "gather",
-              sampled: bool = True):
+              sampled: bool = True, tp=None, vocab_parallel: bool = False):
     """The speculative lane of one step at a fixed shape, from
     :func:`pack_spec`'s device buffers: a ``k``-step draft scan over the
     first ``draft_layers`` layers, then the target's verify pass over
@@ -328,7 +361,9 @@ def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
     ``sampled=False`` says that no live slot samples: the draft then
     takes its argmaxes and skips the sampled draw, whose masking and
     noise cover the whole vocabulary (the same proposals, since greedy
-    rows take the argmax either way)."""
+    rows take the argmax either way). ``tp`` / ``vocab_parallel``: as in
+    :func:`_prefill_lane`; every rank then draws its proposals from the
+    same full-vocab rows, so the ranks' caches stay in step."""
     S, ps = slots, page_size
     pps = index.numel() // S - _DEC_ROWS - _SPEC_ROWS
     lmax = pps * ps
@@ -355,7 +390,7 @@ def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
         wo = torch.where(ok, safe % ps, 0)
         lens = torch.where(ok, pos + 1, 0).int()
         for j, layer in enumerate(dlayers):
-            q, kk, vv = _project_qkv(layer, x)          # [S, 1, H, D]
+            q, kk, vv = _project_qkv(layer, x, tp)      # [S, 1, H, D]
             scale = 1.0 / math.sqrt(q.shape[-1])
             if attention == "paged":
                 pk, pv = pages[j]["k"], pages[j]["v"]
@@ -370,9 +405,9 @@ def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
                 cv[slot_ids, safe] = vv[:, 0]
                 attn = dot_product_attention(q, ck, cv, causal=True,
                                              scale=scale, q_offset=safe)
-            x = _attn_out_residual(layer, attn, x)
-            x = _ffn_residual(layer, x)
-        lg = _logits(params, x)[:, 0]                   # [S, V]
+            x = _attn_out_residual(layer, attn, x, tp)
+            x = _ffn_residual(layer, x, tp)
+        lg = _logits(params, x, tp, vocab_parallel)[:, 0]   # [S, V]
         cur = (draft_sample_tokens(lg, temps, topk, seed, sidx + i)
                if sampled else torch.argmax(lg.float(), dim=-1))
         draft_toks.append(cur)
@@ -393,18 +428,18 @@ def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
           + params["pos"][safe_w])                      # [S, w, E]
     for layer, page in zip(params["layers"], pages):
         pk, pv = page["k"], page["v"]
-        qw, kw, vw = _project_qkv(layer, xw)            # [S, w, H, D]
+        qw, kw, vw = _project_qkv(layer, xw, tp)        # [S, w, H, D]
         scale = 1.0 / math.sqrt(qw.shape[-1])
         ck, cv = _gather_cache_kv(pk, pv, tables)       # [S, Lmax, H, D]
         ck[slot_ids[:, None], safe_w] = kw
         cv[slot_ids[:, None], safe_w] = vw
         attn = dot_product_attention(qw, ck, cv, causal=True, scale=scale,
                                      q_offset=t, k_offset=0)
-        xw = _attn_out_residual(layer, attn, xw)
-        xw = _ffn_residual(layer, xw)
+        xw = _attn_out_residual(layer, attn, xw, tp)
+        xw = _ffn_residual(layer, xw, tp)
         pk[wp_w, wo_w] = kw
         pv[wp_w, wo_w] = vw
-    ver_logits = _logits(params, xw)                    # [S, w, V]
+    ver_logits = _logits(params, xw, tp, vocab_parallel)   # [S, w, V]
     tokens = torch.cat([torch.argmax(ver_logits.float(), dim=-1),
                         draft_toks], 1).int()
     return tokens, ver_logits, torch.stack(draft_logits, 1)
@@ -412,6 +447,59 @@ def spec_lane(params: Dict, pages, index, temps, *, slots: int, k: int,
 
 # --------------------------------------------------------------------------
 # The host-side engine.
+
+
+def resolve_tp_mesh(params: Dict, config: ServeConfig):
+    """Bind ``config.mesh`` to the ranks of the ``torch.distributed``
+    world; returns ``(logical_mesh, tp_axis, tp_degree)``, or ``(None,
+    None, 1)`` when the engine runs unsharded (``mesh=None`` or a mesh of
+    one rank).
+
+    Raises :class:`~horovod_tpu_torch.common.exceptions.
+    InvalidArgumentError` at engine construction when the mesh's rank
+    product is not the world size (the engine's tensor group is the
+    world: every rank runs one shard), or when heads, MLP features or
+    the vocab do not divide by the tensor degree, with the reference's
+    messages."""
+    axes = config.mesh_axes()
+    if not axes:
+        return None, None, 1
+    from horovod_tpu_torch.parallel.logical import LogicalMesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    want = math.prod(axes.values())
+    if want != world:
+        raise InvalidArgumentError(
+            f"ServeConfig.mesh {config.mesh!r} spans {want} rank(s) but "
+            f"the torch.distributed world has {world}: one engine's "
+            "tensor group is the whole world (start one rank per shard, "
+            "e.g. torchrun --nproc-per-node "
+            f"{want})")
+    lm = LogicalMesh.from_config(config.mesh)
+    tp_axis = lm.role_axis("tensor")
+    tp = lm.axes.get(tp_axis, 1)
+    if tp == 1:
+        return None, None, 1
+    layer0 = params["layers"][0]
+    dims = (("num_heads", int(layer0["wqkv"].shape[2])),
+            ("mlp", int(layer0["wup"].shape[1])),
+            ("vocab", int(params["head"].shape[1])))
+    for what, n in dims:
+        if n % tp:
+            raise InvalidArgumentError(
+                f"ServeConfig.mesh {config.mesh!r}: {what}={n} is not "
+                f"divisible by tp={tp} — the head/feature/vocab shards "
+                "must split exactly (pad the model or pick a tp that "
+                "divides)")
+    return lm, tp_axis, tp
+
+
+#: Data-plane ops the controller broadcasts to its followers, as the
+#: first entry of a ``[3]`` int32 header (op, then two op arguments).
+_OP_CLOSE, _OP_COW, _OP_STEP = 0, 1, 2
+#: A step header's flags: a prefill chunk follows, the decode (or
+#: speculative) lane runs, and it takes the draft's sampled draw.
+_STEP_PRE, _STEP_LANE, _STEP_SAMPLED = 1, 2, 4
 
 
 class ServeEngine:
@@ -427,6 +515,14 @@ class ServeEngine:
     (the decode lane, or the speculative lane when ``speculate_k`` > 0)
     runs on the card as a CUDA graph replay (:attr:`lane_graphs`);
     ``capture=False`` runs it eagerly, for an A/B against the replay.
+
+    With ``config.mesh`` sharding over ``tp`` > 1 ranks, every rank of
+    the world builds the engine from the same dense ``params`` (each
+    keeps its shard, :func:`~horovod_tpu_torch.models.parallel_lm.
+    shard_lm_params`); rank 0 (:attr:`is_controller`) serves and the
+    others call :meth:`follow`, until the controller's :meth:`close`.
+    ``capture`` must be False there (a captured tensor-parallel lane is
+    not ported yet).
     """
 
     def __init__(self, params: Dict, config: ServeConfig, *,
@@ -436,6 +532,29 @@ class ServeEngine:
         self.config = config
         self.chips = chips
         self.clock = clock
+        if capture and config.tp_degree > 1:
+            raise NotImplementedError(
+                f"ServeEngine(capture=True) with ServeConfig.mesh="
+                f"{config.mesh!r}: a captured tensor-parallel lane is not "
+                "ported yet (gloo collectives cannot be captured; it "
+                "comes with ROADMAP.md Queue 1 item 4.3's follow-ups: "
+                "the captured TP lane over NCCL); pass capture=False")
+        #: The bound mesh, its tensor axis and degree (``mesh=None`` ->
+        #: ``(None, None, 1)``), and this rank's place on the axis.
+        self.logical_mesh, self._tp_axis, self.tp = \
+            resolve_tp_mesh(params, config)
+        self.tp_rank = 0
+        self._closed = False
+        if self.tp > 1:
+            from horovod_tpu_torch.parallel.tp import axis_group
+
+            with self._bound():
+                self._tp_group, _, self.tp_rank = axis_group(self._tp_axis)
+            self._tp_src = dist.get_global_rank(self._tp_group, 0)
+            params = shard_lm_params(
+                params, lm_param_specs(len(params["layers"]),
+                                       self._tp_axis, vocab_parallel=True),
+                self.tp, self.tp_rank)
         self._set_params(params)
         #: Speculative decoding (``speculate_k`` > 0): the window k and
         #: the layer-skip draft's depth, resolved against this model at
@@ -453,7 +572,7 @@ class ServeEngine:
                     f"the layer-skip draft is a prefix of the target's "
                     f"{n_layers} layers — need 1..{n_layers}") from e
             self.draft_layers = dl
-        self.cache = PagedKVCache(self.params, config)
+        self.cache = PagedKVCache(self.params, config, tp=self.tp)
         #: The radix prefix index (``prefix_caching``), else None.
         self.prefix = (PrefixIndex(self.cache.allocator, config.page_size)
                        if config.prefix_caching else None)
@@ -505,6 +624,9 @@ class ServeEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_emitted = 0
+        #: Steps whose decode (or speculative) lane this rank ran, since
+        #: construction (a follower's too; ``reset_metrics`` keeps it).
+        self.lane_ticks = 0
         self._t_start = clock()
 
     def _buffers(self, n: int, dtype):
@@ -515,6 +637,131 @@ class ServeEngine:
         return host, (host if self.device.type == "cpu" else
                       torch.zeros(n, dtype=dtype, device=self.device))
 
+    # --------------------------------------------- the tensor-parallel plane
+
+    @property
+    def is_controller(self) -> bool:
+        """True on the rank that owns the control plane (rank 0 of the
+        tensor axis; every unsharded engine)."""
+        return self.tp_rank == 0
+
+    def _controller_only(self, what: str) -> None:
+        if not self.is_controller:
+            raise PreconditionError(
+                f"ServeEngine.{what} on tensor-parallel rank "
+                f"{self.tp_rank}: the control plane is rank 0's; a "
+                "follower calls follow()")
+        if self._closed:
+            raise PreconditionError(f"ServeEngine.{what} after close()")
+
+    def _bound(self):
+        """The engine's mesh bound for the lanes' collectives (nothing
+        to bind unsharded)."""
+        if self.logical_mesh is None:
+            return contextlib.nullcontext()
+        from horovod_tpu_torch.parallel.logical import bind
+
+        return bind(self.logical_mesh)
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` from the controller to every rank of the tensor group,
+        in place."""
+        dist.broadcast(t, src=self._tp_src, group=self._tp_group)
+        return t
+
+    def _header(self, op: int = 0, a: int = 0, b: int = 0) -> List[int]:
+        """The controller sends ``[op, a, b]``; a follower receives it
+        (its arguments are ignored)."""
+        hdr = torch.tensor([op, a, b], dtype=torch.int32,
+                           device=self.device)
+        return self._bcast(hdr).tolist()
+
+    def _pre_payload(self, pre):
+        """A prefill chunk as one int32 tensor ``[start, length, tokens
+        [C], table [pps]]`` broadcast from the controller; returns the
+        chunk's host dict (a follower's, decoded)."""
+        C, pps = self.config.prefill_chunk, self.cache.pages_per_seq
+        buf = torch.zeros(2 + C + pps, dtype=torch.int32)
+        if pre is not None:
+            buf[0], buf[1] = int(pre["start"]), int(pre["length"])
+            buf[2:2 + C] = torch.from_numpy(np.asarray(pre["tokens"],
+                                                       np.int32))
+            buf[2 + C:] = torch.from_numpy(np.asarray(pre["table"],
+                                                      np.int32))
+        got = self._bcast(buf.to(self.device)).cpu().numpy()
+        return {"start": int(got[0]), "length": int(got[1]),
+                "tokens": got[2:2 + C], "table": got[2 + C:]}
+
+    def _plane_step(self, flags: int, pre):
+        """The data plane of one step on every rank: the step's inputs
+        broadcast over the tensor group (when sharded), then the prefill
+        lane and the decode (or speculative) lane. The controller has
+        filled the host index buffers. Returns ``(pre_logits,
+        lane_out)``."""
+        if self.tp > 1 and flags & _STEP_PRE:
+            pre = self._pre_payload(pre)
+        lane = bool(flags & _STEP_LANE)
+        if lane and self._index is not self._index_host \
+                and self.is_controller:
+            # The previous step's copy is done: its tokens came back to
+            # the host after it.
+            self._index.copy_(self._index_host, non_blocking=True)
+            if self.spec_k:
+                self._temps.copy_(self._temps_host, non_blocking=True)
+        if lane and self.tp > 1:
+            self._bcast(self._index)
+            if self.spec_k:
+                self._bcast(self._temps)
+        cfg = self.config
+        with torch.no_grad(), self._bound():
+            # The prefill lane first: its pages are written before the
+            # decode (or speculative) lane reads them.
+            pre_logits = (None if pre is None else _prefill_lane(
+                self.params, self.cache.pages, pre,
+                page_size=cfg.page_size, tp=self._tp_axis,
+                vocab_parallel=self.tp > 1))
+            lane_out = (self._run_lane(bool(flags & _STEP_SAMPLED))
+                        if lane else None)
+        self.lane_ticks += lane
+        return pre_logits, lane_out
+
+    def follow(self) -> int:
+        """A follower's serving loop: run every data-plane action the
+        controller broadcasts (page copies, steps) on this rank's shards
+        until the controller's :meth:`close`. Returns the steps run."""
+        if self.tp == 1:
+            raise PreconditionError(
+                "ServeEngine.follow: this engine is not tensor-parallel "
+                "(ServeConfig.mesh shards over one rank); nothing to "
+                "follow")
+        if self.is_controller:
+            raise PreconditionError(
+                "ServeEngine.follow on the controller (tensor-parallel "
+                "rank 0): it serves with submit/step/run and ends its "
+                "followers with close()")
+        steps = 0
+        while True:
+            op, a, b = self._header()
+            if op == _OP_CLOSE:
+                self._closed = True
+                return steps
+            if op == _OP_COW:
+                self.cache.copy_page(a, b)
+            elif op == _OP_STEP:
+                self._plane_step(a, None)
+                steps += 1
+            else:
+                raise RuntimeError(f"ServeEngine.follow: unknown data-"
+                                   f"plane op {op}")
+
+    def close(self) -> None:
+        """End the followers' :meth:`follow` loops (the controller of a
+        tensor-parallel engine; idempotent, and nothing to do
+        unsharded)."""
+        if self.tp > 1 and self.is_controller and not self._closed:
+            self._header(_OP_CLOSE)
+            self._closed = True
+
     # ------------------------------------------------------ submission
 
     def submit(self, prompt, max_new_tokens: int, *,
@@ -524,6 +771,7 @@ class ServeEngine:
                ttl: Optional[float] = None) -> Request:
         """Queue one generation request; returns it (check ``state`` —
         ``rejected`` means it can never run or the queue is full)."""
+        self._controller_only("submit")
         req = make_request(self.config, self.clock, prompt,
                            max_new_tokens, temperature=temperature,
                            top_k=top_k, eos_token=eos_token, seed=seed,
@@ -675,6 +923,9 @@ class ServeEngine:
             page = int(req.page_table[slot])
             if page and self.cache.allocator.is_shared(page):
                 new = self.cache.cow_page(page)
+                if self.tp > 1:
+                    # Every rank copies its head shard of the page.
+                    self._header(_OP_COW, page, new)
                 req.page_table[slot] = new
                 req.pages[req.pages.index(page)] = new
                 self.cow_copies += 1
@@ -733,6 +984,7 @@ class ServeEngine:
     def step(self) -> bool:
         """Run one step; False when there was nothing to do (no active
         requests and nothing admissible in the queue)."""
+        self._controller_only("step")
         self._expire_deadlines()
         self._promote_ready()
         if self.prefilling is None:
@@ -763,31 +1015,22 @@ class ServeEngine:
         pre_done = (self.prefilling is not None and
                     self.prefilling.prefill_pos + chunk
                     >= self.prefilling.prompt_len)
-        with torch.no_grad():
-            # The prefill lane first: its pages are written before the
-            # decode (or speculative) lane reads them.
-            pre_logits = (None if pre is None else _prefill_lane(
-                self.params, self.cache.pages, pre,
-                page_size=self.config.page_size))
-            lane_out = None
-            if dec["active"].any():
-                if self.spec_k:
-                    index, temps = pack_spec(dec, self.config.page_size)
-                    self._temps_host.numpy()[:] = temps
-                else:
-                    index = pack_decode(dec, self.config.page_size)
-                self._index_host.numpy()[:] = index
-                if self._index is not self._index_host:
-                    # The previous step's copy is done: its tokens came
-                    # back to the host after it.
-                    self._index.copy_(self._index_host, non_blocking=True)
-                    if self.spec_k:
-                        self._temps.copy_(self._temps_host,
-                                          non_blocking=True)
-                # A speculative tick whose live slots are all greedy
-                # skips the draft's sampled draw.
-                lane_out = self._run_lane(bool(
-                    self.spec_k and (dec["temp"][dec["active"]] > 0).any()))
+        flags = 0 if pre is None else _STEP_PRE
+        if dec["active"].any():
+            if self.spec_k:
+                index, temps = pack_spec(dec, self.config.page_size)
+                self._temps_host.numpy()[:] = temps
+            else:
+                index = pack_decode(dec, self.config.page_size)
+            self._index_host.numpy()[:] = index
+            flags |= _STEP_LANE
+            # A speculative tick whose live slots are all greedy skips
+            # the draft's sampled draw.
+            if self.spec_k and (dec["temp"][dec["active"]] > 0).any():
+                flags |= _STEP_SAMPLED
+        if self.tp > 1:
+            self._header(_OP_STEP, flags)
+        pre_logits, lane_out = self._plane_step(flags, pre)
 
         if self.spec_k:
             pre_token = None
@@ -986,16 +1229,17 @@ class ServeEngine:
     def _lane(self, sampled: bool):
         """One run of the step's lane over the packed device buffers."""
         cfg = self.config
+        shard = dict(tp=self._tp_axis, vocab_parallel=self.tp > 1)
         if not self.spec_k:
             return decode_lane(self.params, self.cache.pages, self._index,
                                slots=cfg.decode_slots,
                                page_size=cfg.page_size,
-                               attention=cfg.attention)
+                               attention=cfg.attention, **shard)
         return spec_lane(self.params, self.cache.pages, self._index,
                          self._temps, slots=cfg.decode_slots,
                          k=self.spec_k, draft_layers=self.draft_layers,
                          page_size=cfg.page_size, attention=cfg.attention,
-                         sampled=sampled)
+                         sampled=sampled, **shard)
 
     def _run_lane(self, sampled: bool):
         """The lane eagerly, or as the replay of its graph for
@@ -1027,6 +1271,12 @@ class ServeEngine:
         geometry must match. A captured decode lane is captured again
         over the new weights at its next step, and the prefix index is
         flushed: K/V rows are a function of the weights."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                "update_params on a tensor-parallel engine (ServeConfig."
+                f"mesh={self.config.mesh!r}) is not ported yet; it comes "
+                "with ROADMAP.md Queue 1 item 4.3's follow-ups (weight "
+                "swaps under tp)")
         if not self.idle:
             raise RuntimeError(
                 "update_params with requests in flight — drain the "
@@ -1134,9 +1384,9 @@ class ServeEngine:
         c = self.cache
         return paged_grid_info(
             lengths, page_size=self.config.page_size,
-            pages_per_seq=c.pages_per_seq, num_heads=c.num_heads,
+            pages_per_seq=c.pages_per_seq, num_heads=c.num_heads * self.tp,
             head_dim=c.head_dim, dtype_bytes=c.dtype_bytes,
-            num_layers=c.num_layers)
+            num_layers=c.num_layers, tp=self.tp)
 
     def attention_stats(self) -> Dict:
         """Decode-lane K/V traffic accounting over the run: what the
@@ -1148,9 +1398,10 @@ class ServeEngine:
         total_live = sum(i["pages_live_total"] for i in infos)
         total_paged = sum(i["kv_bytes"] for i in infos)
         total_gather = sum(i["kv_bytes_gather"] for i in infos)
-        # One card holds every head: per-chip bytes are this mode's total.
+        # Heads shard exactly: per-chip bytes are 1/tp of this mode's
+        # total (``serve_bench --ab-tp`` pins it).
         total_chip = (total_paged if self.config.attention == "paged"
-                      else total_gather)
+                      else total_gather) // self.tp
         return {
             "mode": self.config.attention,
             "decode_steps": n,
@@ -1166,7 +1417,7 @@ class ServeEngine:
                 total_gather // n if n else None,
             "kv_fetch_frac":
                 round(total_paged / total_gather, 4) if n else None,
-            "tp": 1,
+            "tp": self.tp,
             "kv_bytes_per_chip":
                 round(total_chip / n, 1) if n else None,
         }

@@ -108,7 +108,8 @@ from horovod_tpu_torch.elastic.supervisor import HealthWatchdog
 from horovod_tpu_torch.models.parallel_lm import params_to
 from horovod_tpu_torch.run.driver import WorkerExit
 from horovod_tpu_torch.serve import params_wire
-from horovod_tpu_torch.serve.config import FleetConfig, ServeConfig
+from horovod_tpu_torch.serve.config import (FleetConfig, ServeConfig,
+                                            refuse_tp_fleet)
 from horovod_tpu_torch.serve.engine import ServeEngine
 from horovod_tpu_torch.serve.router import (pick_replica, replica_load,
                                             retry_after_hint)
@@ -587,6 +588,7 @@ class ServeFleet:
                  worker_env: Optional[Dict[str, str]] = None,
                  worker_cmd: Optional[Callable] = None,
                  device: DeviceLike = None):
+        refuse_tp_fleet(config)
         self.device = resolve_device(device)
         self.config = config
         self.fleet = fleet if fleet is not None else FleetConfig()

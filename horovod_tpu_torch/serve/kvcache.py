@@ -22,6 +22,14 @@ same page contents (its header names numpy's dtype, ``float32`` or
 ``bfloat16``), and each package imports the other's. Import writes into
 the existing page tensors in place: a captured decode lane keeps
 reading the storage it captured.
+
+Under tensor parallelism (``ServeConfig.mesh``) every rank's cache holds
+its own head shard: page tensors ``[num_pages, page_size, H/tp, D]``,
+each a contiguous tensor of its own (the paged-attention kernel reads a
+page row at stride ``H/tp * D`` from the tensor's base, so a head-slice
+view of a full-width tensor would read the wrong heads). The blob of a
+head-sharded cache is not ported yet (ROADMAP.md Queue 1 item 4.3's
+follow-up): its export and import raise.
 """
 
 from __future__ import annotations
@@ -221,11 +229,15 @@ class PagedKVCache:
     Layer count, heads, head_dim, Lmax, dtype and device are read off
     the :func:`models.parallel_lm.init_lm_params` dict. The model's
     position-table length must divide into whole pages, so the gathered
-    per-request cache is EXACTLY ``[Lmax, H, D]``.
+    per-request cache is EXACTLY ``[Lmax, H, D]``. ``params`` is the
+    rank's shard under tensor parallelism (``tp`` > 1), so ``num_heads``
+    is the shard's head count ``H/tp``.
     """
 
-    def __init__(self, params: Dict, config):
+    def __init__(self, params: Dict, config, tp: int = 1):
         self.config = config
+        #: The tensor-parallel degree the heads are sharded over.
+        self.tp = tp
         self.max_len = int(params["pos"].shape[0])
         if self.max_len % config.page_size:
             raise ValueError(
@@ -271,11 +283,26 @@ class PagedKVCache:
         original, and return the new (exclusively-held) page id. Raises
         :class:`OutOfPages` (no state change) when no page is free."""
         (new,) = self.allocator.alloc(1)
-        for layer in self.pages:
-            for kv in ("k", "v"):
-                layer[kv][new] = layer[kv][page]
+        self.copy_page(page, new)
         self.allocator.release([page])
         return new
+
+    def copy_page(self, src: int, dst: int) -> None:
+        """The data half of :meth:`cow_page`: ``src``'s K/V rows into
+        ``dst`` across every layer, with no allocator change (a tensor-
+        parallel follower runs it on its head shard when the controller
+        copies)."""
+        for layer in self.pages:
+            for kv in ("k", "v"):
+                layer[kv][dst] = layer[kv][src]
+
+    def _whole_heads(self, what: str) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"PagedKVCache.{what} of a head-sharded cache (tp="
+                f"{self.tp}) is not ported yet; it comes with the HVKV "
+                "blob of sharded pages (ROADMAP.md Queue 1 item 4.3, "
+                "follow-ups)")
 
     # --------------------------------------------- export / import (kv)
 
@@ -290,6 +317,7 @@ class PagedKVCache:
         device and copied to the host once. READ-ONLY: refcounts are
         untouched, so pages shared under COW or the prefix cache export
         safely."""
+        self._whole_heads("export_pages")
         ps = self.config.page_size
         need = pages_needed(num_positions, 1, ps) \
             if num_positions >= 1 else 0
@@ -329,6 +357,7 @@ class PagedKVCache:
         (``index_copy_``: a captured lane's storage stays the one it
         reads). Returns ``(granted_pages, num_positions)``, the granted
         ids in logical order; any failure after the grant frees it."""
+        self._whole_heads("import_pages")
         if len(blob) < _KV_BLOB_HEADER.size:
             raise FrameError(
                 f"kv blob of {len(blob)} bytes is shorter than its "

@@ -47,13 +47,26 @@ Modes (the JAX tool's flags and defaults, one A/B per record):
   ``serve.disagg``; with ``--fault-plan`` a third lane runs the pools
   faulted and pins its streams against the clean pools.
 
+* ``--mesh dp=1,tp=N`` shards one engine over the N ranks of a
+  ``torch.distributed`` world (``torchrun --nproc-per-node N``; a world
+  the caller started is taken as it is): rank 0 runs the workload and
+  prints the record, the others follow (``ServeEngine.follow``), each on
+  its own card where the host has N, else all on the first card over
+  gloo. ``--ab-tp`` runs the identical workload on a tp=1 engine (rank 0
+  alone, the followers idle) and on the sharded one, aborting unless
+  every greedy stream is bit-identical and the sharded side's
+  ``kv_bytes_per_chip`` is at most ``1/tp`` of the run's single-chip
+  bytes; ``serve.tp`` carries the degree, the per-chip bytes and the
+  collectives' backend. A tensor-parallel lane runs eagerly: pass
+  ``--capture off`` (``--ab-tp`` runs both sides with the same setting).
+
 Every fleet record carries ``per_card``: each lane's tokens/s of the
 card, the figure to hold against a single engine when replicas share a
-card. ``--pin-exact`` re-decodes every finished greedy request through
+card (a ``--mesh`` record too: its ranks share one card or take one
+each). ``--pin-exact`` re-decodes every finished greedy request through
 ``models.parallel_lm.lm_decode``; ``--require-finished`` fails unless
 every request finished (a fleet: unless every request not shed
-finished). The JAX tool's mesh flags raise :class:`NotImplementedError`
-naming their ROADMAP.md item.
+finished).
 On the CPU (``run(args, device="cpu")``, the tests) the numbers time
 PyTorch's CPU kernels, not the card.
 """
@@ -65,6 +78,7 @@ import dataclasses
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -75,14 +89,6 @@ from horovod_tpu_torch.serve import (FleetConfig, ServeConfig,
                                      ServeEngine, ServeFleet)
 from horovod_tpu_torch.serve.config import LOCAL_HOSTS, parse_host_entry
 from horovod_tpu_torch.serve.prefix import prefix_route_key
-
-_TP = "ROADMAP.md Queue 1 item 4 (TP-sharded paged decode)"
-#: The JAX tool's flags that the port has not taken yet: (flag, whether
-#: it is a switch, the ROADMAP.md item that brings it).
-_NOT_PORTED = [
-    ("--mesh", False, _TP),
-    ("--ab-tp", True, _TP),
-]
 
 
 def make_workload(args, system_prompt_len: int = 0):
@@ -127,8 +133,11 @@ def _idle_wait(eng, pending, t0):
 def run_continuous(params, cfg, workload, *, device, capture=True,
                    warm=True):
     """Continuous batching under the open-loop clock; returns the engine,
-    drained."""
-    eng = ServeEngine(params, cfg, device=device, capture=capture)
+    drained (and, tensor-parallel, its followers released). A mesh makes
+    the engine span ``tp_degree`` chips, so tokens/s/chip divides by
+    it."""
+    eng = ServeEngine(params, cfg, device=device, capture=capture,
+                      chips=cfg.tp_degree)
     if warm:
         _warm(eng, workload)
     pending = sorted(workload, key=lambda w: w[0])
@@ -137,6 +146,7 @@ def run_continuous(params, cfg, workload, *, device, capture=True,
         _drain_arrivals(eng, pending, t0, eng.clock())
         if not eng.step() and pending:
             _idle_wait(eng, pending, t0)
+    eng.close()
     return eng
 
 
@@ -144,7 +154,8 @@ def run_static(params, cfg, workload, *, device, capture=True, warm=True):
     """Static batching baseline: the same engine, with requests admitted
     in barrier batches of up to ``decode_slots``, each drained fully
     before the next is admitted."""
-    eng = ServeEngine(params, cfg, device=device, capture=capture)
+    eng = ServeEngine(params, cfg, device=device, capture=capture,
+                      chips=cfg.tp_degree)
     if warm:
         _warm(eng, workload)
     pending = sorted(workload, key=lambda w: w[0])
@@ -163,7 +174,40 @@ def run_static(params, cfg, workload, *, device, capture=True, warm=True):
             _idle_wait(eng, pending, t0)
         else:
             eng.run()
+    eng.close()
     return eng
+
+
+def tp_world(device: DeviceLike):
+    """The ``torch.distributed`` world a ``--mesh`` run shards over, and
+    this rank's device: the caller's world when one is up, else one
+    started from the launcher's environment (``torchrun``) — NCCL with a
+    card a rank where the host has one for each, else gloo with every
+    rank on the first card (or the CPU when ``device`` says so). Returns
+    ``(device, backend, cards)``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    own = dev.type == "cuda" and dev.index is None and \
+        torch.cuda.device_count() >= world
+    if dev.type == "cuda" and dev.index is None:
+        local = int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+        dev = torch.device("cuda", local if own else 0)
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if own else "gloo",
+                                init_method="env://")
+    if not dist.is_initialized():
+        return dev, None, 1 if dev.type == "cuda" else 0
+    cards = dist.get_world_size() if own else (1 if dev.type == "cuda"
+                                                else 0)
+    return dev, dist.get_backend(), cards
 
 
 def run_fleet(params, cfg, fleet_cfg, workload, *, device, fault_plan="",
@@ -413,14 +457,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "identical workload; abort unless every "
                          "greedy stream is bit-identical; stamp "
                          "serve.disagg (requires --pools)")
+    ap.add_argument("--mesh", default="",
+                    help="ServeConfig.mesh: shard one engine over the "
+                         "ranks of a torch.distributed world, e.g. "
+                         "'dp=1,tp=4' under torchrun --nproc-per-node 4 "
+                         "(heads, MLP features and vocab sharded; K/V "
+                         "pages head-sharded); per-chip metrics divide "
+                         "by the tp degree. Empty = unsharded")
+    ap.add_argument("--ab-tp", action="store_true",
+                    help="run the IDENTICAL workload unsharded (tp=1, "
+                         "rank 0 alone) then TP-sharded over --mesh; "
+                         "abort unless every greedy stream is "
+                         "bit-identical and the sharded side's "
+                         "kv_bytes_per_chip <= 1/tp of the single-chip "
+                         "bytes; stamp serve.tp")
     ap.add_argument("--pin-exact", action="store_true")
     ap.add_argument("--require-finished", action="store_true")
-    for flag, switch, _ in _NOT_PORTED:
-        if switch:
-            ap.add_argument(flag, action="store_true",
-                            help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     return ap
 
 
@@ -455,6 +507,20 @@ def _validate(ap, args) -> None:
         if args.speculate < 1:
             ap.error("--ab-spec compares speculation off against on — it "
                      "requires --speculate K with K >= 1")
+    if args.ab_tp:
+        if args.ab or args.static or args.ab_attention or \
+                args.ab_prefix or args.ab_spec:
+            ap.error("--ab-tp is exclusive with --ab/--static/"
+                     "--ab-attention/--ab-prefix/--ab-spec (one A/B per "
+                     "record)")
+        if not args.mesh:
+            ap.error("--ab-tp compares tp=1 against a sharded mesh — "
+                     "it requires --mesh (e.g. --mesh dp=1,tp=4)")
+    if args.mesh and args.fleet:
+        ap.error("--mesh shards ONE engine across chips; the fleet "
+                 "router sees each mesh as a single logical replica "
+                 "and composing the two is not wired into the bench — "
+                 "drop one")
     if args.system_prompt_len < -1:
         ap.error("--system-prompt-len must be >= 0 (-1 = auto)")
     _validate_fleet(ap, args)
@@ -566,15 +632,11 @@ def _validate_pools(ap, args):
                      "faulted third lane composes via --fault-plan)")
 
 
-def run(args, device: DeviceLike = None, ap=None) -> dict:
+def run(args, device: DeviceLike = None, ap=None) -> Optional[dict]:
     """One bench record from parsed ``args`` on ``device`` (None = the
-    card)."""
-    for flag, _, item in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")):
-            raise NotImplementedError(
-                f"serve_bench {flag} is not ported yet; it comes with "
-                f"{item}")
-    _validate(ap or build_parser(), args)
+    card); None on a tensor-parallel follower rank."""
+    ap = ap or build_parser()
+    _validate(ap, args)
     dev = resolve_device(device)
     capture = args.capture == "on"
     ps = args.page_size
@@ -587,12 +649,24 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
     num_pages = args.num_pages
     if num_pages <= 0:
         num_pages = (args.decode_slots + 1) * (lmax // ps) + 1
-    cfg = ServeConfig(
-        page_size=ps, num_pages=num_pages, decode_slots=args.decode_slots,
-        prefill_chunk=args.prefill_chunk, policy=args.policy, slo=args.slo,
-        admission=args.admission, attention=args.attention,
-        prefix_caching=args.prefix, speculate_k=args.speculate,
-        draft_layers=args.draft_layers)
+    try:
+        cfg = ServeConfig(
+            page_size=ps, num_pages=num_pages,
+            decode_slots=args.decode_slots,
+            prefill_chunk=args.prefill_chunk, policy=args.policy,
+            slo=args.slo, admission=args.admission,
+            attention=args.attention, prefix_caching=args.prefix,
+            mesh=args.mesh or None, speculate_k=args.speculate,
+            draft_layers=args.draft_layers)
+    except ValueError as e:          # a bad --mesh string
+        ap.error(str(e))
+    if args.ab_tp and cfg.tp_degree < 2:
+        ap.error(f"--ab-tp needs a sharded side: --mesh {args.mesh!r} "
+                 f"resolves to tp={cfg.tp_degree}")
+    tp_info = None
+    if cfg.mesh is not None:
+        dev, backend, cards = tp_world(device)
+        tp_info = {"backend": backend, "cards": cards}
     params = plm.init_lm_params(
         0, args.vocab, lmax, args.layers, args.heads,
         args.d_model // args.heads, 4 * args.d_model, device=dev)
@@ -630,7 +704,17 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
         a, b = a["tokens_per_sec_per_chip"], b["tokens_per_sec_per_chip"]
         return round(a / b, 3) if a and b else None
 
-    if args.fleet:
+    if tp_info is not None:
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_rank() != 0:
+            # A follower: its shard of the (one) sharded lane.
+            ServeEngine(params, cfg, device=dev, capture=capture,
+                        chips=cfg.tp_degree).follow()
+            return None
+    if args.ab_tp:
+        mode, headline, serve = tp_record(args, cfg, lane, tp_info)
+    elif args.fleet:
         mode, headline, serve = fleet_record(args, params, cfg, workload,
                                              dev, spl, ap)
     elif args.ab_prefix:
@@ -694,14 +778,23 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
         headline = lane(mode, runner=run_static if args.static
                         else run_continuous)[0]
         serve = dict(headline, mode=mode)
+    if tp_info is not None and not args.ab_tp:
+        serve["tp"] = {"degree": cfg.tp_degree, "mesh": args.mesh,
+                       "kv_bytes_per_chip":
+                           headline["attention"]["kv_bytes_per_chip"],
+                       "backend": tp_info["backend"]}
+    per_card = None
+    if args.fleet:
+        per_card = fleet_per_card(args, mode, serve)
+    elif tp_info is not None:
+        per_card = tp_per_card(cfg, mode, serve, tp_info)
     return {
         "metric": f"serve_{mode}_tokens_per_sec_per_chip",
         "value": headline["tokens_per_sec_per_chip"],
         "unit": "tokens/sec/chip",
         "vs_baseline": None,
         "serve": serve,
-        "per_card": fleet_per_card(args, mode, serve) if args.fleet
-        else None,
+        "per_card": per_card,
         "card": card_description(dev),
         "config": {
             "page_size": ps, "num_pages": num_pages,
@@ -711,7 +804,7 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
             "admission": args.admission,
             "attention": "ab" if args.ab_attention else args.attention,
             "prefix_caching": "ab" if args.ab_prefix else args.prefix,
-            "mesh": None,
+            "mesh": args.mesh or None,
             "speculate_k": "ab" if args.ab_spec else args.speculate,
             "draft_layers": args.draft_layers,
             "system_prompt_len": spl,
@@ -737,6 +830,74 @@ def run(args, device: DeviceLike = None, ap=None) -> dict:
                       "dtype": "float32"},
         },
     }
+
+
+def tp_record(args, cfg, lane, tp_info):
+    """``--ab-tp``: the identical workload on a tp=1 engine (rank 0
+    alone) and on the sharded one; ``(mode, headline stats, serve
+    block)`` with the JAX tool's ``serve.tp`` and its two pins."""
+    tpd = cfg.tp_degree
+    single, single_reqs = lane("tp=1", dataclasses.replace(cfg, mesh=None))
+    shard, shard_reqs = lane(f"tp={tpd} [{args.mesh}]")
+    # Sharding heads is a layout change, not a numerics change: every
+    # greedy stream must be the same on both sides.
+    if len(single_reqs) != len(shard_reqs):
+        raise SystemExit(
+            f"TP AB PIN FAILED: {len(single_reqs)} requests on the tp=1 "
+            f"side vs {len(shard_reqs)} on tp={tpd}")
+    compared = 0
+    for i, (rs, rt) in enumerate(zip(single_reqs, shard_reqs)):
+        if rs.temperature > 0 or rs.state != "finished" \
+                or rt.state != "finished":
+            continue
+        if rs.output != rt.output:
+            raise SystemExit(f"TP AB PIN FAILED: request #{i} "
+                             f"tp1={rs.output} tp{tpd}={rt.output}")
+        compared += 1
+    if not compared:
+        raise SystemExit("TP AB PIN FAILED: no greedy pairs finished on "
+                         "both sides — nothing compared")
+    # The bandwidth pin: the sharded side holds 1/tp of the decode K/V
+    # bytes a chip, against the same run's full-model bytes a step (the
+    # two lanes batch differently under wall-clock arrivals).
+    attn = shard["attention"]
+    kv_full = (attn["kv_bytes_per_step_paged"] if attn["mode"] == "paged"
+               else attn["kv_bytes_per_step_gather"])
+    kv_chip = attn["kv_bytes_per_chip"]
+    if kv_full and kv_chip and kv_chip > kv_full / tpd * 1.001:
+        raise SystemExit(
+            f"TP AB BYTES PIN FAILED: kv_bytes_per_chip {kv_chip} on "
+            f"tp={tpd} exceeds 1/{tpd} of the run's single-chip bytes "
+            f"{kv_full}")
+    print(f"[serve_bench] tp pins: {compared} greedy streams "
+          f"bit-identical tp=1 vs tp={tpd}; kv_bytes_per_chip {kv_chip} "
+          f"<= {kv_full}/{tpd}", file=sys.stderr, flush=True)
+    a, b = single["tokens_per_sec_per_chip"], shard["tokens_per_sec_per_chip"]
+    return "ab_tp", shard, dict(shard, mode="ab_tp", tp={
+        "degree": tpd,
+        "mesh": args.mesh,
+        "backend": tp_info["backend"],
+        "single": single,
+        "kv_bytes_per_chip": kv_chip,
+        "kv_bytes_per_chip_single": kv_full,
+        "exact_pin": {"compared": compared, "identical": True},
+        # Wall-clock throughput of the whole engine against tp=1's.
+        "tp_over_single": round(b * tpd / a, 3) if a and b else None,
+    })
+
+
+def tp_per_card(cfg, mode, serve, tp_info):
+    """A ``--mesh`` record's tokens/s of one card: the engine's tokens
+    over the cards its ranks occupy (one each, or all on one card); the
+    tp=1 side of ``--ab-tp`` holds one card."""
+    cards = max(1, tp_info["cards"])
+    lanes = {"tp": (serve, cfg.tp_degree / cards)}
+    if mode == "ab_tp":
+        lanes["tp1"] = (serve["tp"]["single"], 1)
+    return {"cards": cards, "tokens_per_sec": {
+        name: (round(st["tokens_per_sec_per_chip"] * k, 1)
+               if st["tokens_per_sec_per_chip"] else None)
+        for name, (st, k) in lanes.items()}}
 
 
 def fleet_cards(args):
@@ -961,9 +1122,18 @@ def disagg_record(args, fleet_cfg, lane):
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
     ap = build_parser()
     args = ap.parse_args(argv)
-    print(json.dumps(run(args, ap=ap)), flush=True)
+    try:
+        record = run(args, ap=ap)
+    finally:
+        # A --mesh run's world (started from the launcher's environment).
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if record is not None:
+        print(json.dumps(record), flush=True)
     return 0
 
 

@@ -7,9 +7,9 @@ per-token latency and page occupancy, every stream pinned against
 ``--ab-prefix`` (one cold prefill, streams identical, prefill tokens
 saved) and ``--ab-spec`` (a full-depth draft accepts everything) carry
 both sides; the argument checks are argparse errors (exit code 2) as in
-the JAX tool, the workload is the JAX tool's draw for draw, and the JAX
-tool's mesh flags raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+the JAX tool, the workload is the JAX tool's draw for draw, and the mesh
+flags with a captured lane raise ``NotImplementedError`` naming the
+ROADMAP.md item of a captured tensor-parallel lane.
 
 The fleet lanes (``--fleet N`` in process, as worker processes and over
 TCP, ``--fault-plan``, ``--rolling-update-at``, ``--ab-prefix`` over the
@@ -155,9 +155,12 @@ def test_bad_args_are_argparse_errors(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "dp=1,tp=4"], ["--ab-tp"],
+    ["--mesh", "dp=1,tp=4"], ["--ab-tp", "--mesh", "dp=1,tp=2"],
 ], ids=lambda a: a[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(argv):
+    """The mesh flags are ported (tests/test_torch_serve_tp.py runs them
+    in gloo worlds); a captured tensor-parallel lane is not, so with the
+    default ``--capture on`` they raise naming its ROADMAP.md item."""
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP.md Queue 1 item 4"):
         _run(*argv)

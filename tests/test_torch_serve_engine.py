@@ -13,8 +13,8 @@ decode-traffic accounting must equal the JAX engine's too.
 Besides: the refcounted ``PageAllocator`` against the JAX one, same-seed
 sampling determinism, lifecycle edges (EOS, rejects, deadlines, weight
 swaps), the fixed-shape decode lane's idle-slot writes (page 0 only),
-config parity (``mesh`` still raises; the speculative and prefix knobs
-build the JAX config's fields), a ``device=None`` engine raising without
+config parity (``mesh`` builds the JAX config's axes and a TP fleet
+raises; the speculative and prefix knobs build the JAX config's fields), a ``device=None`` engine raising without
 CUDA,
 and an AST scan proving that nothing in ``horovod_tpu_torch/`` or
 ``chip_smoke.py`` imports ``jax`` or ``horovod_tpu`` (the interpreter
@@ -339,9 +339,16 @@ def test_config_validation_matches_jax(kw):
 
 @pytest.mark.parametrize("kw", [dict(mesh="dp=1,tp=4")])
 def test_unported_knobs_raise_naming_the_roadmap(kw):
-    JServeConfig(**kw)      # valid in the JAX package
+    """``mesh`` builds the JAX config's fields and degree; what is not
+    ported yet is a fleet of tensor-parallel replicas, which raises
+    naming its ROADMAP.md item."""
+    from horovod_tpu_torch.serve import FleetConfig, ServeFleet
+
+    want, got = JServeConfig(**kw), ServeConfig(**kw)
+    assert got.mesh_axes() == want.mesh_axes()
+    assert got.tp_degree == want.tp_degree == 4
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ServeConfig(**kw)
+        ServeFleet({}, got, FleetConfig(), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(speculate_k=2, draft_layers=1),
@@ -395,7 +402,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "elastic/supervisor.py", "run/__init__.py",
                 "run/driver.py", "run/network.py",
                 "parallel/__init__.py", "parallel/logical.py",
-                "parallel/mesh.py"):
+                "parallel/mesh.py", "parallel/tp.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
     for pkg in ("elastic", "run"):
         assert sorted(n for n in names

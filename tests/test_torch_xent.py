@@ -158,14 +158,25 @@ def test_next_token_nll_fused_matches_jax():
 
 
 def test_unported_parallel_losses_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1, parallelism"):
-        xent.tp_vocab_cross_entropy(None, None, None, "tp")
+    """The sequence-parallel loss is not ported yet and raises naming its
+    ROADMAP.md item; the vocab-parallel one needs a bound mesh (its
+    group) and a tp axis (tests/test_torch_tp.py runs it)."""
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+
     params = tplm.init_lm_params(0, 16, 8, 1, 1, 4, 8, device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
     hidden = torch.zeros((1, 8, 4))
-    for kw in (dict(sp="sp"), dict(tp="tp"), dict(vocab_parallel=True)):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            tplm.next_token_nll_fused(params, hidden, tokens, **kw)
+    with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
+        xent.tp_vocab_cross_entropy(hidden[0], params["head"].t(),
+                                    tokens[0], "tp")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4.4"):
+        tplm.next_token_nll_fused(params, hidden, tokens, sp="sp")
+    with pytest.raises(ValueError, match="needs a tp axis"):
+        tplm.next_token_nll_fused(params, hidden, tokens,
+                                  vocab_parallel=True)
+    with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
+        tplm.next_token_nll_fused(params, hidden, tokens, tp="tp",
+                                  vocab_parallel=True)
     with pytest.raises(ValueError, match="t_chunk"):
         xent.fused_cross_entropy(torch.zeros(4, 2), torch.zeros(3, 2),
                                  torch.zeros(4, dtype=torch.long), 0)
