@@ -9,6 +9,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --disagg-only [RUNS]
     python3 chip_smoke.py --hier-only
     python3 chip_smoke.py --tp-only
+    python3 chip_smoke.py --sp-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -150,14 +151,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    on the inner and outer groups of inner 4 and 2) on CUDA tensors; runs
    integer-valued ``fused_reduce`` buckets through the ladder at inner 4
    and 2 against the flat exchange (bit for bit, average on and off,
-   overlap on and off); then the LM at the training phase's width (one
-   sequence of 2048 tokens a rank) under ``DistributedOptimizer(Adam)``:
+   overlap on and off); then the LM at the training phase's width, 4
+   layers deep (one sequence of 2048 tokens a rank) under
+   ``DistributedOptimizer(Adam)``:
    a warm-up and one timed step with the flat exchange, the ladder at
    inner 4, int8 on it (2 hosts: the all-gather exchange) and fp8 at
    inner 2 (4 hosts: the two-stage all-to-all exchange). Every rank's
    parameters equal rank 0's bit for bit, each loss is within its
    tolerance of the flat run's, the residuals are non-zero with
-   ``ef_residual_specs``'s shapes, and K1-K3 ran 12 times a step on
+   ``ef_residual_specs``'s shapes, and K1-K3 ran 4 times a step on
    every rank. Were a collective refused on CUDA tensors, the line would
    say so with the error (``"ladder_on_card": false``), a world of one
    would hold ``hierarchical="on"`` to ``"off"`` on the card, and the
@@ -180,7 +182,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    of the dense step's on the same weights and each gradient shard
    within 1e-4 (of the leaf's largest entry) of the dense gradient's
    slice;
-14. (``--profile`` only) two training steps of each lane and the
+14. sp: sequence and pipeline parallelism. First K1-K3 alone at the
+   Ulysses step's shape and dtype (``[1, 8192, 3, 64]`` float32, causal)
+   against their plain versions at 1e-5, in this process: the dense
+   Ulysses reference runs the same kernels, so only this check sees a
+   kernel's fault over 8192 keys. Then a world of 4 ranks, each a
+   process of this script (``--sp-rank``): its own card over NCCL where
+   the machine has 4, else all on the one card over gloo with every
+   tensor on the card; float32, no TF32, each variant against the dense
+   step on the same weights, taken in this process before the world
+   starts. Ulysses: the bench lane's ``TransformerLM`` at the training
+   width with ``attn_fn`` a ``ulysses_attention`` on the flash kernels
+   and ``pos_offset``, one sequence of 8192 tokens (2048 a rank), a
+   warm-up and a timed forward and backward step: the sp-aware loss
+   within 1e-5 relative of the dense model's (``attn_fn`` the flash
+   attention over the whole sequence), the gradients summed over ``sp``
+   within 1e-4 of each leaf's largest entry, and K1, K2 and K3 launched
+   12 times each in the timed step on every rank, over ``[1, 8192, 3,
+   64]``. Ring: ``lm_apply(sp=)``, ``next_token_nll_fused(sp=)`` and
+   ``reduce_grads(sp=)`` on one sequence of 4096 tokens, held the same
+   way against the dense ``lm_apply`` step, with the dead blocks the
+   causal ring skipped (12 x (3 - rank) a forward: 6 of 16 block-steps
+   a layer). ``sp=2,tp=2``: one forward of ``lm_apply(sp=, tp=)`` and its
+   loss on the ring's weights and tokens against the dense loss.
+   Pipeline: ``lm_apply_pp`` with 4 stages of one block (8 x 512 tokens,
+   4 microbatches), ``remat`` off and on: the loss within 1e-5 relative
+   of the dense 4-layer step's, each stage's gradients and the
+   ``pp_reduce_rest_grads`` ones within 1e-4;
+15. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -200,6 +229,9 @@ line and no kernels or ok line.
 ``--tp-only`` runs phases 1 and 2, one captured paged engine run for the
 reference streams and phase 13, and prints the ``{"tp"}`` line and no
 kernels or ok line.
+
+``--sp-only`` runs phases 1, 2 and 14 and prints the ``{"sp"}`` line and
+no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -233,7 +265,14 @@ one shared card the step times measure host copies, and a ``{"tp":
 equal, the tokens/s of the card against the single engine's, TTFT and
 per-token p50/p99, ``kv_bytes_per_chip`` against the single card's, K4's
 launches and live ticks on every rank, the training step's losses and
-gradient errors and the phase's seconds, with the same caveat. The
+gradient errors and the phase's seconds, with the same caveat, and an
+``{"sp": ...}`` line the backend and cards, the collective each path
+rides, and for each variant (Ulysses, ring, sp=2,tp=2, the pipeline
+stored and rematerialised) its step milliseconds on every rank, tokens/s
+a card, loss against the dense one and largest gradient error, K1-K3's
+launches on every rank, the ring's dead blocks skipped, the pipeline's
+ticks and bubble share, the phase's seconds and the card's name and
+power limit, with the same caveat. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -932,10 +971,10 @@ ZERO_ATOL = 1e-6
 COMPARE_STEPS = 3
 
 
-def _lm(torch, attn_fn, remat=False):
+def _lm(torch, attn_fn, remat=False, layers=LAYERS):
     from horovod_tpu_torch.models.transformer import TransformerLM
 
-    return TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+    return TransformerLM(vocab_size=VOCAB, num_layers=layers,
                          num_heads=HEADS, embed_dim=D_MODEL,
                          max_len=FLASH_L, dtype=torch.bfloat16,
                          attn_fn=attn_fn, remat=remat, seed=0,
@@ -1224,16 +1263,27 @@ def training_phase(torch, np, profile):
     return result
 
 
-def _device_events(prof):
-    """The kernels, copies and memsets of a trace, by name. A user
+def _on_device(events):
+    """The kernels, copies and memsets among ``events``. A user
     annotation (``Optimizer.step#SGD.step``) also shows on the device
     timeline, spanning the kernels it encloses and the gaps between
     them, so it is left out: it would count that time twice."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
+    return [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def _device_averages(prof):
+    """A trace's device events summed by name (``--profile``'s tables)."""
+    return _on_device(prof.key_averages())
+
+
+def _device_events(prof):
+    """A trace's device events, one a launch: read from the trace's
+    events, not ``key_averages()``, which also sums every CPU op of the
+    trace (most of the seconds a profiled serving run costs)."""
+    return _on_device(prof.events())
 
 
 def _profile_steps(torch, step, batch, name="training", steps=2):
@@ -1249,7 +1299,7 @@ def _profile_steps(torch, step, batch, name="training", steps=2):
             step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = _device_events(prof)
+    dev = _device_averages(prof)
     busy_us = sum(e.self_device_time_total for e in dev)
     check(busy_us > 0, f"profile[{name}]: no device events traced")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
@@ -1456,11 +1506,10 @@ def _window_mean(torch, outs):
     return total / len(outs)
 
 
-def _trace_counts(prof, names):
-    """Device events whose name holds each of ``names`` (case-insensitive),
-    counted over the trace."""
-    events = _device_events(prof)
-    return {n: sum(e.count for e in events if n.lower() in e.key.lower())
+def _trace_counts(events, names):
+    """Device ``events`` whose name holds each of ``names``
+    (case-insensitive), counted."""
+    return {n: sum(1 for e in events if n.lower() in e.key.lower())
             for n in names}
 
 
@@ -1488,10 +1537,11 @@ def _profile_run(torch, fn, names, warmup=None):
         wall = time.perf_counter() - t0
         if warmup is not None:
             prof.step()
-    busy_us = sum(e.self_device_time_total for e in _device_events(prof))
+    events = _device_events(prof)
+    busy_us = sum(e.self_device_time_total for e in events)
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "idle_share": 1 - busy_us / 1e6 / wall,
-            "counts": _trace_counts(prof, names)}
+            "counts": _trace_counts(events, names)}
 
 
 def _state_of(torch, model):
@@ -1516,8 +1566,9 @@ def _window_ab(torch, name, build, batch, kernels, profile_names):
     the model state bit for bit; the step time (the second window of
     each), the peak memory, the wrapper launches and collectives of each
     run, and the window's captures, replays, capture and warm-up times;
-    then one more window of each under the profiler: idle share and the
-    trace's counts of ``profile_names``."""
+    then one more window of each under the profiler, after a traced
+    warm-up window whose events are dropped: idle share and the trace's
+    counts of ``profile_names``."""
     from horovod_tpu_torch.distributed.fusion import fused_reduce
     from horovod_tpu_torch.distributed.window import repeat_batch, windowed
     from horovod_tpu_torch.distributed.zero import \
@@ -1564,7 +1615,10 @@ def _window_ab(torch, name, build, batch, kernels, profile_names):
         states[kind] = _state_of(torch, model)
         means[kind] = [v for m in got for v in (
             m.values() if isinstance(m, dict) else [m])]
-        res["profile"] = _profile_run(torch, run, profile_names)
+        # The trace starts on a warm-up window: one that starts on a
+        # graph replay can lose the replay's first kernel.
+        res["profile"] = _profile_run(torch, run, profile_names,
+                                      warmup=run)
         out[kind] = res
         del model, step, run, got
         if kind == "window":
@@ -1627,7 +1681,7 @@ def window_phase(torch, np):
         0, VOCAB, (FLASH_B, FLASH_L)), device="cuda")
     kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     lm_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "nccl")
-    result = {}
+    result, lm_plan = {}, None
     for mode in ("hooks", "zero", "fused_ce_remat"):
         t0 = time.perf_counter()
         ab = _window_ab(torch, f"lm {mode}",
@@ -1651,10 +1705,13 @@ def window_phase(torch, np):
             per_step = 2                  # one float32 group: RS + AG
             issued = w["zero_collectives"]
         else:
-            model = _lm(torch, flash)
-            per_step = len(hvd.plan_buckets(
-                list(model.parameters()), basics.config().fusion_threshold))
-            del model
+            if lm_plan is None:           # the same parameters each lane
+                model = _lm(torch, flash)
+                lm_plan = len(hvd.plan_buckets(
+                    list(model.parameters()),
+                    basics.config().fusion_threshold))
+                del model
+            per_step = lm_plan
             issued = w["collectives"]
         ab["collectives_a_step"] = per_step
         eager_nccl = ab["eager"]["profile"]["counts"]["nccl"]
@@ -3012,6 +3069,12 @@ HIER_SEQS = 1
 # came: one step pays for part of it; the loss after the first update
 # already holds each codec to the flat exchange).
 HIER_STEPS = 1
+# The LM's depth here: 4 of the 12 layers at the full width (12 until the
+# sp phase came: the cut pays for part of it). A step's time is gloo's
+# host staging of the gradient buckets, 543 MB at 12 layers and 316 MB at
+# 4 (the embedding and head are 196 MB of it), and the buckets still
+# span several layers' leaves and the big singletons.
+HIER_LAYERS = 4
 # (name, HOROVOD_HIERARCHICAL, compression, inner size): the flat
 # exchange, the ladder at 2 hosts of 4 (m 2), int8 on it (the all-gather
 # exchange) and fp8 at 4 hosts of 2 (m 4, the two-stage all-to-all
@@ -3150,7 +3213,7 @@ def _hier_lm(torch, np, dev, world, variant):
     comp = getattr(hvd.Compression, codec)
     flash = functools.partial(fa.flash_attention, causal=True,
                               bwd_impl="kernel")
-    model = _lm(torch, flash)
+    model = _lm(torch, flash, layers=HIER_LAYERS)
     opt = create_train_state(
         model, torch.optim.Adam(model.parameters(), lr=1e-4),
         compression=comp, hierarchical=mode, device=dev)
@@ -3413,9 +3476,10 @@ def _hier_check_lm(ranks):
                   f"hier[{name}]: rank {r} resolved inner {run['inner']}, "
                   f"expected {inner}")
             for k, n in run["launches"].items():
-                check(n == LAYERS * HIER_STEPS,
+                check(n == HIER_LAYERS * HIER_STEPS,
                       f"hier[{name}]: rank {r}: {k} launched {n} times, "
-                      f"expected {LAYERS} layers x {HIER_STEPS} steps")
+                      f"expected {HIER_LAYERS} layers x {HIER_STEPS} "
+                      "steps")
             res = run["residuals"]
             if codec in ("int8", "fp8"):
                 check(res is not None and res["n"] > 0
@@ -3596,10 +3660,10 @@ def tp_rank(argv):
     print("TP_RESULT " + json.dumps(out), flush=True)
 
 
-def _tp_world(job):
-    """Start TP_RANKS rank processes of this script over ``job`` (written
-    to a file); wait for all, kill all as soon as one fails or past
-    TP_TIMEOUT_S; return each rank's result."""
+def _rank_world(flag, n, timeout, arg, tag):
+    """Start ``n`` rank processes of this script (``flag RANK n PORT
+    arg``); wait for all, kill all as soon as one fails or past
+    ``timeout`` seconds; return each rank's ``TAG_RESULT`` object."""
     import os
     import socket
     import tempfile
@@ -3608,21 +3672,19 @@ def _tp_world(job):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
+    prefix = f"{tag}_RESULT "
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "tp_job.json")
-        with open(path, "w") as f:
-            json.dump(job, f)
         logs = [(open(os.path.join(tmp, f"r{r}.out"), "w+"),
                  open(os.path.join(tmp, f"r{r}.err"), "w+"))
-                for r in range(TP_RANKS)]
+                for r in range(n)]
         procs = [subprocess.Popen(
-            [sys.executable, os.path.join(here, "chip_smoke.py"),
-             "--tp-rank", str(r), str(TP_RANKS), str(port), path],
+            [sys.executable, os.path.join(here, "chip_smoke.py"), flag,
+             str(r), str(n), str(port), arg],
             cwd=here, stdout=o, stderr=e, text=True,
             env=dict(os.environ, OMP_NUM_THREADS="1"))
             for r, (o, e) in enumerate(logs)]
         try:
-            deadline = time.monotonic() + TP_TIMEOUT_S
+            deadline = time.monotonic() + timeout
             while any(p.poll() is None for p in procs):
                 failed = [p for p in procs if p.poll() not in (None, 0)]
                 if failed or time.monotonic() > deadline:
@@ -3640,12 +3702,25 @@ def _tp_world(job):
             stdout, stderr = o.read(), e.read()
             o.close()
             e.close()
-            lines = [l for l in stdout.splitlines()
-                     if l.startswith("TP_RESULT ")]
+            lines = [l for l in stdout.splitlines() if l.startswith(prefix)]
             check(p.returncode == 0 and lines,
-                  f"tp: rank {r} exited {p.returncode}: {stderr[-3000:]}")
-            results.append(json.loads(lines[-1][len("TP_RESULT "):]))
+                  f"{tag.lower()}: rank {r} exited {p.returncode}: "
+                  f"{stderr[-3000:]}")
+            results.append(json.loads(lines[-1][len(prefix):]))
     return results
+
+
+def _tp_world(job):
+    """Start TP_RANKS rank processes of this script over ``job`` (written
+    to a file); return each rank's result."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tp_job.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        return _rank_world("--tp-rank", TP_RANKS, TP_TIMEOUT_S, path, "TP")
 
 
 def tp_phase(torch, np, runs, prompts, waves, card):
@@ -3738,6 +3813,521 @@ def tp_phase(torch, np, runs, prompts, waves, card):
     return res
 
 
+# ------------------------------------------------------------ phase 14
+
+SP_RANKS = 4
+SP_TIMEOUT_S = 600.0
+# Ulysses: GPT-2-small in float32 (no TF32) on one sequence of 8192
+# tokens, 2048 a rank; after the all-to-all each rank's K1 runs over [1,
+# 8192, 3, 64], its K2/K3 in the backward. Ring: lm_apply(sp=) and the
+# fused loss on one sequence of 4096 tokens, 1024 a rank (the dense
+# reference keeps about 29 GB of [1, 12, 4096, 4096] probabilities for
+# its backward, so it runs before the world starts). sp=2,tp=2: one
+# forward on the ring's weights and tokens. Pipeline: 4 stages of one
+# block, 8 x 512 tokens in 4 microbatches. Each against the dense step
+# on the same weights: the sharded sums add the same float32 terms in
+# another order (the loss moves by a few 1e-7 relative, a gradient leaf
+# by far less than 1e-4 of its largest entry), where a missed shard, a
+# wrong global position or a gradient summed twice moves them by whole
+# factors.
+SP_ULYSSES_L, SP_RING_L = 8192, 4096
+SP_PP_BATCH, SP_PP_SEQ, SP_PP_MICRO = 8, 512, 4
+SP_LOSS_RTOL = 1e-5
+SP_GRAD_RTOL = 1e-4
+SP_CAVEAT = ("4 ranks share one card over gloo: each collective stages "
+             "its CUDA tensors through host memory and loopback TCP, so "
+             "the step times are those of host copies and sockets, not of "
+             "NVLink")
+# The collectives of the phase's paths and the torch.distributed call
+# each rides.
+SP_PRIMITIVES = {
+    "ppermute": "all_to_all_single (the whole tensor to one peer)",
+    "all_to_all": "all_to_all_single",
+    "sum_across, reduce_grads, pp_reduce_rest_grads": "all_reduce",
+}
+
+
+def _sp_tokens(np, shape, seed):
+    return np.random.default_rng(seed).integers(0, VOCAB, shape)
+
+
+def _sp_ulysses_model(torch, attn_fn, dev):
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+                         num_heads=HEADS, embed_dim=D_MODEL,
+                         max_len=SP_ULYSSES_L, dtype=torch.float32,
+                         attn_fn=attn_fn, seed=0, device=dev)
+
+
+def _sp_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _sp_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_sp_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _sp_trainable(tree):
+    for t in _leaves(tree):
+        t.requires_grad_(True)
+    return tree
+
+
+def _sp_references(torch, np, out):
+    """The dense steps the ranks are held to, on the card in this
+    process before the world starts, saved under ``out``: each variant's
+    loss and gradients (CPU tensors, in parameter order; the pipeline's
+    as ``stack_layers`` splits them). Returns the losses."""
+    import functools
+    import os
+
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.ops.attention import flash_attention
+
+    losses = {}
+
+    def save(name, loss, grads):
+        losses[name] = float(loss.detach())
+        torch.save({"loss": losses[name],
+                    "grads": [g.detach().cpu() for g in grads]},
+                   os.path.join(out, f"{name}.pt"))
+
+    model = _sp_ulysses_model(
+        torch, functools.partial(flash_attention, causal=True), "cuda")
+    toks = torch.tensor(_sp_tokens(np, (1, SP_ULYSSES_L), 15),
+                        device="cuda")
+    loss = plm.next_token_nll(model(toks), toks)
+    loss.backward()
+    save("ulysses", loss, [p.grad for p in model.parameters()])
+    del model, loss
+    params = _sp_trainable(plm.init_lm_params(
+        1, VOCAB, SP_RING_L, LAYERS, HEADS, HEAD_DIM, FFN, device="cuda"))
+    toks = torch.tensor(_sp_tokens(np, (1, SP_RING_L), 16), device="cuda")
+    loss = plm.next_token_nll_fused(
+        params, plm.lm_apply(params, toks, return_hidden=True), toks)
+    loss.backward()
+    save("ring", loss, [t.grad for t in _leaves(params)])
+    del params, loss
+    torch.cuda.empty_cache()
+    params = _sp_trainable(plm.init_lm_params(
+        2, VOCAB, SP_PP_SEQ, SP_RANKS, HEADS, HEAD_DIM, FFN, device="cuda"))
+    toks = torch.tensor(_sp_tokens(np, (SP_PP_BATCH, SP_PP_SEQ), 17),
+                        device="cuda")
+    loss = plm.next_token_nll(plm.lm_apply(params, toks), toks)
+    loss.backward()
+    rest, stacked = plm.stack_layers(_sp_tree(lambda t: t.grad, params))
+    save("pipeline", loss, list(_leaves(rest)) + list(_leaves(stacked)))
+    del params, loss, rest, stacked
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _sp_kernel_check(torch, np):
+    """K1-K3 alone at the Ulysses step's shape and dtype ([1, 8192, 3,
+    64] float32, causal) against their plain versions at
+    ``TOL["float32"]``: the dense reference runs the same kernels, so the
+    step's loss and gradients alone would not see a kernel's fault over
+    8192 keys. Returns the largest absolute error of each output."""
+    from horovod_tpu_torch.ops import attention as fa
+
+    rng = np.random.default_rng(18)
+    q, k, v, do = _flash_case(torch, np, rng, 1, HEADS // SP_RANKS,
+                              HEAD_DIM, SP_ULYSSES_L, SP_ULYSSES_L,
+                              torch.float32)
+    errs = _flash_check(torch, fa, q, k, v, do, True, 0, 0, TOL["float32"],
+                        f"sp Ulysses shape [1, {SP_ULYSSES_L}, "
+                        f"{HEADS // SP_RANKS}, {HEAD_DIM}] float32 causal")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _sp_errors(torch, grads, ref, dev):
+    """The largest error of each gradient leaf against the reference's,
+    relative to the reference leaf's largest entry: the worst of them."""
+    errs = []
+    for g, r in zip(grads, ref):
+        r = r.to(dev)
+        errs.append(float((g - r).abs().max()
+                          / r.abs().max().clamp(min=1e-30)))
+    check(len(errs) == len(ref) and len(errs) > 0,
+          f"sp: {len(errs)} gradient leaves against {len(ref)}")
+    return max(errs)
+
+
+def _sp_time(torch, step, warm=True, before=None):
+    """A warm-up ``step()`` (``warm``), then ``before()`` and one timed
+    ``step()``: its result and milliseconds; the warm-up's milliseconds
+    and the timed step's peak memory on this rank's card are left in
+    ``_sp_time.warm_ms`` and ``_sp_time.peak``."""
+    t0 = time.perf_counter()
+    if warm:
+        step()
+        torch.cuda.synchronize()
+    _sp_time.warm_ms = (time.perf_counter() - t0) * 1e3
+    if before is not None:
+        before()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    _sp_time.peak = torch.cuda.max_memory_allocated()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _sp_ulysses(torch, np, dev, rank, ref):
+    """Ulysses: the bench lane's model with a Ulysses ``attn_fn`` on the
+    flash kernels and ``pos_offset``, one forward and backward step, the
+    gradients summed over ``sp``; K1-K3's launches in the timed step."""
+    import functools
+
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.ops import attention as fa
+    from horovod_tpu_torch.parallel import (LogicalMesh, bind,
+                                            ulysses_attention)
+
+    lt = SP_ULYSSES_L // SP_RANKS
+    toks = torch.tensor(_sp_tokens(np, (1, SP_ULYSSES_L), 15)[
+        :, rank * lt:(rank + 1) * lt], device=dev)
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    with bind(LogicalMesh.from_config(f"sp={SP_RANKS}")):
+        model = _sp_ulysses_model(torch, functools.partial(
+            ulysses_attention, axis="sp", causal=True, use_flash=True), dev)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = plm.next_token_nll(model(toks, pos_offset=rank * lt),
+                                      toks, sp="sp")
+            loss.backward()
+            return float(loss)
+
+        def zero():
+            for k in kernels:
+                k.launches = 0
+
+        loss, ms = _sp_time(torch, step, before=zero)
+        peak, warm_ms = _sp_time.peak, _sp_time.warm_ms
+        launches = {k.__name__: k.launches for k in kernels}
+        grads, red_ms = _sp_time(torch, lambda: plm.reduce_grads(
+            [p.grad for p in model.parameters()], sp="sp"), warm=False)
+    out = {"loss": loss, "step_ms": ms, "warmup_ms": warm_ms,
+           "reduce_ms": red_ms, "peak_memory_bytes": peak,
+           "launches": launches, "k1_shape": [1, SP_ULYSSES_L,
+                                              HEADS // SP_RANKS, HEAD_DIM],
+           "grad_rel_max": _sp_errors(torch, grads, ref["grads"], dev)}
+    del model, grads
+    return out
+
+
+def _sp_ring(torch, np, dev, rank, ref):
+    """Ring attention through ``lm_apply(sp=)``, the fused loss and
+    ``reduce_grads(sp=)``; the dead blocks the timed forward skipped.
+    Returns the result and the weights (the sp=2,tp=2 forward's)."""
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.parallel import LogicalMesh, bind, ring_attention
+
+    lt = SP_RING_L // SP_RANKS
+    toks = torch.tensor(_sp_tokens(np, (1, SP_RING_L), 16)[
+        :, rank * lt:(rank + 1) * lt], device=dev)
+    params = _sp_trainable(plm.init_lm_params(
+        1, VOCAB, SP_RING_L, LAYERS, HEADS, HEAD_DIM, FFN, device=dev))
+    skipped = []
+    with bind(LogicalMesh.from_config(f"sp={SP_RANKS}")):
+        def step():
+            for t in _leaves(params):
+                t.grad = None
+            hidden = plm.lm_apply(params, toks, sp="sp", return_hidden=True)
+            loss = plm.next_token_nll_fused(params, hidden, toks, sp="sp")
+            loss.backward()
+            return float(loss)
+
+        loss, ms = _sp_time(torch, step, before=lambda: skipped.append(
+            ring_attention.skipped))
+        peak, warm_ms = _sp_time.peak, _sp_time.warm_ms
+        skipped = ring_attention.skipped - skipped[0]
+        grads, red_ms = _sp_time(torch, lambda: plm.reduce_grads(
+            [t.grad for t in _leaves(params)], sp="sp"), warm=False)
+    out = {"loss": loss, "step_ms": ms, "warmup_ms": warm_ms,
+           "reduce_ms": red_ms, "peak_memory_bytes": peak,
+           "skipped": skipped,
+           "grad_rel_max": _sp_errors(torch, grads, ref["grads"], dev)}
+    del grads
+    return out, params
+
+
+def _sp_tp(torch, np, dev, rank, params):
+    """One forward of ``lm_apply(sp=, tp=)`` and its fused loss over
+    ``sp=2,tp=2`` on the ring's weights and tokens."""
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.parallel import LogicalMesh, bind
+
+    lm = LogicalMesh.from_config("sp=2,tp=2")
+    sp_i, tp_i = (int(x) for x in np.argwhere(lm.ranks == rank)[0])
+    lt = SP_RING_L // 2
+    toks = torch.tensor(_sp_tokens(np, (1, SP_RING_L), 16)[
+        :, sp_i * lt:(sp_i + 1) * lt], device=dev)
+    with bind(lm), torch.no_grad():
+        shard = plm.shard_lm_params(params, plm.lm_param_specs(
+            LAYERS, "tp"), 2, tp_i)
+
+        def step():
+            hidden = plm.lm_apply(shard, toks, sp="sp", tp="tp",
+                                  return_hidden=True)
+            return float(plm.next_token_nll_fused(shard, hidden, toks,
+                                                  sp="sp", tp="tp"))
+
+        # The warm-up forward also brings up the new groups' communicators
+        # (NCCL makes them on first use, seconds of set-up).
+        loss, ms = _sp_time(torch, step)
+    return {"loss": loss, "forward_ms": ms,
+            "warmup_ms": _sp_time.warm_ms, "sp_index": sp_i,
+            "tp_index": tp_i}
+
+
+def _sp_pipeline(torch, np, dev, rank, ref):
+    """``lm_apply_pp`` over ``pp=4`` (one block a stage), ``remat`` off
+    and on; the stage's gradients and the ``pp_reduce_rest_grads`` ones
+    against the dense step's."""
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.parallel import LogicalMesh, bind
+
+    params = plm.init_lm_params(2, VOCAB, SP_PP_SEQ, SP_RANKS, HEADS,
+                                HEAD_DIM, FFN, device=dev)
+    rest, stacked = plm.stack_layers(params)
+    rspec, lspec = plm.lm_pp_specs(rest, stacked)
+    rest = _sp_trainable(plm.shard_lm_params(rest, rspec, SP_RANKS, rank))
+    stage = _sp_trainable(plm.shard_lm_params(stacked, lspec, SP_RANKS,
+                                              rank))
+    del params, stacked
+    toks = torch.tensor(_sp_tokens(np, (SP_PP_BATCH, SP_PP_SEQ), 17),
+                        device=dev)
+    n_rest = len(list(_leaves(rest)))
+    ref_rest = ref["grads"][:n_rest]
+    ref_stage = [g[rank:rank + 1] for g in ref["grads"][n_rest:]]
+    out = {}
+    with bind(LogicalMesh.from_config(f"pp={SP_RANKS}")):
+        for remat in (False, True):
+            def step():
+                for t in list(_leaves(rest)) + list(_leaves(stage)):
+                    t.grad = None
+                loss = plm.next_token_nll(plm.lm_apply_pp(
+                    rest, stage, toks, axis="pp", microbatches=SP_PP_MICRO,
+                    remat=remat), toks)
+                loss.backward()
+                return float(loss)
+
+            loss, ms = _sp_time(torch, step)
+            g_rest = plm.pp_reduce_rest_grads(_sp_tree(lambda t: t.grad,
+                                                       rest))
+            out["remat" if remat else "stored"] = {
+                "loss": loss, "step_ms": ms, "warmup_ms": _sp_time.warm_ms,
+                "rest_grad_rel_max": _sp_errors(
+                    torch, list(_leaves(g_rest)), ref_rest, dev),
+                "stage_grad_rel_max": _sp_errors(
+                    torch, [t.grad for t in _leaves(stage)], ref_stage,
+                    dev)}
+    return out
+
+
+def sp_rank(argv):
+    """``--sp-rank RANK WORLD PORT DIR``: one rank of the sp/pp phase's
+    world (its own card over NCCL when there are WORLD cards, else the
+    first card over gloo): the Ulysses, ring, sp=2,tp=2 and pipeline
+    variants against the dense references under ``DIR``. Prints
+    ``SP_RESULT {json}`` last."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    secs, t0 = {}, time.perf_counter()
+    refs = {name: torch.load(os.path.join(argv[3], f"{name}.pt"))
+            for name in ("ulysses", "ring", "pipeline")}
+    own = torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if own else 0)
+    torch.cuda.set_device(dev)
+    backend = "nccl" if own else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    from horovod_tpu_torch.common import basics
+
+    basics.init(device=dev)
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "seconds": secs}
+
+    def lap(name):
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    lap("setup")
+    try:
+        out["ulysses"] = _sp_ulysses(torch, np, dev, rank, refs["ulysses"])
+        torch.cuda.empty_cache()
+        lap("ulysses")
+        out["ring"], params = _sp_ring(torch, np, dev, rank, refs["ring"])
+        lap("ring")
+        out["sp_tp"] = _sp_tp(torch, np, dev, rank, params)
+        del params
+        torch.cuda.empty_cache()
+        lap("sp_tp")
+        out["pipeline"] = _sp_pipeline(torch, np, dev, rank,
+                                       refs["pipeline"])
+        lap("pipeline")
+    finally:
+        basics.shutdown()
+        dist.destroy_process_group()
+    print("SP_RESULT " + json.dumps(out), flush=True)
+
+
+def sp_phase(torch, np, card):
+    """Phase 14 (module docstring): sequence and pipeline parallelism in
+    a 4-rank world against the dense steps on the same weights; K1-K3 on
+    every rank's Ulysses head group."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    kcheck = _sp_kernel_check(torch, np)
+    log(f"sp: K1-K3 agree with their plain versions at [1, {SP_ULYSSES_L}, "
+        f"{HEADS // SP_RANKS}, {HEAD_DIM}] float32 causal (max_abs_err "
+        f"{kcheck}, atol=rtol={TOL['float32']})")
+    check_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = _sp_references(torch, np, tmp)
+        refs_s = time.perf_counter() - t0 - check_s
+        ranks = _rank_world("--sp-rank", SP_RANKS, SP_TIMEOUT_S, tmp, "SP")
+    r0 = ranks[0]
+
+    def rel(loss, ref):
+        return abs(loss - ref) / abs(ref)
+
+    for r in ranks:
+        who = f"sp: rank {r['rank']}"
+        u, g = r["ulysses"], r["ring"]
+        for name, res, ref in (("ulysses", u, refs["ulysses"]),
+                               ("ring", g, refs["ring"]),
+                               ("sp=2,tp=2", r["sp_tp"], refs["ring"])):
+            check(math.isfinite(res["loss"])
+                  and rel(res["loss"], ref) <= SP_LOSS_RTOL,
+                  f"{who}: {name} loss {res['loss']} against the dense "
+                  f"{ref} (rel {rel(res['loss'], ref):.2e} > "
+                  f"{SP_LOSS_RTOL})")
+        for name, err in (("ulysses", u["grad_rel_max"]),
+                          ("ring", g["grad_rel_max"])):
+            check(err <= SP_GRAD_RTOL,
+                  f"{who}: {name} gradients summed over sp differ from "
+                  f"the dense ones by up to {err:.2e} of their largest "
+                  f"entry (> {SP_GRAD_RTOL})")
+        check(all(n == LAYERS for n in u["launches"].values()),
+              f"{who}: K1-K3 launches {u['launches']} in the Ulysses step, "
+              f"expected {LAYERS} each")
+        want_skip = LAYERS * (SP_RANKS - 1 - r["rank"])
+        check(g["skipped"] == want_skip,
+              f"{who}: the ring's forward skipped {g['skipped']} dead "
+              f"blocks, expected {want_skip}")
+        for name, p in r["pipeline"].items():
+            check(rel(p["loss"], refs["pipeline"]) <= SP_LOSS_RTOL,
+                  f"{who}: pipeline ({name}) loss {p['loss']} against the "
+                  f"dense {refs['pipeline']}")
+            err = max(p["rest_grad_rel_max"], p["stage_grad_rel_max"])
+            check(err <= SP_GRAD_RTOL,
+                  f"{who}: pipeline ({name}) gradients differ from the "
+                  f"dense ones by up to {err:.2e} (> {SP_GRAD_RTOL})")
+    cards = max(1, min(torch.cuda.device_count(), SP_RANKS))
+
+    def rate(tokens, key, sub):
+        ms = max(sub(r)[key] for r in ranks)
+        return tokens / (ms / 1e3) / cards
+
+    ticks = SP_PP_MICRO + SP_RANKS - 1
+    res = {
+        "ranks": SP_RANKS, "backend": r0["backend"], "cards": cards,
+        "card": card, "collectives": SP_PRIMITIVES,
+        "ulysses": {
+            "mesh": f"sp={SP_RANKS}", "tokens": SP_ULYSSES_L,
+            "step_ms": [r["ulysses"]["step_ms"] for r in ranks],
+            "warmup_ms": [r["ulysses"]["warmup_ms"] for r in ranks],
+            "reduce_ms": [r["ulysses"]["reduce_ms"] for r in ranks],
+            "peak_memory_bytes": [r["ulysses"]["peak_memory_bytes"]
+                                  for r in ranks],
+            "tokens_per_sec_per_card": rate(SP_ULYSSES_L, "step_ms",
+                                            lambda r: r["ulysses"]),
+            "loss": r0["ulysses"]["loss"], "dense_loss": refs["ulysses"],
+            "loss_rel": max(rel(r["ulysses"]["loss"], refs["ulysses"])
+                            for r in ranks),
+            "grad_rel_max": max(r["ulysses"]["grad_rel_max"]
+                                for r in ranks),
+            "launches": [r["ulysses"]["launches"] for r in ranks],
+            "k1_shape": r0["ulysses"]["k1_shape"],
+            "kernel_check": {"dtype": "float32", "causal": True,
+                             "tol": TOL["float32"], "max_abs_err": kcheck}},
+        "ring": {
+            "mesh": f"sp={SP_RANKS}", "tokens": SP_RING_L,
+            "step_ms": [r["ring"]["step_ms"] for r in ranks],
+            "warmup_ms": [r["ring"]["warmup_ms"] for r in ranks],
+            "reduce_ms": [r["ring"]["reduce_ms"] for r in ranks],
+            "peak_memory_bytes": [r["ring"]["peak_memory_bytes"]
+                                  for r in ranks],
+            "tokens_per_sec_per_card": rate(SP_RING_L, "step_ms",
+                                            lambda r: r["ring"]),
+            "loss": r0["ring"]["loss"], "dense_loss": refs["ring"],
+            "loss_rel": max(rel(r["ring"]["loss"], refs["ring"])
+                            for r in ranks),
+            "grad_rel_max": max(r["ring"]["grad_rel_max"] for r in ranks),
+            "dead_blocks_skipped": [r["ring"]["skipped"] for r in ranks],
+            "block_steps": LAYERS * SP_RANKS * SP_RANKS},
+        "sp_tp": {
+            "mesh": "sp=2,tp=2", "tokens": SP_RING_L, "forward_only": True,
+            "forward_ms": [r["sp_tp"]["forward_ms"] for r in ranks],
+            "warmup_ms": [r["sp_tp"]["warmup_ms"] for r in ranks],
+            "loss": r0["sp_tp"]["loss"], "dense_loss": refs["ring"],
+            "loss_rel": max(rel(r["sp_tp"]["loss"], refs["ring"])
+                            for r in ranks)},
+        "pipeline": {
+            "mesh": f"pp={SP_RANKS}", "tokens": SP_PP_BATCH * SP_PP_SEQ,
+            "microbatches": SP_PP_MICRO, "ticks": ticks,
+            "bubble_share": (SP_RANKS - 1) / ticks,
+            "dense_loss": refs["pipeline"],
+            **{name: {
+                "step_ms": [r["pipeline"][name]["step_ms"] for r in ranks],
+                "warmup_ms": [r["pipeline"][name]["warmup_ms"]
+                              for r in ranks],
+                "tokens_per_sec_per_card": rate(
+                    SP_PP_BATCH * SP_PP_SEQ, "step_ms",
+                    lambda r, name=name: r["pipeline"][name]),
+                "loss": r0["pipeline"][name]["loss"],
+                "loss_rel": max(rel(r["pipeline"][name]["loss"],
+                                    refs["pipeline"]) for r in ranks),
+                "grad_rel_max": max(
+                    max(r["pipeline"][name]["rest_grad_rel_max"],
+                        r["pipeline"][name]["stage_grad_rel_max"])
+                    for r in ranks)}
+               for name in ("stored", "remat")}},
+        "caveat": SP_CAVEAT if r0["backend"] == "gloo" else None,
+    }
+    res["kernel_check_s"] = check_s
+    res["references_s"] = refs_s
+    res["rank_seconds"] = [r["seconds"] for r in ranks]
+    res["phase_s"] = time.perf_counter() - t0
+    u, g = res["ulysses"], res["ring"]
+    log(f"sp: {SP_RANKS} ranks over {res['backend']} on {cards} card(s): "
+        f"ulysses loss rel {u['loss_rel']:.2e}, grad rel "
+        f"{u['grad_rel_max']:.2e}, K1-K3 {u['launches'][0]} a rank, step "
+        f"ms {max(u['step_ms']):.1f}; ring loss rel {g['loss_rel']:.2e}, "
+        f"grad rel {g['grad_rel_max']:.2e}, dead blocks "
+        f"{g['dead_blocks_skipped']}; sp=2,tp=2 loss rel "
+        f"{res['sp_tp']['loss_rel']:.2e}; pipeline loss rel "
+        f"{res['pipeline']['stored']['loss_rel']:.2e} / "
+        f"{res['pipeline']['remat']['loss_rel']:.2e}; phase passed in "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -3758,7 +4348,7 @@ def profile_phase(torch, params, prompts, waves):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = _serve(torch, eng, waves)
-        dev = _device_events(prof)
+        dev = _device_averages(prof)
         busy_us = sum(e.self_device_time_total for e in dev)
         check(busy_us > 0, f"profile[{name}]: no device events traced")
         top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
@@ -3869,13 +4459,13 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, wres, hres, card):
+def _flash_records(fres, tres, wres, hres, spres, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
-    holds, and from the hier phase rank 0's launches in each variant's
-    timed steps; times and errors from the flash phase at the slice
-    shapes."""
+    holds, from the hier phase rank 0's launches in each variant's
+    timed steps, and from the sp phase every rank's in the Ulysses step;
+    times and errors from the flash phase at the slice shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
               "flash_bwd_dkv": "flash_bwd_dkv"}
@@ -3903,6 +4493,12 @@ def _flash_records(fres, tres, wres, hres, card):
             "launches_hier_rank0": {
                 v: r["launches"][name]
                 for v, r in hres.get("variants", {}).items()},
+            "launches_sp_ulysses": [l[name] for l in
+                                    spres["ulysses"]["launches"]],
+            "sp_ulysses_shape": spres["ulysses"]["k1_shape"],
+            "sp_ulysses_max_abs_err": max(
+                spres["ulysses"]["kernel_check"]["max_abs_err"][o]
+                for o in outs),
             "max_abs_err": max(r["max_abs_err"][o] for o in outs),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4058,11 +4654,19 @@ def tp_only(torch, np, card):
     print(json.dumps({"tp": res}), flush=True)
 
 
+def sp_only(torch, np, card):
+    """``--sp-only``: the build and the sp/pp phase."""
+    build_phase()
+    print(json.dumps({"sp": sp_phase(torch, np, card)}), flush=True)
+
+
 def main():
     if "--hier-rank" in sys.argv[1:]:
         return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
     if "--tp-rank" in sys.argv[1:]:
         return tp_rank(sys.argv[sys.argv.index("--tp-rank") + 1:])
+    if "--sp-rank" in sys.argv[1:]:
+        return sp_rank(sys.argv[sys.argv.index("--sp-rank") + 1:])
     import numpy as np
     import torch
 
@@ -4082,6 +4686,8 @@ def main():
         return hier_only(torch, np, card)
     if "--tp-only" in sys.argv[1:]:
         return tp_only(torch, np, card)
+    if "--sp-only" in sys.argv[1:]:
+        return sp_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -4109,6 +4715,7 @@ def main():
                    "process": fleet["process"]["clean"]}))
     hres = timed("hier", hier_phase(torch, np, card))
     tpres = timed("tp", tp_phase(torch, np, runs, prompts, waves, card))
+    spres = timed("sp", sp_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -4122,11 +4729,12 @@ def main():
     print(json.dumps({"disagg": disagg}), flush=True)
     print(json.dumps({"hier": hres}), flush=True)
     print(json.dumps({"tp": tpres}), flush=True)
+    print(json.dumps({"sp": spres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, wres, hres, card),
+        *_flash_records(fres, tres, wres, hres, spres, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,9 @@ training step (:mod:`~horovod_tpu_torch.models.train`) and its bench
 lane (``python -m horovod_tpu_torch.bench``); and image training — the
 ResNet family (:mod:`~horovod_tpu_torch.models.resnet`) on the fused
 1x1-conv + BatchNorm-statistics kernel
-(:mod:`~horovod_tpu_torch.ops.conv_bn`) and the bench's image lane.
+(:mod:`~horovod_tpu_torch.ops.conv_bn`) and the bench's image lane; and
+the parallelism layer (:mod:`~horovod_tpu_torch.parallel`: the mesh,
+tensor, sequence and pipeline parallelism).
 """
 
 __all__ = ["resolve_device"]

@@ -3,7 +3,8 @@ of ``horovod_tpu.jax.zero`` in PyTorch's shape.
 
 :func:`sharded_distributed_optimizer` wraps a torch optimizer. The
 trainable parameters are grouped by dtype, and each group is one flat
-vector padded to a multiple of the world size ``n``. Each rank owns the
+vector padded to a multiple of the data axis's size ``n`` (the whole
+world, or the bound mesh's data axis with ``axis_name``). Each rank owns the
 ``(pad / n,)`` slice of every group, as a leaf tensor of its own, and the
 wrapped optimizer's class is built over those leaves with the wrapped
 optimizer's hyperparameters, so the optimizer state (Adam's moments) is
@@ -24,21 +25,24 @@ Torch optimizers write parameters, where optax returns updates: the
 gathered slices are the new parameter values, where the JAX function
 gathers updates and adds them, so the two round differently (a few ulp).
 With one rank the update is a flat-vector local one, equal to the
-unwrapped optimizer, and the two collectives still run (the port's
-convention, as in ``fusion``). The wrapped optimizer must be elementwise
-(SGD, Adam, AdamW, ...): a transform that mixes parameters would see only
-its rank's slice. Its state is rank-local, so it is never broadcast.
+unwrapped optimizer, and in a world of one the two collectives still run
+(the port's convention, as in ``fusion``); a one-rank data axis of a
+bound mesh runs none, as an axis of size one does across ``parallel/``.
+The wrapped optimizer must be elementwise (SGD, Adam, AdamW, ...): a
+transform that mixes parameters would see only its rank's slice. Its
+state is rank-local, so it is never broadcast.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 from horovod_tpu_torch.distributed.compression import Compression
 from horovod_tpu_torch.distributed.fusion import (_dtype_name,
                                                   release_grad_hooks)
@@ -57,13 +61,33 @@ def _pad_to(total: int, n: int) -> int:
     return ((total + n - 1) // n) * n
 
 
+def _data_axis(axis_name: Optional[str]):
+    """``(group, size, index)`` ZeRO shards over: with a bound
+    :class:`~horovod_tpu_torch.parallel.logical.LogicalMesh`, its data
+    axis (``module_axis("data", axis_name)``) through
+    :func:`~horovod_tpu_torch.parallel._collectives.axis_group` (group
+    ``None`` for a one-rank axis); with none, the whole world, which is
+    the flat data axis a ``LogicalMesh``-less JAX mesh names."""
+    from horovod_tpu_torch.parallel._collectives import axis_group
+    from horovod_tpu_torch.parallel.logical import (DATA_AXIS,
+                                                    current_logical_mesh)
+
+    if current_logical_mesh() is None:
+        if axis_name not in (None, DATA_AXIS):
+            raise InvalidArgumentError(
+                f"sharded_distributed_optimizer(axis_name={axis_name!r}) "
+                "needs a bound LogicalMesh that defines the axis")
+        return dist.group.WORLD, basics.size(), basics.rank()
+    return axis_group(axis_name, role="data")
+
+
 class ZeroOptimizer:
     """The optimizer :func:`sharded_distributed_optimizer` returns:
     ``zero_grad()``, ``step()``, and the wrapped class's ``param_groups``
     and rank-local ``state`` over this rank's slices."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, average: bool,
-                 compression):
+                 compression, axis_name: Optional[str] = None):
         basics.config()                   # raises before hvd.init()
         hyper = [{k: v for k, v in g.items() if k != "params"}
                  for g in optimizer.param_groups]
@@ -77,8 +101,7 @@ class ZeroOptimizer:
         release_grad_hooks(self._params)
         self._average = average
         self._compression = compression or Compression.none
-        self._n = basics.size()
-        self._rank = basics.rank()
+        self._group, self._n, self._rank = _data_axis(axis_name)
         self._groups = _group_by_dtype(self._params)
         self.pads = {key: _pad_to(sum(self._params[i].numel() for i in idxs),
                                   self._n)
@@ -135,45 +158,63 @@ class ZeroOptimizer:
                               for p in params])
             flat = F.pad(flat, (0, self.pads[key] - flat.numel()))
             wire, ctx = self._compression.compress(flat)
-            shard = torch.empty(self.pads[key] // n, dtype=wire.dtype,
-                                device=wire.device)
-            dist.reduce_scatter_tensor(shard, wire, op=dist.ReduceOp.SUM)
+            if self._group is None:       # a one-rank axis of the mesh
+                shard = wire.clone()
+            else:
+                shard = torch.empty(self.pads[key] // n, dtype=wire.dtype,
+                                    device=wire.device)
+                dist.reduce_scatter_tensor(shard, wire,
+                                           op=dist.ReduceOp.SUM,
+                                           group=self._group)
             g = self._compression.decompress(shard, ctx)
             if self._average and n > 1:
                 g = g / n
             self._load_shard(key)
             self._leaves[key].grad = g
             flats[key] = flat
-        sharded_distributed_optimizer.collectives += len(flats)
+        issued = len(flats) if self._group is not None else 0
+        sharded_distributed_optimizer.collectives += issued
         self.inner.step()
         with torch.no_grad():
             for key, flat in flats.items():
-                dist.all_gather_into_tensor(flat, self._leaves[key])
+                if self._group is None:
+                    flat.copy_(self._leaves[key])
+                else:
+                    dist.all_gather_into_tensor(flat, self._leaves[key],
+                                                group=self._group)
                 off = 0
                 for i in self._groups[key]:
                     p = self._params[i]
                     p.copy_(flat[off:off + p.numel()].view_as(p))
                     off += p.numel()
-        sharded_distributed_optimizer.collectives += len(flats)
+        sharded_distributed_optimizer.collectives += issued
 
 
 def sharded_distributed_optimizer(optimizer: torch.optim.Optimizer,
                                   average: bool = True,
+                                  axis_name: Optional[str] = None,
                                   compression=None) -> ZeroOptimizer:
     """Wrap ``optimizer`` with ZeRO-1 sharding over the ranks (the module
-    docstring). ``compression`` (e.g. ``Compression.fp16``) applies to the
+    docstring). ``axis_name`` is the data axis to shard and reduce over:
+    under a bound ``LogicalMesh`` its data axis by default (``dp`` in a
+    ``dp=2,sp=4`` mesh, so ZeRO composes with sequence parallelism: the
+    ranks of one data shard's sequence group average nothing, the
+    ``reduce_grads(sp=)`` sum is theirs); with no mesh bound, the whole
+    world. It is resolved when the optimizer is built. ``compression``
+    (e.g. ``Compression.fp16``) applies to the
     reduce-scatter wire; the all-gather carries the parameters' dtype.
     Raises ``ValueError`` when the optimizer's param groups have different
     hyperparameters. Each collective adds one to
     ``sharded_distributed_optimizer.collectives``: two per dtype group a
     step."""
-    return ZeroOptimizer(optimizer, average, compression)
+    return ZeroOptimizer(optimizer, average, compression, axis_name)
 
 
 sharded_distributed_optimizer.collectives = 0
 
 
 def shard_info(optimizer: ZeroOptimizer) -> Dict[str, Tuple[int, int]]:
-    """``{dtype name: (padded global length, length on each rank)}``."""
+    """``{dtype name: (padded global length, length on each rank)}``,
+    over the data axis the optimizer shards over."""
     return {key: (pad, pad // optimizer._n)
             for key, pad in optimizer.pads.items()}

@@ -1,5 +1,5 @@
-"""GPT-style LM: the port of ``horovod_tpu.models.parallel_lm``, dense
-and tensor-parallel.
+"""GPT-style LM: the port of ``horovod_tpu.models.parallel_lm``: dense,
+tensor-, sequence- and pipeline-parallel.
 
 Plain functions over a parameter dict of tensors whose structure and
 layouts are exactly the JAX pytree's (``wqkv [E, 3, H, Dh]``, ``wo [H,
@@ -24,9 +24,24 @@ calls the same functions with ``tp=axis``: column-parallel QKV and
 up-projections (no communication), row-parallel output and down
 projections (one all-reduce each). With ``vocab_parallel`` the head is
 column-sharded too and :func:`next_token_nll_fused` takes the
-vocab-parallel loss. :func:`reduce_grads` pairs with it. Sequence and
-pipeline parallelism and the MoE variant are ported by later slices
-(ROADMAP.md Queue 1, items 4.4-4.6).
+vocab-parallel loss. :func:`reduce_grads` pairs with it.
+
+**Sequence parallelism** (``sp`` = a sequence axis): each rank holds
+``tokens[:, r * L : (r + 1) * L]`` and the whole weights; every layer's
+attention is :func:`~horovod_tpu_torch.parallel.ring_attention.
+ring_attention` at global positions, the losses pass each shard's first
+token back to the previous rank for its last target and normalise by the
+axis's token count, and :func:`reduce_grads` sums over ``sp``. It
+composes with ``tp`` (a ``dp x sp x tp`` mesh).
+
+**Pipeline parallelism**: :func:`stack_layers` stacks the layers into
+``[n_layers, ...]`` leaves, :func:`lm_pp_specs` shards them over the
+stage axis (``shard_lm_params`` takes a rank's ``[1, ...]`` stage), and
+:func:`lm_apply_pp` runs one block a stage under
+:func:`~horovod_tpu_torch.parallel.pipeline.pipeline_apply`;
+:func:`pp_reduce_rest_grads` sums the embedding tables' gradients over
+the stages. The MoE variant is ported by a later slice (ROADMAP.md
+Queue 1, item 4.6).
 """
 
 from __future__ import annotations
@@ -37,11 +52,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves, tree_map
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.ops.attention import dot_product_attention
-from horovod_tpu_torch.parallel.tp import (shard_columns, shard_rows,
-                                           tp_mlp, tp_region_input,
+from horovod_tpu_torch.parallel._collectives import axis_group, ppermute
+from horovod_tpu_torch.parallel.ring_attention import ring_attention
+from horovod_tpu_torch.parallel.tp import (_all_reduce, shard_columns,
+                                           shard_rows,
+                                           sum_across, tp_mlp,
+                                           tp_region_input,
                                            tp_region_output,
                                            vocab_parallel_logits)
 
@@ -238,14 +258,22 @@ def lm_apply(params: Dict, tokens, sp: Optional[str] = None,
     """Token ids ``[B, L]`` -> logits ``[B, L, vocab]`` (or the final
     hidden state ``[B, L, E]`` with ``return_hidden``, for
     :func:`next_token_nll_fused`). ``tp`` names the tensor axis: the
-    params are this rank's :func:`shard_lm_params` shard."""
-    _dense_only(sp)
+    params are this rank's :func:`shard_lm_params` shard. ``sp`` names
+    the sequence axis: ``tokens`` are this rank's ``[B, L_local]`` shard
+    (global positions from ``rank * L_local``) and every layer runs ring
+    attention over the axis."""
     B, L = tokens.shape
-    x = params["embed"][tokens] + params["pos"][:L][None]
+    offset = axis_group(sp, role="seq")[2] * L if sp else 0
+    x = params["embed"][tokens] + params["pos"][offset:offset + L][None]
     for layer in params["layers"]:
         q, k, v = _project_qkv(layer, x, tp)
         scale = 1.0 / math.sqrt(q.shape[-1])
-        attn = dot_product_attention(q, k, v, causal=True, scale=scale)
+        if sp:
+            attn = ring_attention(q, k, v, axis=sp, causal=True,
+                                  scale=scale)
+        else:
+            attn = dot_product_attention(q, k, v, causal=True,
+                                         scale=scale)
         x = _attn_out_residual(layer, attn, x, tp)
         x = _ffn_residual(layer, x, tp)
     if return_hidden:
@@ -453,33 +481,142 @@ def lm_decode_spec(params: Dict, prompt, steps: int, *, k: int,
     return torch.tensor([out], device=dev)
 
 
-def _dense_only(sp):
-    if sp is not None:
-        raise NotImplementedError(
-            "sequence parallelism shards the sequence over a mesh axis, "
-            "which comes with ROADMAP.md Queue 1 item 4.4 (ring "
-            "attention, Ulysses); pass sp=None")
+def stack_layers(params: Dict):
+    """Split the parameter dict for pipeline parallelism: the per-layer
+    dicts stack into leaves with a leading ``[n_layers]`` dim (shard them
+    with :func:`lm_pp_specs`, one block a stage), everything else stays
+    as it is. Returns ``(rest, stacked_layers)``."""
+    def stack(xs):
+        if isinstance(xs[0], dict):
+            return {k: stack([x[k] for x in xs]) for k in xs[0]}
+        return torch.stack(xs)
+
+    stacked = stack(params["layers"])
+    rest = {k: v for k, v in params.items() if k != "layers"}
+    return rest, stacked
+
+
+def lm_pp_specs(rest: Dict, stacked):
+    """The specs of :func:`lm_apply_pp`'s two dicts, in
+    :func:`lm_param_specs`' form: ``rest`` replicated, every stacked leaf
+    sharded on its leading (stage) dim over ``pp``, so
+    ``shard_lm_params(stacked, spec, P, r)`` is stage ``r``'s ``[1,
+    ...]`` slice (what ``shard_map`` hands the JAX function)."""
+    def spec(tree, leaf):
+        if isinstance(tree, dict):
+            return {k: spec(v, leaf) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [spec(v, leaf) for v in tree]
+        return leaf
+
+    return spec(rest, ()), spec(stacked, ("pp",))
+
+
+def lm_apply_pp(rest: Dict, stacked_layers, tokens, axis: str = "pp",
+                microbatches: int = 2, remat: bool = False):
+    """Pipeline-parallel forward: one transformer block a stage (the
+    GPipe schedule of :func:`~horovod_tpu_torch.parallel.pipeline.
+    pipeline_apply` over ``axis``). ``stacked_layers`` is this rank's
+    stage, each leaf ``[1, ...]`` (``n_layers`` must equal the axis
+    size); the embedding and the head run on every rank and the batch
+    ``tokens [B, L]`` (the same on every rank) splits into
+    ``microbatches``. Returns the logits ``[B, L, vocab]`` on every
+    rank."""
+    from horovod_tpu_torch.parallel.pipeline import pipeline_apply
+
+    B, L = tokens.shape
+    M = microbatches
+    if B % M != 0:
+        raise ValueError(
+            f"lm_apply_pp: batch {B} must divide into microbatches={M} "
+            f"(each stage tick processes one microbatch of B/M sequences)")
+    _, n_stages, _ = axis_group(axis, role="stage")
+    leaves = tree_leaves(stacked_layers)
+    if leaves and leaves[0].shape[0] != 1:
+        raise ValueError(
+            f"lm_apply_pp: per-rank stacked_layers leading dim is "
+            f"{leaves[0].shape[0]}, expected 1 — pass n_layers == "
+            f"'{axis}' axis size ({n_stages}) blocks, each rank its "
+            f"lm_pp_specs stage (one transformer block a stage)")
+    x = rest["embed"][tokens] + rest["pos"][None, :L]
+    xm = x.reshape(M, B // M, L, x.shape[-1])
+
+    def stage(layer, a):
+        q, k, v = _project_qkv(layer, a, None)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        attn = dot_product_attention(q, k, v, causal=True, scale=scale)
+        a = _attn_out_residual(layer, attn, a, None)
+        return _ffn_residual(layer, a, None)
+
+    out = pipeline_apply(stage, stacked_layers, xm, axis, remat=remat)
+    return _logits(rest, out.reshape(B, L, x.shape[-1]))
+
+
+def _reduced(g, group, n: int, mean: bool):
+    """``g``'s all-reduce over ``group`` (``None``: an axis of one, ``g``
+    itself): the sum, or the mean."""
+    if group is None:
+        return g
+    out = _all_reduce(g, group)
+    return out / n if mean else out
+
+
+def pp_reduce_rest_grads(g_rest: Dict, axis: str = "pp"):
+    """The gradient reduction of :func:`lm_apply_pp`'s replicated
+    parameters. The embedding and position tables are read only by stage
+    0's injection, so their gradients are whole on the first stage and
+    zero elsewhere: SUM them over ``axis``. The final LayerNorm and the
+    head run on every rank over the pipeline's broadcast output, so
+    their gradients are already whole and equal: left as they are.
+    Returns a new dict."""
+    group, n, _ = axis_group(axis, role="stage")
+    out = dict(g_rest)
+    for key in ("embed", "pos"):
+        out[key] = _reduced(g_rest[key], group, n, mean=False)
+    return out
 
 
 def _shifted_targets(tokens, sp: Optional[str] = None):
-    """Next-token targets and validity weights, without a sequence axis
-    (``sp=None``): ``targets [B, L]`` are the tokens shifted left by one
-    (the last position wraps to the first token, any valid id) and
-    ``valid [B, L]`` float32 masks out the last position."""
-    _dense_only(sp)
+    """Next-token targets and validity weights: ``targets [B, L]`` are
+    the tokens shifted left by one and ``valid [B, L]`` float32 masks out
+    the last global position. Without a sequence axis the last position
+    wraps to the first token (any valid id); with ``sp`` each shard's
+    last target is the next shard's first token, one ``ppermute`` of
+    ``tokens[:, :1]`` to the previous rank."""
     B, L = tokens.shape
-    tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    valid = (torch.arange(L, device=tokens.device) < L - 1).float()
+    if sp:
+        _, n, index = axis_group(sp, role="seq")
+        nxt = ppermute(tokens[:, :1].contiguous(), sp, -1)
+        tgt = torch.cat([tokens[:, 1:], nxt], dim=1)
+        gpos = index * L + torch.arange(L, device=tokens.device)
+        valid = (gpos < n * L - 1).float()
+    else:
+        tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+        valid = (torch.arange(L, device=tokens.device) < L - 1).float()
     return tgt, valid[None, :].expand(B, L)
+
+
+def _count_over(cnt, sp: Optional[str]):
+    """The token count summed over the sequence axis (no gradient)."""
+    if not sp:
+        return cnt
+    group, n, _ = axis_group(sp, role="seq")
+    return _reduced(cnt.detach(), group, n, mean=False)
 
 
 def next_token_nll(logits, tokens, sp: Optional[str] = None):
     """Mean next-token negative log-likelihood of ``logits [B, L, V]``
-    against ``tokens [B, L]``, in float32."""
+    against ``tokens [B, L]``, in float32. With ``sp`` the mean is over
+    the whole sequence of the axis, the same value on every rank."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     tgt, valid = _shifted_targets(tokens, sp)
     nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
-    return (nll * valid).sum() / valid.sum()
+    local_sum = (nll * valid).sum()
+    if sp:
+        # sum_across, not a bare all-reduce: its backward is the
+        # identity, so the gradient is not scaled by the axis size.
+        return sum_across(local_sum, sp) / _count_over(valid.sum(), sp)
+    return local_sum / valid.sum()
 
 
 def next_token_nll_fused(params: Dict, hidden, tokens,
@@ -492,7 +629,9 @@ def next_token_nll_fused(params: Dict, hidden, tokens,
     ``vocab_parallel`` the head arrives ``[E, V/P]``-sharded over ``tp``
     (:func:`lm_param_specs` ``vocab_parallel=True``) and
     :func:`~horovod_tpu_torch.ops.xent.tp_vocab_cross_entropy` assembles
-    the normaliser over the axis: the same loss on every rank."""
+    the normaliser over the axis: the same loss on every rank. With
+    ``sp`` each shard's share of the loss is normalised by the axis's
+    token count and summed over the axis."""
     from horovod_tpu_torch.ops.xent import (fused_cross_entropy,
                                             tp_vocab_cross_entropy)
 
@@ -500,14 +639,18 @@ def next_token_nll_fused(params: Dict, hidden, tokens,
     tgt, valid = _shifted_targets(tokens, sp)
     e = hidden.shape[-1]
     w2 = valid.reshape(B * L)
+    denom = _count_over(w2.sum(), sp)
     # params["head"] is [E, V]; the fused losses take nn.Linear's [V, E].
     args = (hidden.reshape(B * L, e), params["head"].t(), tgt.reshape(B * L))
     if vocab_parallel:
         if not tp:
             raise ValueError("vocab_parallel needs a tp axis")
-        return tp_vocab_cross_entropy(*args, tp, t_chunk, weights=w2,
-                                      denom=w2.sum())
-    return fused_cross_entropy(*args, t_chunk, weights=w2, denom=w2.sum())
+        local = tp_vocab_cross_entropy(*args, tp, t_chunk, weights=w2,
+                                       denom=denom)
+    else:
+        local = fused_cross_entropy(*args, t_chunk, weights=w2,
+                                    denom=denom)
+    return sum_across(local, sp) if sp else local
 
 
 def reduce_grads(grads, dp: Optional[str] = None, sp: Optional[str] = None):
@@ -515,40 +658,19 @@ def reduce_grads(grads, dp: Optional[str] = None, sp: Optional[str] = None):
     :func:`next_token_nll_fused`, on a gradient dict of the params'
     structure (this rank's shard's gradients):
 
+    * ``sp``: SUM over the sequence axis — the loss is already normalised
+      by the axis's token count, so each rank's backward holds its own
+      tokens' share of the gradient;
     * ``dp``: MEAN over the data axis of the bound mesh — the global
       loss is the mean of the data shards' means;
     * ``tp``: nothing — the tensor axis's ranks see the same data, so
       replicated leaves get the same gradients (the ``f``/``g``
       conjugates sum the shards' terms) and sharded leaves' gradients
-      are exactly their slices;
-    * ``sp``: comes with sequence parallelism (ROADMAP.md Queue 1 item
-      4.4) and raises.
+      are exactly their slices.
 
     Returns a new dict; the inputs are left unchanged."""
-    _dense_only(sp)
-    if not dp:
-        return grads
-    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
-    from horovod_tpu_torch.parallel.logical import current_logical_mesh
-
-    lm = current_logical_mesh()
-    if lm is None or not lm.defines(dp):
-        raise InvalidArgumentError(
-            f"reduce_grads(dp={dp!r}) needs a bound LogicalMesh with a "
-            f"{dp!r} axis")
-    if lm.axes[dp] == 1:
-        return grads
-    import torch.distributed as dist
-
-    group, n = lm.mesh.get_group(dp), lm.axes[dp]
-
-    def mean(g):
-        if isinstance(g, dict):
-            return {k: mean(v) for k, v in g.items()}
-        if isinstance(g, (list, tuple)):
-            return [mean(v) for v in g]
-        out = g.clone()
-        dist.all_reduce(out, group=group)
-        return out / n
-
-    return mean(grads)
+    for axis, role, mean in ((sp, "seq", False), (dp, "data", True)):
+        if axis:
+            group, n, _ = axis_group(axis, role=role)
+            grads = tree_map(lambda g: _reduced(g, group, n, mean), grads)
+    return grads

@@ -137,16 +137,21 @@ class TransformerLM(nn.Module):
         dev = resolve_device(device)
         self.dtype = dtype
         self.remat = remat
-        self.embed = nn.Embedding(vocab_size, embed_dim)
-        self.pos_embed = nn.Embedding(max_len, embed_dim)
-        self.blocks = nn.ModuleList(
-            TransformerBlock(embed_dim, num_heads, dtype=dtype,
-                             attn_fn=attn_fn, dropout=dropout)
-            for _ in range(num_layers))
-        self.ln_f = LayerNorm(embed_dim)
-        self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
+        # Built without storage and allocated on ``dev`` uninitialised:
+        # ``_init_weights`` writes every parameter, so torch's default
+        # initialisers (seconds on the CPU at GPT-2 width) would be
+        # thrown away.
+        with torch.device("meta"):
+            self.embed = nn.Embedding(vocab_size, embed_dim)
+            self.pos_embed = nn.Embedding(max_len, embed_dim)
+            self.blocks = nn.ModuleList(
+                TransformerBlock(embed_dim, num_heads, dtype=dtype,
+                                 attn_fn=attn_fn, dropout=dropout)
+                for _ in range(num_layers))
+            self.ln_f = LayerNorm(embed_dim)
+            self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
+        self.to_empty(device=dev)
         self._init_weights(seed)
-        self.to(dev)
 
     def _init_weights(self, seed: int) -> None:
         rng = np.random.default_rng(seed)
@@ -162,6 +167,9 @@ class TransformerLM(nn.Module):
                 normal(mod.weight, 1.0 / math.sqrt(mod.in_features))
                 if mod.bias is not None:
                     mod.bias.data.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.scale.data.fill_(1.0)
+                mod.bias.data.zero_()
 
     def forward(self, tokens, pos_offset: int = 0,
                 return_hidden: bool = False):

@@ -210,10 +210,10 @@ def tp_vocab_cross_entropy(h, w_local, targets, axis=None,
 
     ``axis`` resolves through the bound
     :class:`~horovod_tpu_torch.parallel.logical.LogicalMesh`
-    (:func:`~horovod_tpu_torch.parallel.tp.axis_group`); an axis of size
-    one is :func:`fused_cross_entropy`. ``weights`` and ``denom`` are
-    non-differentiable bookkeeping, as there."""
-    from horovod_tpu_torch.parallel.tp import axis_group
+    (:func:`~horovod_tpu_torch.parallel._collectives.axis_group`); an
+    axis of size one is :func:`fused_cross_entropy`. ``weights`` and
+    ``denom`` are non-differentiable bookkeeping, as there."""
+    from horovod_tpu_torch.parallel._collectives import axis_group
 
     if t_chunk < 1:
         raise ValueError(f"t_chunk must be >= 1, got {t_chunk}")

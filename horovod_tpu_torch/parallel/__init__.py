@@ -6,14 +6,17 @@ logical`: the axis vocabulary, ``LogicalMesh`` and its rules table) and
 the mesh layer (:mod:`~horovod_tpu_torch.parallel.mesh`: rank-grid
 meshes, the host topology, and the two-level intra-host / inter-host
 ladder that the fused gradient buckets run under
-``HOROVOD_HIERARCHICAL``), and tensor parallelism
+``HOROVOD_HIERARCHICAL``); tensor parallelism
 (:mod:`~horovod_tpu_torch.parallel.tp`: Megatron's column/row-parallel
-layers and their conjugate collectives over a mesh's tensor axis).
+layers and their conjugate collectives over a mesh's tensor axis);
+sequence parallelism (:mod:`~horovod_tpu_torch.parallel.ring_attention`
+and :mod:`~horovod_tpu_torch.parallel.ulysses`) and GPipe pipeline
+parallelism (:mod:`~horovod_tpu_torch.parallel.pipeline`), over the
+differentiable ``ppermute`` and all-to-all of
+:mod:`~horovod_tpu_torch.parallel._collectives`.
 
-Not ported yet: sequence parallelism (``ulysses``, ``ring_attention``,
-ROADMAP.md Queue 1 item 4.4); pipeline parallelism (``pipeline``, item
-4.5); expert parallelism (``moe``, item 4.6); and the SPMD harness
-(``spmd``, item 4.7).
+Not ported yet: expert parallelism (``moe``, ROADMAP.md Queue 1 item
+4.6) and the SPMD harness (``spmd``, item 4.7).
 """
 
 from horovod_tpu_torch.parallel.logical import (  # noqa: F401
@@ -34,6 +37,10 @@ from horovod_tpu_torch.parallel.mesh import (  # noqa: F401
     hierarchical_mesh,
     make_mesh,
 )
+from horovod_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+)
+from horovod_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: F401
 from horovod_tpu_torch.parallel.tp import (  # noqa: F401
     column_parallel,
     row_parallel,
@@ -44,4 +51,7 @@ from horovod_tpu_torch.parallel.tp import (  # noqa: F401
     tp_region_input,
     tp_region_output,
     vocab_parallel_logits,
+)
+from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
+    pipeline_apply,
 )

@@ -33,30 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from horovod_tpu_torch.common.exceptions import InvalidArgumentError
-from horovod_tpu_torch.parallel.logical import (current_logical_mesh,
-                                                module_axis)
-
-
-def axis_group(axis: Optional[str] = None):
-    """``(group, size, index)`` of the tensor axis: its process group in
-    the bound mesh (``None`` when the axis has size one), the axis size
-    and this rank's position along it. Raises without a bound mesh or
-    when the mesh lacks the axis."""
-    lm = current_logical_mesh()
-    if lm is None:
-        raise InvalidArgumentError(
-            "tensor parallelism needs a bound LogicalMesh (wrap the call "
-            "in horovod_tpu_torch.parallel.bind(LogicalMesh(...))): its "
-            "tensor axis names the process group the shards reduce over")
-    axis = module_axis("tensor", axis)
-    if not lm.defines(axis):
-        raise InvalidArgumentError(
-            f"bound LogicalMesh {lm.config!r} has no axis {axis!r}")
-    size = lm.axes[axis]
-    if size == 1:
-        return None, 1, 0
-    group = lm.mesh.get_group(axis)
-    return group, size, dist.get_rank(group)
+from horovod_tpu_torch.parallel._collectives import axis_group
 
 
 def _all_reduce(x, group, op=dist.ReduceOp.SUM):

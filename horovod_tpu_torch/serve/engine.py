@@ -546,7 +546,7 @@ class ServeEngine:
         self.tp_rank = 0
         self._closed = False
         if self.tp > 1:
-            from horovod_tpu_torch.parallel.tp import axis_group
+            from horovod_tpu_torch.parallel._collectives import axis_group
 
             with self._bound():
                 self._tp_group, _, self.tp_rank = axis_group(self._tp_axis)

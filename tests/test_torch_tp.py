@@ -599,9 +599,10 @@ def test_tp_functions_need_a_bound_mesh_and_divisible_shards():
     with pytest.raises(InvalidArgumentError, match="does not split"):
         tplm.shard_lm_params(_lm_params(), tplm.lm_param_specs(
             LAYERS, "tp"), 3, 0)
-    with pytest.raises(NotImplementedError, match="item 4.4"):
+    # The sequence axis, like the tensor axis, is a bound mesh's.
+    with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
         tplm.reduce_grads({}, sp="sp")
-    with pytest.raises(NotImplementedError, match="item 4.4"):
+    with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
         tplm.lm_apply(tplm.params_from_numpy(_lm_params(), device="cpu"),
                       torch.zeros(1, 4, dtype=torch.long), sp="sp")
 

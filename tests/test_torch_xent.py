@@ -158,9 +158,9 @@ def test_next_token_nll_fused_matches_jax():
 
 
 def test_unported_parallel_losses_raise():
-    """The sequence-parallel loss is not ported yet and raises naming its
-    ROADMAP.md item; the vocab-parallel one needs a bound mesh (its
-    group) and a tp axis (tests/test_torch_tp.py runs it)."""
+    """The sequence-parallel loss needs a bound mesh (its sequence axis's
+    group; tests/test_torch_sp.py runs it); the vocab-parallel one needs
+    a bound mesh and a tp axis (tests/test_torch_tp.py runs it)."""
     from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 
     params = tplm.init_lm_params(0, 16, 8, 1, 1, 4, 8, device="cpu")
@@ -169,7 +169,7 @@ def test_unported_parallel_losses_raise():
     with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
         xent.tp_vocab_cross_entropy(hidden[0], params["head"].t(),
                                     tokens[0], "tp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.4"):
+    with pytest.raises(InvalidArgumentError, match="bound LogicalMesh"):
         tplm.next_token_nll_fused(params, hidden, tokens, sp="sp")
     with pytest.raises(ValueError, match="needs a tp axis"):
         tplm.next_token_nll_fused(params, hidden, tokens,
