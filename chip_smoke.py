@@ -10,6 +10,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --hier-only
     python3 chip_smoke.py --tp-only
     python3 chip_smoke.py --sp-only
+    python3 chip_smoke.py --ep-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -151,7 +152,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    on the inner and outer groups of inner 4 and 2) on CUDA tensors; runs
    integer-valued ``fused_reduce`` buckets through the ladder at inner 4
    and 2 against the flat exchange (bit for bit, average on and off,
-   overlap on and off); then the LM at the training phase's width, 4
+   overlap on and off); then the LM at the training phase's width, 2
    layers deep (one sequence of 2048 tokens a rank) under
    ``DistributedOptimizer(Adam)``:
    a warm-up and one timed step with the flat exchange, the ladder at
@@ -191,25 +192,51 @@ Phases, each fatal on failure (exit code 1, no result line):
    the machine has 4, else all on the one card over gloo with every
    tensor on the card; float32, no TF32, each variant against the dense
    step on the same weights, taken in this process before the world
-   starts. Ulysses: the bench lane's ``TransformerLM`` at the training
+   starts. The Ulysses and ring models are 4 layers deep at the full
+   width. Ulysses: the bench lane's ``TransformerLM`` at the training
    width with ``attn_fn`` a ``ulysses_attention`` on the flash kernels
    and ``pos_offset``, one sequence of 8192 tokens (2048 a rank), a
    warm-up and a timed forward and backward step: the sp-aware loss
    within 1e-5 relative of the dense model's (``attn_fn`` the flash
    attention over the whole sequence), the gradients summed over ``sp``
    within 1e-4 of each leaf's largest entry, and K1, K2 and K3 launched
-   12 times each in the timed step on every rank, over ``[1, 8192, 3,
+   4 times each in the timed step on every rank, over ``[1, 8192, 3,
    64]``. Ring: ``lm_apply(sp=)``, ``next_token_nll_fused(sp=)`` and
    ``reduce_grads(sp=)`` on one sequence of 4096 tokens, held the same
    way against the dense ``lm_apply`` step, with the dead blocks the
-   causal ring skipped (12 x (3 - rank) a forward: 6 of 16 block-steps
+   causal ring skipped (4 x (3 - rank) a forward: 6 of 16 block-steps
    a layer). ``sp=2,tp=2``: one forward of ``lm_apply(sp=, tp=)`` and its
    loss on the ring's weights and tokens against the dense loss.
    Pipeline: ``lm_apply_pp`` with 4 stages of one block (8 x 512 tokens,
    4 microbatches), ``remat`` off and on: the loss within 1e-5 relative
    of the dense 4-layer step's, each stage's gradients and the
    ``pp_reduce_rest_grads`` ones within 1e-4;
-15. (``--profile`` only) two training steps of each lane and the
+15. ep: expert parallelism and the SPMD harness, in a world of 4 ranks,
+   each a process of this script (``--ep-rank``), as the sp phase's.
+   First every collective of ``horovod_tpu_torch.distributed`` through
+   ``spmd_run`` on CUDA tensors against the closed form of its
+   tests/test_collectives.py case (sum, average, min and max; fp16 and
+   bf16 compression; allgather and allgatherv; broadcast from roots 0
+   and 3, and of bools; alltoall, reducescatter and grouped_allreduce
+   over mixed dtypes; allreduce_sparse, gathered and dense; the gradient
+   of allreduce, ``4 * (r + 1)``; ``rank()`` inside the region 0..3).
+   Then the Switch-MoE LM at Switch-base-8's widths (12 layers, d_model
+   768, 12 heads, d_ff 3072, 8 experts, 2 a rank, vocab 32000), one
+   sequence of 1024 tokens a rank, float32, no TF32, runs no kernel of
+   the port (its attention is dense, as in the JAX package). The dense
+   reference, ``lm_apply_moe(ep=None)`` over all 4096 tokens at the
+   drop-free capacity factor 8.0 with its loss and gradients, runs in
+   this process before the world starts. Drop-free: the ep step's loss
+   (averaged over ep) within 1e-5 relative of the dense one, its logits
+   within 1e-5 of their largest entry, and every gradient after
+   ``moe_reduce_grads`` within 1e-4 of the leaf's largest entry; a
+   forward's ``all_to_all_single`` calls two a layer of ``E x C x D x
+   4`` bytes. Dropping: at Switch's capacity factor 1.25 against the
+   dense function over the rank's own tokens (the same capacity rule),
+   the routing equal and the logits within 1e-5, with the share of
+   tokens dropped. Training: three steps of SGD 0.05 on nll + 0.01 x the
+   ep-mean aux through ``spmd_run``: the loss falls on every rank;
+16. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -231,6 +258,9 @@ reference streams and phase 13, and prints the ``{"tp"}`` line and no
 kernels or ok line.
 
 ``--sp-only`` runs phases 1, 2 and 14 and prints the ``{"sp"}`` line and
+no kernels or ok line.
+
+``--ep-only`` runs phases 1, 2 and 15 and prints the ``{"ep"}`` line and
 no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
@@ -272,7 +302,14 @@ stored and rematerialised) its step milliseconds on every rank, tokens/s
 a card, loss against the dense one and largest gradient error, K1-K3's
 launches on every rank, the ring's dead blocks skipped, the pipeline's
 ticks and bubble share, the phase's seconds and the card's name and
-power limit, with the same caveat. The
+power limit, with the same caveat, and an ``{"ep": ...}`` line the
+backend and cards, each collective checked with its error, the MoE
+configuration, the drop-free step's loss, logits and gradient errors,
+step milliseconds on every rank, tokens/s a card, peak memory a rank and
+all-to-all bytes a layer, the dropping forward's routing check, logits
+error and dropped share, the training losses and step milliseconds, the
+phase's seconds and the card's name and power limit, with the same
+caveat. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -281,6 +318,7 @@ CUDA device, it fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1619,6 +1657,13 @@ def _window_ab(torch, name, build, batch, kernels, profile_names):
         # graph replay can lose the replay's first kernel.
         res["profile"] = _profile_run(torch, run, profile_names,
                                       warmup=run)
+        if not any(res["profile"]["counts"].values()):
+            # A trace that caught none of the named kernels is taken
+            # once more: one replayed ResNet-50 window's trace held no
+            # kernel at all on the card, its wrapper counts right. The
+            # counts are checked as before, on the second trace.
+            res["profile"] = _profile_run(torch, run, profile_names,
+                                          warmup=run)
         out[kind] = res
         del model, step, run, got
         if kind == "window":
@@ -3069,12 +3114,13 @@ HIER_SEQS = 1
 # came: one step pays for part of it; the loss after the first update
 # already holds each codec to the flat exchange).
 HIER_STEPS = 1
-# The LM's depth here: 4 of the 12 layers at the full width (12 until the
-# sp phase came: the cut pays for part of it). A step's time is gloo's
-# host staging of the gradient buckets, 543 MB at 12 layers and 316 MB at
-# 4 (the embedding and head are 196 MB of it), and the buckets still
-# span several layers' leaves and the big singletons.
-HIER_LAYERS = 4
+# The LM's depth here: 2 of the 12 layers at the full width (12 until the
+# sp phase came, 4 until the ep phase came: each cut pays for part of the
+# new phase). A step's time is gloo's host staging of the gradient
+# buckets, 543 MB at 12 layers, 316 MB at 4 and 259 MB at 2 (the
+# embedding and head are 196 MB of it), and the buckets still span
+# several layers' leaves and the big singletons.
+HIER_LAYERS = 2
 # (name, HOROVOD_HIERARCHICAL, compression, inner size): the flat
 # exchange, the ladder at 2 hosts of 4 (m 2), int8 on it (the all-gather
 # exchange) and fp8 at 4 hosts of 2 (m 4, the two-stage all-to-all
@@ -3660,10 +3706,13 @@ def tp_rank(argv):
     print("TP_RESULT " + json.dumps(out), flush=True)
 
 
-def _rank_world(flag, n, timeout, arg, tag):
+def _rank_world(flag, n, timeout, arg, tag, parent=None):
     """Start ``n`` rank processes of this script (``flag RANK n PORT
     arg``); wait for all, kill all as soon as one fails or past
-    ``timeout`` seconds; return each rank's ``TAG_RESULT`` object."""
+    ``timeout`` seconds; return each rank's ``TAG_RESULT`` object.
+    ``parent()``, when given, runs in this process while the ranks start
+    (it writes what they wait for under ``arg``, then ``_mark_ready``);
+    a failure there kills the ranks."""
     import os
     import socket
     import tempfile
@@ -3684,6 +3733,8 @@ def _rank_world(flag, n, timeout, arg, tag):
             env=dict(os.environ, OMP_NUM_THREADS="1"))
             for r, (o, e) in enumerate(logs)]
         try:
+            if parent is not None:
+                parent()
             deadline = time.monotonic() + timeout
             while any(p.poll() is None for p in procs):
                 failed = [p for p in procs if p.poll() not in (None, 0)]
@@ -3708,6 +3759,27 @@ def _rank_world(flag, n, timeout, arg, tag):
                   f"{stderr[-3000:]}")
             results.append(json.loads(lines[-1][len(prefix):]))
     return results
+
+
+def _mark_ready(d):
+    """Tell the ranks waiting in :func:`_wait_ready` that ``d`` holds the
+    parent's references."""
+    import os
+
+    with open(os.path.join(d, "ready"), "w"):
+        pass
+
+
+def _wait_ready(d, timeout):
+    """Wait until the parent has marked ``d`` ready."""
+    import os
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(os.path.join(d, "ready")):
+        check(time.monotonic() < deadline,
+              f"the parent's references in {d} were not ready after "
+              f"{timeout} s")
+        time.sleep(0.2)
 
 
 def _tp_world(job):
@@ -3831,6 +3903,11 @@ SP_TIMEOUT_S = 600.0
 # wrong global position or a gradient summed twice moves them by whole
 # factors.
 SP_ULYSSES_L, SP_RING_L = 8192, 4096
+# The Ulysses and ring models' depth: 4 of the 12 layers at the full
+# width (12 until the ep phase came: the cut pays for part of it, as the
+# hier phase's did for this one). Every layer runs the same collectives
+# and kernels, so the checks see the same paths at a third of the steps.
+SP_LAYERS = 4
 SP_PP_BATCH, SP_PP_SEQ, SP_PP_MICRO = 8, 512, 4
 SP_LOSS_RTOL = 1e-5
 SP_GRAD_RTOL = 1e-4
@@ -3854,7 +3931,7 @@ def _sp_tokens(np, shape, seed):
 def _sp_ulysses_model(torch, attn_fn, dev):
     from horovod_tpu_torch.models.transformer import TransformerLM
 
-    return TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+    return TransformerLM(vocab_size=VOCAB, num_layers=SP_LAYERS,
                          num_heads=HEADS, embed_dim=D_MODEL,
                          max_len=SP_ULYSSES_L, dtype=torch.float32,
                          attn_fn=attn_fn, seed=0, device=dev)
@@ -3902,7 +3979,8 @@ def _sp_references(torch, np, out):
     save("ulysses", loss, [p.grad for p in model.parameters()])
     del model, loss
     params = _sp_trainable(plm.init_lm_params(
-        1, VOCAB, SP_RING_L, LAYERS, HEADS, HEAD_DIM, FFN, device="cuda"))
+        1, VOCAB, SP_RING_L, SP_LAYERS, HEADS, HEAD_DIM, FFN,
+        device="cuda"))
     toks = torch.tensor(_sp_tokens(np, (1, SP_RING_L), 16), device="cuda")
     loss = plm.next_token_nll_fused(
         params, plm.lm_apply(params, toks, return_hidden=True), toks)
@@ -4033,7 +4111,7 @@ def _sp_ring(torch, np, dev, rank, ref):
     toks = torch.tensor(_sp_tokens(np, (1, SP_RING_L), 16)[
         :, rank * lt:(rank + 1) * lt], device=dev)
     params = _sp_trainable(plm.init_lm_params(
-        1, VOCAB, SP_RING_L, LAYERS, HEADS, HEAD_DIM, FFN, device=dev))
+        1, VOCAB, SP_RING_L, SP_LAYERS, HEADS, HEAD_DIM, FFN, device=dev))
     skipped = []
     with bind(LogicalMesh.from_config(f"sp={SP_RANKS}")):
         def step():
@@ -4071,7 +4149,7 @@ def _sp_tp(torch, np, dev, rank, params):
         :, sp_i * lt:(sp_i + 1) * lt], device=dev)
     with bind(lm), torch.no_grad():
         shard = plm.shard_lm_params(params, plm.lm_param_specs(
-            LAYERS, "tp"), 2, tp_i)
+            SP_LAYERS, "tp"), 2, tp_i)
 
         def step():
             hidden = plm.lm_apply(shard, toks, sp="sp", tp="tp",
@@ -4146,8 +4224,6 @@ def sp_rank(argv):
 
     rank, world, port = (int(a) for a in argv[:3])
     secs, t0 = {}, time.perf_counter()
-    refs = {name: torch.load(os.path.join(argv[3], f"{name}.pt"))
-            for name in ("ulysses", "ring", "pipeline")}
     own = torch.cuda.device_count() >= world
     dev = torch.device("cuda", rank if own else 0)
     torch.cuda.set_device(dev)
@@ -4167,6 +4243,10 @@ def sp_rank(argv):
 
     lap("setup")
     try:
+        _wait_ready(argv[3], SP_TIMEOUT_S)
+        refs = {name: torch.load(os.path.join(argv[3], f"{name}.pt"))
+                for name in ("ulysses", "ring", "pipeline")}
+        lap("wait_for_references")
         out["ulysses"] = _sp_ulysses(torch, np, dev, rank, refs["ulysses"])
         torch.cuda.empty_cache()
         lap("ulysses")
@@ -4192,15 +4272,25 @@ def sp_phase(torch, np, card):
     import tempfile
 
     t0 = time.perf_counter()
-    kcheck = _sp_kernel_check(torch, np)
-    log(f"sp: K1-K3 agree with their plain versions at [1, {SP_ULYSSES_L}, "
-        f"{HEADS // SP_RANKS}, {HEAD_DIM}] float32 causal (max_abs_err "
-        f"{kcheck}, atol=rtol={TOL['float32']})")
-    check_s = time.perf_counter() - t0
+    parent = {}
+
+    def references(tmp):
+        # While the ranks start: the kernel check, then the references.
+        kcheck = _sp_kernel_check(torch, np)
+        log(f"sp: K1-K3 agree with their plain versions at [1, "
+            f"{SP_ULYSSES_L}, {HEADS // SP_RANKS}, {HEAD_DIM}] float32 "
+            f"causal (max_abs_err {kcheck}, atol=rtol={TOL['float32']})")
+        parent["kcheck"] = kcheck
+        parent["check_s"] = time.perf_counter() - t0
+        parent["refs"] = _sp_references(torch, np, tmp)
+        parent["refs_s"] = time.perf_counter() - t0 - parent["check_s"]
+        _mark_ready(tmp)
+
     with tempfile.TemporaryDirectory() as tmp:
-        refs = _sp_references(torch, np, tmp)
-        refs_s = time.perf_counter() - t0 - check_s
-        ranks = _rank_world("--sp-rank", SP_RANKS, SP_TIMEOUT_S, tmp, "SP")
+        ranks = _rank_world("--sp-rank", SP_RANKS, SP_TIMEOUT_S, tmp, "SP",
+                            parent=lambda: references(tmp))
+    kcheck, check_s = parent["kcheck"], parent["check_s"]
+    refs, refs_s = parent["refs"], parent["refs_s"]
     r0 = ranks[0]
 
     def rel(loss, ref):
@@ -4223,10 +4313,10 @@ def sp_phase(torch, np, card):
                   f"{who}: {name} gradients summed over sp differ from "
                   f"the dense ones by up to {err:.2e} of their largest "
                   f"entry (> {SP_GRAD_RTOL})")
-        check(all(n == LAYERS for n in u["launches"].values()),
+        check(all(n == SP_LAYERS for n in u["launches"].values()),
               f"{who}: K1-K3 launches {u['launches']} in the Ulysses step, "
-              f"expected {LAYERS} each")
-        want_skip = LAYERS * (SP_RANKS - 1 - r["rank"])
+              f"expected {SP_LAYERS} each")
+        want_skip = SP_LAYERS * (SP_RANKS - 1 - r["rank"])
         check(g["skipped"] == want_skip,
               f"{who}: the ring's forward skipped {g['skipped']} dead "
               f"blocks, expected {want_skip}")
@@ -4280,7 +4370,7 @@ def sp_phase(torch, np, card):
                             for r in ranks),
             "grad_rel_max": max(r["ring"]["grad_rel_max"] for r in ranks),
             "dead_blocks_skipped": [r["ring"]["skipped"] for r in ranks],
-            "block_steps": LAYERS * SP_RANKS * SP_RANKS},
+            "block_steps": SP_LAYERS * SP_RANKS * SP_RANKS},
         "sp_tp": {
             "mesh": "sp=2,tp=2", "tokens": SP_RING_L, "forward_only": True,
             "forward_ms": [r["sp_tp"]["forward_ms"] for r in ranks],
@@ -4324,6 +4414,510 @@ def sp_phase(torch, np, card):
         f"{res['sp_tp']['loss_rel']:.2e}; pipeline loss rel "
         f"{res['pipeline']['stored']['loss_rel']:.2e} / "
         f"{res['pipeline']['remat']['loss_rel']:.2e}; phase passed in "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
+EP_RANKS = 4
+EP_TIMEOUT_S = 600.0
+# The MoE LM at Switch-base-8's widths (Fedus et al. 2021, the public
+# google/switch-base-8 config): d_model 768, 12 heads of 64, d_ff 3072,
+# 8 experts (2 a rank), with the repo's vocab and every block an MoE
+# block; one sequence of 1024 tokens a rank. Capacity factor 8.0 is
+# drop-free (C = T_local), Switch's 1.25 drops.
+EP_EXPERTS, EP_SEQ = 8, 1024
+EP_CF_FREE, EP_CF_SWITCH = 8.0, 1.25
+EP_STEPS, EP_LR, EP_AUX_W = 3, 0.05, 0.01
+# The ep step adds the dense step's float32 terms in another order
+# (attention and the MoE's einsums are per token; the replicated
+# gradients are averaged over 4 ranks): logits and loss move by a few
+# 1e-7 relative, a gradient leaf by far less than 1e-4 of its largest
+# entry, where a token routed to the wrong expert or a gradient summed
+# twice moves them by whole factors.
+EP_LOSS_RTOL = 1e-5
+EP_LOGIT_RTOL = 1e-5
+EP_GRAD_RTOL = 1e-4
+EP_CAVEAT = ("4 ranks share one card over gloo: each collective stages "
+             "its CUDA tensors through host memory and loopback TCP, so "
+             "the step times are those of host copies and sockets, not of "
+             "NVLink")
+
+
+def _ep_tokens(np):
+    return np.random.default_rng(19).integers(0, VOCAB, (EP_RANKS, EP_SEQ))
+
+
+def _ep_params(torch, dev):
+    from horovod_tpu_torch.models import parallel_lm as plm
+
+    return plm.init_moe_lm_params(3, VOCAB, EP_SEQ, LAYERS, HEADS, HEAD_DIM,
+                                  FFN, EP_EXPERTS, device=dev)
+
+
+def _ep_references(torch, np, out):
+    """The dense references the ranks are held to, on the card in this
+    process before the world starts, saved under ``out`` as CPU tensors
+    (the ranks read them back memory mapped): the weights; for each
+    rank, ``lm_apply_moe(ep=None)`` over its own tokens at Switch's
+    capacity factor (logits and routing); and the drop-free step,
+    ``lm_apply_moe(ep=None)`` over all ranks' tokens at capacity factor
+    8.0 (logits and gradients). Returns the drop-free loss."""
+    import os
+
+    from horovod_tpu_torch.models import parallel_lm as plm
+
+    params = _ep_params(torch, "cuda")
+    torch.save(_sp_tree(lambda t: t.cpu(), params),
+               os.path.join(out, "params.pt"))
+    toks = torch.tensor(_ep_tokens(np), device="cuda")
+    routes, drops = [], []
+    with torch.no_grad(), _routing_log(torch, routes):
+        for r in range(EP_RANKS):
+            drops.append(plm.lm_apply_moe(
+                params, toks[r:r + 1], capacity_factor=EP_CF_SWITCH)[0].cpu())
+    torch.save({"logits": torch.cat(drops), "routes": [
+        [x.cpu() for x in routes[r * LAYERS:(r + 1) * LAYERS]]
+        for r in range(EP_RANKS)]}, os.path.join(out, "dropping.pt"))
+    del drops
+    params = _sp_trainable(params)
+    logits, _ = plm.lm_apply_moe(params, toks, capacity_factor=EP_CF_FREE)
+    loss = plm.next_token_nll(logits, toks)
+    loss.backward()
+    torch.save(logits.detach().cpu(), os.path.join(out, "logits.pt"))
+    torch.save(_sp_tree(lambda t: t.grad.cpu(), params),
+               os.path.join(out, "grads.pt"))
+    loss = float(loss.detach())
+    del params, logits, toks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _rel(a, b):
+    """``max |a - b|`` over ``max |b|``."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _ep_collectives(torch, np, hvd, dev):
+    """Every collective of the port through ``spmd_run`` on CUDA tensors
+    against the closed form of its tests/test_collectives.py case; the
+    largest relative error of each (0 where the result is exact) and the
+    tolerance it is held to."""
+    from horovod_tpu_torch.parallel import P
+
+    n = hvd.size()
+    whole = dict(out_specs=P("hvd"), host_local=False)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    res = {}
+
+    def held(name, got, want, tol=1e-6):
+        got = list(got) if isinstance(got, (list, tuple)) else [got]
+        want = list(want) if isinstance(want, (list, tuple)) else [want]
+        check(len(got) == len(want)
+              and all(g.is_cuda and tuple(g.shape) == tuple(w.shape)
+                      for g, w in zip(got, want)),
+              f"ep: {name}: {[tuple(g.shape) for g in got]} on "
+              f"{[str(g.device) for g in got]}, expected "
+              f"{[tuple(w.shape) for w in want]} on the card")
+        err = max(_rel(g.double(), t(w, torch.float64))
+                  for g, w in zip(got, want))
+        check(err <= tol, f"ep: {name} off by {err:.2e} (> {tol})")
+        res[name] = {"rel_err": err, "tol": tol}
+
+    base = np.arange(60).reshape(3, 4, 5)
+    tri = n * (n + 1) // 2
+    for dt, tdt in (("float32", torch.float32), ("int32", torch.int32)):
+        b = t(base, tdt)
+        out = hvd.spmd_run(lambda: hvd.allreduce(b * (hvd.rank() + 1),
+                                                 average=False))
+        check(out.dtype == tdt, f"ep: allreduce {dt} came back {out.dtype}")
+        held(f"allreduce_sum_{dt}", out, base * tri)
+    held("allreduce_average", hvd.spmd_run(lambda: hvd.allreduce(
+        torch.ones(4, 4, device=dev) * hvd.rank())),
+        np.full((4, 4), (n - 1) / 2))
+    held("allreduce_min_max", hvd.spmd_run(lambda: [hvd.allreduce(
+        torch.ones(2, 2, device=dev) * hvd.rank(), op=op)
+        for op in (hvd.Min, hvd.Max)]),
+        [np.zeros((2, 2)), np.full((2, 2), n - 1.0)])
+    rng = np.random.RandomState(0)
+    for name, comp, tol in (("fp16", hvd.Compression.fp16, 1e-2),
+                            ("bf16", hvd.Compression.bf16, 2e-2)):
+        x = rng.rand(17, 3).astype(np.float32)
+        out = hvd.spmd_run(lambda: hvd.allreduce(t(x), compression=comp))
+        check(out.dtype == torch.float32, f"ep: {name} came back "
+              f"{out.dtype}")
+        held(f"allreduce_{name}", out, x, tol)
+    held("allgather", hvd.spmd_run(lambda: hvd.allgather(
+        torch.ones(2, 3, device=dev) * hvd.rank())),
+        np.repeat(np.arange(n), 2)[:, None] * np.ones((1, 3)))
+    g, c = hvd.spmd_run(lambda: hvd.allgatherv(
+        torch.ones(8, 2, device=dev) * hvd.rank(), hvd.rank() + 1, 8))
+    check(c.tolist() == list(range(1, n + 1)), f"ep: allgatherv counts "
+          f"{c.tolist()}")
+    held("allgatherv", [g[8 * r:8 * r + r + 1] for r in range(n)],
+         [np.full((r + 1, 2), float(r)) for r in range(n)])
+    for root in (0, n - 1):
+        held(f"broadcast_root{root}", hvd.spmd_run(lambda: hvd.broadcast(
+            torch.full((3, 3), 10.0, device=dev) * (hvd.rank() + 1),
+            root_rank=root)), np.full((3, 3), 10.0 * (root + 1)))
+    out = hvd.spmd_run(lambda: hvd.broadcast(
+        t([hvd.rank() % 2 == 0, True], torch.bool), root_rank=1))
+    check(out.dtype == torch.bool and out.tolist() == [False, True],
+          f"ep: broadcast of bools from rank 1 gave {out.tolist()}")
+    res["broadcast_bool"] = {"rel_err": 0.0, "tol": 0.0}
+    held("alltoall", hvd.spmd_run(lambda: hvd.alltoall(
+        torch.ones(n, 4, device=dev) * hvd.rank()), **whole),
+        np.tile(np.arange(n), n)[:, None] * np.ones((1, 4)))
+    held("reducescatter", hvd.spmd_run(lambda: hvd.reducescatter(
+        torch.ones(2 * n, 2, device=dev) * hvd.rank(), average=False),
+        **whole), np.full((2 * n, 2), n * (n - 1) / 2))
+    outs = hvd.spmd_run(lambda: hvd.grouped_allreduce(
+        [torch.ones(4, device=dev), t(np.ones(4), torch.int32),
+         torch.ones(5, device=dev) * (hvd.rank() + 1)], average=False))
+    check(outs[1].dtype == torch.int32, "ep: grouped_allreduce int32 leaf "
+          f"came back {outs[1].dtype}")
+    held("grouped_allreduce_mixed", outs,
+         [np.full(4, n), np.full(4, n), np.full(5, tri)])
+    idx, vals = hvd.spmd_run(lambda: hvd.allreduce_sparse(
+        t([hvd.rank(), 0], torch.long),
+        torch.ones(2, 3, device=dev) * (hvd.rank() + 1), average=False))
+    held("allreduce_sparse", [idx, vals],
+         [np.stack([np.arange(n), np.zeros(n, int)], 1).reshape(-1),
+          np.repeat(np.arange(1, n + 1), 2)[:, None] * np.ones((1, 3))])
+    dense = np.zeros((n + 1, 3))
+    for r in range(n):
+        dense[r] += (r + 1) / n
+        dense[0] += (r + 1) / n
+    held("allreduce_sparse_dense", hvd.spmd_run(lambda: hvd.allreduce_sparse(
+        t([hvd.rank(), 0], torch.long),
+        torch.ones(2, 3, device=dev) * (hvd.rank() + 1),
+        dense_rows=n + 1)), dense)
+
+    def grad(x):
+        x = x.clone().requires_grad_(True)
+        y = hvd.allreduce(x * (hvd.rank() + 1), average=False)
+        (g,) = torch.autograd.grad(y.sum(), x)
+        return hvd.allgather(g[None])
+
+    held("allreduce_gradient", hvd.spmd_run(grad, torch.ones(3, device=dev)),
+         np.stack([np.full(3, n * (r + 1.0)) for r in range(n)]))
+    held("rank_in_region", hvd.spmd_run(lambda: hvd.allgather(
+        t([hvd.rank()], torch.int32))), np.arange(n))
+    return res
+
+
+@contextlib.contextmanager
+def _spied(module, name, record):
+    """``module.name`` wrapped for the block: each call's arguments and
+    result go to ``record(args, result)``."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        record(args, out)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _routing_log(torch, calls):
+    """Logs each ``top1_routing`` call (``moe_layer`` and ``lm_apply_moe``
+    call it through the module) into ``calls``: the expert of each token,
+    -1 where it was dropped."""
+    from horovod_tpu_torch.parallel import moe
+
+    def record(args, out):
+        d = out[0].sum(dim=2)
+        calls.append(torch.where(d.sum(dim=1) > 0, d.argmax(dim=1), -1))
+
+    return _spied(moe, "top1_routing", record)
+
+
+def _wire_log(dist, sent):
+    """Logs the bytes each ``all_to_all_single`` sends into ``sent``."""
+    return _spied(dist, "all_to_all_single", lambda args, out: sent.append(
+        args[1].numel() * args[1].element_size()))
+
+
+def _ep_moe(torch, np, hvd, dev, rank, refdir, lap):
+    """The MoE LM on this rank, on its shard of the saved weights: the
+    drop-free ep step against the saved dense step, the dropping ep
+    forward against the dense function over this rank's tokens, and
+    EP_STEPS training steps; ``lap(name)`` after each."""
+    import os
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import parallel_lm as plm
+    from horovod_tpu_torch.parallel import LogicalMesh, bind
+
+    toks = torch.tensor(_ep_tokens(np)[rank:rank + 1], device=dev)
+    specs = plm.moe_lm_param_specs(LAYERS, "ep")
+    shard = plm.params_to(plm.shard_lm_params(torch.load(
+        os.path.join(refdir, "params.pt"), mmap=True), specs, EP_RANKS,
+        rank), dev)
+    drop_ref = torch.load(os.path.join(refdir, "dropping.pt"), mmap=True)
+    ref_drop = drop_ref["logits"][rank:rank + 1].to(dev)
+    ref_routes = [x.to(dev) for x in drop_ref["routes"][rank]]
+    del drop_ref
+    lap("params")
+    out = {}
+    lm = LogicalMesh.from_config(f"ep={EP_RANKS}")
+    with bind(lm):
+        # Drop-free: one warm-up and one timed forward and backward.
+        shard = _sp_trainable(shard)
+        state = {}
+
+        def step():
+            for x in _leaves(shard):
+                x.grad = None
+            state["sent"] = []
+            with _wire_log(dist, state["sent"]):
+                logits, _ = plm.lm_apply_moe(shard, toks, ep="ep",
+                                             capacity_factor=EP_CF_FREE)
+            loss = plm.next_token_nll(logits, toks)
+            loss.backward()
+            state["logits"] = logits.detach()
+            return float(loss)
+
+        loss, ms = _sp_time(torch, step)
+        peak, warm_ms = _sp_time.peak, _sp_time.warm_ms
+        grads, red_ms = _sp_time(torch, lambda: plm.moe_reduce_grads(
+            _sp_tree(lambda t: t.grad, shard), "ep"), warm=False)
+        lap("drop_free_steps")
+        ref_logits = torch.load(os.path.join(refdir, "logits.pt"),
+                                mmap=True)[rank:rank + 1].to(dev)
+        logits_rel = _rel(state["logits"], ref_logits)
+        del ref_logits
+        ref = plm.shard_lm_params(torch.load(
+            os.path.join(refdir, "grads.pt"), mmap=True), specs, EP_RANKS,
+            rank)
+        errs = [_rel(g, r.to(dev)) for g, r in zip(_leaves(grads),
+                                                   _leaves(ref))]
+        check(len(errs) == len(list(_leaves(ref))) > 0,
+              f"ep: {len(errs)} gradient leaves")
+        del ref, grads
+        mean_loss = float(hvd.allreduce(torch.tensor(loss, device=dev)))
+        cap = math.ceil(EP_SEQ * EP_CF_FREE / EP_EXPERTS)
+        out["drop_free"] = {
+            "capacity_factor": EP_CF_FREE, "capacity": cap,
+            "loss": loss, "ep_mean_loss": mean_loss,
+            "logits_rel": logits_rel, "grad_rel_max": max(errs),
+            "step_ms": ms, "warmup_ms": warm_ms, "reduce_ms": red_ms,
+            "peak_memory_bytes": peak,
+            "all_to_all_bytes": state["sent"],
+            "all_to_all_bytes_want": EP_EXPERTS * cap * D_MODEL * 4}
+        torch.cuda.empty_cache()
+        lap("drop_free_checks")
+
+        # Dropping: Switch's capacity factor against the dense reference
+        # over this rank's own tokens (the same capacity rule).
+        routes = []
+        with torch.no_grad(), _routing_log(torch, routes):
+            logits, _ = plm.lm_apply_moe(shard, toks, ep="ep",
+                                         capacity_factor=EP_CF_SWITCH)
+        kept = sum(int((r >= 0).sum()) for r in routes)
+        out["dropping"] = {
+            "capacity_factor": EP_CF_SWITCH,
+            "capacity": math.ceil(EP_SEQ * EP_CF_SWITCH / EP_EXPERTS),
+            "routing_equal": len(routes) == len(ref_routes) == LAYERS
+            and all(bool((a == b).all()) for a, b in zip(routes,
+                                                          ref_routes)),
+            "logits_rel": _rel(logits, ref_drop),
+            "dropped_share": 1 - kept / (LAYERS * EP_SEQ)}
+        del logits, ref_drop
+        lap("dropping")
+
+        # Training: SGD on nll + 0.01 x the ep-mean aux, inside spmd_run
+        # (the allreduce carries the pmean's gradient).
+        def train(p, t):
+            for x in _leaves(p):
+                x.grad = None
+            logits, aux = plm.lm_apply_moe(p, t, ep="ep")
+            loss = plm.next_token_nll(logits, t) + EP_AUX_W * hvd.allreduce(
+                aux, average=True)
+            loss.backward()
+            g = plm.moe_reduce_grads(_sp_tree(lambda x: x.grad, p), "ep")
+            with torch.no_grad():
+                for x, gx in zip(_leaves(p), _leaves(g)):
+                    x -= EP_LR * gx
+            return float(loss)
+
+        losses, step_ms = [], []
+        for _ in range(EP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(hvd.spmd_run(train, shard, toks, mesh=lm,
+                                       axis_name="ep"))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        out["training"] = {"losses": losses, "step_ms": step_ms,
+                           "lr": EP_LR, "aux_weight": EP_AUX_W,
+                           "capacity_factor": EP_CF_SWITCH}
+        lap("training")
+    return out
+
+
+def ep_rank(argv):
+    """``--ep-rank RANK WORLD PORT DIR``: one rank of the ep phase's
+    world (its own card over NCCL when there are WORLD cards, else the
+    first card over gloo): the collectives through ``spmd_run``, then the
+    MoE LM against the dense references under ``DIR``. Prints
+    ``EP_RESULT {json}`` last."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    secs, t0 = {}, time.perf_counter()
+    own = torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if own else 0)
+    torch.cuda.set_device(dev)
+    backend = "nccl" if own else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    import horovod_tpu_torch.distributed as hvd
+
+    hvd.init(device=dev)
+    out = {"rank": rank, "backend": backend, "device": str(dev),
+           "seconds": secs}
+
+    def lap(name):
+        nonlocal t0
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    lap("setup")
+    try:
+        out["collectives"] = _ep_collectives(torch, np, hvd, dev)
+        lap("collectives")
+        _wait_ready(argv[3], EP_TIMEOUT_S)
+        lap("wait_for_references")
+        out.update(_ep_moe(torch, np, hvd, dev, rank, argv[3], lap))
+    finally:
+        hvd.shutdown()
+        dist.destroy_process_group()
+    print("EP_RESULT " + json.dumps(out), flush=True)
+
+
+def ep_phase(torch, np, card):
+    """Phase 15 (module docstring): expert parallelism and the SPMD
+    harness's collectives in a 4-rank world, the MoE LM against the
+    dense steps on the same weights."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    parent = {}
+
+    def references(tmp):
+        # While the ranks start and check the collectives.
+        parent["loss"] = _ep_references(torch, np, tmp)
+        parent["s"] = time.perf_counter() - t0
+        _mark_ready(tmp)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _rank_world("--ep-rank", EP_RANKS, EP_TIMEOUT_S, tmp, "EP",
+                            parent=lambda: references(tmp))
+    dense_loss, refs_s = parent["loss"], parent["s"]
+    r0 = ranks[0]
+    for r in ranks:
+        who = f"ep: rank {r['rank']}"
+        f, d, tr = r["drop_free"], r["dropping"], r["training"]
+        loss_rel = abs(f["ep_mean_loss"] - dense_loss) / abs(dense_loss)
+        check(math.isfinite(f["loss"]) and loss_rel <= EP_LOSS_RTOL,
+              f"{who}: drop-free ep-mean loss {f['ep_mean_loss']} against "
+              f"the dense {dense_loss} (rel {loss_rel:.2e})")
+        check(f["logits_rel"] <= EP_LOGIT_RTOL,
+              f"{who}: drop-free logits off the dense ones by "
+              f"{f['logits_rel']:.2e} of their largest entry")
+        check(f["grad_rel_max"] <= EP_GRAD_RTOL,
+              f"{who}: gradients after moe_reduce_grads differ from the "
+              f"dense ones by up to {f['grad_rel_max']:.2e}")
+        check(f["all_to_all_bytes"] == [f["all_to_all_bytes_want"]]
+              * (2 * LAYERS),
+              f"{who}: a forward's all_to_all_single bytes "
+              f"{f['all_to_all_bytes']}, expected 2 a layer of "
+              f"{f['all_to_all_bytes_want']}")
+        check(d["routing_equal"], f"{who}: the ep routing at capacity "
+              f"factor {EP_CF_SWITCH} differs from the dense reference's")
+        check(d["logits_rel"] <= EP_LOGIT_RTOL,
+              f"{who}: dropping logits off the dense ones by "
+              f"{d['logits_rel']:.2e}")
+        check(0 < d["dropped_share"] < 1, f"{who}: dropped share "
+              f"{d['dropped_share']} at capacity factor {EP_CF_SWITCH}")
+        check(all(map(math.isfinite, tr["losses"]))
+              and tr["losses"][-1] < tr["losses"][0],
+              f"{who}: training losses {tr['losses']} do not fall")
+    cards = max(1, min(torch.cuda.device_count(), EP_RANKS))
+    step_ms = [r["drop_free"]["step_ms"] for r in ranks]
+    train_ms = [r["training"]["step_ms"] for r in ranks]
+    res = {
+        "ranks": EP_RANKS, "backend": r0["backend"], "cards": cards,
+        "card": card,
+        "config": {"source": "google/switch-base-8 (Fedus et al. 2021): "
+                             "d_model 768, 12 heads of 64, d_ff 3072, 8 "
+                             "experts", "layers": LAYERS, "vocab": VOCAB,
+                   "experts": EP_EXPERTS, "experts_per_rank":
+                   EP_EXPERTS // EP_RANKS, "moe_every_layer": True,
+                   "tokens_per_rank": EP_SEQ, "dtype": "float32",
+                   "tf32": False},
+        "collectives": {name: max(r["collectives"][name]["rel_err"]
+                                  for r in ranks)
+                        for name in r0["collectives"]},
+        "drop_free": {
+            "capacity_factor": EP_CF_FREE,
+            "capacity": r0["drop_free"]["capacity"],
+            "dense_loss": dense_loss,
+            "ep_mean_loss": r0["drop_free"]["ep_mean_loss"],
+            "loss_rel": abs(r0["drop_free"]["ep_mean_loss"] - dense_loss)
+            / abs(dense_loss),
+            "logits_rel": max(r["drop_free"]["logits_rel"] for r in ranks),
+            "grad_rel_max": max(r["drop_free"]["grad_rel_max"]
+                                for r in ranks),
+            "step_ms": step_ms,
+            "warmup_ms": [r["drop_free"]["warmup_ms"] for r in ranks],
+            "reduce_ms": [r["drop_free"]["reduce_ms"] for r in ranks],
+            "tokens_per_sec_per_card": EP_RANKS * EP_SEQ
+            / (max(step_ms) / 1e3) / cards,
+            "peak_memory_bytes": [r["drop_free"]["peak_memory_bytes"]
+                                  for r in ranks],
+            "all_to_all_bytes_per_layer":
+                2 * r0["drop_free"]["all_to_all_bytes_want"]},
+        "dropping": {
+            "capacity_factor": EP_CF_SWITCH,
+            "capacity": r0["dropping"]["capacity"],
+            "routing_equal": all(r["dropping"]["routing_equal"]
+                                 for r in ranks),
+            "logits_rel": max(r["dropping"]["logits_rel"] for r in ranks),
+            "dropped_share": [r["dropping"]["dropped_share"]
+                              for r in ranks]},
+        "training": {
+            "steps": EP_STEPS, "lr": EP_LR, "aux_weight": EP_AUX_W,
+            "losses": [r["training"]["losses"] for r in ranks],
+            "step_ms": train_ms,
+            "tokens_per_sec_per_card": EP_RANKS * EP_SEQ
+            / (max(ms[-1] for ms in train_ms) / 1e3) / cards},
+        "caveat": EP_CAVEAT if r0["backend"] == "gloo" else None,
+        "references_s": refs_s,
+        "rank_seconds": [r["seconds"] for r in ranks],
+    }
+    res["phase_s"] = time.perf_counter() - t0
+    f = res["drop_free"]
+    log(f"ep: {EP_RANKS} ranks over {res['backend']} on {cards} card(s): "
+        f"{len(res['collectives'])} collectives checked; drop-free loss "
+        f"rel {f['loss_rel']:.2e}, logits rel {f['logits_rel']:.2e}, grad "
+        f"rel {f['grad_rel_max']:.2e}, step ms {max(step_ms):.1f}; "
+        f"dropping routing equal, logits rel "
+        f"{res['dropping']['logits_rel']:.2e}, dropped "
+        f"{res['dropping']['dropped_share']}; training losses "
+        f"{res['training']['losses'][0]}; phase passed in "
         f"{res['phase_s']:.1f} s")
     return res
 
@@ -4660,6 +5254,12 @@ def sp_only(torch, np, card):
     print(json.dumps({"sp": sp_phase(torch, np, card)}), flush=True)
 
 
+def ep_only(torch, np, card):
+    """``--ep-only``: the build and the ep phase."""
+    build_phase()
+    print(json.dumps({"ep": ep_phase(torch, np, card)}), flush=True)
+
+
 def main():
     if "--hier-rank" in sys.argv[1:]:
         return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
@@ -4667,6 +5267,8 @@ def main():
         return tp_rank(sys.argv[sys.argv.index("--tp-rank") + 1:])
     if "--sp-rank" in sys.argv[1:]:
         return sp_rank(sys.argv[sys.argv.index("--sp-rank") + 1:])
+    if "--ep-rank" in sys.argv[1:]:
+        return ep_rank(sys.argv[sys.argv.index("--ep-rank") + 1:])
     import numpy as np
     import torch
 
@@ -4688,6 +5290,8 @@ def main():
         return tp_only(torch, np, card)
     if "--sp-only" in sys.argv[1:]:
         return sp_only(torch, np, card)
+    if "--ep-only" in sys.argv[1:]:
+        return ep_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -4716,6 +5320,7 @@ def main():
     hres = timed("hier", hier_phase(torch, np, card))
     tpres = timed("tp", tp_phase(torch, np, runs, prompts, waves, card))
     spres = timed("sp", sp_phase(torch, np, card))
+    epres = timed("ep", ep_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -4730,6 +5335,7 @@ def main():
     print(json.dumps({"hier": hres}), flush=True)
     print(json.dumps({"tp": tpres}), flush=True)
     print(json.dumps({"sp": spres}), flush=True)
+    print(json.dumps({"ep": epres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,

@@ -1,5 +1,6 @@
-"""Lifecycle and topology over ``torch.distributed``: the subset of
-``horovod_tpu.common.basics`` that training uses.
+"""Lifecycle and topology over ``torch.distributed``: the port of
+``horovod_tpu.common.basics``, with the SPMD region's axis (the JAX
+package keeps it in ``common/state.py``).
 
 One process per card. :func:`init` joins a process group: the caller's,
 when one is already initialised; the launcher's, when the environment
@@ -12,12 +13,19 @@ that share one card cannot form an NCCL world (NCCL refuses two ranks
 on one device), and gloo carries every collective of the port on CUDA
 tensors (PERF.md). The state is the process's own, as the process
 group is.
+
+Inside an SPMD region (:func:`~horovod_tpu_torch.parallel.spmd.spmd_run`)
+:func:`rank` and :func:`local_rank` are this rank's index along the
+region's axis, and every collective of
+:mod:`horovod_tpu_torch.distributed.mpi_ops` runs over the axis's
+process group (:func:`current_spmd_axis`).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,9 +44,41 @@ class _State:
         self.timeline: Optional[Timeline] = None
         self.owns_group = False
         self.backend: Optional[str] = None
+        self.mesh = None
 
 
 _state = _State()
+
+
+class SpmdAxis(NamedTuple):
+    """The axis of an SPMD region: its name, its process group (``None``
+    for an axis of one), its size and this rank's index along it."""
+
+    name: str
+    group: object
+    size: int
+    index: int
+
+
+# The axis of the enclosing SPMD region, set by
+# horovod_tpu_torch.parallel.spmd while the region's function runs.
+_spmd_axis: contextvars.ContextVar = contextvars.ContextVar(
+    "horovod_tpu_torch_spmd_axis", default=None)
+
+
+def current_spmd_axis() -> Optional[SpmdAxis]:
+    """The enclosing SPMD region's :class:`SpmdAxis`, or ``None``."""
+    return _spmd_axis.get()
+
+
+def set_spmd_axis(axis: Optional[SpmdAxis]):
+    """Enter a region over ``axis``; returns the token that
+    :func:`reset_spmd_axis` takes to leave it."""
+    return _spmd_axis.set(axis)
+
+
+def reset_spmd_axis(token) -> None:
+    _spmd_axis.reset(token)
 
 
 def init(device: DeviceLike = None) -> None:
@@ -46,6 +86,11 @@ def init(device: DeviceLike = None) -> None:
     without one). Safe to call more than once."""
     if _state.initialized:
         return
+    if os.environ.get("HOROVOD_AUTOTUNE", "") not in ("", "0"):
+        raise NotImplementedError(
+            "HOROVOD_AUTOTUNE: the fusion-threshold tuner (the JAX "
+            "package's jax/autotune.py) is not ported yet (ROADMAP.md "
+            "Queue 1, item 5); unset it")
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
@@ -90,6 +135,7 @@ def shutdown() -> None:
     _state.backend = None
     _state.config = None
     _state.timeline = None
+    _state.mesh = None
 
 
 def is_initialized() -> bool:
@@ -109,16 +155,76 @@ def size() -> int:
     return dist.get_world_size()
 
 
-def rank() -> int:
+def local_size() -> int:
+    """Number of processes (cards) on this host: ``LOCAL_WORLD_SIZE`` as
+    the launcher sets it, else the world's size (the ranks of a world
+    started without a launcher share one host)."""
     _require_init()
+    return int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+
+
+def rank() -> int:
+    """Global rank; inside an SPMD region, this rank's index along the
+    region's axis."""
+    _require_init()
+    axis = current_spmd_axis()
+    if axis is not None:
+        return axis.index
     return dist.get_rank()
 
 
 def local_rank() -> int:
     """Rank within this host (``LOCAL_RANK``; the global rank when the
-    launcher does not set it)."""
+    launcher does not set it). Inside an SPMD region, the index along the
+    region's axis modulo :func:`local_size`."""
     _require_init()
+    axis = current_spmd_axis()
+    if axis is not None:
+        return axis.index % max(local_size(), 1)
     return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+
+
+def process_rank() -> int:
+    """Index of this process: one card a process, so the global rank
+    (outside any region)."""
+    _require_init()
+    return dist.get_rank()
+
+
+def process_count() -> int:
+    """Number of processes: the world's size."""
+    _require_init()
+    return dist.get_world_size()
+
+
+def mpi_threads_supported() -> bool:
+    """Parity with ``horovod_mpi_threads_supported``: there is no MPI
+    here, so always False."""
+    _require_init()
+    return False
+
+
+def check_extension(ext_name: str, ext_env_var: str, path=None) -> None:
+    """Parity with ``HorovodBasics.check_extension``: raise when the
+    binding was disabled through ``ext_env_var`` (nothing here is built
+    per binding, so that is the only way to fail)."""
+    del path
+    if os.environ.get(ext_env_var, "") in ("0", "false", "False"):
+        raise ImportError(
+            f"Extension {ext_name} has been disabled via {ext_env_var}")
+
+
+def mesh():
+    """The default 1-D mesh over every rank, axis ``"hvd"``
+    (:class:`~horovod_tpu_torch.parallel.mesh.Mesh`), made once per
+    :func:`init`."""
+    st = _require_init()
+    if st.mesh is None:
+        from horovod_tpu_torch.parallel.logical import DATA_AXIS
+        from horovod_tpu_torch.parallel.mesh import make_mesh
+
+        st.mesh = make_mesh({DATA_AXIS: dist.get_world_size()})
+    return st.mesh
 
 
 def device() -> torch.device:

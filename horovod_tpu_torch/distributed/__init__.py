@@ -3,7 +3,11 @@ as hvd``.
 
 The counterpart of ``horovod_tpu.jax`` for data-parallel training over
 ``torch.distributed`` (NCCL on the card, gloo on the CPU): lifecycle
-(:func:`init`, :func:`size`, :func:`rank`, ...), collectives, the fused
+(:func:`init`, :func:`size`, :func:`rank`, ...), the Horovod
+collectives (synchronous, asynchronous with a :class:`Handle`, and in
+place), the SPMD harness (:func:`spmd`, :func:`spmd_fn`,
+:func:`spmd_run`: inside it ``rank()`` is the index along the region's
+axis and the collectives run over the axis and carry gradients), the fused
 buckets with their hierarchical ladder and its int8/fp8 inter-host
 codecs (:func:`resolve_hierarchical`, :func:`ef_residual_specs`,
 :func:`hier_wire_summary`), :func:`DistributedOptimizer`, the ZeRO-1
@@ -11,9 +15,12 @@ codecs (:func:`resolve_hierarchical`, :func:`ef_residual_specs`,
 :func:`run_steps` / :func:`windowed` (CUDA graph replays on the card).
 """
 
-from horovod_tpu_torch.common.basics import (init, is_initialized,
-                                             local_rank, rank, shutdown,
-                                             size)
+from horovod_tpu_torch.common.basics import (check_extension, init,
+                                             is_initialized,
+                                             local_rank, local_size, mesh,
+                                             mpi_threads_supported,
+                                             process_count, process_rank,
+                                             rank, shutdown, size)
 from horovod_tpu_torch.distributed.compression import (Compression,
                                                        is_dcn_wire)
 from horovod_tpu_torch.distributed.fusion import (ef_residual_specs,
@@ -23,27 +30,38 @@ from horovod_tpu_torch.distributed.fusion import (ef_residual_specs,
                                                   plan_buckets,
                                                   plan_summary,
                                                   resolve_hierarchical)
-from horovod_tpu_torch.distributed.mpi_ops import (Average, Max, Min,
-                                                   Product, Sum, allgather,
-                                                   allreduce,
-                                                   allreduce_async,
-                                                   broadcast,
-                                                   broadcast_object,
-                                                   synchronize)
+from horovod_tpu_torch.distributed.mpi_ops import (
+    Average, Handle, Max, Min, Product, Sum, allgather, allgather_async,
+    allgatherv, allreduce, allreduce_, allreduce_async, allreduce_async_,
+    allreduce_sparse, alltoall, broadcast, broadcast_, broadcast_async,
+    broadcast_async_, broadcast_object, grouped_allreduce, poll,
+    reducescatter, synchronize)
 from horovod_tpu_torch.distributed.optimizer import (
     DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
 from horovod_tpu_torch.distributed.window import run_steps, windowed
 from horovod_tpu_torch.distributed.zero import (shard_info,
                                                 sharded_distributed_optimizer)
+from horovod_tpu_torch.parallel.spmd import spmd, spmd_fn, spmd_run
+
+# The reference's TF-parity aliases.
+broadcast_variables = broadcast_parameters
+broadcast_global_variables = broadcast_parameters
 
 __all__ = [
     "init", "shutdown", "is_initialized", "size", "rank", "local_rank",
-    "Compression", "Sum", "Average", "Min", "Max", "Product", "allreduce",
-    "allreduce_async", "synchronize", "broadcast", "broadcast_object",
-    "allgather", "fused_reduce", "plan_buckets", "plan_summary",
+    "local_size", "process_rank", "process_count", "mesh",
+    "mpi_threads_supported", "check_extension",
+    "Compression", "Sum", "Average", "Min", "Max", "Product", "Handle",
+    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+    "allreduce_sparse", "grouped_allreduce", "allgather",
+    "allgather_async", "allgatherv", "broadcast", "broadcast_",
+    "broadcast_async", "broadcast_async_", "alltoall", "reducescatter",
+    "poll", "synchronize", "broadcast_object", "spmd", "spmd_fn",
+    "spmd_run", "fused_reduce", "plan_buckets", "plan_summary",
     "is_dcn_wire", "resolve_hierarchical", "hier_bucket_layout",
     "ef_residual_specs", "hier_wire_summary",
-    "DistributedOptimizer", "broadcast_parameters",
+    "DistributedOptimizer", "broadcast_parameters", "broadcast_variables",
+    "broadcast_global_variables",
     "broadcast_optimizer_state", "sharded_distributed_optimizer",
     "shard_info", "run_steps", "windowed",
 ]

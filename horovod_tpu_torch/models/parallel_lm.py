@@ -40,8 +40,18 @@ stage axis (``shard_lm_params`` takes a rank's ``[1, ...]`` stage), and
 :func:`lm_apply_pp` runs one block a stage under
 :func:`~horovod_tpu_torch.parallel.pipeline.pipeline_apply`;
 :func:`pp_reduce_rest_grads` sums the embedding tables' gradients over
-the stages. The MoE variant is ported by a later slice (ROADMAP.md
-Queue 1, item 4.6).
+the stages.
+
+**Expert parallelism** (the Switch-MoE variant): :func:`init_moe_lm_params`
+replaces each block's dense MLP by a router (``gate [E_dim, experts]``,
+replicated) and stacked expert MLPs (``experts``, leading dim
+``experts``); :func:`moe_lm_param_specs` shards the stacks over the
+expert axis (``shard_lm_params`` gives rank ``r`` experts ``[r * E / P,
+(r + 1) * E / P)``). :func:`lm_apply_moe` runs the blocks with
+:func:`~horovod_tpu_torch.parallel.moe.moe_layer` over ``ep`` (each rank
+its own batch shard; two all-to-alls a layer) or, with ``ep=None``, the
+same routing with every expert local, and returns the logits and the
+Switch auxiliary loss; :func:`moe_reduce_grads` pairs with it.
 """
 
 from __future__ import annotations
@@ -550,6 +560,150 @@ def lm_apply_pp(rest: Dict, stacked_layers, tokens, axis: str = "pp",
 
     out = pipeline_apply(stage, stacked_layers, xm, axis, remat=remat)
     return _logits(rest, out.reshape(B, L, x.shape[-1]))
+
+
+def init_moe_lm_params(seed: int, vocab: int, max_len: int, layers: int,
+                       heads: int, head_dim: int, ffn: int,
+                       num_experts: int, dtype: torch.dtype = torch.float32,
+                       device: DeviceLike = None) -> Dict:
+    """Switch-MoE variant of :func:`init_lm_params`, with the JAX tree's
+    keys and shapes: each block's dense MLP (``wup``, ``bup``, ``wdn``,
+    ``bdn``) becomes a router ``gate [E_dim, num_experts]`` and
+    ``experts`` ``{"up": [num_experts, E_dim, ffn], "bup": [num_experts,
+    ffn], "dn": [num_experts, ffn, E_dim], "bdn": [num_experts,
+    E_dim]}``, drawn from a numpy generator seeded ``(seed, 1000, i)``
+    for block ``i`` (``normal / sqrt(fan_in)``, biases zero)."""
+    dev = resolve_device(device)
+    params = init_lm_params(seed, vocab, max_len, layers, heads, head_dim,
+                            ffn, dtype, dev)
+    embed_dim = heads * head_dim
+    for i, layer in enumerate(params["layers"]):
+        rng = np.random.default_rng((seed, 1000, i))
+
+        def dense(shape, fan_in):
+            w = rng.standard_normal(shape, dtype=np.float32) / math.sqrt(
+                fan_in)
+            return torch.from_numpy(w).to(device=dev, dtype=dtype)
+
+        for key in ("wup", "bup", "wdn", "bdn"):
+            del layer[key]
+        layer["gate"] = dense((embed_dim, num_experts), embed_dim)
+        layer["experts"] = {
+            "up": dense((num_experts, embed_dim, ffn), embed_dim),
+            "bup": torch.zeros((num_experts, ffn), dtype=dtype, device=dev),
+            "dn": dense((num_experts, ffn, embed_dim), ffn),
+            "bdn": torch.zeros((num_experts, embed_dim), dtype=dtype,
+                               device=dev),
+        }
+    return params
+
+
+def moe_lm_param_specs(layers: int, ep_axis: Optional[str]):
+    """The specs of :func:`init_moe_lm_params`' dict in
+    :func:`lm_param_specs`' form: the expert stacks shard their leading
+    dim over ``ep_axis`` (the JAX ``P(ep)``), everything else is
+    replicated."""
+    e = ep_axis
+    layer_spec = {
+        "ln1": {"g": (), "b": ()},
+        "wqkv": (),
+        "wo": (),
+        "bo": (),
+        "ln2": {"g": (), "b": ()},
+        "gate": (),
+        "experts": {"up": (e,), "bup": (e,), "dn": (e,), "bdn": (e,)},
+    }
+    return {
+        "embed": (),
+        "pos": (),
+        "layers": [dict(layer_spec) for _ in range(layers)],
+        "ln_f": {"g": (), "b": ()},
+        "head": (),
+    }
+
+
+def _expert_mlp(p, tokens):
+    h = F.gelu(tokens @ p["up"] + p["bup"], approximate="tanh")
+    return h @ p["dn"] + p["bdn"]
+
+
+def lm_apply_moe(params: Dict, tokens, ep: Optional[str] = None,
+                 capacity_factor: float = 1.25):
+    """Switch-MoE LM forward: tokens ``[B_local, L] -> (logits,
+    aux_loss)``.
+
+    With ``ep`` (an expert axis of the bound mesh) the batch shards over
+    the axis (data parallel for the dense parts), ``params`` is this
+    rank's :func:`moe_lm_param_specs` shard, and each rank's experts
+    process the tokens routed to them by two all-to-alls
+    (:func:`~horovod_tpu_torch.parallel.moe.moe_layer`). ``ep=None`` runs
+    the same routing with every expert local: the dense reference. The
+    capacity is ``ceil(T * capacity_factor / E)`` over the call's ``T =
+    B_local * L`` tokens. ``aux_loss`` is the Switch load-balancing loss,
+    the mean over layers of this rank's (average it over the axis and
+    add it, scaled, to the main loss)."""
+    from horovod_tpu_torch.parallel import moe as _moe
+
+    B, L = tokens.shape
+    x = params["embed"][tokens] + params["pos"][None, :L]
+    aux_total = 0.0
+    for layer in params["layers"]:
+        q, k, v = _project_qkv(layer, x, None)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        attn = dot_product_attention(q, k, v, causal=True, scale=scale)
+        x = _attn_out_residual(layer, attn, x, None)
+
+        m = _layernorm(x, layer["ln2"]["g"], layer["ln2"]["b"])
+        flat = m.reshape(B * L, m.shape[-1])
+        if ep:
+            y, aux = _moe.moe_layer(flat, layer["gate"], _expert_mlp,
+                                    layer["experts"], axis=ep,
+                                    capacity_factor=capacity_factor,
+                                    return_aux=True)
+        else:
+            num_experts = layer["experts"]["up"].shape[0]
+            T = flat.shape[0]
+            capacity = max(1, math.ceil(T * capacity_factor / num_experts))
+            dispatch, combine, aux = _moe.top1_routing(
+                flat, layer["gate"], num_experts, capacity)
+            slots = torch.einsum("tec,td->ecd", dispatch, flat.float())
+            out = torch.func.vmap(_expert_mlp)(layer["experts"],
+                                               slots.to(flat.dtype))
+            y = torch.einsum("tec,ecd->td", combine,
+                             out.float()).to(flat.dtype)
+        x = x + y.reshape(B, L, -1)
+        aux_total = aux_total + aux
+
+    return _logits(params, x), aux_total / len(params["layers"])
+
+
+def moe_reduce_grads(grads: Dict, axis: str = "ep"):
+    """The gradient reduction of :func:`lm_apply_moe`.
+
+    Loss contract (the JAX function's): each rank differentiates its own
+    mean nll over its token shard, and the global objective is the mean
+    of those terms. Then:
+
+    * replicated leaves (embeddings, attention, gates, head): MEAN over
+      the axis;
+    * expert shards: the all-to-all's backward already brought every
+      rank's contribution to this rank's experts, so the gradient is the
+      data-complete SUM: divide it by the axis size, with NO collective
+      (a mean over the axis would mix the gradients of different
+      experts).
+
+    Returns a new dict; the inputs are left unchanged."""
+    group, n, _ = axis_group(axis, role="expert")
+
+    def mean(tree):
+        return tree_map(lambda g: _reduced(g, group, n, mean=True), tree)
+
+    def layer(layer_g):
+        return {k: tree_map(lambda g: g / n, v) if k == "experts"
+                else mean(v) for k, v in layer_g.items()}
+
+    return {k: [layer(g) for g in v] if k == "layers" else mean(v)
+            for k, v in grads.items()}
 
 
 def _reduced(g, group, n: int, mean: bool):

@@ -13,10 +13,10 @@ sequence parallelism (:mod:`~horovod_tpu_torch.parallel.ring_attention`
 and :mod:`~horovod_tpu_torch.parallel.ulysses`) and GPipe pipeline
 parallelism (:mod:`~horovod_tpu_torch.parallel.pipeline`), over the
 differentiable ``ppermute`` and all-to-all of
-:mod:`~horovod_tpu_torch.parallel._collectives`.
-
-Not ported yet: expert parallelism (``moe``, ROADMAP.md Queue 1 item
-4.6) and the SPMD harness (``spmd``, item 4.7).
+:mod:`~horovod_tpu_torch.parallel._collectives`; expert parallelism
+(:mod:`~horovod_tpu_torch.parallel.moe`: Switch top-1 routing and the
+all-to-all MoE layer); and the SPMD rank harness
+(:mod:`~horovod_tpu_torch.parallel.spmd`).
 """
 
 from horovod_tpu_torch.parallel.logical import (  # noqa: F401
@@ -54,4 +54,16 @@ from horovod_tpu_torch.parallel.tp import (  # noqa: F401
 )
 from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
     pipeline_apply,
+)
+from horovod_tpu_torch.parallel.moe import (  # noqa: F401
+    moe_layer,
+    top1_routing,
+)
+from horovod_tpu_torch.parallel.spmd import (  # noqa: F401
+    P,
+    PartitionSpec,
+    axis_size,
+    spmd,
+    spmd_fn,
+    spmd_run,
 )

@@ -36,6 +36,7 @@ from horovod_tpu_torch.parallel.logical import (current_logical_mesh,
 _ROLE_NAMES = {"tensor": "tensor parallelism",
                "seq": "sequence parallelism",
                "stage": "pipeline parallelism",
+               "expert": "expert parallelism",
                "data": "a data-axis collective"}
 
 
@@ -131,13 +132,16 @@ class _AllToAll(torch.autograd.Function):
             None, None, None
 
 
-def all_to_all(x, axis: str, split_dim: int, concat_dim: int):
+def all_to_all(x, axis: Optional[str], split_dim: int, concat_dim: int,
+               role: str = "seq"):
     """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
     ``x`` splits into ``n`` chunks along ``split_dim``, chunk ``j`` goes
     to position ``j`` of the axis, and the chunks received are
     concatenated along ``concat_dim`` in the senders' order. The backward
-    is the all-to-all with the two dims swapped."""
-    group, size, _ = axis_group(axis, role="seq")
+    is the all-to-all with the two dims swapped. ``role`` is the
+    parallelism the caller serves: it resolves ``axis=None`` and names
+    the caller in the error raised without a bound mesh."""
+    group, size, _ = axis_group(axis, role=role)
     if group is None:
         return x
     split_dim %= x.dim()

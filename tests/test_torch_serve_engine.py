@@ -402,7 +402,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "elastic/supervisor.py", "run/__init__.py",
                 "run/driver.py", "run/network.py",
                 "parallel/__init__.py", "parallel/logical.py",
-                "parallel/mesh.py", "parallel/tp.py"):
+                "parallel/mesh.py", "parallel/tp.py", "parallel/moe.py",
+                "parallel/spmd.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
     for pkg in ("elastic", "run"):
         assert sorted(n for n in names
