@@ -11,6 +11,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --tp-only
     python3 chip_smoke.py --sp-only
     python3 chip_smoke.py --ep-only
+    python3 chip_smoke.py --job-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -236,7 +237,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    the routing equal and the logits within 1e-5, with the share of
    tokens dropped. Training: three steps of SGD 0.05 on nll + 0.01 x the
    ep-mean aux through ``spmd_run``: the loss falls on every rank;
-16. (``--profile`` only) two training steps of each lane and the
+16. job: the Horovod job through the port's launcher
+   (``horovod_tpu_torch.run``). ``run(job_task, np=2)`` starts two rank
+   processes (``task_exec``, the driver's authenticated RPC; the task
+   is this module's function, imported as ``chip_smoke``): each joins
+   the world from the launcher's environment (its own card over NCCL
+   where there are two, else a gloo group on the one card) and calls
+   ``hvd.init(device=...)``; GPT-2-small at the training width on the
+   flash kernels, each rank with weights of its own seed until
+   ``broadcast_parameters`` gives it rank 0's, and its own 4 sequences
+   of 2048; three steps of ``hvd.value_and_grad`` over
+   ``torch.func.functional_call``, ``allreduce_gradients_transform``
+   and Adam 1e-4: the losses are finite and fall on every rank, the
+   parameters are bit-identical across the ranks after the broadcast
+   and after every step (SHA-256 of their bytes), step 1's averaged
+   gradient equals the mean of both ranks' local gradients computed on
+   rank 0 with no collective within one bf16 ulp of each leaf's largest
+   entry, K1 ran 12 times a forward pass and K2/K3 12 times a backward
+   pass on every rank, and the bucket collectives are two exchanges of
+   the plan's a step (the gradient's and the transform's). Then the CLI
+   (``python -m horovod_tpu_torch.run``, the ``hvdrun-torch`` entry):
+   ``-np 2 --restarts 1`` over a command that fails on its first
+   attempt exits 0 after one relaunch, a job whose rank 1 exits 1 while
+   rank 0 sleeps is torn down with ``JobResult.trigger.rank == 1``,
+   category ``crashed``, and ``--elastic`` exits 2. Then
+   ``hvd.init(comm=[0, 2])`` in a 4-rank gloo world on the card started
+   by ``launch_job`` (``--comm-rank``): ranks 0 and 2 see size 2 and an
+   allreduce of ones on the card gives 2, ranks 1 and 3 raise
+   ``InvalidArgumentError`` and leave cleanly;
+17. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -262,6 +291,9 @@ no kernels or ok line.
 
 ``--ep-only`` runs phases 1, 2 and 15 and prints the ``{"ep"}`` line and
 no kernels or ok line.
+
+``--job-only`` runs phases 1, 2 and 16 and prints the ``{"job"}`` line
+and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -309,7 +341,12 @@ step milliseconds on every rank, tokens/s a card, peak memory a rank and
 all-to-all bytes a layer, the dropping forward's routing check, logits
 error and dropped share, the training losses and step milliseconds, the
 phase's seconds and the card's name and power limit, with the same
-caveat. The
+caveat, and a ``{"job": ...}`` line the backend and cards, the losses
+and step milliseconds of every rank, tokens/s a card, the gradient
+check's error and tolerance, K1-K3's launches and the collectives of
+every rank, the spawn-to-task seconds, the relaunch, the fail-fast
+teardown seconds, the comm subset's results and the phase's seconds,
+beside the card's name and power limit. The
 second-to-last line is the ``{"kernels": [...]}`` record (K1-K5) and
 the last line ``{"ok": true, "device": {...}}``. The script imports nothing of
 JAX and needs the checkout beside it: alone in a directory, or without a
@@ -4922,6 +4959,376 @@ def ep_phase(torch, np, card):
     return res
 
 
+# ------------------------------------------------------------ phase 16
+
+
+JOB_RANKS = 2
+# Each rank's batch: 4 sequences of the training width's length, from
+# its own seed.
+JOB_SEQS = 4
+JOB_STEPS = 3
+JOB_SEED = 16
+JOB_LR = 1e-4
+JOB_DEVICE = "cuda"
+JOB_TIMEOUT_S = 600.0
+# Step 1's averaged gradient against the mean of the two ranks' local
+# gradients, each computed on rank 0 with no collective: the same
+# kernels on the same inputs, so the two differ by the rounding of the
+# bf16 sum of the exchange (at most one bf16 ulp, 2^-7 of the largest
+# entry of a leaf); a wrong or missing average is off by whole gradients.
+JOB_GRAD_RTOL = 2.0 ** -7
+JOB_COMM = [0, 2]
+JOB_COMM_WORLD = 4
+JOB_CAVEAT = ("2 ranks share one card over gloo: each collective stages "
+              "through the host, so the step ms measure host copies, not "
+              "a fabric")
+
+
+def _job_tokens(np, rank):
+    rng = np.random.default_rng(JOB_SEED + 100 + rank)
+    return rng.integers(0, VOCAB, (JOB_SEQS, FLASH_L))
+
+
+def _job_digest(torch, model):
+    """SHA-256 of every parameter's bytes, in order: equal digests are
+    bit-identical parameters."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def job_task():
+    """One rank of the job phase, started by ``horovod_tpu_torch.run.run``
+    and run from this module imported as ``chip_smoke`` (its functions
+    pickle by reference). The world comes from the launcher's
+    environment: its own card over NCCL when there is one a rank, else
+    a gloo group on the first card. GPT-2-small at the training width on
+    the flash kernels: ``hvd.value_and_grad`` over
+    ``torch.func.functional_call``, ``allreduce_gradients_transform``,
+    Adam, JOB_STEPS steps on the rank's own fixed batch."""
+    import functools
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import (fused_reduce,
+                                                      resolve_overlap)
+    from horovod_tpu_torch.models.train import next_token_loss
+    from horovod_tpu_torch.ops import attention as fa
+
+    entered = time.time()
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    on_card = JOB_DEVICE == "cuda"
+    own = on_card and torch.cuda.device_count() >= world
+    dev = (torch.device("cuda", int(os.environ["LOCAL_RANK"]) if own else 0)
+           if on_card else torch.device("cpu"))
+    if on_card:
+        torch.cuda.set_device(dev)
+    if not own:
+        dist.init_process_group("gloo", init_method="env://")
+    hvd.init(device=dev)
+    check(hvd.size() == world and hvd.rank() == rank,
+          f"job: rank {rank}: hvd sees rank {hvd.rank()} of {hvd.size()}")
+    flash = functools.partial(fa.flash_attention, causal=True,
+                              bwd_impl="kernel")
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    # Each rank draws other weights; the broadcast gives every rank
+    # rank 0's (seed JOB_SEED).
+    model = TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+                          num_heads=HEADS, embed_dim=D_MODEL,
+                          max_len=FLASH_L, dtype=torch.bfloat16,
+                          attn_fn=flash, seed=JOB_SEED + rank, device=dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev),
+           "entered": entered, "digests": [_job_digest(torch, model)]}
+    tokens = torch.tensor(_job_tokens(np, rank), device=dev)
+
+    def loss_fn(params, toks):
+        logits = torch.func.functional_call(model, params, (toks,))
+        return next_token_loss(logits, toks)
+
+    mean = None
+    if rank == 0:
+        # Every rank's local gradient of step 1, here, with no
+        # collective: plain autograd over the broadcast weights.
+        local = []
+        for r in range(world):
+            toks = torch.tensor(_job_tokens(np, r), device=dev)
+            model.zero_grad(set_to_none=True)
+            next_token_loss(model(toks), toks).backward()
+            local.append({n: p.grad.float() for n, p in
+                          model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        mean = {n: sum(g[n] for g in local) / world for n in local[0]}
+        del local
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    vg = hvd.value_and_grad(loss_fn)
+    tx = hvd.allreduce_gradients_transform()
+    state = tx.init(params)
+    opt = torch.optim.Adam(model.parameters(), lr=JOB_LR)
+    # The transform's leaf order: JAX's, a dict's keys sorted. Under
+    # overlap (auto: two buckets or more) a bucket past the scatter
+    # threshold is a reduce-scatter and an all-gather, else one
+    # all-reduce.
+    cfg = basics.config()
+    plan = hvd.plan_buckets([params[n] for n in sorted(params)],
+                            cfg.fusion_threshold)
+    scatter = resolve_overlap(None, len(plan)) and world > 1
+    per_exchange = sum(
+        2 if scatter and b.nbytes >= cfg.overlap_scatter_threshold else 1
+        for b in plan)
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    if on_card:
+        torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    fused_reduce.collectives = 0
+    losses, step_ms = [], []
+    for s in range(JOB_STEPS):
+        t0 = time.perf_counter()
+        loss, grads = vg(params, tokens)
+        if s == 0 and mean is not None:
+            errs = [float((grads[n].float() - mean[n]).abs().max()
+                          / mean[n].abs().max().clamp(min=1e-30))
+                    for n in mean]
+            out["grad_rel_max"] = max(errs)
+            del mean
+        grads, state = tx.update(grads, state, params)
+        for n, p in model.named_parameters():
+            p.grad = grads[n]
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss))
+        if on_card:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out["digests"].append(_job_digest(torch, model))
+    out.update({
+        "losses": losses, "step_ms": step_ms, "buckets": len(plan),
+        "exchange_collectives": per_exchange,
+        "launches": {k.__name__: k.launches for k in kernels},
+        "collectives": fused_reduce.collectives,
+        "residuals": len(state.residuals),
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if on_card else 0)})
+    hvd.shutdown()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return out
+
+
+def comm_rank(argv):
+    """``--comm-rank DIR``: one rank of the job phase's ``init(comm=)``
+    world, started by ``launch_job``: a gloo group on the first card,
+    then ``hvd.init(comm=JOB_COMM)``; writes ``DIR/rank<R>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+
+    rank = int(os.environ["RANK"])
+    dev = torch.device(JOB_DEVICE, 0) if JOB_DEVICE == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="env://")
+    out = {"rank": rank}
+    try:
+        hvd.init(comm=JOB_COMM, device=dev)
+    except InvalidArgumentError as e:
+        out["excluded"] = str(e)
+    else:
+        t = hvd.allreduce(torch.ones(4, device=dev), average=False)
+        out.update({"size": hvd.size(), "job_rank": hvd.rank(),
+                    "allreduce": t.tolist(),
+                    "on_card": t.device.type == dev.type})
+        hvd.shutdown()
+    # Every rank of the world, in the job or not, leaves together.
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(argv[0], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _job_cli(torch):
+    """The launcher's CLI and fail-fast supervision: a relaunch under
+    ``--restarts``, a crashed rank classified, ``--elastic`` refused."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch.run import launch_job
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    cli = [sys.executable, "-m", "horovod_tpu_torch.run"]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        marker = os.path.join(tmp, "attempted")
+        script = ("import os, sys; m = sys.argv[1]\n"
+                  "if os.environ['HOROVOD_RANK'] == '0' and not "
+                  "os.path.exists(m):\n"
+                  "    open(m, 'w').close(); sys.exit(7)\n")
+        t0 = time.perf_counter()
+        p = subprocess.run(cli + ["-np", "2", "--restarts", "1", "--",
+                                  sys.executable, "-c", script, marker],
+                           env=env, capture_output=True, text=True,
+                           timeout=120)
+        res["restarts"] = {"rc": p.returncode,
+                           "relaunches": p.stderr.count("relaunching"),
+                           "seconds": time.perf_counter() - t0}
+        check(p.returncode == 0 and res["restarts"]["relaunches"] == 1
+              and os.path.exists(marker),
+              f"job: --restarts 1 over a first-attempt failure gave rc "
+              f"{p.returncode} after {res['restarts']['relaunches']} "
+              f"relaunches: {p.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    jr = launch_job([sys.executable, "-c",
+                     "import os, sys, time\n"
+                     "if os.environ['HOROVOD_RANK'] == '1': sys.exit(1)\n"
+                     "time.sleep(120)"], np=2, env=env)
+    res["fail_fast"] = {"trigger_rank": jr.trigger.rank if jr.trigger
+                        else None, "category": jr.category,
+                        "exit_codes": jr.exit_codes,
+                        "teardown_s": jr.teardown_s,
+                        "seconds": time.perf_counter() - t0}
+    check(jr.trigger is not None and jr.trigger.rank == 1
+          and jr.category == "crashed" and jr.pre_kill_codes == {1: 1}
+          and res["fail_fast"]["seconds"] < 60,
+          f"job: the fail-fast job gave {jr.describe()} in "
+          f"{res['fail_fast']['seconds']:.1f} s")
+    p = subprocess.run(cli + ["-np", "2", "--elastic", "--", "true"],
+                       env=env, capture_output=True, text=True, timeout=60)
+    res["elastic_rc"] = p.returncode
+    check(p.returncode == 2 and "item 5.3" in p.stderr,
+          f"job: --elastic gave rc {p.returncode}: {p.stderr[-1000:]}")
+    return res
+
+
+def _job_comm():
+    """``init(comm=JOB_COMM)`` in a JOB_COMM_WORLD-rank world started by
+    ``launch_job``, every rank a process of this script."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch.run import launch_job
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        jr = launch_job([sys.executable, os.path.join(here, "chip_smoke.py"),
+                         "--comm-rank", tmp], np=JOB_COMM_WORLD,
+                        env=dict(os.environ, OMP_NUM_THREADS="1"))
+        seconds = time.perf_counter() - t0
+        check(jr.trigger is None, f"job: the comm world failed: "
+              f"{jr.describe()}")
+        ranks = []
+        for r in range(JOB_COMM_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        if r["rank"] in JOB_COMM:
+            want = {"size": len(JOB_COMM),
+                    "job_rank": JOB_COMM.index(r["rank"]),
+                    "allreduce": [float(len(JOB_COMM))] * 4,
+                    "on_card": True}
+            check({k: r.get(k) for k in want} == want,
+                  f"job: comm rank {r['rank']} gave {r}, expected {want}")
+        else:
+            check("does not include this process" in r.get("excluded", ""),
+                  f"job: rank {r['rank']} outside comm gave {r}")
+    return {"comm": JOB_COMM, "world": JOB_COMM_WORLD, "ranks": ranks,
+            "seconds": seconds}
+
+
+def job_phase(torch, np, card):
+    """Phase 16 (module docstring): the Horovod job through the port's
+    launcher: the training job of ``run()``, the CLI and the comm
+    subset."""
+    import chip_smoke
+    from horovod_tpu_torch.run import run
+
+    t0 = time.perf_counter()
+    started = time.time()
+    ranks = run(chip_smoke.job_task, np=JOB_RANKS, start_timeout=120.0,
+                run_timeout=JOB_TIMEOUT_S)
+    train_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    plan, per_exchange = r0["buckets"], r0["exchange_collectives"]
+    for r in ranks:
+        who = f"job: rank {r['rank']}"
+        check(all(map(math.isfinite, r["losses"]))
+              and r["losses"][-1] < r["losses"][0],
+              f"{who}: losses {r['losses']} are not finite and falling")
+        check(r["digests"] == r0["digests"],
+              f"{who}: parameters differ from rank 0's after the "
+              f"broadcast or a step ({r['digests']} vs {r0['digests']})")
+        for name, n in r["launches"].items():
+            check(JOB_DEVICE != "cuda" or n == LAYERS * JOB_STEPS,
+                  f"{who}: {name} launched {n} times, expected {LAYERS} "
+                  f"layers x {JOB_STEPS} passes")
+        # value_and_grad's exchange and the transform's, each a step.
+        check(r["collectives"] == 2 * per_exchange * JOB_STEPS,
+              f"{who}: {r['collectives']} bucket collectives, expected 2 "
+              f"exchanges of {per_exchange} ({plan} buckets) x "
+              f"{JOB_STEPS} steps")
+        check(r["residuals"] == 0, f"{who}: residuals without a ladder")
+    check(r0["grad_rel_max"] <= JOB_GRAD_RTOL,
+          f"job: step 1's averaged gradient is off the mean of the local "
+          f"ones by {r0['grad_rel_max']:.3e} of a leaf's largest entry "
+          f"(tolerance {JOB_GRAD_RTOL:.3e})")
+    cli = _job_cli(torch)
+    comm = _job_comm()
+    cards = max(1, min(torch.cuda.device_count(), JOB_RANKS)) \
+        if JOB_DEVICE == "cuda" else 0
+    step_ms = [r["step_ms"] for r in ranks]
+    res = {
+        "ranks": JOB_RANKS, "backend": r0["backend"], "cards": cards,
+        "card": card,
+        "model": {"layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+                  "vocab": VOCAB, "seq": FLASH_L, "seqs_per_rank": JOB_SEQS,
+                  "dtype": "bfloat16", "attention": "flash (K1-K3)"},
+        "losses": [r["losses"] for r in ranks],
+        "step_ms": step_ms,
+        "tokens_per_sec_per_card": JOB_RANKS * JOB_SEQS * FLASH_L
+        / (max(ms[-1] for ms in step_ms) / 1e3) / max(cards, 1),
+        "grad_rel_max": r0["grad_rel_max"], "grad_rtol": JOB_GRAD_RTOL,
+        "params_bit_identical_steps": len(r0["digests"]) - 1,
+        "launches": [r["launches"] for r in ranks],
+        "collectives": [r["collectives"] for r in ranks],
+        "buckets": plan, "exchange_collectives": per_exchange,
+        "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "spawn_to_task_s": [r["entered"] - started for r in ranks],
+        "run_s": train_s,
+        "restarts": cli["restarts"], "fail_fast": cli["fail_fast"],
+        "elastic_rc": cli["elastic_rc"],
+        "comm_subset": comm,
+        "caveat": JOB_CAVEAT if r0["backend"] == "gloo" else None,
+    }
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"job: {JOB_RANKS} ranks over {res['backend']} on {cards} card(s) "
+        f"through run(): losses {res['losses'][0]}, step ms "
+        f"{[[round(x, 1) for x in ms] for ms in step_ms]}, grad rel "
+        f"{res['grad_rel_max']:.2e}, launches {r0['launches']}, "
+        f"{r0['collectives']} collectives ({plan} buckets, "
+        f"{per_exchange} an exchange); spawn-to-task "
+        f"s {[round(x, 2) for x in res['spawn_to_task_s']]}; restarts "
+        f"{cli['restarts']['relaunches']}, fail-fast teardown "
+        f"{cli['fail_fast']['teardown_s']:.3f} s; comm {JOB_COMM} of "
+        f"{JOB_COMM_WORLD} ok; phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -5053,13 +5460,14 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, wres, hres, spres, card):
+def _flash_records(fres, tres, wres, hres, spres, jres, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
     holds, from the hier phase rank 0's launches in each variant's
-    timed steps, and from the sp phase every rank's in the Ulysses step;
-    times and errors from the flash phase at the slice shapes."""
+    timed steps, from the sp phase every rank's in the Ulysses step, and
+    from the job phase every rank's in its steps; times and errors from
+    the flash phase at the slice shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
               "flash_bwd_dkv": "flash_bwd_dkv"}
@@ -5090,6 +5498,7 @@ def _flash_records(fres, tres, wres, hres, spres, card):
             "launches_sp_ulysses": [l[name] for l in
                                     spres["ulysses"]["launches"]],
             "sp_ulysses_shape": spres["ulysses"]["k1_shape"],
+            "launches_job": [l[name] for l in jres["launches"]],
             "sp_ulysses_max_abs_err": max(
                 spres["ulysses"]["kernel_check"]["max_abs_err"][o]
                 for o in outs),
@@ -5260,6 +5669,12 @@ def ep_only(torch, np, card):
     print(json.dumps({"ep": ep_phase(torch, np, card)}), flush=True)
 
 
+def job_only(torch, np, card):
+    """``--job-only``: the build and the job phase."""
+    build_phase()
+    print(json.dumps({"job": job_phase(torch, np, card)}), flush=True)
+
+
 def main():
     if "--hier-rank" in sys.argv[1:]:
         return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
@@ -5269,6 +5684,8 @@ def main():
         return sp_rank(sys.argv[sys.argv.index("--sp-rank") + 1:])
     if "--ep-rank" in sys.argv[1:]:
         return ep_rank(sys.argv[sys.argv.index("--ep-rank") + 1:])
+    if "--comm-rank" in sys.argv[1:]:
+        return comm_rank(sys.argv[sys.argv.index("--comm-rank") + 1:])
     import numpy as np
     import torch
 
@@ -5292,6 +5709,8 @@ def main():
         return sp_only(torch, np, card)
     if "--ep-only" in sys.argv[1:]:
         return ep_only(torch, np, card)
+    if "--job-only" in sys.argv[1:]:
+        return job_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -5321,6 +5740,7 @@ def main():
     tpres = timed("tp", tp_phase(torch, np, runs, prompts, waves, card))
     spres = timed("sp", sp_phase(torch, np, card))
     epres = timed("ep", ep_phase(torch, np, card))
+    jres = timed("job", job_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -5336,11 +5756,12 @@ def main():
     print(json.dumps({"tp": tpres}), flush=True)
     print(json.dumps({"sp": spres}), flush=True)
     print(json.dumps({"ep": epres}), flush=True)
+    print(json.dumps({"job": jres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, wres, hres, spres, card),
+        *_flash_records(fres, tres, wres, hres, spres, jres, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

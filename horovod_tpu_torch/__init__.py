@@ -30,18 +30,51 @@ ResNet family (:mod:`~horovod_tpu_torch.models.resnet`) on the fused
 1x1-conv + BatchNorm-statistics kernel
 (:mod:`~horovod_tpu_torch.ops.conv_bn`) and the bench's image lane; and
 the parallelism layer (:mod:`~horovod_tpu_torch.parallel`: the mesh,
-tensor, sequence and pipeline parallelism).
+tensor, sequence and pipeline parallelism); and the Horovod job — the
+functional gradient API and the launcher (:mod:`~horovod_tpu_torch.run`,
+``hvdrun-torch``).
+
+As ``import horovod_tpu as hvd`` does, ``import horovod_tpu_torch as hvd``
+offers the Horovod surface at the top level: every name of
+:mod:`horovod_tpu_torch.distributed` (``hvd.init``, ``hvd.allreduce``,
+``hvd.value_and_grad``, ...). The names load on first use (PEP 562), so
+importing the package loads no torch: the serving worker binds its
+socket first.
 """
 
-__all__ = ["resolve_device"]
+from horovod_tpu_torch._lazy import lazy_getattr
 
+__version__ = "0.2.0"
 
-def __getattr__(name):
-    # Imported on first use (PEP 562), so a module that must not load
-    # torch early (the serving worker binds its socket first) can be
-    # run from this package.
-    if name == "resolve_device":
-        from horovod_tpu_torch._device import resolve_device
+#: The names of :mod:`horovod_tpu_torch.distributed` (its ``__all__``),
+#: offered here too. Kept in this torch-free module so that looking a
+#: submodule up (``from horovod_tpu_torch import serve``) never imports
+#: torch.
+_HVD_NAMES = (
+    "init", "shutdown", "is_initialized", "size", "rank", "local_rank",
+    "local_size", "process_rank", "process_count", "mesh",
+    "mpi_threads_supported", "check_extension",
+    "Compression", "Sum", "Average", "Min", "Max", "Product", "Handle",
+    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+    "allreduce_sparse", "grouped_allreduce", "allgather",
+    "allgather_async", "allgatherv", "broadcast", "broadcast_",
+    "broadcast_async", "broadcast_async_", "alltoall", "reducescatter",
+    "poll", "synchronize", "broadcast_object", "spmd", "spmd_fn",
+    "spmd_run", "fused_reduce", "plan_buckets", "plan_summary",
+    "is_dcn_wire", "resolve_hierarchical", "hier_bucket_layout",
+    "ef_residual_specs", "hier_wire_summary",
+    "DistributedOptimizer", "broadcast_parameters", "broadcast_variables",
+    "broadcast_global_variables",
+    "broadcast_optimizer_state", "sharded_distributed_optimizer",
+    "shard_info", "run_steps", "windowed", "window", "zero",
+    "grad", "value_and_grad", "allreduce_gradients_transform",
+    "ef_state_partition_specs",
+)
 
-        return resolve_device
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = ["__version__", "resolve_device", *_HVD_NAMES]
+
+# Imported on first use, so a module that must not load torch early (the
+# serving worker binds its socket first) can be run from this package.
+__getattr__ = lazy_getattr(__name__, {"resolve_device": "_device",
+                                      **dict.fromkeys(_HVD_NAMES,
+                                                      "distributed")})

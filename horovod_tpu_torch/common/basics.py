@@ -19,20 +19,31 @@ Inside an SPMD region (:func:`~horovod_tpu_torch.parallel.spmd.spmd_run`)
 region's axis, and every collective of
 :mod:`horovod_tpu_torch.distributed.mpi_ops` runs over the axis's
 process group (:func:`current_spmd_axis`).
+
+``init(comm=[...])`` restricts the job to a subset of the world's ranks,
+as Horovod's ``horovod_init(ranks, nranks)`` and the JAX package's
+``init(comm=)`` do: every rank of the world joins ``dist.new_group(comm)``
+(a collective), the new group becomes the job's group
+(:func:`job_group`), :func:`size` is ``len(comm)`` and :func:`rank` the
+index within ``comm``, and every collective of the port runs over it. A
+rank outside ``comm`` raises ``InvalidArgumentError`` after the
+collective ``new_group``; it takes no part in the job.
 """
 
 from __future__ import annotations
 
 import contextvars
 import os
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.common.config import Config
-from horovod_tpu_torch.common.exceptions import PreconditionError
+from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
+                                                 NotInitializedError,
+                                                 PreconditionError)
 from horovod_tpu_torch.utils.timeline import Timeline
 
 
@@ -45,6 +56,9 @@ class _State:
         self.owns_group = False
         self.backend: Optional[str] = None
         self.mesh = None
+        # The job's process group (None: the world) and its global ranks.
+        self.group = None
+        self.ranks: List[int] = []
 
 
 _state = _State()
@@ -81,21 +95,42 @@ def reset_spmd_axis(token) -> None:
     _spmd_axis.reset(token)
 
 
-def init(device: DeviceLike = None) -> None:
+def init(comm: Optional[Sequence[int]] = None,
+         device: DeviceLike = None) -> None:
     """Initialise the framework on ``device`` (``None`` = the card; raises
-    without one). Safe to call more than once."""
+    without one). ``comm`` restricts the job to those global ranks, in
+    increasing order (the module docstring). Safe to call more than
+    once."""
     if _state.initialized:
         return
     if os.environ.get("HOROVOD_AUTOTUNE", "") not in ("", "0"):
         raise NotImplementedError(
             "HOROVOD_AUTOTUNE: the fusion-threshold tuner (the JAX "
             "package's jax/autotune.py) is not ported yet (ROADMAP.md "
-            "Queue 1, item 5); unset it")
+            "Queue 1, item 5.5); unset it")
+    if comm is not None:
+        comm = [int(r) for r in comm]
+        if not comm:
+            raise InvalidArgumentError("hvd.init(comm=[]) names no rank")
+        if comm != sorted(set(comm)):
+            raise InvalidArgumentError(
+                f"comm {comm} must list distinct ranks in increasing "
+                "order: a torch.distributed group numbers its ranks in "
+                "the order of their global ranks")
     dev = resolve_device(device)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
         if dev.index is None:
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            if not dist.is_initialized() \
+                    and local >= torch.cuda.device_count():
+                raise PreconditionError(
+                    f"LOCAL_RANK {local} has no card of its own (this "
+                    f"host has {torch.cuda.device_count()}): NCCL needs "
+                    "one card a rank. Ranks that share a card must start "
+                    "a gloo group first (dist.init_process_group("
+                    "'gloo', ...)) and pass device='cuda:0' to init()")
+            dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         # gloo carries CUDA tensors as well; NCCL carries no CPU tensor.
@@ -105,20 +140,41 @@ def init(device: DeviceLike = None) -> None:
                 f"the process group runs {dist.get_backend()}, but device "
                 f"{dev} needs {' or '.join(takes)}")
         backend = dist.get_backend()
-        _state.owns_group = False
+        owns = False
     else:
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend, init_method="env://")
         else:
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
-        _state.owns_group = True
+        owns = True
+    world = dist.get_world_size()
+    group, ranks = None, list(range(world))
+    if comm is not None:
+        bad = [r for r in comm if not 0 <= r < world]
+        if bad:
+            if owns:
+                dist.destroy_process_group()
+            raise InvalidArgumentError(
+                f"comm ranks {bad} out of range for {world} ranks")
+        if comm != ranks:
+            # Collective: every rank of the world creates the group, in
+            # this order, whether or not it belongs to it.
+            group, ranks = dist.new_group(comm), comm
+        if dist.get_rank() not in comm:
+            raise InvalidArgumentError(
+                f"hvd.init(comm={comm}) does not include this process "
+                f"(rank {dist.get_rank()} of {world}): it has no rank in "
+                "the job; leave it out at the launcher, or let it exit")
+    _state.owns_group = owns
+    _state.group = group
+    _state.ranks = ranks
     _state.device = dev
     _state.backend = backend
     _state.config = Config.from_env()
     _state.timeline = Timeline(_state.config.timeline_path or None,
                                mark_cycles=_state.config.timeline_mark_cycles,
-                               enabled_rank=dist.get_rank() == 0)
+                               enabled_rank=dist.get_rank(group) == 0)
     _state.initialized = True
 
 
@@ -127,6 +183,8 @@ def shutdown() -> None:
     if not _state.initialized:
         return
     _state.timeline.close()
+    if _state.group is not None and dist.is_initialized():
+        dist.destroy_process_group(_state.group)
     if _state.owns_group and dist.is_initialized():
         dist.destroy_process_group()
     _state.initialized = False
@@ -136,6 +194,8 @@ def shutdown() -> None:
     _state.config = None
     _state.timeline = None
     _state.mesh = None
+    _state.group = None
+    _state.ranks = []
 
 
 def is_initialized() -> bool:
@@ -144,57 +204,66 @@ def is_initialized() -> bool:
 
 def _require_init() -> _State:
     if not _state.initialized:
-        raise PreconditionError(
+        raise NotInitializedError(
             "horovod_tpu_torch has not been initialized; call hvd.init()")
     return _state
 
 
+def job_group():
+    """The process group the job's collectives run over: ``None`` (the
+    default group) for the whole world, else ``init(comm=)``'s group."""
+    return _require_init().group
+
+
+def job_ranks() -> List[int]:
+    """The job's global ranks in job order (``comm``, else the world)."""
+    return list(_require_init().ranks)
+
+
 def size() -> int:
-    """Number of processes (one card each)."""
-    _require_init()
-    return dist.get_world_size()
+    """Number of processes in the job (one card each)."""
+    return len(_require_init().ranks)
 
 
 def local_size() -> int:
     """Number of processes (cards) on this host: ``LOCAL_WORLD_SIZE`` as
-    the launcher sets it, else the world's size (the ranks of a world
+    the launcher sets it, else the job's size (the ranks of a world
     started without a launcher share one host)."""
     _require_init()
-    return int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    return int(os.environ.get("LOCAL_WORLD_SIZE", size()))
 
 
 def rank() -> int:
-    """Global rank; inside an SPMD region, this rank's index along the
+    """Rank within the job (the global rank unless ``init(comm=)``
+    narrowed it); inside an SPMD region, this rank's index along the
     region's axis."""
-    _require_init()
+    st = _require_init()
     axis = current_spmd_axis()
     if axis is not None:
         return axis.index
-    return dist.get_rank()
+    return dist.get_rank(st.group)
 
 
 def local_rank() -> int:
-    """Rank within this host (``LOCAL_RANK``; the global rank when the
+    """Rank within this host (``LOCAL_RANK``; the job's rank when the
     launcher does not set it). Inside an SPMD region, the index along the
     region's axis modulo :func:`local_size`."""
-    _require_init()
+    st = _require_init()
     axis = current_spmd_axis()
     if axis is not None:
         return axis.index % max(local_size(), 1)
-    return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return int(os.environ.get("LOCAL_RANK", dist.get_rank(st.group)))
 
 
 def process_rank() -> int:
-    """Index of this process: one card a process, so the global rank
-    (outside any region)."""
-    _require_init()
-    return dist.get_rank()
+    """Index of this process in the job: one card a process, so the
+    job's rank (outside any region)."""
+    return dist.get_rank(_require_init().group)
 
 
 def process_count() -> int:
-    """Number of processes: the world's size."""
-    _require_init()
-    return dist.get_world_size()
+    """Number of processes in the job."""
+    return size()
 
 
 def mpi_threads_supported() -> bool:
@@ -215,7 +284,7 @@ def check_extension(ext_name: str, ext_env_var: str, path=None) -> None:
 
 
 def mesh():
-    """The default 1-D mesh over every rank, axis ``"hvd"``
+    """The default 1-D mesh over the job's ranks, axis ``"hvd"``
     (:class:`~horovod_tpu_torch.parallel.mesh.Mesh`), made once per
     :func:`init`."""
     st = _require_init()
@@ -223,7 +292,7 @@ def mesh():
         from horovod_tpu_torch.parallel.logical import DATA_AXIS
         from horovod_tpu_torch.parallel.mesh import make_mesh
 
-        st.mesh = make_mesh({DATA_AXIS: dist.get_world_size()})
+        st.mesh = make_mesh({DATA_AXIS: len(st.ranks)}, st.ranks)
     return st.mesh
 
 

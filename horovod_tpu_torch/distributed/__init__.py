@@ -10,11 +10,14 @@ place), the SPMD harness (:func:`spmd`, :func:`spmd_fn`,
 axis and the collectives run over the axis and carry gradients), the fused
 buckets with their hierarchical ladder and its int8/fp8 inter-host
 codecs (:func:`resolve_hierarchical`, :func:`ef_residual_specs`,
-:func:`hier_wire_summary`), :func:`DistributedOptimizer`, the ZeRO-1
+:func:`hier_wire_summary`), :func:`DistributedOptimizer`, the
+functional gradient API (:func:`grad`, :func:`value_and_grad`,
+:func:`allreduce_gradients_transform`), the ZeRO-1
 :func:`sharded_distributed_optimizer`, and the multi-step windows
 :func:`run_steps` / :func:`windowed` (CUDA graph replays on the card).
 """
 
+from horovod_tpu_torch import _HVD_NAMES
 from horovod_tpu_torch.common.basics import (check_extension, init,
                                              is_initialized,
                                              local_rank, local_size, mesh,
@@ -37,7 +40,9 @@ from horovod_tpu_torch.distributed.mpi_ops import (
     broadcast_async_, broadcast_object, grouped_allreduce, poll,
     reducescatter, synchronize)
 from horovod_tpu_torch.distributed.optimizer import (
-    DistributedOptimizer, broadcast_optimizer_state, broadcast_parameters)
+    DistributedOptimizer, allreduce_gradients_transform,
+    broadcast_optimizer_state, broadcast_parameters,
+    ef_state_partition_specs, grad, value_and_grad)
 from horovod_tpu_torch.distributed.window import run_steps, windowed
 from horovod_tpu_torch.distributed.zero import (shard_info,
                                                 sharded_distributed_optimizer)
@@ -47,21 +52,6 @@ from horovod_tpu_torch.parallel.spmd import spmd, spmd_fn, spmd_run
 broadcast_variables = broadcast_parameters
 broadcast_global_variables = broadcast_parameters
 
-__all__ = [
-    "init", "shutdown", "is_initialized", "size", "rank", "local_rank",
-    "local_size", "process_rank", "process_count", "mesh",
-    "mpi_threads_supported", "check_extension",
-    "Compression", "Sum", "Average", "Min", "Max", "Product", "Handle",
-    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
-    "allreduce_sparse", "grouped_allreduce", "allgather",
-    "allgather_async", "allgatherv", "broadcast", "broadcast_",
-    "broadcast_async", "broadcast_async_", "alltoall", "reducescatter",
-    "poll", "synchronize", "broadcast_object", "spmd", "spmd_fn",
-    "spmd_run", "fused_reduce", "plan_buckets", "plan_summary",
-    "is_dcn_wire", "resolve_hierarchical", "hier_bucket_layout",
-    "ef_residual_specs", "hier_wire_summary",
-    "DistributedOptimizer", "broadcast_parameters", "broadcast_variables",
-    "broadcast_global_variables",
-    "broadcast_optimizer_state", "sharded_distributed_optimizer",
-    "shard_info", "run_steps", "windowed",
-]
+# One list for this module and the package's top level, which offers the
+# same names without importing torch.
+__all__ = list(_HVD_NAMES)

@@ -456,6 +456,7 @@ class BucketExchange:
         self._compression = compression
         self._name = name or "fused"
         self._n = basics.size()
+        self._group = basics.job_group()
         self._like = [(tuple(t.shape), t.dtype) for t in like]
         self.plan = plan_buckets(
             [torch.empty(s, dtype=compression.plan_dtype(d), device="meta")
@@ -641,7 +642,8 @@ class BucketExchange:
             shard = torch.empty(flat.numel() // n, dtype=flat.dtype,
                                 device=flat.device)
             with self._span(track, tl_names.REDUCESCATTER):
-                dist.reduce_scatter_tensor(shard, flat, op=torch_op)
+                dist.reduce_scatter_tensor(shard, flat, op=torch_op,
+                                           group=self._group)
             if self._divide_shard:
                 # The sharded update: 1/n of the division work, and
                 # bit-identical to dividing the gathered whole.
@@ -650,10 +652,12 @@ class BucketExchange:
                     self._averaged[i] = True
             with self._span(track, tl_names.ALLGATHER):
                 work = dist.all_gather_into_tensor(flat, shard,
+                                                   group=self._group,
                                                    async_op=True)
             fused_reduce.collectives += 2
         else:
-            work = dist.all_reduce(flat, op=torch_op, async_op=True)
+            work = dist.all_reduce(flat, op=torch_op, group=self._group,
+                                   async_op=True)
             fused_reduce.collectives += 1
         self._inflight[bi] = (flat, work)
 

@@ -206,11 +206,12 @@ def _tensor(x):
 
 def _axis():
     """``(group, size, index)`` the collectives run over: the SPMD
-    region's axis, else the world (``group=None``: the default group)."""
+    region's axis, else the job's group (``None``: the default group,
+    when the job is the whole world)."""
     ax = basics.current_spmd_axis()
     if ax is not None:
         return ax.group, ax.size, ax.index
-    return None, basics.size(), basics.rank()
+    return basics.job_group(), basics.size(), basics.rank()
 
 
 def _global_rank(group, index: int) -> int:
@@ -565,8 +566,10 @@ def broadcast_object(obj: Any, root_rank: int = 0) -> Any:
     _check_root(root_rank, n)
     if n == 1:
         return obj
+    group = basics.job_group()
     box = [obj]
-    dist.broadcast_object_list(box, src=root_rank, device=basics.device())
+    dist.broadcast_object_list(box, src=_global_rank(group, root_rank),
+                               group=group, device=basics.device())
     return box[0]
 
 

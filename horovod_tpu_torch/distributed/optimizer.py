@@ -31,14 +31,31 @@ floating bucket, each this rank's own shard, on the parameters' device;
 every update feeds them through the exchange and keeps the new ones.
 They travel in ``state_dict()`` under ``"hvd_residuals"``, and
 :func:`broadcast_optimizer_state` leaves each rank its own.
+
+The functional gradient API of the JAX package
+(``horovod_tpu/jax/optimizer.py``) over pytrees of tensors (dicts,
+lists, tuples): :func:`grad` and :func:`value_and_grad` differentiate a
+pure function and reduce its gradients through the fused buckets, and
+:func:`allreduce_gradients_transform` is the optax transform's port form,
+a :class:`GradientTransformation` of ``init(params) -> state`` and
+``update(grads, state, params=None) -> (grads, state)`` whose state
+carries the error-feedback residuals of a quantized ladder.
+
+They differentiate with ``torch.autograd.grad`` over detached copies of
+the differentiated leaves marked ``requires_grad``, not with
+``torch.func``: the port's autograd Functions (the flash kernels', the
+fused loss's, the collectives') are of the ``forward(ctx, ...)`` form,
+which ``torch.func`` transforms refuse. A leaf the value does not depend
+on gets a zero gradient, as under ``jax.grad``.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
@@ -47,8 +64,10 @@ from horovod_tpu_torch.distributed import mpi_ops
 from horovod_tpu_torch.distributed.compression import (Compression,
                                                        is_dcn_wire)
 from horovod_tpu_torch.distributed.fusion import (BucketExchange,
+                                                  ef_residual_specs,
                                                   fused_reduce, hook_grad,
                                                   release_grad_hooks,
+                                                  resolve_hierarchical,
                                                   unhook_grad)
 from horovod_tpu_torch.distributed.zero import ZeroOptimizer
 
@@ -383,3 +402,200 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         if residuals is not None:
             state["hvd_residuals"] = residuals
         optimizer.load_state_dict(state)
+
+
+# ------------------------------------------------ functional gradient API
+
+
+class GradientTransformation(NamedTuple):
+    """The port form of ``optax.GradientTransformation``: ``init(params)
+    -> state`` and ``update(grads, state, params=None) -> (grads,
+    state)``, over pytrees of tensors."""
+
+    init: Callable[[Any], Any]
+    update: Callable[..., Any]
+
+
+class _AllreduceState(NamedTuple):
+    """State of :func:`allreduce_gradients_transform`. ``residuals`` is
+    empty except under a low-bit inter-host codec
+    (``Compression.int8``/``.fp8``) on an engaged hierarchical ladder,
+    where it carries this rank's error-feedback vectors
+    (:func:`~horovod_tpu_torch.distributed.fusion.ef_residual_specs`):
+    rank-local state, which :func:`ef_state_partition_specs` marks as
+    sharded over the data axis."""
+
+    residuals: tuple = ()
+
+
+def allreduce_gradients_transform(compression=Compression.none, op=None,
+                                  average: bool = True,
+                                  fusion_threshold: Optional[int] = None,
+                                  overlap: Optional[str] = None,
+                                  hierarchical: Optional[str] = None
+                                  ) -> GradientTransformation:
+    """A :class:`GradientTransformation` that replaces a pytree of
+    gradients with their cross-rank reduction through the fused buckets
+    (:func:`~horovod_tpu_torch.distributed.fusion.fused_reduce`, named
+    ``"grads"``). The arguments are ``fused_reduce``'s. With
+    ``Compression.int8``/``.fp8`` on a ladder that ``hierarchical``
+    engages, ``init`` gives zero residuals on the parameters' device and
+    every ``update`` feeds them through the exchange and returns the new
+    ones in its state."""
+
+    def _ef_engaged() -> int:
+        if not is_dcn_wire(compression):
+            return 0
+        return resolve_hierarchical(hierarchical, basics.size())
+
+    def init_fn(params):
+        inner = _ef_engaged()
+        if not inner:
+            return _AllreduceState()
+        threshold = (fusion_threshold if fusion_threshold is not None
+                     else basics.config().fusion_threshold)
+        leaves = _flatten(params)[0]
+        dev = leaves[0].device if leaves else basics.device()
+        specs = ef_residual_specs(leaves, threshold, basics.size(), inner)
+        return _AllreduceState(residuals=tuple(
+            torch.zeros_like(spec, device=dev) for spec in specs))
+
+    def update_fn(updates, state, params=None):
+        del params
+        leaves, spec = _flatten(updates)
+        kwargs = dict(average=average, compression=compression, op=op,
+                      fusion_threshold=fusion_threshold, overlap=overlap,
+                      hierarchical=hierarchical, name="grads")
+        if state.residuals:
+            reduced, res = fused_reduce(leaves, residuals=state.residuals,
+                                        **kwargs)
+            state = _AllreduceState(residuals=tuple(res))
+        else:
+            reduced = fused_reduce(leaves, **kwargs)
+        return tree_unflatten(reduced, spec), state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def ef_state_partition_specs(opt_state, axis_name: Optional[str] = None):
+    """Partition specs (:class:`~horovod_tpu_torch.parallel.spmd.P`) for
+    an optimizer state that may hold :class:`_AllreduceState`
+    residuals: each residual gets ``P(axis)`` (rank-local shards),
+    every other leaf ``P()``. ``axis_name=None`` takes the bound
+    ``LogicalMesh``'s data axis (``"hvd"`` with none bound)."""
+    from horovod_tpu_torch.parallel.logical import module_axis
+    from horovod_tpu_torch.parallel.spmd import P
+
+    axis_name = module_axis("data", axis_name)
+
+    def spec_for(node):
+        if isinstance(node, _AllreduceState):
+            return _AllreduceState(residuals=tuple(
+                P(axis_name) for _ in node.residuals))
+        return P()
+
+    return tree_map(spec_for, opt_state,
+                    is_leaf=lambda n: isinstance(n, _AllreduceState))
+
+
+def _flatten(tree):
+    """``tree_flatten`` in the JAX package's leaf order: a plain dict's
+    keys sorted (``jax.tree_util`` sorts them; torch's pytree keeps
+    insertion order), so the bucket plan over the leaves is the JAX
+    package's. Unflattening gives dicts with sorted keys, as JAX does."""
+
+    def canonical(x):
+        if type(x) is dict:
+            return {k: canonical(x[k]) for k in sorted(x)}
+        if type(x) in (list, tuple):
+            return type(x)(canonical(v) for v in x)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(canonical(v) for v in x))
+        return x
+
+    return tree_flatten(canonical(tree))
+
+
+def _differentiate(loss_fn, argnums, has_aux: bool, args, kwargs):
+    """``(value, aux, grads)`` of ``loss_fn(*args, **kwargs)`` with
+    respect to the arguments ``argnums`` names (an int, or a tuple of
+    them for a tuple of gradient trees)."""
+    nums = tuple(argnums) if isinstance(argnums, (tuple, list)) \
+        else (argnums,)
+    args = list(args)
+    inputs, specs = [], []
+    for i in nums:
+        leaves, spec = tree_flatten(args[i])
+        for x in leaves:
+            if not (torch.is_tensor(x) and x.is_floating_point()):
+                raise TypeError(
+                    f"grad requires floating-point tensor inputs; argument "
+                    f"{i} holds a {type(x).__name__}"
+                    + (f" of {x.dtype}" if torch.is_tensor(x) else ""))
+        leaves = [x.detach().requires_grad_(True) for x in leaves]
+        args[i] = tree_unflatten(leaves, spec)
+        inputs.append(leaves)
+        specs.append(spec)
+    with torch.enable_grad():
+        out = loss_fn(*args, **kwargs)
+        value, aux = (out[0], out[1]) if has_aux else (out, None)
+        if not (torch.is_tensor(value) and value.numel() == 1):
+            raise TypeError(
+                "grad requires a function with a scalar tensor output, "
+                f"got {type(value).__name__}"
+                + (f" of shape {tuple(value.shape)}"
+                   if torch.is_tensor(value) else ""))
+        flat = [x for leaves in inputs for x in leaves]
+        got = torch.autograd.grad(value, flat, allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g
+           for x, g in zip(flat, got)]
+    trees, at = [], 0
+    for leaves, spec in zip(inputs, specs):
+        trees.append(tree_unflatten(got[at:at + len(leaves)], spec))
+        at += len(leaves)
+    grads = tuple(trees) if isinstance(argnums, (tuple, list)) else trees[0]
+    if aux is not None:
+        aux = tree_map(lambda a: a.detach() if torch.is_tensor(a) else a,
+                       aux)
+    return value.detach(), aux, grads
+
+
+def _reduce_tree(grads):
+    leaves, spec = _flatten(grads)
+    return tree_unflatten(fused_reduce(leaves, average=True, name="grads"),
+                          spec)
+
+
+def grad(loss_fn, argnums=0, has_aux: bool = False):
+    """``jax.grad`` with cross-rank gradient averaging: the returned
+    function differentiates ``loss_fn`` (a pure function of pytrees of
+    tensors with a scalar result) with respect to ``argnums`` and
+    averages the gradient leaves across ranks through the fused buckets
+    (Horovod's ``DistributedGradientTape``). With ``has_aux`` it
+    returns ``(grads, aux)``."""
+
+    def wrapped(*args, **kwargs):
+        _, aux, grads = _differentiate(loss_fn, argnums, has_aux, args,
+                                       kwargs)
+        grads = _reduce_tree(grads)
+        return (grads, aux) if has_aux else grads
+
+    return wrapped
+
+
+def value_and_grad(loss_fn, argnums=0, has_aux: bool = False):
+    """``jax.value_and_grad`` with cross-rank-averaged gradients: returns
+    ``(value, grads)`` (``((value, aux), grads)`` with ``has_aux``).
+    Inside an SPMD region the value (not the aux) is averaged over the
+    region's axis too; outside one it is this rank's own, as in the JAX
+    package."""
+
+    def wrapped(*args, **kwargs):
+        value, aux, grads = _differentiate(loss_fn, argnums, has_aux, args,
+                                           kwargs)
+        grads = _reduce_tree(grads)
+        if basics.current_spmd_axis() is not None:
+            value = mpi_ops.allreduce(value)
+        return ((value, aux) if has_aux else value), grads
+
+    return wrapped

@@ -67,7 +67,8 @@ def _data_axis(axis_name: Optional[str]):
     axis (``module_axis("data", axis_name)``) through
     :func:`~horovod_tpu_torch.parallel._collectives.axis_group` (group
     ``None`` for a one-rank axis); with none, the whole world, which is
-    the flat data axis a ``LogicalMesh``-less JAX mesh names."""
+    the flat data axis a ``LogicalMesh``-less JAX mesh names (the job's
+    group under ``init(comm=)``)."""
     from horovod_tpu_torch.parallel._collectives import axis_group
     from horovod_tpu_torch.parallel.logical import (DATA_AXIS,
                                                     current_logical_mesh)
@@ -77,7 +78,9 @@ def _data_axis(axis_name: Optional[str]):
             raise InvalidArgumentError(
                 f"sharded_distributed_optimizer(axis_name={axis_name!r}) "
                 "needs a bound LogicalMesh that defines the axis")
-        return dist.group.WORLD, basics.size(), basics.rank()
+        group = basics.job_group()
+        return (dist.group.WORLD if group is None else group,
+                basics.size(), basics.rank())
     return axis_group(axis_name, role="data")
 
 

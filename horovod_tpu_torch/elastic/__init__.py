@@ -9,7 +9,7 @@ What the serving fleet needs is ported:
   per-instance heartbeat directory;
 * :mod:`~horovod_tpu_torch.elastic.supervisor` — :class:`HealthWatchdog`.
 
-Still to come, with ROADMAP.md Queue 1 item 5 (elastic training): the
+Still to come, with ROADMAP.md Queue 1 item 5.3 (elastic training): the
 training fault dialect (``FaultAction``, ``FaultInjector``, resize),
 ``PreemptionHandler``, the snapshotter and its resume manifests,
 ``supervise`` and ``run_elastic``.

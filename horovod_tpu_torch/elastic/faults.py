@@ -10,7 +10,7 @@ workload horizon. The grammar, the validation and every message are the
 reference's.
 
 The training dialect (``FaultAction``, ``FaultInjector``, the resize
-lane) comes with ROADMAP.md Queue 1 item 5 (elastic training).
+lane) comes with ROADMAP.md Queue 1 item 5.3 (elastic training).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ The port of :class:`Heartbeat` and :func:`namespaced_heartbeat_dir` from
 rank) touches its per-rank file, and a
 :class:`~horovod_tpu_torch.elastic.supervisor.HealthWatchdog` stats the
 mtimes. ``PreemptionHandler`` (the deferred-SIGTERM drain + snapshot)
-comes with ROADMAP.md Queue 1 item 5 (elastic training).
+comes with ROADMAP.md Queue 1 item 5.3 (elastic training).
 """
 
 from __future__ import annotations

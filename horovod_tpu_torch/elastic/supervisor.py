@@ -4,7 +4,7 @@ The port of :class:`HealthWatchdog` from ``horovod_tpu.elastic.supervisor``:
 the serving fleet (:mod:`~horovod_tpu_torch.serve.fleet`) kills any
 replica whose heartbeat file goes stale past the timeout and classifies
 it ``stalled``. The elastic relaunch loop (``supervise``) comes with
-ROADMAP.md Queue 1 item 5 (elastic training).
+ROADMAP.md Queue 1 item 5.3 (elastic training).
 """
 
 from __future__ import annotations

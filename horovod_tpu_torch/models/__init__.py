@@ -1,1 +1,36 @@
-"""Models of the port."""
+"""Models of the port: the names of ``horovod_tpu.models`` that the port
+has, each imported from its submodule on first use (PEP 562).
+
+The rest of the JAX package's zoo (MNIST, VGG, Inception V3, ViT, the
+``build`` registry over all of them and ``make_eval_step``) is
+ROADMAP.md Queue 1 item 6; its flax train-state helpers
+(``TrainState``, ``apply_gradients``, ``state_partition_specs``) have
+their counterparts with item 5.4. The port's own entry points
+(``resnet.build``, ``transformer.params_from_flax``, ...) stay in their
+submodules.
+"""
+
+from horovod_tpu_torch._lazy import lazy_getattr
+
+#: Public name -> the submodule that defines it (``None``: the name is
+#: the submodule).
+_EXPORTS = {
+    "ResNet": "resnet",
+    "ResNet18": "resnet",
+    "ResNet34": "resnet",
+    "ResNet50": "resnet",
+    "ResNet101": "resnet",
+    "ResNet152": "resnet",
+    "TransformerBlock": "transformer",
+    "TransformerLM": "transformer",
+    "create_train_state": "train",
+    "cross_entropy_loss": "train",
+    "make_train_step": "train",
+    "make_windowed_train_step": "train",
+    "parallel_lm": None,
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+__getattr__ = lazy_getattr(__name__, _EXPORTS)

@@ -17,6 +17,11 @@ host are consecutive.
 * :func:`slice_topology` / :func:`dcn_present` read a list of per-rank
   domain keys, by default the hostnames (:func:`rank_domains`, gathered
   once and cached);
+* the ranks are the job's (:func:`world_ranks`): the world's, or those
+  of ``hvd.init(comm=)``, whose collectives run over its group; a mesh's
+  ``DeviceMesh`` and the ladder's groups over such a subset are not
+  ported and raise ``NotImplementedError`` (every rank of the world
+  would have to create them, and the ranks outside the job have left);
 * :func:`inner_groups` / :func:`outer_groups` are the ladder's groups of
   a flat world, and :func:`ladder_groups` creates them as process groups
   (every rank creates every group, in one order, cached per world and
@@ -67,6 +72,7 @@ class Mesh:
 
             from horovod_tpu_torch.common import basics
 
+            _whole_world("a DeviceMesh")
             dev = basics.device().type if basics.is_initialized() else "cpu"
             self._device_mesh = DeviceMesh(
                 dev, torch.as_tensor(self.devices),
@@ -77,32 +83,58 @@ class Mesh:
         return f"Mesh({self.shape})"
 
 
+def _job():
+    """``(group, global ranks)`` of the job: ``hvd.init``'s (its
+    ``comm`` subset, or the world with group ``None``), else the
+    process group's world (``[0]`` without one)."""
+    from horovod_tpu_torch.common import basics
+
+    if basics.is_initialized():
+        return basics.job_group(), basics.job_ranks()
+    return None, list(range(dist.get_world_size() if dist.is_initialized()
+                            else 1))
+
+
+def _whole_world(what: str) -> None:
+    """Raise when the job is an ``init(comm=)`` subset: ``what`` needs
+    every rank of the world to create its process groups."""
+    group, ranks = _job()
+    if group is not None:
+        raise NotImplementedError(
+            f"{what} over the hvd.init(comm={ranks}) subset is not ported: "
+            "its process groups are created by every rank of the world, "
+            "and the ranks outside comm have left the job; run the job "
+            "as a world of its own (launch only those ranks)")
+
+
 def world_ranks() -> List[int]:
-    """Every rank of the process group (``[0]`` without one)."""
-    return list(range(dist.get_world_size() if dist.is_initialized()
-                      else 1))
+    """Every rank of the job: the process group's (``[0]`` without one),
+    or those of ``hvd.init(comm=)``."""
+    return _job()[1]
 
 
-# (the default process group, its ranks' hostnames): gathered once per
-# group.
-_HOSTS: list = [None, None]
+# (the job's process group, the world's, {global rank: hostname}):
+# gathered once per group.
+_HOSTS: list = [None, None, None]
 
 
 def rank_domains(ranks: Optional[Sequence[int]] = None) -> list:
     """Each rank's domain key: its hostname, gathered once from every
-    rank of the process group (``all_gather_object``, a collective on
-    first use) and cached; without a process group (or in a world of one),
-    this host's name for every rank asked about. ``ranks`` selects ranks (default: all)."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+    rank of the job (``all_gather_object`` over its group, a collective
+    on first use) and cached; without a process group (or in a job of
+    one), this host's name for every rank asked about. ``ranks`` selects
+    global ranks (default: the job's, in order)."""
+    group, job = _job()
+    if not dist.is_initialized() or len(job) == 1:
         host = socket.gethostname()
         return [host] * (1 if ranks is None else len(ranks))
-    group = dist.distributed_c10d._get_default_group()
-    if _HOSTS[0] is not group:
-        hosts = [None] * dist.get_world_size()
-        dist.all_gather_object(hosts, socket.gethostname())
-        _HOSTS[:] = [group, hosts]
-    hosts = _HOSTS[1]
-    return list(hosts) if ranks is None else [hosts[r] for r in ranks]
+    world = dist.distributed_c10d._get_default_group()
+    if _HOSTS[0] is not group or _HOSTS[1] is not world:
+        hosts = [None] * len(job)
+        dist.all_gather_object(hosts, socket.gethostname(), group=group)
+        _HOSTS[:] = [group, world, dict(zip(job, hosts))]
+    by_rank = _HOSTS[2]
+    return [by_rank[r] for r in (job if ranks is None else ranks)]
 
 
 def make_mesh(axes: Dict[str, int], ranks=None) -> Mesh:
@@ -168,7 +200,8 @@ def ranks_per_host(domains: Optional[Sequence] = None,
     the JAX package's chips per process (one port rank owns one card)."""
     domains = list(domains) if domains is not None else rank_domains()
     if rank is None:
-        rank = dist.get_rank() if dist.is_initialized() else 0
+        group, _ = _job()
+        rank = dist.get_rank(group) if dist.is_initialized() else 0
     return domains.count(domains[rank])
 
 
@@ -262,6 +295,7 @@ def ladder_groups(size: int, inner: int):
     once per world and inner size; each new group runs one tiny
     all-reduce, so that a lazily built communicator (NCCL's) is ready
     before anything is timed."""
+    _whole_world("the hierarchical ladder")
     world = dist.distributed_c10d._get_default_group()
     key = (world, size, inner)
     if key not in _GROUPS:
@@ -302,7 +336,7 @@ def hierarchical_ladder(flat: torch.Tensor, inner: int,
     flat tensor. ``span(activity)`` wraps each leg (the timeline)."""
     from horovod_tpu_torch.utils import timeline as tl_names
 
-    ig, og = ladder_groups(dist.get_world_size(), inner)
+    ig, og = ladder_groups(len(world_ranks()), inner)
     shard = torch.empty(flat.numel() // inner, dtype=flat.dtype,
                         device=flat.device)
     with span(tl_names.REDUCESCATTER):
@@ -340,10 +374,11 @@ def hierarchical_allreduce_in_axis(x: torch.Tensor, inner: int,
     reshape around :func:`hierarchical_ladder`. An ``inner`` that does
     not strictly divide the world (1 < inner < size) takes the flat
     all-reduce."""
-    size = dist.get_world_size()
+    group, ranks = _job()
+    size = len(ranks)
     if inner <= 1 or inner >= size or size % inner != 0:
         out = x.detach().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
     else:
         out = _flat_ladder(x, inner,
                            lambda f: hierarchical_ladder(f, inner))
@@ -357,7 +392,8 @@ def hierarchical_allgather_in_axis(x: torch.Tensor,
     exchange whole inner-group blocks across the outer group; the result
     is the rank-major concatenation along dimension 0 that a flat gather
     gives."""
-    size = dist.get_world_size()
+    job, ranks = _job()
+    size = len(ranks)
     src = x.contiguous()
 
     def gather(t, n, group=None):
@@ -367,7 +403,7 @@ def hierarchical_allgather_in_axis(x: torch.Tensor,
         return out
 
     if inner <= 1 or inner >= size or size % inner != 0:
-        return gather(src, size)
+        return gather(src, size, job)
     ig, og = ladder_groups(size, inner)
     return gather(gather(src, inner, ig), size // inner, og)
 

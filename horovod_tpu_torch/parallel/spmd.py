@@ -57,6 +57,11 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # Pickle rebuilds through __new__(cls, *entries), not the one
+        # tuple a plain tuple subclass would pass.
+        return tuple(self)
+
     def __repr__(self) -> str:
         return "P(" + ", ".join(map(repr, self)) + ")"
 
@@ -110,6 +115,11 @@ class _Layout:
                 f"{self.grid.shape} lacks")
         if self.grid.shape[axis] == 1:
             return None
+        job = basics.job_group()
+        if job is not None and self.grid.devices.ndim == 1 \
+                and self.grid.devices.tolist() == basics.job_ranks():
+            # The default mesh of an init(comm=) job: the job's group.
+            return job
         return self.grid.device_mesh.get_group(axis)
 
     def block(self, entry):

@@ -1,15 +1,84 @@
-"""The per-worker exit taxonomy.
+"""Launch driver: rendezvous, function distribution, result collection,
+and the per-worker exit taxonomy.
 
-The port of the exit codes, :func:`classify_exit` and :class:`WorkerExit`
-of ``horovod_tpu.run.driver``: the contract between a worker, whoever
-supervises it, and the recovery metrics. The serving fleet classifies
-replica incidents with it. The launch driver itself (rendezvous,
-function distribution) comes with ROADMAP.md Queue 1 item 5.
+The port of ``horovod_tpu.run.driver``. :class:`Driver` runs in the
+launcher's process: each worker of :func:`horovod_tpu_torch.run.run`
+probes its published addresses (:func:`probe_service`), registers,
+fetches the task (function, args, kwargs), runs it and reports the
+result or the traceback over the authenticated RPC
+(:mod:`horovod_tpu_torch.run.network`), through :class:`WorkerClient`.
+The exit codes, :func:`classify_exit` and :class:`WorkerExit` are the
+contract between a worker, whoever supervises it (the launcher, the
+serving fleet) and the recovery metrics.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
+from typing import Any, Dict
+
+from horovod_tpu_torch.run.network import BasicClient, BasicService
+
+
+@dataclasses.dataclass
+class RegisterRequest:
+    rank: int
+    host: str
+
+
+@dataclasses.dataclass
+class RegisterResponse:
+    ok: bool
+
+
+@dataclasses.dataclass
+class FetchTaskRequest:
+    rank: int
+
+
+@dataclasses.dataclass
+class FetchTaskResponse:
+    fn: Any          # pickled by the wire
+    args: tuple
+    kwargs: dict
+
+
+@dataclasses.dataclass
+class ResultRequest:
+    rank: int
+    success: bool
+    payload: Any     # return value or formatted traceback
+
+
+@dataclasses.dataclass
+class Ack:
+    pass
+
+
+@dataclasses.dataclass
+class Ping:
+    """Reachability probe: any authenticated endpoint of the driver
+    answers, proving that the address routes and that the peer holds the
+    job's secret (an open port alone is not enough)."""
+
+
+def probe_service(addrs, key: bytes, timeout: float = 1.5):
+    """The first address in ``addrs`` (each ``"host:port"``) that answers
+    an authenticated :class:`Ping`, as a ``(host, port)`` tuple; raises
+    ``ConnectionError`` listing the candidates when none answers."""
+    tried = []
+    for addr in addrs:
+        host, _, port = addr.rpartition(":")
+        try:
+            BasicClient((host, int(port)), key, timeout=timeout).request(
+                Ping())
+            return host, int(port)
+        except Exception as e:  # unroutable, refused, timeout, bad auth
+            tried.append(f"{addr} ({type(e).__name__})")
+    raise ConnectionError(
+        "no driver endpoint reachable; tried: " + ", ".join(tried))
 
 
 # --------------------------------------------------------------- exit codes
@@ -87,3 +156,90 @@ class WorkerExit:
         """One-line incident description for supervisor/fleet logs,
         e.g. ``"replica 1 exited -9 (crashed)"``."""
         return f"{role} {self.rank} exited {self.code} ({self.category})"
+
+
+class Driver:
+    """Runs in the launcher's process; workers talk to it over the
+    authenticated RPC."""
+
+    def __init__(self, world_size: int, key: bytes, fn=None, args=(),
+                 kwargs=None):
+        self._world_size = world_size
+        self._fn = fn
+        self._args = args
+        self._kwargs = kwargs or {}
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._registered: Dict[int, str] = {}
+        self._results: Dict[int, ResultRequest] = {}
+        self._service = BasicService("driver", key, self._handle)
+
+    @property
+    def port(self) -> int:
+        return self._service.port
+
+    def _handle(self, req):
+        if isinstance(req, Ping):
+            return Ack()
+        if isinstance(req, RegisterRequest):
+            with self._cond:
+                self._registered[req.rank] = req.host
+                self._cond.notify_all()
+            return RegisterResponse(ok=True)
+        if isinstance(req, FetchTaskRequest):
+            return FetchTaskResponse(fn=self._fn, args=self._args,
+                                     kwargs=self._kwargs)
+        if isinstance(req, ResultRequest):
+            with self._cond:
+                self._results[req.rank] = req
+                self._cond.notify_all()
+            return Ack()
+        raise ValueError(f"unknown request {type(req).__name__}")
+
+    def wait_registered(self, timeout: float) -> bool:
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while len(self._registered) < self._world_size:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    return False
+                self._cond.wait(remain)
+        return True
+
+    def wait_results(self, timeout: float,
+                     should_abort=None) -> Dict[int, ResultRequest]:
+        """Wait for every rank's result; returns early when one rank
+        reports a failure (fail fast) or ``should_abort()`` is true (a
+        worker process died without reporting)."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while len(self._results) < self._world_size:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    break
+                if any(not r.success for r in self._results.values()):
+                    break
+                if should_abort is not None and should_abort():
+                    break
+                self._cond.wait(min(remain, 0.25))
+            return dict(self._results)
+
+    def close(self) -> None:
+        self._service.close()
+
+
+class WorkerClient:
+    """The worker's side of the driver's RPC."""
+
+    def __init__(self, driver_addr, key: bytes):
+        self._client = BasicClient(driver_addr, key)
+
+    def register(self, rank: int, host: str) -> None:
+        self._client.request(RegisterRequest(rank=rank, host=host))
+
+    def fetch_task(self, rank: int) -> FetchTaskResponse:
+        return self._client.request(FetchTaskRequest(rank=rank))
+
+    def report(self, rank: int, success: bool, payload: Any) -> None:
+        self._client.request(ResultRequest(rank=rank, success=success,
+                                           payload=payload))

@@ -45,19 +45,26 @@
   follow-ups).
 """
 
-import importlib
+from horovod_tpu_torch._lazy import lazy_getattr
 
 #: Public name -> the submodule that defines it, imported on first use
 #: (PEP 562): ``python -m horovod_tpu_torch.serve.worker`` then binds
 #: its socket before anything imports torch.
 _EXPORTS = {
+    "ChecksumError": "transport",
+    "ConnectionLost": "transport",
+    "DeadlineExceeded": "transport",
+    "FaultableSocket": "netfault",
     "FleetConfig": "config",
+    "FrameError": "transport",
+    "NetFaults": "netfault",
     "OutOfPages": "kvcache",
     "PageAllocator": "kvcache",
     "PagedKVCache": "kvcache",
     "PrefixIndex": "prefix",
     "ProcessReplica": "fleet",
     "Replica": "fleet",
+    "RemoteCallError": "transport",
     "Request": "scheduler",
     "RequestState": "scheduler",
     "Scheduler": "scheduler",
@@ -65,6 +72,7 @@ _EXPORTS = {
     "ServeEngine": "engine",
     "ServeFleet": "fleet",
     "TcpReplica": "fleet",
+    "TransportError": "transport",
     "aligned_prefix_len": "prefix",
     "prefix_route_key": "prefix",
     "rendezvous_rank": "prefix",
@@ -73,11 +81,4 @@ _EXPORTS = {
 __all__ = sorted(_EXPORTS)
 
 
-def __getattr__(name):
-    mod = _EXPORTS.get(name)
-    if mod is None:
-        raise AttributeError(
-            f"module {__name__!r} has no attribute {name!r}")
-    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
-    globals()[name] = value
-    return value
+__getattr__ = lazy_getattr(__name__, _EXPORTS)

@@ -391,7 +391,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) >= 14 and all(f.exists() for f in files)
     names = {str(f.relative_to(REPO)) for f in files}
-    for new in ("_graphs.py", "distributed/window.py", "utils/devsync.py",
+    for new in ("_graphs.py", "_lazy.py", "distributed/window.py", "utils/devsync.py",
                 "data/__init__.py", "data/sharding.py", "data/prefetch.py",
                 "serve/prefix.py", "serve_bench.py", "serve/router.py",
                 "serve/fleet.py", "serve/transport.py", "serve/worker.py",
@@ -400,7 +400,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/disagg.py", "elastic/__init__.py",
                 "elastic/faults.py", "elastic/signals.py",
                 "elastic/supervisor.py", "run/__init__.py",
-                "run/driver.py", "run/network.py",
+                "run/driver.py", "run/network.py", "run/task_exec.py",
+                "run/launcher.py", "run/__main__.py",
                 "parallel/__init__.py", "parallel/logical.py",
                 "parallel/mesh.py", "parallel/tp.py", "parallel/moe.py",
                 "parallel/spmd.py"):
@@ -411,7 +412,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
                 "elastic": ("__init__", "faults", "signals",
                             "supervisor"),
-                "run": ("__init__", "driver", "network")}[pkg])
+                "run": ("__init__", "__main__", "driver", "launcher",
+                        "network", "task_exec")}[pkg])
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

@@ -661,15 +661,15 @@ def test_autotune_raises(monkeypatch):
 
 def test_exports_match_the_reference():
     """``horovod_tpu_torch.distributed`` carries the reference's
-    collectives, lifecycle calls and harness; the functional gradient API
-    (``grad``, ``value_and_grad``, the optax transform) is ROADMAP.md
-    Queue 1 item 5's."""
+    collectives, lifecycle calls, harness and functional gradient API
+    (``grad``, ``value_and_grad``, the gradient transform): every name of
+    ``horovod_tpu.jax.__all__``."""
     import horovod_tpu.jax as jhvd
     import horovod_tpu_torch.distributed as hvd
     import horovod_tpu_torch.parallel as par
     from horovod_tpu_torch.models import parallel_lm as plm
 
-    later = {"grad", "value_and_grad", "allreduce_gradients_transform"}
+    later = set()
     assert set(jhvd.__all__) - later <= set(dir(hvd))
     for name in ("allreduce", "allreduce_", "allreduce_async",
                  "allreduce_async_", "allreduce_sparse", "grouped_allreduce",
