@@ -12,6 +12,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --sp-only
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --job-only
+    python3 chip_smoke.py --elastic-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -260,12 +261,42 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``-np 2 --restarts 1`` over a command that fails on its first
    attempt exits 0 after one relaunch, a job whose rank 1 exits 1 while
    rank 0 sleeps is torn down with ``JobResult.trigger.rank == 1``,
-   category ``crashed``, and ``--elastic`` exits 2. Then
+   category ``crashed``, a malformed ``--fault-plan`` exits 2 and
+   ``--elastic`` over ``true`` exits 0. Then
    ``hvd.init(comm=[0, 2])`` in a 4-rank gloo world on the card started
    by ``launch_job`` (``--comm-rank``): ranks 0 and 2 see size 2 and an
    allreduce of ones on the card gives 2, ranks 1 and 3 raise
    ``InvalidArgumentError`` and leave cleanly;
-17. (``--profile`` only) two training steps of each lane and the
+17. elastic: preemption-tolerant training through ``hvdrun-torch
+   --elastic`` (``horovod_tpu_torch.elastic``), every rank a process of
+   this script (``--elastic-rank``) running ``run_elastic`` over
+   GPT-2-small at the training width on K1-K3 (flash,
+   ``bwd_impl="kernel"``): a functional step (``hvd.value_and_grad``
+   over ``torch.func.functional_call``, ``allreduce_gradients_transform``,
+   Adam 1e-4 on dicts) over the state ``{"params", "m", "v", "step"}``
+   (bf16), 4 steps, a snapshot every 2, each spilled through a
+   ``CheckpointManager`` of the rank's own. (a) 2 ranks (gloo on the
+   card when they share it), 2 sequences each a step, with
+   ``--max-restarts 1 --fault-plan kill:rank=1,step=3`` beside the same
+   job without the plan: the faulted job exits 0 after one relaunch of
+   a ``crashed`` incident, rank 1 resumed from step 2, each rank's
+   SHA-256 over every state leaf and its last-write-wins loss
+   trajectory (``repr``) equal the clean job's, and K1-K3 launch 12 a
+   step on every rank and attempt. (b) 1 rank, 8 sequences, windows of
+   2 captured steps, ``--max-restarts 0 --fault-plan
+   preempt:rank=0,step=2``: one free relaunch classified
+   ``preempted``, the relaunch resumed from the manifest of step 2,
+   each attempt captured one step after one eager warm-up, and the
+   final digest equals an eager run of the same 4 steps in this
+   process. (c) in this process: a sync snapshot at a window boundary
+   is hashed, ``take()`` runs async (staging copy on the card, then a
+   pinned host copy on a side stream), one more captured window
+   overwrites the state's buffers, and ``latest`` still hashes to the
+   step's digest; the take's host ms, the commit wait, the sync
+   snapshot's ms, bytes and GB/s (beside the card's device copy rate),
+   and a spill and a restore are timed. (d) the CLI checks of phase
+   16. Prints one ``{"elastic"}`` line;
+18. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -294,6 +325,9 @@ no kernels or ok line.
 
 ``--job-only`` runs phases 1, 2 and 16 and prints the ``{"job"}`` line
 and no kernels or ok line.
+
+``--elastic-only`` runs phases 1, 2 and 17 (with its own CLI checks)
+and prints the ``{"elastic"}`` line and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -5164,7 +5198,8 @@ def comm_rank(argv):
 
 def _job_cli(torch):
     """The launcher's CLI and fail-fast supervision: a relaunch under
-    ``--restarts``, a crashed rank classified, ``--elastic`` refused."""
+    ``--restarts``, a crashed rank classified, and the elastic flags
+    (:func:`_elastic_cli`)."""
     import os
     import tempfile
 
@@ -5207,11 +5242,7 @@ def _job_cli(torch):
           and res["fail_fast"]["seconds"] < 60,
           f"job: the fail-fast job gave {jr.describe()} in "
           f"{res['fail_fast']['seconds']:.1f} s")
-    p = subprocess.run(cli + ["-np", "2", "--elastic", "--", "true"],
-                       env=env, capture_output=True, text=True, timeout=60)
-    res["elastic_rc"] = p.returncode
-    check(p.returncode == 2 and "item 5.3" in p.stderr,
-          f"job: --elastic gave rc {p.returncode}: {p.stderr[-1000:]}")
+    res["elastic_cli"] = _elastic_cli()
     return res
 
 
@@ -5311,7 +5342,7 @@ def job_phase(torch, np, card):
         "spawn_to_task_s": [r["entered"] - started for r in ranks],
         "run_s": train_s,
         "restarts": cli["restarts"], "fail_fast": cli["fail_fast"],
-        "elastic_rc": cli["elastic_rc"],
+        "elastic_cli": cli["elastic_cli"],
         "comm_subset": comm,
         "caveat": JOB_CAVEAT if r0["backend"] == "gloo" else None,
     }
@@ -5326,6 +5357,631 @@ def job_phase(torch, np, card):
         f"{cli['restarts']['relaunches']}, fail-fast teardown "
         f"{cli['fail_fast']['teardown_s']:.3f} s; comm {JOB_COMM} of "
         f"{JOB_COMM_WORLD} ok; phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
+# ------------------------------------------------------------ phase 17
+
+
+ELASTIC_RANKS = 2
+# Part (a): 2 sequences a rank a step over 2 ranks; part (b): 8 on one.
+ELASTIC_SEQS = 2
+ELASTIC_WIN_SEQS = 8
+ELASTIC_STEPS = 4
+ELASTIC_EVERY = 2
+ELASTIC_WINDOW = 2
+ELASTIC_SEED = 17
+ELASTIC_LR = 1e-4
+ELASTIC_DEVICE = "cuda"
+ELASTIC_TIMEOUT_S = 600.0
+ELASTIC_KILL = "kill:rank=1,step=3"
+ELASTIC_PREEMPT = "preempt:rank=0,step=2"
+ELASTIC_CAVEAT = ("2 ranks share one card over gloo: each collective "
+                  "stages through the host, so the step ms measure host "
+                  "copies, not a fabric")
+
+
+def _elastic_tokens(np, seqs):
+    """Every rank's sequences for all the steps, from one seed: the
+    ShardedBatchSource cuts them into shards."""
+    n = seqs * ELASTIC_RANKS * ELASTIC_STEPS
+    return np.random.default_rng(ELASTIC_SEED).integers(
+        0, VOCAB, (n, FLASH_L))
+
+
+def _elastic_digest(torch, state):
+    """SHA-256 over every state leaf's bytes, in the JAX package's leaf
+    order: equal digests are bit-identical states."""
+    import hashlib
+
+    from horovod_tpu_torch._pytree import flatten
+
+    h = hashlib.sha256()
+    for leaf in flatten(state)[0]:
+        h.update(leaf.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _elastic_model(torch, dev, attn_fn):
+    """GPT-2-small at the training width, its weights drawn on the card
+    from ELASTIC_SEED by torch's generator at the LM's own scales (the
+    same on every rank and attempt): the LM's numpy draws of 136M
+    weights take ~6 s a process on the host, 15-20 s with five rank
+    processes starting at once."""
+    import math
+
+    from torch import nn
+
+    from horovod_tpu_torch.models.transformer import TransformerLM
+
+    class OnCard(TransformerLM):
+        def _init_weights(self, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            with torch.no_grad():
+                for mod in self.modules():
+                    if isinstance(mod, nn.Embedding):
+                        mod.weight.normal_(
+                            0.0, 1.0 / math.sqrt(mod.num_embeddings),
+                            generator=g)
+                    elif isinstance(mod, nn.Linear):
+                        mod.weight.normal_(
+                            0.0, 1.0 / math.sqrt(mod.in_features),
+                            generator=g)
+                        if mod.bias is not None:
+                            mod.bias.zero_()
+                    elif hasattr(mod, "scale"):       # the LM's LayerNorm
+                        mod.scale.fill_(1.0)
+                        mod.bias.zero_()
+
+    return OnCard(vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+                  embed_dim=D_MODEL, max_len=FLASH_L, dtype=torch.bfloat16,
+                  attn_fn=attn_fn, seed=ELASTIC_SEED, device=dev)
+
+
+def _elastic_lm(torch, np, dev, seqs, rank, size):
+    """GPT-2-small at the training width on K1-K3, as a functional step
+    over a state pytree: ``(state, step_fn, source)``. The state is
+    ``{"params", "m", "v", "step"}`` (the LM's float32 weights, bf16
+    compute, and Adam's moments of the weights' dtype);
+    the step is ``hvd.value_and_grad`` over ``torch.func.functional_call``,
+    ``allreduce_gradients_transform`` and a functional Adam on dicts
+    (``torch.optim.Adam`` makes its state at the first step, so it gives
+    no restore template before it)."""
+    import functools
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.models.train import next_token_loss
+    from horovod_tpu_torch.ops import attention as fa
+
+    model = _elastic_model(torch, dev, functools.partial(
+        fa.flash_attention, causal=True, bwd_impl="kernel"))
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    state = {"params": params,
+             "m": {n: torch.zeros_like(p) for n, p in params.items()},
+             "v": {n: torch.zeros_like(p) for n, p in params.items()},
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def loss_fn(p, toks):
+        return next_token_loss(
+            torch.func.functional_call(model, p, (toks,)), toks)
+
+    vg = hvd.value_and_grad(loss_fn)
+    tx = hvd.allreduce_gradients_transform()
+    tx_state = tx.init(params)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def step_fn(st, batch):
+        toks = batch["tokens"].to(dev, non_blocking=True)
+        loss, grads = vg(st["params"], toks)
+        grads, _ = tx.update(grads, tx_state, st["params"])
+        t = (st["step"] + 1).float()
+        c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+        new = {"params": {}, "m": {}, "v": {}, "step": st["step"] + 1}
+        for n, p in st["params"].items():
+            g = grads[n].float()
+            m = st["m"][n].float() * b1 + g * (1 - b1)
+            v = st["v"][n].float() * b2 + g * g * (1 - b2)
+            upd = (m / c1) / ((v / c2).sqrt() + eps)
+            new["params"][n] = (p.float() - ELASTIC_LR * upd).to(p.dtype)
+            new["m"][n] = m.to(p.dtype)
+            new["v"][n] = v.to(p.dtype)
+        return new, {"loss": loss}
+
+    source = elastic.ShardedBatchSource(
+        {"tokens": _elastic_tokens(np, seqs)}, batch_size=seqs, rank=rank,
+        size=size, shuffle=False, seed=ELASTIC_SEED)
+    return state, step_fn, source
+
+
+def elastic_rank(argv):
+    """``--elastic-rank MODE OUT CKPT``: one rank of the elastic phase,
+    started by ``hvdrun-torch --elastic``. ``MODE`` ``dp``: part (a),
+    ELASTIC_SEQS sequences a step, plain steps, over gloo on the card
+    when the ranks share it; ``win``: part (b), one rank, ELASTIC_WIN_SEQS
+    sequences, windows of ELASTIC_WINDOW captured steps over NCCL. It
+    appends ``attempt step repr(loss) captured K1 K2 K3`` (the step
+    calls made while a graph captured, and the kernels' launches) to
+    ``OUT/rank<R>.traj`` after every window and writes
+    ``OUT/rank<R>.a<ATTEMPT>.json`` at the end. On the card only."""
+    import os
+
+    entered = time.time()
+    mode, out_dir, ckpt_dir = argv[:3]
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.ops import attention as fa
+
+    marks = {"imports": time.time()}
+    if ELASTIC_DEVICE == "cuda" and not torch.cuda.is_available():
+        raise SmokeFailure("elastic: --elastic-rank runs on the card and "
+                           "there is none")
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    attempt = int(os.environ["HOROVOD_ELASTIC_RESTART"])
+    on_card = ELASTIC_DEVICE == "cuda"
+    own = on_card and torch.cuda.device_count() >= world
+    dev = (torch.device("cuda", int(os.environ["LOCAL_RANK"]) if own else 0)
+           if on_card else torch.device("cpu"))
+    if on_card:
+        torch.cuda.set_device(dev)
+    if not own:
+        dist.init_process_group("gloo", init_method="env://")
+    hvd.init(device=dev)
+    marks["init"] = time.time()
+    seqs = ELASTIC_SEQS if mode == "dp" else ELASTIC_WIN_SEQS
+    k = 1 if mode == "dp" else ELASTIC_WINDOW
+    state, step_fn, source = _elastic_lm(torch, np, dev, seqs, rank, world)
+    marks["model"] = time.time()
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0
+    first = {}
+    step_ms = []
+    captured = [0]
+
+    def timed_step(st, batch):
+        first.setdefault("t", time.time())
+        if on_card and torch.cuda.is_current_stream_capturing():
+            captured[0] += 1
+        return step_fn(st, batch)
+
+    os.makedirs(out_dir, exist_ok=True)
+    traj = open(os.path.join(out_dir, f"rank{rank}.traj"), "a")
+    last = [time.perf_counter()]
+
+    def on_step(step, metrics):
+        loss = float(metrics["loss"])         # syncs the window
+        now = time.perf_counter()
+        step_ms.append((now - last[0]) * 1e3 / k)
+        last[0] = now
+        traj.write(f"{attempt} {step} {loss!r} {captured[0]} "
+                   + " ".join(str(kern.launches) for kern in kernels)
+                   + "\n")
+        traj.flush()
+
+    # One directory for the job: the manager is collective over the
+    # world (every process writes its own shard, process 0 commits the
+    # step once all have landed), so each rank restores its own shard.
+    manager = CheckpointManager(ckpt_dir, backend="numpy")
+    snap = elastic.Snapshotter(manager, every=ELASTIC_EVERY, spill_every=1)
+    state, metrics, resumed = elastic.run_elastic(
+        timed_step, state, source.batch_at, ELASTIC_STEPS,
+        snapshotter=snap, steps_per_dispatch=k, on_step=on_step)
+    traj.close()
+    if on_card:
+        torch.cuda.synchronize()
+    rec = {"rank": rank, "attempt": attempt, "mode": mode,
+           "backend": dist.get_backend(), "resumed": resumed,
+           "steps_run": ELASTIC_STEPS - resumed,
+           "digest": _elastic_digest(torch, state),
+           "launches": {kern.__name__: kern.launches for kern in kernels},
+           "captured_calls": captured[0], "step_ms": step_ms,
+           "startup_s": {name: t - entered for name, t in
+                         {**marks, "first_step": first.get("t", entered)}
+                         .items()},
+           "snapshot_stats": snap.stats,
+           "state_bytes": sum(
+               t.nbytes for t in torch.utils._pytree.tree_leaves(state)),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)
+           if on_card else 0}
+    hvd.shutdown()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.a{attempt}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def _elastic_start(tmp, tag, np_ranks, mode, fault, max_restarts):
+    """Start one ``hvdrun-torch --elastic`` job of this script's
+    ``--elastic-rank`` processes, its output to files under ``tmp``."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    job = {"tag": tag, "out": os.path.join(tmp, f"{tag}-out"),
+           "metrics": os.path.join(tmp, f"{tag}-metrics.tsv"),
+           "stderr": os.path.join(tmp, f"{tag}.err")}
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+           str(np_ranks), "--elastic", "--max-restarts", str(max_restarts),
+           "--metrics-file", job["metrics"]]
+    if fault:
+        cmd += ["--fault-plan", fault]
+    cmd += ["--", sys.executable, os.path.join(here, "chip_smoke.py"),
+            "--elastic-rank", mode, job["out"],
+            os.path.join(tmp, f"{tag}-ckpt")]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    with open(job["stderr"], "w") as err:
+        job["proc"] = subprocess.Popen(cmd, env=env, cwd=here,
+                                       stdout=subprocess.DEVNULL,
+                                       stderr=err)
+    job["t0"] = time.perf_counter()
+    return job
+
+
+def _elastic_stop(job):
+    """Stop a job still running: SIGINT makes its launcher kill and reap
+    its ranks (``launch_job``'s KeyboardInterrupt path), SIGKILL if it
+    has not ended 30 s later."""
+    p = job["proc"]
+    if p.poll() is None:
+        p.send_signal(signal.SIGINT)
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _elastic_finish(job, deadline):
+    """Wait for a started job: its rc, seconds, stderr and supervisor
+    record; the job is stopped at the deadline."""
+    import os
+
+    p = job["proc"]
+    try:
+        p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        _elastic_stop(job)
+        raise SmokeFailure(f"elastic: the {job['tag']} job ran past "
+                           f"{ELASTIC_TIMEOUT_S:.0f} s")
+    job["seconds"] = time.perf_counter() - job["t0"]
+    job["rc"] = p.returncode
+    with open(job["stderr"]) as f:
+        job["err"] = f.read()
+    check(job["rc"] == 0, f"elastic: the {job['tag']} job exited "
+          f"{job['rc']}: {job['err'][-3000:]}")
+    job["supervisor"] = None
+    if os.path.exists(job["metrics"]):
+        with open(job["metrics"]) as f:
+            job["supervisor"] = json.loads(
+                f.read().strip().split("\t", 2)[2])["elastic"]
+    job["relaunches"] = job["err"].count("relaunching all")
+    return job
+
+
+def _elastic_ranks(out, ranks):
+    """Each rank's records by attempt (a killed or preempted attempt
+    writes none), its last-write-wins trajectory ``{step: repr(loss)}``,
+    and each attempt's lines ``(step, K1-K3 launches, captured)``."""
+    import os
+
+    res = []
+    for r in range(ranks):
+        attempts = {}
+        for name in sorted(os.listdir(out)):
+            if name.startswith(f"rank{r}.a") and name.endswith(".json"):
+                with open(os.path.join(out, name)) as f:
+                    rec = json.load(f)
+                attempts[rec["attempt"]] = rec
+        traj, lines = {}, {}
+        with open(os.path.join(out, f"rank{r}.traj")) as f:
+            for line in f:
+                a, step, loss, captured, *launches = line.split()
+                traj[int(step)] = loss
+                lines.setdefault(int(a), []).append(
+                    (int(step), [int(x) for x in launches],
+                     int(captured)))
+        res.append({"attempts": attempts, "traj": traj, "lines": lines})
+    return res
+
+
+def _elastic_async(torch, np, state, step_fn, source):
+    """Part (c): the async snapshot under captured replay, in this
+    process. A sync snapshot at a window boundary gives the step's
+    digest; ``take()`` async; one more captured window overwrites the
+    state's buffers in place; ``latest`` must still hash to the digest.
+    Then a spill and a restore of that snapshot, timed."""
+    import tempfile
+
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.distributed.window import stack_batches
+    from horovod_tpu_torch.elastic.loop import _in_place_window
+
+    k = ELASTIC_WINDOW
+    buffers, window = _in_place_window(step_fn, state, k)
+
+    def stacked(at):
+        batch = stack_batches([source.batch_at(s) for s in
+                               range(at, at + k)])
+        return {n: t.to("cuda") for n, t in batch.items()}
+
+    window(stacked(0))                         # warm-up + capture
+    torch.cuda.synchronize()
+    snap = elastic.Snapshotter(every=k)
+    snap.take(0, buffers, sync=True)           # allocates the buffers
+    t0 = time.perf_counter()
+    snap.take(k, buffers, sync=True)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    step, host = snap.latest
+    want = _elastic_digest(torch, host)
+    check(step == k and int(host["step"]) == k,
+          f"elastic: the sync snapshot holds step {int(host['step'])}")
+    t0 = time.perf_counter()
+    snap.take(k, buffers)                      # async, the same state
+    take_ms = (time.perf_counter() - t0) * 1e3
+    window(stacked(k))                         # captured replays
+    t0 = time.perf_counter()
+    step, host = snap.latest
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    got = _elastic_digest(torch, host)
+    check(window.step.replays >= k and window.step.captures == 1,
+          f"elastic: the window ran {window.step.captures} captures and "
+          f"{window.step.replays} replays, expected 1 capture and a "
+          f"window of replays")
+    check(int(buffers["step"]) == 2 * k,
+          f"elastic: the captured window left the state at step "
+          f"{int(buffers['step'])}, expected {2 * k}")
+    check(step == k and got == want,
+          f"elastic: the async snapshot of step {k} hashes to {got}, "
+          f"not the state it was taken from ({want}): the window's "
+          "in-place writes reached it")
+    check(snap.staging_bytes > 0 and snap.pinned_bytes ==
+          2 * snap.staging_bytes,
+          f"elastic: the async snapshot went around the staging buffer "
+          f"({snap.staging_bytes} staging, {snap.pinned_bytes} pinned "
+          "bytes)")
+    nbytes = sum(t.nbytes for t in torch.utils._pytree.tree_leaves(host))
+    with tempfile.TemporaryDirectory() as tmp:
+        mngr = CheckpointManager(tmp, backend="numpy")
+        t0 = time.perf_counter()
+        mngr.save(k, host)
+        spill_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = mngr.restore(k, template=buffers)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        check(_elastic_digest(torch, back) == want,
+              "elastic: the restored snapshot differs from the state")
+        del back
+    return {"async_take_host_ms": take_ms, "commit_wait_ms": commit_ms,
+            "sync_snapshot_ms": sync_ms, "snapshot_bytes": nbytes,
+            "sync_gb_per_s": nbytes / sync_ms / 1e6,
+            "spill_ms": spill_ms, "restore_ms": restore_ms,
+            "staging_bytes": snap.staging_bytes,
+            "pinned_bytes": snap.pinned_bytes,
+            "digest_kept": got == want}
+
+
+def _elastic_eager(torch, np, state, step_fn, source):
+    """Part (b)'s comparator: ELASTIC_STEPS eager steps (K = 1) of the
+    windowed job's model and batches in this process's NCCL world of
+    one. The step is functional: ``state`` stays as it was."""
+    from horovod_tpu_torch import elastic
+
+    eager, metrics, _ = elastic.run_elastic(
+        step_fn, state, source.batch_at, ELASTIC_STEPS, world_size=1,
+        rank=0)
+    return (_elastic_digest(torch, eager),
+            {s: repr(float(m["loss"])) for s, m in metrics})
+
+
+def _elastic_cli():
+    """Part (d): a malformed ``--fault-plan`` exits 2; ``--elastic`` over
+    a trivial command exits 0."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    cli = [sys.executable, "-m", "horovod_tpu_torch.run"]
+    bad = subprocess.run(cli + ["-np", "2", "--elastic", "--fault-plan",
+                                "explode:rank=0", "--", "true"], env=env,
+                         capture_output=True, text=True, timeout=60)
+    check(bad.returncode == 2 and "fault plan" in bad.stderr,
+          f"elastic: a malformed --fault-plan gave rc {bad.returncode}: "
+          f"{bad.stderr[-1000:]}")
+    ok = subprocess.run(cli + ["-np", "2", "--elastic", "--", "true"],
+                        env=env, capture_output=True, text=True,
+                        timeout=60)
+    check(ok.returncode == 0,
+          f"elastic: --elastic over `true` gave rc {ok.returncode}: "
+          f"{ok.stderr[-1000:]}")
+    return {"bad_plan_rc": bad.returncode, "elastic_true_rc": ok.returncode}
+
+
+def _elastic_check_job(ranks, clean, what):
+    """Part (a)/(b)'s rank checks against the clean records: final
+    digests, trajectories and K1-K3 launches a step on every attempt."""
+    for r, (got, want) in enumerate(zip(ranks, clean)):
+        last = max(got["attempts"])
+        final = got["attempts"][last]
+        check(final["digest"] == want["digest"],
+              f"elastic: {what} rank {r}'s final state differs from the "
+              f"clean run's ({final['digest']} vs {want['digest']})")
+        check(got["traj"] == want["traj"],
+              f"elastic: {what} rank {r}'s loss trajectory "
+              f"{got['traj']} differs from the clean one {want['traj']}")
+    return [ranks[r]["attempts"][max(ranks[r]["attempts"])]["resumed"]
+            for r in range(len(ranks))]
+
+
+def _elastic_summary(job):
+    """One job's figures for the ``{"elastic"}`` line."""
+    ranks = job["ranks"]
+    sup = job["supervisor"] or {}
+
+    def each(key):
+        return [[r["attempts"][a][key] for a in sorted(r["attempts"])]
+                for r in ranks]
+
+    first = ranks[0]["attempts"][min(ranks[0]["attempts"])]
+    return {
+        "rc": job["rc"], "relaunches": job["relaunches"],
+        "classes": sup.get("restarts_by_class"),
+        "relaunch_s": sup.get("relaunch_s"), "wall_s": sup.get("wall_s"),
+        "world": sup.get("world"), "seconds": job["seconds"],
+        "resumed": each("resumed"), "startup_s": each("startup_s"),
+        "step_ms": each("step_ms"), "launches": each("launches"),
+        "snapshot_ms": [[s["last_ms"] for s in per]
+                        for per in each("snapshot_stats")],
+        "peak_memory_bytes": [max(p) for p in each("peak_memory_bytes")],
+        "lines": [{a: lines[-1] for a, lines in r["lines"].items()}
+                  for r in ranks],
+        "backend": first["backend"], "state_bytes": first["state_bytes"],
+    }
+
+
+def _elastic_jobs(torch, np, rate):
+    """Parts (a)-(c) in this process's NCCL world of one: the three jobs
+    started at once (5 rank processes on the card, 9-20 GB each, their
+    steps sharing its host's cores), part (b)'s eager comparator here
+    while they run, their checks, then part (c), timed, alone."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        deadline = time.perf_counter() + ELASTIC_TIMEOUT_S
+        started = []
+        try:
+            for args in (("kill", ELASTIC_RANKS, "dp", ELASTIC_KILL, 1),
+                         ("preempt", 1, "win", ELASTIC_PREEMPT, 0),
+                         ("clean", ELASTIC_RANKS, "dp", None, 1)):
+                started.append(_elastic_start(tmp, *args))
+                time.sleep(1.0)    # distinct free ports for each world
+            state, step_fn, source = _elastic_lm(torch, np, "cuda",
+                                                 ELASTIC_WIN_SEQS, 0, 1)
+            eager_digest, eager_losses = _elastic_eager(torch, np, state,
+                                                        step_fn, source)
+            jobs = {j["tag"]: _elastic_finish(j, deadline)
+                    for j in started}
+        finally:
+            for job in started:
+                _elastic_stop(job)
+        for tag, j in jobs.items():
+            j["ranks"] = _elastic_ranks(j["out"], 1 if tag == "preempt"
+                                        else ELASTIC_RANKS)
+    # (a) a lost rank, against the same job without the plan.
+    clean = [r["attempts"][0] for r in jobs["clean"]["ranks"]]
+    for r, cl in enumerate(clean):
+        cl["traj"] = jobs["clean"]["ranks"][r]["traj"]
+    kill = jobs["kill"]
+    check(jobs["clean"]["relaunches"] == 0 and kill["relaunches"] == 1
+          and "crashed" in kill["err"],
+          f"elastic: the kill job relaunched {kill['relaunches']} times: "
+          f"{kill['err'][-2000:]}; the clean one "
+          f"{jobs['clean']['relaunches']}")
+    check(len(set(cl["digest"] for cl in clean)) == 1,
+          "elastic: the clean job's ranks ended with different states")
+    resumed = _elastic_check_job(kill["ranks"], clean, "part (a)")
+    check(resumed[1] == ELASTIC_EVERY,
+          f"elastic: rank 1 resumed from step {resumed[1]}, expected "
+          f"{ELASTIC_EVERY}")
+    replayed = []
+    for r, rank in enumerate(kill["ranks"] + jobs["clean"]["ranks"]):
+        for a, lines in rank["lines"].items():
+            start = rank["attempts"].get(a, {}).get(
+                "resumed", min(s for s, _, _ in lines) - 1)
+            for s, launches, _ in lines:
+                check(all(n == LAYERS * (s - start) for n in launches),
+                      f"elastic: rank {r % ELASTIC_RANKS} attempt {a} "
+                      f"shows K1-K3 launches {launches} after step {s} "
+                      f"from {start}, expected {LAYERS} a step")
+        if r < ELASTIC_RANKS:
+            first_max = max(s for s, _, _ in rank["lines"][0])
+            replayed.append(first_max - rank["attempts"][1]["resumed"])
+    # (b) a preemption through a captured window, on one rank.
+    pre = jobs["preempt"]
+    win = pre["ranks"][0]
+    classes = (pre["supervisor"] or {}).get("restarts_by_class")
+    check(pre["relaunches"] == 1 and "preempted" in pre["err"]
+          and classes == {"preempted": 1},
+          f"elastic: the preempt job's supervisor saw {classes}: "
+          f"{pre['err'][-2000:]}")
+    final = win["attempts"][1]
+    check(final["resumed"] == ELASTIC_EVERY,
+          f"elastic: the preempted rank resumed from {final['resumed']}, "
+          f"expected the manifest of step {ELASTIC_EVERY}")
+    for a, lines in win["lines"].items():
+        step, launches, captured = lines[-1]
+        check(captured == 1 and all(n == 2 * LAYERS for n in launches),
+              f"elastic: the preempt job's attempt {a} captured "
+              f"{captured} step calls with K1-K3 wrapper calls {launches} "
+              f"by step {step}, expected one capture after one eager "
+              f"warm-up step ({2 * LAYERS} each)")
+    check(final["digest"] == eager_digest,
+          f"elastic: the preempted windowed job ended at "
+          f"{final['digest']}, the eager run at {eager_digest}")
+    # (c) the async snapshot under replay.
+    part_c = _elastic_async(torch, np, state, step_fn, source)
+    part_c["d2d_copy_gb_per_s"] = rate / 1e9
+    return {
+        "clean": _elastic_summary(jobs["clean"]),
+        "kill": _elastic_summary(kill), "kill_plan": ELASTIC_KILL,
+        "steps_replayed": replayed, "preempt": _elastic_summary(pre),
+        "preempt_plan": ELASTIC_PREEMPT, "window": ELASTIC_WINDOW,
+        "eager_digest_equal": True, "eager_losses": eager_losses,
+        "async_snapshot": part_c,
+        "launches": {tag: [[r["lines"][a][-1][1] for a in sorted(r["lines"])]
+                           for r in jobs[tag]["ranks"]]
+                     for tag in ("clean", "kill", "preempt")},
+    }
+
+
+def elastic_phase(torch, np, card, rate, cli=None):
+    """Phase 17 (module docstring): elastic training on the card — a
+    lost rank (a), a preemption through a captured window (b), the async
+    snapshot under replay (c) and the CLI (d: the job phase's, ``cli``,
+    where it ran)."""
+    from horovod_tpu_torch import distributed as hvd
+
+    t0 = time.perf_counter()
+    res = {"card": card, "model": {
+        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "vocab": VOCAB, "seq": FLASH_L, "dtype": "bfloat16 compute, "
+        "float32 weights and moments",
+        "attention": "flash (K1-K3, bwd kernel)",
+        "optimizer": f"functional Adam {ELASTIC_LR}"},
+        "steps": ELASTIC_STEPS, "snapshot_every": ELASTIC_EVERY,
+        "spill_every": 1, "caveat": ELASTIC_CAVEAT}
+    torch.cuda.empty_cache()
+    hvd.init()
+    try:
+        res.update(_elastic_jobs(torch, np, rate))
+    finally:
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    res["cli"] = cli or _elastic_cli()
+    res["phase_s"] = time.perf_counter() - t0
+    snap = res["async_snapshot"]
+    log(f"elastic: kill job rc 0 after {res['kill']['relaunches']} "
+        f"relaunch (resumed {res['kill']['resumed']}, "
+        f"{res['steps_replayed']} steps replayed), digests and "
+        f"trajectories equal to the clean job; preempt job rc 0 "
+        f"({res['preempt']['classes']}), equal to eager; async take "
+        f"{snap['async_take_host_ms']:.2f} ms host, commit wait "
+        f"{snap['commit_wait_ms']:.1f} ms, sync snapshot "
+        f"{snap['sync_snapshot_ms']:.1f} ms of {snap['snapshot_bytes']} "
+        f"bytes ({snap['sync_gb_per_s']:.1f} GB/s; the card's device copy "
+        f"{rate / 1e9:.0f} GB/s), spill {snap['spill_ms']:.0f} ms, restore "
+        f"{snap['restore_ms']:.0f} ms; phase passed in "
+        f"{res['phase_s']:.1f} s")
     return res
 
 
@@ -5460,13 +6116,15 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, wres, hres, spres, jres, card):
+def _flash_records(fres, tres, wres, hres, spres, jres, elres, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
     holds, from the hier phase rank 0's launches in each variant's
-    timed steps, from the sp phase every rank's in the Ulysses step, and
-    from the job phase every rank's in its steps; times and errors from
+    timed steps, from the sp phase every rank's in the Ulysses step,
+    from the job phase every rank's in its steps, and from the elastic
+    phase every rank's in each attempt of each job (the preempted
+    window's: one warm-up step and one capture); times and errors from
     the flash phase at the slice shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
@@ -5475,7 +6133,7 @@ def _flash_records(fres, tres, wres, hres, spres, jres, card):
             ("flash_bwd_dq", ":533", ("dq",)),
             ("flash_bwd_dkv", ":599", ("dk", "dv"))]
     out = []
-    for name, line, outs in rows:
+    for i, (name, line, outs) in enumerate(rows):
         # bf16 K1-K3 run the tensor-core designs (float32 the CUDA-core
         # ones).
         design = ("wgmma m64n64k16 tensor-core forward: 128 query rows a "
@@ -5499,6 +6157,9 @@ def _flash_records(fres, tres, wres, hres, spres, jres, card):
                                     spres["ulysses"]["launches"]],
             "sp_ulysses_shape": spres["ulysses"]["k1_shape"],
             "launches_job": [l[name] for l in jres["launches"]],
+            "launches_elastic": {
+                tag: [[a[i] for a in rank] for rank in runs]
+                for tag, runs in elres["launches"].items()},
             "sp_ulysses_max_abs_err": max(
                 spres["ulysses"]["kernel_check"]["max_abs_err"][o]
                 for o in outs),
@@ -5675,6 +6336,14 @@ def job_only(torch, np, card):
     print(json.dumps({"job": job_phase(torch, np, card)}), flush=True)
 
 
+def elastic_only(torch, np, card):
+    """``--elastic-only``: the build and the elastic phase."""
+    build_phase()
+    rate = _copy_rate(torch)
+    print(json.dumps({"elastic": elastic_phase(torch, np, card, rate)}),
+          flush=True)
+
+
 def main():
     if "--hier-rank" in sys.argv[1:]:
         return hier_rank(sys.argv[sys.argv.index("--hier-rank") + 1:])
@@ -5686,6 +6355,8 @@ def main():
         return ep_rank(sys.argv[sys.argv.index("--ep-rank") + 1:])
     if "--comm-rank" in sys.argv[1:]:
         return comm_rank(sys.argv[sys.argv.index("--comm-rank") + 1:])
+    if "--elastic-rank" in sys.argv[1:]:
+        return elastic_rank(sys.argv[sys.argv.index("--elastic-rank") + 1:])
     import numpy as np
     import torch
 
@@ -5711,6 +6382,8 @@ def main():
         return ep_only(torch, np, card)
     if "--job-only" in sys.argv[1:]:
         return job_only(torch, np, card)
+    if "--elastic-only" in sys.argv[1:]:
+        return elastic_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -5741,6 +6414,8 @@ def main():
     spres = timed("sp", sp_phase(torch, np, card))
     epres = timed("ep", ep_phase(torch, np, card))
     jres = timed("job", job_phase(torch, np, card))
+    elres = timed("elastic", elastic_phase(torch, np, card, rate,
+                                           cli=jres["elastic_cli"]))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -5757,11 +6432,12 @@ def main():
     print(json.dumps({"sp": spres}), flush=True)
     print(json.dumps({"ep": epres}), flush=True)
     print(json.dumps({"job": jres}), flush=True)
+    print(json.dumps({"elastic": elres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, wres, hres, spres, jres, card),
+        *_flash_records(fres, tres, wres, hres, spres, jres, elres, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

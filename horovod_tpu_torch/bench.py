@@ -59,12 +59,18 @@ and the same line goes to stderr as in the JAX lane::
     torchrun --nproc_per_node 8 -m horovod_tpu_torch.bench \
         --hierarchical on --compression int8
 
+``--snapshot-every N`` measures the elastic snapshot's cost before the
+timed windows: the min over three synchronous host-RAM snapshots
+(:class:`horovod_tpu_torch.elastic.Snapshotter`) of the model's
+parameters and the optimizer's state tensors, and stamps
+``{"snapshot": {"every", "ms_per_snapshot", "overhead_pct"}}``, the
+overhead as a share of N steps' time (``{"snapshot": null}`` when off).
+
 Flags of one lane given to the other raise, as in the JAX ``bench.py``;
 so do the flash-only flags without flash. The JAX flags the port has not
-taken yet (``--snapshot-every``, ``--bf16-momentum``,
-``--scan-layers``, and ``--flash-full-grid``: K1-K3 have no full-grid
-mode) are parsed and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+taken yet (``--bf16-momentum``, ``--scan-layers``, and
+``--flash-full-grid``: K1-K3 have no full-grid mode) are parsed and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -167,9 +173,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="K steps a window, each a CUDA graph replay of "
                         "one captured step (distributed/window.py); the "
                         "metric and unit carry _winK")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="measure the elastic snapshot's cost at this "
+                        "cadence (steps between host-RAM snapshots) and "
+                        "stamp {'every', 'ms_per_snapshot', "
+                        "'overhead_pct'} as 'snapshot'; 0 (default) = off")
     # The JAX lane's flags that the port has not taken yet: parsed, and
     # each raises NotImplementedError naming its ROADMAP.md item.
-    p.add_argument("--snapshot-every", type=int, default=0)
     p.add_argument("--bf16-momentum", action="store_true")
     p.add_argument("--scan-layers", action="store_true")
     p.add_argument("--flash-full-grid", action="store_true")
@@ -204,8 +214,6 @@ def _sync(dev: torch.device) -> None:
 #: The JAX lane's flags the port has not taken yet: (set?, flag, the
 #: ROADMAP.md item that brings it).
 _LATER = (
-    (lambda a: a.snapshot_every != 0, "--snapshot-every",
-     "ROADMAP.md Queue 1, training infrastructure (elastic)"),
     (lambda a: a.bf16_momentum, "--bf16-momentum",
      "ROADMAP.md Queue 1, the rest of the model zoo and the image "
      "lane's options"),
@@ -216,6 +224,61 @@ _LATER = (
      "ROADMAP.md Queue 2, TPU kernels: K1-K3 always skip the tiles above "
      "the causal diagonal and have no full-grid mode"),
 )
+
+
+def snapshot_state(model, optimizer) -> dict:
+    """What an elastic snapshot of this lane holds: the model's
+    parameters and the optimizer's state tensors."""
+    return {"params": dict(model.named_parameters()),
+            "opt": [t for st in optimizer.state.values()
+                    for t in st.values() if isinstance(t, torch.Tensor)]}
+
+
+def measure_snapshot_ms(state, log, samples: int = 3) -> float:
+    """Measured cost of ONE elastic host-RAM snapshot of ``state`` (a
+    synchronous device-to-host copy through
+    :class:`horovod_tpu_torch.elastic.Snapshotter`), in ms: the min over
+    ``samples`` takes, so the pinned buffers' one-off allocation in the
+    first stays out of the steady-state cost the cadence amortizes."""
+    from torch.utils._pytree import tree_leaves
+
+    from horovod_tpu_torch.elastic.signals import drain
+    from horovod_tpu_torch.elastic.snapshot import Snapshotter
+
+    drain(state)
+    snap = Snapshotter(every=1)
+    times = []
+    for i in range(samples):
+        t0 = time.perf_counter()
+        snap.take(i + 1, state, sync=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = min(times)
+    nbytes = sum(t.nbytes for t in tree_leaves(state)
+                 if isinstance(t, torch.Tensor))
+    log(f"Snapshot probe: {ms:.2f} ms per sync host-RAM snapshot of "
+        f"{nbytes} bytes (min of {samples})", file=sys.stderr)
+    return ms
+
+
+def snapshot_field(args, snap_ms, mean, units_per_step) -> dict:
+    """The ``"snapshot"`` stamp: the cadence, ms a snapshot and the
+    overhead as a percentage of ``args.snapshot_every`` steps' time.
+    ``mean`` is the measured rate in units/sec; ``units_per_step``
+    converts it to a step time."""
+    if snap_ms is None:
+        return {"snapshot": None}
+    field = {"every": args.snapshot_every,
+             "ms_per_snapshot": round(snap_ms, 3)}
+    if mean and mean > 0:
+        step_secs = units_per_step / mean
+        overhead = (100.0 * (snap_ms / 1e3)
+                    / (args.snapshot_every * step_secs))
+        # 3 significant digits at any magnitude: fixed-decimal rounding
+        # would floor a tiny but real overhead to exactly 0.0.
+        field["overhead_pct"] = float(f"{overhead:.3g}")
+    else:
+        field["overhead_pct"] = None
+    return {"snapshot": field}
 
 
 def resolve_attention(args) -> str:
@@ -409,6 +472,10 @@ def run(args, device: DeviceLike = None) -> dict:
     for _ in range(args.num_warmup_batches):
         loss = step()
     _sync(dev)
+    snap_ms = (measure_snapshot_ms(
+        snapshot_state(model, opt),
+        print if basics.rank() == 0 else lambda *a, **k: None)
+        if args.snapshot_every > 0 else None)
     if dev.type == "cuda" and k == 1:
         torch.cuda.reset_peak_memory_stats(dev)
     rates = []
@@ -441,7 +508,8 @@ def run(args, device: DeviceLike = None) -> dict:
                               if dev.type == "cuda" else None),
         "model": args.model, "batch_size": args.batch_size, **fields,
         "dtype": "float32" if args.fp32 else "bfloat16",
-        "compression": args.compression, **stamp, "world_size": n,
+        "compression": args.compression, **stamp,
+        **snapshot_field(args, snap_ms, mean, units), "world_size": n,
         "replicas_in_sync": all(x == sums[0] for x in sums),
         "device": dev.type, "card": card_description(dev),
         "torch": torch.__version__,

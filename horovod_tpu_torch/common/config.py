@@ -1,6 +1,10 @@
 """The environment knobs of the data-parallel path, read at ``init()``:
 the subset of ``horovod_tpu.common.config`` that training uses, with the
-same names and defaults (the reference's env-var names)."""
+same names and defaults (the reference's env-var names). The two elastic
+knobs are read where they are used, as in the reference: the snapshot
+cadence by :class:`~horovod_tpu_torch.elastic.snapshot.Snapshotter`, the
+watchdog deadline by :func:`~horovod_tpu_torch.elastic.supervisor.
+supervise`."""
 
 from __future__ import annotations
 
@@ -22,6 +26,15 @@ OVERLAP_MODES = ("auto", "on", "off")
 # HOROVOD_HIERARCHICAL_INNER_SIZE (or the ranks per host) as the inner
 # size; "off" is the flat collective.
 HIERARCHICAL_MODES = ("auto", "on", "off")
+# Elastic snapshot cadence (HOROVOD_SNAPSHOT_EVERY): steps between
+# host-RAM snapshots of the train state.
+DEFAULT_SNAPSHOT_EVERY = 100
+# Supervisor health-watchdog deadline (HOROVOD_WATCHDOG_TIMEOUT, seconds):
+# a rank whose per-boundary heartbeat goes stale past it is killed,
+# classified "stalled" and the job relaunched from the last snapshot.
+# Finite by default, so a silent stall under --elastic ends; it must
+# exceed the slowest interval between two boundaries. 0 disables it.
+DEFAULT_WATCHDOG_TIMEOUT_SECS = 300.0
 
 
 def _env_int(name: str, default: int) -> int:
@@ -30,6 +43,16 @@ def _env_int(name: str, default: int) -> int:
         return default
     try:
         return int(v)
+    except ValueError:
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
     except ValueError:
         return default
 

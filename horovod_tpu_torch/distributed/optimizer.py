@@ -57,6 +57,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from horovod_tpu_torch._pytree import flatten as _flatten
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
                                                  PreconditionError)
@@ -496,24 +497,6 @@ def ef_state_partition_specs(opt_state, axis_name: Optional[str] = None):
 
     return tree_map(spec_for, opt_state,
                     is_leaf=lambda n: isinstance(n, _AllreduceState))
-
-
-def _flatten(tree):
-    """``tree_flatten`` in the JAX package's leaf order: a plain dict's
-    keys sorted (``jax.tree_util`` sorts them; torch's pytree keeps
-    insertion order), so the bucket plan over the leaves is the JAX
-    package's. Unflattening gives dicts with sorted keys, as JAX does."""
-
-    def canonical(x):
-        if type(x) is dict:
-            return {k: canonical(x[k]) for k in sorted(x)}
-        if type(x) in (list, tuple):
-            return type(x)(canonical(v) for v in x)
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(canonical(v) for v in x))
-        return x
-
-    return tree_flatten(canonical(tree))
 
 
 def _differentiate(loss_fn, argnums, has_aux: bool, args, kwargs):

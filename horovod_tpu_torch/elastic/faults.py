@@ -1,28 +1,258 @@
-"""Deterministic fault injection: the serving half.
+"""Deterministic fault injection: every recovery path testable on CPU.
 
-The port of the serving dialect of ``horovod_tpu.elastic.faults``: a
-plan such as ``kill:replica=1,at=2.5s; stall:replica=0,at=4s;
-slow:replica=2,at=1s,factor=3`` addresses fleet replicas (or, on the tcp
-transport, hosts) on the wall clock, so every recovery path of
-:class:`~horovod_tpu_torch.serve.fleet.ServeFleet` runs on the CPU in
-CI. ``at`` accepts plain seconds, an ``s`` suffix, or a ``%`` of the
-workload horizon. The grammar, the validation and every message are the
-reference's.
+The port of ``horovod_tpu.elastic.faults``, both dialects, with the
+reference's grammar, validation and messages. ``HOROVOD_FAULT_PLAN``
+describes, in one line, which rank fails, how, and at which step::
 
-The training dialect (``FaultAction``, ``FaultInjector``, the resize
-lane) comes with ROADMAP.md Queue 1 item 5.3 (elastic training).
+    HOROVOD_FAULT_PLAN="kill:rank=1,step=7;stall:rank=2,step=12"
+
+The TRAINING dialect addresses ranks at step boundaries (below); the
+SERVING dialect (:func:`parse_serve_fault_plan`) addresses fleet
+replicas (or, on the tcp transport, hosts) on the wall clock —
+``kill:replica=1,at=2.5s; stall:replica=0,at=4s;
+slow:replica=2,at=1s,factor=3`` — because a serving fleet has no shared
+step counter; ``at`` accepts plain seconds, an ``s`` suffix, or a ``%``
+of the workload horizon.
+
+Training grammar (semicolon-separated actions)::
+
+    <kind>:key=value[,key=value...]
+
+    kind    kill     | die by SIGKILL (crash: no cleanup, no snapshot)
+            preempt  | deliver SIGTERM to self (the signals.py drain ->
+                     | snapshot -> EXIT_PREEMPTED path)
+            stall    | stop making progress for `secs` (default: forever)
+                     | — the supervisor's heartbeat watchdog lane
+            exit     | plain sys.exit(`code`) (default 1)
+            resize   | drain -> final snapshot -> exit EXIT_RESIZED (76);
+                     | the elastic supervisor relaunches the world at
+                     | `n` ranks (it reads the same plan)
+    rank    which global rank fires the action (required, except
+            resize: defaults to 0, the resume-authority rank)
+    step    the training step BOUNDARY at or after which it fires
+            (required; window loops hit the first boundary >= step)
+    attempt which elastic launch attempt it fires on (default 0: the
+            first launch only, so the relaunch survives — the
+            supervisor exports HOROVOD_ELASTIC_RESTART)
+    secs    stall duration (stall only)
+    code    exit code (exit only)
+    n       requested world size (resize only; required, >= 1)
+
+The plan is validated by the launcher (``hvdrun-torch --fault-plan``),
+reaches the workers through the environment, and is consumed at step
+boundaries by :class:`FaultInjector`:
+:func:`horovod_tpu_torch.elastic.loop.run_elastic` calls
+``maybe_inject`` before every window. Each action fires at most once a
+process. :class:`FaultPlanError` is the one error class of both
+dialects.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import signal
+import sys
+import time
 from typing import List, Optional
+
+KINDS = ("kill", "preempt", "stall", "exit", "resize")
+
+_INT_KEYS = ("rank", "step", "attempt", "code", "n")
+_FLOAT_KEYS = ("secs",)
 
 
 class FaultPlanError(ValueError):
     """A malformed fault plan — raised at parse (or arm) time so a
     typo'd plan fails fast instead of silently injecting nothing."""
+
+
+@dataclasses.dataclass
+class FaultAction:
+    kind: str
+    rank: int
+    step: int
+    attempt: int = 0
+    secs: Optional[float] = None   # stall duration; None = forever
+    code: int = 1                  # exit code (kind="exit")
+    n: Optional[int] = None        # requested world size (kind="resize")
+
+    def __str__(self) -> str:
+        extra = ""
+        if self.kind == "stall" and self.secs is not None:
+            extra = f",secs={self.secs:g}"
+        if self.kind == "exit":
+            extra = f",code={self.code}"
+        if self.kind == "resize":
+            extra = f",n={self.n}"
+        return (f"{self.kind}:rank={self.rank},step={self.step}"
+                f",attempt={self.attempt}{extra}")
+
+
+def parse_fault_plan(plan: str) -> List[FaultAction]:
+    """Parse the ``HOROVOD_FAULT_PLAN`` grammar into actions.
+
+    Empty/whitespace plans parse to ``[]``; anything malformed raises
+    :class:`FaultPlanError` naming the offending clause.
+    """
+    actions: List[FaultAction] = []
+    for clause in (plan or "").split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        kind, sep, rest = clause.partition(":")
+        kind = kind.strip().lower()
+        if not sep or kind not in KINDS:
+            raise FaultPlanError(
+                f"fault plan clause {clause!r}: expected "
+                f"'<kind>:rank=R,step=S[,...]' with kind in {KINDS}")
+        kv = {}
+        for pair in rest.split(","):
+            key, psep, value = pair.partition("=")
+            key = key.strip().lower()
+            if not psep or (key not in _INT_KEYS
+                            and key not in _FLOAT_KEYS):
+                raise FaultPlanError(
+                    f"fault plan clause {clause!r}: bad key/value "
+                    f"{pair.strip()!r} (keys: rank, step, attempt, "
+                    "secs, code, n)")
+            try:
+                kv[key] = (float(value) if key in _FLOAT_KEYS
+                           else int(value))
+            except ValueError:
+                raise FaultPlanError(
+                    f"fault plan clause {clause!r}: {key}={value!r} is "
+                    "not a number") from None
+        if "step" not in kv or ("rank" not in kv and kind != "resize"):
+            raise FaultPlanError(
+                f"fault plan clause {clause!r}: rank= and step= are "
+                "required")
+        if kind == "resize":
+            # rank defaults to 0: a resize is world-orchestration, and
+            # rank 0 (the resume authority) is the natural drainer.
+            kv.setdefault("rank", 0)
+            if "n" not in kv:
+                raise FaultPlanError(
+                    f"fault plan clause {clause!r}: resize requires n= "
+                    "(the world size to relaunch at)")
+            if kv["n"] < 1:
+                raise FaultPlanError(
+                    f"fault plan clause {clause!r}: n={kv['n']} — the "
+                    "resized world must keep at least one rank")
+        elif "n" in kv:
+            raise FaultPlanError(
+                f"fault plan clause {clause!r}: n= only applies to "
+                "resize actions")
+        actions.append(FaultAction(
+            kind=kind, rank=kv["rank"], step=kv["step"],
+            attempt=kv.get("attempt", 0), secs=kv.get("secs"),
+            code=kv.get("code", 1), n=kv.get("n")))
+    _check_resize_unambiguous(actions)
+    return actions
+
+
+def _check_resize_unambiguous(actions: List[FaultAction]) -> None:
+    """At most one resize per attempt: the supervisor maps an
+    EXIT_RESIZED incident on attempt A back to THE resize clause armed
+    for A — two clauses would make the requested size ambiguous."""
+    seen = {}
+    for a in actions:
+        if a.kind != "resize":
+            continue
+        if a.attempt in seen:
+            raise FaultPlanError(
+                f"fault plan: two resize actions on attempt {a.attempt} "
+                f"({seen[a.attempt]} and {a}) — the relaunch size would "
+                "be ambiguous; scope each resize to its own attempt")
+        seen[a.attempt] = a
+
+
+def resize_requests(actions: List[FaultAction]) -> dict:
+    """``{attempt: n}`` for every resize clause — the supervisor-side
+    read of the plan (both sides parse HOROVOD_FAULT_PLAN, so the
+    requested size needs no worker->supervisor side channel)."""
+    return {a.attempt: a.n for a in actions if a.kind == "resize"}
+
+
+class FaultInjector:
+    """Per-process executor of the fault plan.
+
+    Filtered at construction to this rank + this elastic attempt, then
+    ``maybe_inject(step)`` fires each matching action exactly once at
+    the first step boundary at or past its ``step``. With no plan it is
+    a no-op whose fast path is one ``if not self._armed``.
+    """
+
+    def __init__(self, actions: Optional[List[FaultAction]] = None,
+                 rank: Optional[int] = None,
+                 attempt: Optional[int] = None):
+        if actions is None:
+            actions = parse_fault_plan(
+                os.environ.get("HOROVOD_FAULT_PLAN", ""))
+        if rank is None:
+            rank = int(os.environ.get("HOROVOD_RANK", "0"))
+        if attempt is None:
+            attempt = int(os.environ.get("HOROVOD_ELASTIC_RESTART", "0"))
+        self.rank = rank
+        self.attempt = attempt
+        self._armed = sorted(
+            (a for a in actions
+             if a.rank == rank and a.attempt == attempt),
+            key=lambda a: a.step)
+
+    @classmethod
+    def from_env(cls) -> "FaultInjector":
+        return cls()
+
+    @property
+    def pending(self) -> List[FaultAction]:
+        return list(self._armed)
+
+    def maybe_inject(self, step: int, preemption=None) -> None:
+        """Fire every armed action whose step boundary has been reached.
+
+        ``preemption``: an optional
+        :class:`horovod_tpu_torch.elastic.signals.PreemptionHandler`; when
+        given, ``preempt`` and ``resize`` actions trigger it directly
+        (deterministic, no signal-delivery race) instead of signalling
+        the process — resize with the EXIT_RESIZED status, so the
+        boundary drain + final snapshot happen before the exit.
+        """
+        if not self._armed:
+            return
+        while self._armed and self._armed[0].step <= step:
+            action = self._armed.pop(0)
+            self._fire(action, preemption)
+
+    def _fire(self, action: FaultAction, preemption=None) -> None:
+        print(f"[hvd elastic] fault injection: {action} firing at "
+              f"rank {self.rank} attempt {self.attempt}",
+              file=sys.stderr, flush=True)
+        if action.kind == "kill":
+            # SIGKILL to self: the closest CPU-testable stand-in for an
+            # OOM-kill / node loss — no atexit, no snapshot, no flush.
+            os.kill(os.getpid(), signal.SIGKILL)
+        elif action.kind == "preempt":
+            if preemption is not None:
+                preemption.trigger()
+            else:
+                os.kill(os.getpid(), signal.SIGTERM)
+        elif action.kind == "stall":
+            time.sleep(action.secs if action.secs is not None else 10**9)
+        elif action.kind == "exit":
+            sys.exit(action.code)
+        elif action.kind == "resize":
+            # Same deferred discipline as preempt — the loop drains and
+            # snapshots at this very boundary before exiting — but with
+            # the EXIT_RESIZED status, so the supervisor relaunches at
+            # the plan's requested world size instead of the old one.
+            from horovod_tpu_torch.run.driver import EXIT_RESIZED
+
+            if preemption is not None:
+                preemption.trigger(exit_code=EXIT_RESIZED)
+            else:
+                sys.exit(EXIT_RESIZED)
 
 
 # --------------------------------------------------------------------------

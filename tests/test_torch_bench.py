@@ -11,8 +11,8 @@ backward). ``--hierarchical`` and ``--compression int8|fp8`` run, and
 the record's ``hierarchical``/``wire`` fields equal the JAX
 ``wire_stamp``'s, in a world of one and at an injected world size and
 inner size; bad values and stale error-feedback state fail loudly.
-Every flag the JAX lane has and the port has not taken yet
-raises ``NotImplementedError`` naming its ROADMAP.md item (so does
+``--snapshot-every`` stamps the snapshot probe's cost. Every flag the
+JAX lane has and the port has not taken yet raises ``NotImplementedError`` naming its ROADMAP.md item (so does
 ``--flash-full-grid``: the CUDA kernels have no full-grid mode, and the
 stamp never claims one); the flash-only flags raise without flash, and the LM-only flags on the image lane, as
 the JAX ``bench.py`` does. ``--steps-per-dispatch K`` runs windows of K
@@ -107,7 +107,6 @@ def test_fused_ce_and_remat_keep_the_loss():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--snapshot-every", "100"], "training infrastructure"),
     (["--bf16-momentum"], "model zoo"),
     (["--scan-layers"], "layer scan"),
 ])
@@ -116,6 +115,25 @@ def test_flags_left_for_later_raise_naming_their_item(flags, item):
                                                   f"{item}"):
         _run(flags)
     assert not basics.is_initialized()
+
+
+@pytest.mark.parametrize("model", [bench.LM, "resnet18"])
+def test_snapshot_every_stamps_the_record(model):
+    """``--snapshot-every N`` measures a synchronous host-RAM snapshot of
+    the parameters and the optimizer state before the timed windows and
+    stamps its cost as the JAX lane's ``snapshot`` field; off, the field
+    is null."""
+    flags = (["--snapshot-every", "1"] if model == bench.LM else
+             ["--model", model, "--image-size", "32", "--batch-size", "2",
+              "--snapshot-every", "1"])
+    rec = _run(flags)
+    snap = rec["snapshot"]
+    assert set(snap) == {"every", "ms_per_snapshot", "overhead_pct"}
+    assert snap["every"] == 1 and snap["ms_per_snapshot"] > 0
+    step_ms = rec["step_ms"]
+    assert snap["overhead_pct"] == pytest.approx(
+        100 * snap["ms_per_snapshot"] / step_ms, rel=2e-2)
+    assert _run([] if model == bench.LM else flags[:6])["snapshot"] is None
 
 
 HIER_FLAGS = [["--hierarchical", "on"], ["--hierarchical", "auto"],

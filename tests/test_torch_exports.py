@@ -1,6 +1,6 @@
 """The public names of each pair of packages: ``horovod_tpu`` and
 ``horovod_tpu_torch`` at the top level and in ``.serve``, ``.models``,
-``.ops``, ``.common`` and ``.run``.
+``.ops``, ``.common``, ``.run`` and ``.elastic``.
 
 Every name the JAX package offers is offered by the port, except those
 listed in ``ABSENT`` with the ROADMAP.md Queue 1 item that brings them;
@@ -40,6 +40,7 @@ ABSENT = {
     ".ops": {},
     ".common": {},
     ".run": {},
+    ".elastic": {},
 }
 
 _FUSION = "horovod_tpu.jax.fusion's, offered with the Horovod surface"
@@ -57,6 +58,7 @@ PORT_ONLY = {
         "ef_state_partition_specs": "horovod_tpu.jax.optimizer's",
     },
     ".serve": {}, ".models": {}, ".ops": {}, ".common": {}, ".run": {},
+    ".elastic": {},
 }
 
 

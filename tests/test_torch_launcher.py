@@ -5,7 +5,7 @@ HMAC wire (and frames crossing between the two packages), ``run(fn)``
 closures, fast failure, a module-level task without ``cloudpickle``),
 interface discovery, the ``hvdrun-torch`` CLI (success, failure code,
 restarts, no relaunch on exit 2, the ``-H`` slot check, the elastic
-flags refused), and ``launch_job``'s fail-fast supervision with the
+flags' validation and a relaunch under ``--elastic``), and ``launch_job``'s fail-fast supervision with the
 health watchdog.
 
 Every address used is local: the route probe of ``candidate_addresses``
@@ -319,16 +319,49 @@ class TestCLI:
         with pytest.raises(LaunchError, match="slots"):
             launch_command(["true"], np=3, hosts="localhost:2")
 
-    @pytest.mark.parametrize("flags", [
-        ["--elastic"], ["--max-restarts", "2"], ["--min-np", "1"],
-        ["--max-np", "4"], ["--slots-file", "s"],
-        ["--watchdog-timeout", "9"], ["--metrics-file", "m"],
-        ["--fault-plan", "kill:rank=1,step=2"]])
-    def test_elastic_flags_exit_2(self, flags):
+    @pytest.mark.parametrize("flags,needle", [
+        (["--elastic", "--restarts", "1"], "mutually exclusive"),
+        (["--elastic", "--max-restarts", "-1"],
+         "--max-restarts must be >= 0"),
+        (["--min-np", "1"], "--min-np requires --elastic"),
+        (["--max-np", "4"], "--max-np requires --elastic"),
+        (["--slots-file", "s"], "--slots-file requires --elastic"),
+        (["--watchdog-timeout", "9"], "--watchdog-timeout requires"),
+        (["--metrics-file", "m"], "--metrics-file requires --elastic"),
+        (["--elastic", "--min-np", "3"], "need 1 <= --min-np (3)"),
+        (["--elastic", "--max-np", "1"], "<= --max-np (1)"),
+        (["--fault-plan", "kill:rank=1"], "fault plan clause"),
+        (["--fault-plan", "resize:rank=0,step=7,n=1"],
+         "resize: fault actions need --elastic"),
+        (["--elastic", "--fault-plan", "resize:rank=0,step=7,n=1"],
+         "outside the elastic world bounds [2, 2]")])
+    def test_elastic_flags_exit_2(self, flags, needle):
+        """The elastic flags' validation, as the JAX launcher's: each
+        bad combination is a usage error naming its rule."""
         proc = _cli("-np", "2", *flags, "true")
         assert proc.returncode == 2
-        assert f"{flags[0]}: elastic training is not ported" in proc.stderr
-        assert "ROADMAP.md Queue 1 item 5.3" in proc.stderr
+        assert needle in proc.stderr
+
+    def test_elastic_relaunches_under_the_supervisor(self, tmp_path):
+        marker = tmp_path / "attempted"
+        metrics = tmp_path / "metrics.tsv"
+        script = ("import os, sys; m = sys.argv[1]\n"
+                  "assert os.environ['HOROVOD_ELASTIC'] == '1'\n"
+                  "if os.environ['HOROVOD_RANK'] == '1' and not "
+                  "os.path.exists(m):\n"
+                  "    open(m, 'w').close(); sys.exit(75)\n")
+        proc = _cli("-np", "2", "--elastic", "--max-restarts", "0",
+                    "--metrics-file", str(metrics), "--",
+                    sys.executable, "-c", script, str(marker))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "preempted" in proc.stderr
+        assert proc.stderr.count("relaunching all 2 rank(s)") == 1
+        import json
+
+        rec = json.loads(metrics.read_text().split("\t", 2)[2])
+        assert rec["elastic"]["restarts_by_class"] == {"preempted": 1}
+        assert rec["elastic"]["world"] == [2] and \
+            rec["elastic"]["exit_code"] == 0
 
     @pytest.mark.parametrize("args", [["-np", "2"], ["-np", "0", "true"],
                                       ["-np", "1", "--restarts", "-1",

@@ -399,7 +399,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/chunk_stream.py", "serve/kv_wire.py",
                 "serve/disagg.py", "elastic/__init__.py",
                 "elastic/faults.py", "elastic/signals.py",
-                "elastic/supervisor.py", "run/__init__.py",
+                "elastic/supervisor.py", "elastic/snapshot.py",
+                "elastic/loop.py", "checkpoint.py", "_pytree.py",
+                "run/__init__.py",
                 "run/driver.py", "run/network.py", "run/task_exec.py",
                 "run/launcher.py", "run/__main__.py",
                 "parallel/__init__.py", "parallel/logical.py",
@@ -410,8 +412,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert sorted(n for n in names
                       if n.startswith(f"horovod_tpu_torch/{pkg}/")) == \
             sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
-                "elastic": ("__init__", "faults", "signals",
-                            "supervisor"),
+                "elastic": ("__init__", "faults", "loop", "signals",
+                            "snapshot", "supervisor"),
                 "run": ("__init__", "__main__", "driver", "launcher",
                         "network", "task_exec")}[pkg])
     bad = []
@@ -425,6 +427,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for n in names:
                 root = n.split(".")[0]
-                if root in ("jax", "jaxlib", "flax", "optax", "horovod_tpu"):
+                if root in ("jax", "jaxlib", "flax", "optax", "orbax",
+                            "ml_dtypes", "horovod_tpu"):
                     bad.append(f"{f.relative_to(REPO)}: {n}")
     assert not bad, bad
