@@ -13,6 +13,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --job-only
     python3 chip_smoke.py --elastic-only
+    python3 chip_smoke.py --loop-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -296,7 +297,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    snapshot's ms, bytes and GB/s (beside the card's device copy rate),
    and a spill and a restore are timed. (d) the CLI checks of phase
    16. Prints one ``{"elastic"}`` line;
-18. (``--profile`` only) two training steps of each lane and the
+18. loop: the training loop (``horovod_tpu_torch.training``) over
+   GPT-2-small at the training width on K1-K3 (weights drawn on the
+   card, 8 sequences of 2048 a step), Adam 1e-4 with ``capturable=True``
+   and the LR a tensor on the card, ``create_distributed_optimizer`` in
+   an NCCL world of one, a live ``TrainState`` and ``apply_gradients``
+   after ``backward()``. Run A: a ``TrainLoop`` of 2 epochs of 2 windows of 2
+   captured steps, with ``BroadcastGlobalVariablesCallback``,
+   ``MetricAverageCallback``, ``LearningRateScheduleCallback(0.5 **
+   epoch, staircase=False)`` (a new LR every window),
+   ``CheckpointCallback`` over a numpy ``CheckpointManager`` and
+   ``ElasticSnapshotCallback`` (a snapshot every 2 steps, every second
+   one spilled); run B the same windows eager; run C as A with the
+   multiplier 1. A's SHA-256 over every state leaf equals B's and
+   differs from C's, the LR tensor (the optimizer's own) holds the
+   schedule's closed form at every window, the state reads step 8, and
+   one profiler session over A's last two windows (4 replayed steps,
+   after a traced and dropped replayed warm-up window) holds K1-K3 12
+   times a step; A's
+   state through ``save_model``/``load_model`` into a fresh model's
+   ``TrainState``, the checkpoint's last step and the last snapshot
+   restores to its digest; a further fit of the loaded copy, preempted
+   at step 9, exits 75 with the manifest at 9, and one more step of A
+   gives its loss, equal by ``repr``. Prints one ``{"loop"}`` line with
+   the LRs, step ms captured (C) and eager (B), ``save_model`` ms, bytes
+   and MB/s, ``load_model`` ms, the checkpoint's save and restore ms,
+   the snapshots taken and the peak memory;
+19. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -328,6 +355,9 @@ and no kernels or ok line.
 
 ``--elastic-only`` runs phases 1, 2 and 17 (with its own CLI checks)
 and prints the ``{"elastic"}`` line and no kernels or ok line.
+
+``--loop-only`` runs phases 1, 2 and 18 and prints the ``{"loop"}``
+line and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -5403,10 +5433,10 @@ def _elastic_digest(torch, state):
     return h.hexdigest()
 
 
-def _elastic_model(torch, dev, attn_fn):
+def _elastic_model(torch, dev, attn_fn, seed=ELASTIC_SEED):
     """GPT-2-small at the training width, its weights drawn on the card
-    from ELASTIC_SEED by torch's generator at the LM's own scales (the
-    same on every rank and attempt): the LM's numpy draws of 136M
+    from ``seed`` by torch's generator at the LM's own scales (the same
+    on every rank and attempt): the LM's numpy draws of 136M
     weights take ~6 s a process on the host, 15-20 s with five rank
     processes starting at once."""
     import math
@@ -5436,7 +5466,7 @@ def _elastic_model(torch, dev, attn_fn):
 
     return OnCard(vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
                   embed_dim=D_MODEL, max_len=FLASH_L, dtype=torch.bfloat16,
-                  attn_fn=attn_fn, seed=ELASTIC_SEED, device=dev)
+                  attn_fn=attn_fn, seed=seed, device=dev)
 
 
 def _elastic_lm(torch, np, dev, seqs, rank, size):
@@ -5985,6 +6015,433 @@ def elastic_phase(torch, np, card, rate, cli=None):
     return res
 
 
+# ------------------------------------------------------------ phase 18
+
+
+# The training loop: GPT-2-small at the training width on K1-K3 (the
+# elastic phase's model, weights drawn on the card), FLASH_B sequences a
+# step, Adam 1e-4 with capturable=True and the LR a tensor on the card,
+# under create_distributed_optimizer in this process's NCCL world of one.
+# LOOP_EPOCHS epochs of LOOP_WINDOWS windows of LOOP_K captured steps.
+LOOP_EPOCHS, LOOP_WINDOWS, LOOP_K = 2, 2, 2
+LOOP_STEPS = LOOP_EPOCHS * LOOP_WINDOWS * LOOP_K
+LOOP_LR = 1e-4
+LOOP_SEED, LOOP_OTHER_SEED, LOOP_DATA_SEED = 18, 19, 180
+LOOP_PREEMPT_STEP = LOOP_STEPS + 1
+
+
+def _loop_multiplier(epoch):
+    """Run A's schedule: a new LR at every window."""
+    return 0.5 ** epoch
+
+
+def _loop_lm(torch, seed):
+    """GPT-2-small on K1-K3 with its optimizer and live TrainState, and
+    one training step: the next-token loss, ``backward()`` (the
+    wrapper's gradient hooks issue the NCCL buckets), then
+    ``apply_gradients`` over ``.grad`` (the exchange's tail, Adam)."""
+    import functools
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models.train import (TrainState,
+                                                apply_gradients,
+                                                next_token_loss)
+    from horovod_tpu_torch.ops import attention as fa
+
+    model = _elastic_model(torch, "cuda", functools.partial(
+        fa.flash_attention, causal=True, bwd_impl="kernel"), seed=seed)
+    opt = training.create_distributed_optimizer(
+        torch.optim.Adam(model.parameters(),
+                         lr=torch.tensor(LOOP_LR, device="cuda"),
+                         capturable=True),
+        named_parameters=model.named_parameters())
+    state = TrainState.from_model(model, opt)
+
+    def one(tokens):
+        opt.zero_grad()
+        loss = next_token_loss(model(tokens), tokens)
+        loss.backward()
+        apply_gradients(opt, state)
+        return {"loss": loss.detach()}
+
+    one.model, one.optimizer = model, opt
+    return state, one
+
+
+def _loop_lrs():
+    """The closed form of run A's LR at each window: the optimizer's
+    float32 1e-4, times the multiplier at epoch + window / windows, as
+    float32."""
+    import numpy as np
+
+    base = float(np.float32(LOOP_LR))
+    return [float(np.float32(base * _loop_multiplier(
+        e + b / LOOP_WINDOWS))) for e in range(LOOP_EPOCHS)
+        for b in range(LOOP_WINDOWS)]
+
+
+class _LoopTimer:
+    """CUDA events around each window of a run: its device span."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.spans = []
+
+    def __call__(self, fn):
+        a = self.torch.cuda.Event(enable_timing=True)
+        b = self.torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        self.spans.append((a, b))
+        return out
+
+    def step_ms(self):
+        """ms a step over the windows after the first (which holds the
+        warm-up step and the capture)."""
+        self.torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) / LOOP_K for a, b in self.spans[1:]]
+        return sum(ms) / len(ms)
+
+
+def _loop_run(torch, windows, mode, callbacks_for):
+    """One run of the loop from LOOP_SEED's weights. ``mode``:
+    ``captured`` (the window replays one captured step), ``profiled``
+    (captured, and the replayed windows after the second traced in one
+    profiler session: the second window, all replays, is its traced and
+    dropped warm-up, since a trace that begins with a graph replay can
+    lose the replay's first kernels), ``eager`` (each window's steps run
+    eagerly, accumulated as the window does). Returns the state, the
+    loop, the window, the timer, the trace's counts and the LRs the loop
+    applied."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.distributed.window import windowed
+    from horovod_tpu_torch.ops import attention as fa
+    from horovod_tpu_torch.training import callbacks as cbs
+
+    state, one = _loop_lm(torch, LOOP_SEED)
+    opt = one.optimizer
+    if mode == "eager":
+        window = None
+
+        def run(stacked):
+            return _window_mean(torch, [one(stacked[i])
+                                        for i in range(stacked.shape[0])])
+    else:
+        window = windowed(one, LOOP_K)
+        run = window
+    timer, lrs = _LoopTimer(torch), []
+    last = LOOP_EPOCHS * LOOP_WINDOWS - 1
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                   ) if mode == "profiled" else None
+
+    def step(st, stacked):
+        if prof is None:
+            return st, timer(lambda: run(stacked))
+        at = len(lrs) - 1                  # this window (the LR log's)
+        if at == 1:
+            prof.start()
+        out = run(stacked)
+        if at in (1, last):
+            torch.cuda.synchronize()
+            prof.step()
+        if at == last:
+            prof.stop()
+        return st, out
+
+    class LR(cbs.Callback):
+        def on_batch_begin(self, batch, logs=None):
+            lr = cbs.get_hyperparam(self.loop.state["opt_state"],
+                                    "learning_rate")
+            check(lr is opt.param_groups[0]["lr"] and lr.is_cuda,
+                  "loop: the schedule's lr is not the optimizer's tensor "
+                  "on the card")
+            lrs.append(float(lr))
+
+    for k in (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        k.launches = 0
+    loop = training.TrainLoop(
+        state, step, lambda e: windows[e * LOOP_WINDOWS:
+                                       (e + 1) * LOOP_WINDOWS],
+        callbacks=[*callbacks_for(state), LR()])
+    loop.fit(LOOP_EPOCHS)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches
+                for k in (fa.flash_forward, fa.flash_bwd_dq,
+                          fa.flash_bwd_dkv)}
+    traced = None if prof is None else _trace_counts(
+        _device_events(prof), ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv"))
+    return {"state": state, "one": one, "loop": loop, "window": window,
+            "timer": timer, "traced": traced, "lrs": lrs,
+            "launches": launches}
+
+
+def _loop_history(run):
+    """A run's epoch metrics as floats (the metric average leaves
+    tensors in them)."""
+    return [{k: float(v) for k, v in h.items()}
+            for h in run["loop"].history]
+
+
+def _loop_release(torch, run):
+    """Drop a run's graph, gradients and state so the next fits."""
+    run["one"].optimizer.zero_grad(set_to_none=True)
+    run.clear()
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _loop_persistence(torch, tmp, run, windows, digest, ckpt, snap_dir,
+                      saves):
+    """Run A's final state: ``save_model`` and ``load_model`` into a
+    fresh model's TrainState, the checkpoint's and the snapshot's
+    restores, a preempted further fit of the loaded copy, and one more
+    step of A against it."""
+    import os
+
+    from horovod_tpu_torch import elastic, training
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+
+    state, out = run["state"], {}
+    path = os.path.join(tmp, "model.msgpack")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    training.save_model(path, state)
+    out["save_model_ms"] = (time.perf_counter() - t0) * 1e3
+    out["save_model_bytes"] = os.path.getsize(path)
+    out["save_model_mb_per_s"] = (out["save_model_bytes"]
+                                  / out["save_model_ms"] / 1e3)
+    copy, one_copy = _loop_lm(torch, LOOP_OTHER_SEED)
+    check(_elastic_digest(torch, copy) != digest,
+          "loop: the fresh model already holds run A's state")
+    t0 = time.perf_counter()
+    back = training.load_model(path, copy)
+    torch.cuda.synchronize()
+    out["load_model_ms"] = (time.perf_counter() - t0) * 1e3
+    check(back is copy and _elastic_digest(torch, copy) == digest,
+          "loop: load_model did not restore run A's state into the "
+          "fresh TrainState")
+    step = ckpt.latest_step()
+    t0 = time.perf_counter()
+    restored = ckpt.restore(step, template=state)
+    torch.cuda.synchronize()
+    out["checkpoint_restore_ms"] = (time.perf_counter() - t0) * 1e3
+    check(step == LOOP_STEPS and _elastic_digest(torch, restored) == digest,
+          f"loop: the CheckpointCallback's step {step} does not restore to "
+          "the last epoch's digest")
+    del restored
+    snap = elastic.Snapshotter(CheckpointManager(snap_dir, max_to_keep=1,
+                                                 backend="numpy"))
+    restored, manifest = snap.restore(state)
+    check(manifest.step == LOOP_STEPS
+          and _elastic_digest(torch, restored) == digest,
+          f"loop: the last snapshot (step {manifest.step}) does not "
+          "restore to the final digest")
+    del restored
+    out["checkpoint_save_ms"] = saves
+    # A further fit of the loaded copy, preempted at step 9: the
+    # callback's epilogue snapshots, spills and exits 75.
+    handler = elastic.PreemptionHandler(install=False)
+    losses = []
+
+    class Trigger(training.Callback):
+        def on_batch_end(self, batch, logs=None):
+            losses.append(repr(float(logs["loss"])))
+            if int(self.loop.state["step"]) == LOOP_PREEMPT_STEP:
+                handler.trigger()
+
+    further = training.TrainLoop(
+        copy, lambda st, b: (st, one_copy(b)),
+        lambda e: [windows[0][0], windows[0][1]],
+        callbacks=[Trigger(), training.ElasticSnapshotCallback(
+            elastic.Snapshotter(CheckpointManager(
+                snap_dir, max_to_keep=1, backend="numpy"), every=100),
+            preemption=handler)])
+    code = None
+    try:
+        further.fit(1)
+    except SystemExit as e:
+        code = e.code
+    latest = elastic.latest_manifest(snap_dir)
+    check(code == elastic.EXIT_PREEMPTED == 75 and latest.step ==
+          LOOP_PREEMPT_STEP and int(copy["step"]) == LOOP_PREEMPT_STEP,
+          f"loop: the preempted fit exited {code} with the manifest at "
+          f"{latest and latest.step}, expected 75 at {LOOP_PREEMPT_STEP}")
+    more = repr(float(run["one"](windows[0][0])["loss"]))
+    check(losses == [more] and int(state["step"]) == LOOP_PREEMPT_STEP,
+          f"loop: one more step from run A gives loss {more}, from its "
+          f"saved and loaded copy {losses}")
+    check(_elastic_digest(torch, state) == _elastic_digest(torch, copy),
+          "loop: run A and its loaded copy differ after one more step")
+    out.update({"preempt_exit": code, "preempt_manifest_step": latest.step,
+                "one_more_step_loss": more, "losses_equal_by_repr": True,
+                "load_model_digest_equal": True,
+                "checkpoint_digest_equal": True,
+                "snapshot_digest_equal": True})
+    return out
+
+
+def loop_phase(torch, np, card):
+    """Phase 18 (module docstring): the training loop on the card."""
+    import tempfile
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch import elastic, training
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    hvd.init()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(LOOP_DATA_SEED)
+    windows = [torch.tensor(rng.integers(0, VOCAB, (LOOP_K, FLASH_B,
+                                                    FLASH_L)),
+                            device="cuda")
+               for _ in range(LOOP_EPOCHS * LOOP_WINDOWS)]
+    res = {"card": card, "model": {
+        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "vocab": VOCAB, "seq": FLASH_L, "batch": FLASH_B,
+        "dtype": "bfloat16 compute, float32 weights and moments",
+        "attention": "flash (K1-K3, bwd kernel)",
+        "optimizer": f"Adam {LOOP_LR}, capturable, lr a tensor on the "
+                     "card, create_distributed_optimizer"},
+        "epochs": LOOP_EPOCHS, "windows_an_epoch": LOOP_WINDOWS,
+        "window_steps": LOOP_K}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = CheckpointManager(f"{tmp}/ckpt", max_to_keep=1,
+                                     backend="numpy")
+            saves, digests, made = [], {}, {}
+            save = ckpt.save
+
+            def timed_save(step, state):
+                torch.cuda.synchronize()
+                s0 = time.perf_counter()
+                save(step, state)
+                saves.append((time.perf_counter() - s0) * 1e3)
+                return True
+
+            ckpt.save = timed_save
+
+            class EpochDigest(training.Callback):
+                def on_epoch_end(self, epoch, logs=None):
+                    if epoch == LOOP_EPOCHS - 1:
+                        digests["epoch_end"] = _elastic_digest(
+                            torch, self.loop.state)
+
+            def run_a_callbacks(state):
+                made["snap"] = elastic.Snapshotter(
+                    CheckpointManager(f"{tmp}/snap", max_to_keep=1,
+                                      backend="numpy"),
+                    every=LOOP_K, spill_every=2)
+                return [
+                    training.BroadcastGlobalVariablesCallback(0),
+                    training.MetricAverageCallback(),
+                    training.LearningRateScheduleCallback(
+                        _loop_multiplier, staircase=False,
+                        steps_per_epoch=LOOP_WINDOWS),
+                    training.CheckpointCallback(
+                        ckpt, step_counter=lambda s: int(s["step"])),
+                    training.ElasticSnapshotCallback(
+                        made["snap"], preemption=elastic.PreemptionHandler(
+                            install=False)),
+                    EpochDigest()]
+
+            a = _loop_run(torch, windows, "profiled", run_a_callbacks)
+            digest = digests["epoch_end"]
+            check(_elastic_digest(torch, a["state"]) == digest,
+                  "loop: run A's state moved after its last epoch")
+            check(a["lrs"] == _loop_lrs(),
+                  f"loop: run A applied the LRs {a['lrs']}, the schedule's "
+                  f"closed form is {_loop_lrs()}")
+            check(int(a["state"]["step"]) == LOOP_STEPS,
+                  f"loop: the state reads step {int(a['state']['step'])}, "
+                  f"expected {LOOP_STEPS}")
+            ws = a["window"].step
+            check(ws.captures == 1 and ws.replays == LOOP_STEPS - 1,
+                  f"loop: run A captured {ws.captures} times and replayed "
+                  f"{ws.replays} steps, expected 1 and {LOOP_STEPS - 1}")
+            traced_steps = (LOOP_EPOCHS * LOOP_WINDOWS - 2) * LOOP_K
+            check(all(n == LAYERS * traced_steps
+                      for n in a["traced"].values()),
+                  f"loop: the {traced_steps} replayed steps of the traced "
+                  f"windows hold K1-K3 {a['traced']}, expected "
+                  f"{LAYERS * traced_steps} each ({LAYERS} a step)")
+            check(all(n == 2 * LAYERS for n in a["launches"].values()),
+                  f"loop: run A's wrappers launched {a['launches']}, "
+                  f"expected {2 * LAYERS} each (warm-up and capture)")
+            history_a = _loop_history(a)
+            res["run_a"] = {
+                "lr_per_window": a["lrs"], "lr_closed_form": _loop_lrs(),
+                "history": history_a,
+                "captures": ws.captures, "replays": ws.replays,
+                "capture_s": ws.capture_s, "warmup_s": ws.warmup_s,
+                "launches": a["launches"], "traced": a["traced"],
+                "traced_replayed_steps": traced_steps, "digest": digest,
+                "snapshots": dict(made.pop("snap").stats)}
+            res.update(_loop_persistence(
+                torch, tmp, a, windows, digest, ckpt, f"{tmp}/snap",
+                saves))
+            _loop_release(torch, a)
+
+            b = _loop_run(torch, windows, "eager", lambda s: [
+                training.LearningRateScheduleCallback(
+                    _loop_multiplier, staircase=False,
+                    steps_per_epoch=LOOP_WINDOWS)])
+            digest_b = _elastic_digest(torch, b["state"])
+            check(digest_b == digest and _loop_history(b) == history_a,
+                  f"loop: the captured run A ({digest}, {history_a}) and "
+                  f"the eager run B ({digest_b}, {_loop_history(b)}) "
+                  "differ")
+            check(all(n == LOOP_STEPS * LAYERS
+                      for n in b["launches"].values()),
+                  f"loop: run B's wrappers launched {b['launches']}")
+            res["run_b"] = {"digest_equal_a": True,
+                            "step_ms_eager": b["timer"].step_ms(),
+                            "launches": b["launches"]}
+            _loop_release(torch, b)
+
+            c = _loop_run(torch, windows, "captured", lambda s: [
+                training.BroadcastGlobalVariablesCallback(0),
+                training.MetricAverageCallback(),
+                training.LearningRateScheduleCallback(
+                    1.0, staircase=False, steps_per_epoch=LOOP_WINDOWS)])
+            digest_c = _elastic_digest(torch, c["state"])
+            check(digest_c != digest and c["lrs"] == [_loop_lrs()[0]] * len(
+                c["lrs"]),
+                  "loop: the constant-LR run C ends at run A's digest: "
+                  "the schedule's LR did not reach the replayed graph")
+            res["run_c"] = {"digest_differs_a": True,
+                            "step_ms_captured": c["timer"].step_ms(),
+                            "launches": c["launches"],
+                            "replays": c["window"].step.replays}
+            _loop_release(torch, c)
+    finally:
+        hvd.shutdown()
+        torch.cuda.empty_cache()
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"loop: LRs {res['run_a']['lr_per_window']} reached the replayed "
+        f"graph (A == B eager, A != C constant); step ms captured "
+        f"{res['run_c']['step_ms_captured']:.1f}, eager "
+        f"{res['run_b']['step_ms_eager']:.1f}; save_model "
+        f"{res['save_model_ms']:.0f} ms for {res['save_model_bytes']} "
+        f"bytes ({res['save_model_mb_per_s']:.0f} MB/s), load_model "
+        f"{res['load_model_ms']:.0f} ms; checkpoint saves "
+        f"{[round(s) for s in res['checkpoint_save_ms']]} ms, restore "
+        f"{res['checkpoint_restore_ms']:.0f} ms; snapshots "
+        f"{res['run_a']['snapshots']['snapshots']}; preempted at step "
+        f"{res['preempt_manifest_step']} exit {res['preempt_exit']}; "
+        f"phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -6116,15 +6573,18 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
     }
 
 
-def _flash_records(fres, tres, wres, hres, spres, jres, elres, card):
+def _flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
+                   card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
     holds, from the hier phase rank 0's launches in each variant's
     timed steps, from the sp phase every rank's in the Ulysses step,
-    from the job phase every rank's in its steps, and from the elastic
+    from the job phase every rank's in its steps, from the elastic
     phase every rank's in each attempt of each job (the preempted
-    window's: one warm-up step and one capture); times and errors from
+    window's: one warm-up step and one capture), and from the loop
+    phase run A's wrapper calls (warm-up and capture) and its replayed
+    windows' traces, run B's (eager) and run C's; times and errors from
     the flash phase at the slice shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
@@ -6160,6 +6620,13 @@ def _flash_records(fres, tres, wres, hres, spres, jres, elres, card):
             "launches_elastic": {
                 tag: [[a[i] for a in rank] for rank in runs]
                 for tag, runs in elres["launches"].items()},
+            "launches_loop": {
+                "run_a_wrapper_calls": lres["run_a"]["launches"][name],
+                "run_a_traced": lres["run_a"]["traced"][traced[name]],
+                "run_a_traced_replayed_steps":
+                    lres["run_a"]["traced_replayed_steps"],
+                "run_b_eager": lres["run_b"]["launches"][name],
+                "run_c_wrapper_calls": lres["run_c"]["launches"][name]},
             "sp_ulysses_max_abs_err": max(
                 spres["ulysses"]["kernel_check"]["max_abs_err"][o]
                 for o in outs),
@@ -6336,6 +6803,12 @@ def job_only(torch, np, card):
     print(json.dumps({"job": job_phase(torch, np, card)}), flush=True)
 
 
+def loop_only(torch, np, card):
+    """``--loop-only``: the build and the loop phase."""
+    build_phase()
+    print(json.dumps({"loop": loop_phase(torch, np, card)}), flush=True)
+
+
 def elastic_only(torch, np, card):
     """``--elastic-only``: the build and the elastic phase."""
     build_phase()
@@ -6384,6 +6857,8 @@ def main():
         return job_only(torch, np, card)
     if "--elastic-only" in sys.argv[1:]:
         return elastic_only(torch, np, card)
+    if "--loop-only" in sys.argv[1:]:
+        return loop_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -6416,6 +6891,7 @@ def main():
     jres = timed("job", job_phase(torch, np, card))
     elres = timed("elastic", elastic_phase(torch, np, card, rate,
                                            cli=jres["elastic_cli"]))
+    lres = timed("loop", loop_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -6433,11 +6909,13 @@ def main():
     print(json.dumps({"ep": epres}), flush=True)
     print(json.dumps({"job": jres}), flush=True)
     print(json.dumps({"elastic": elres}), flush=True)
+    print(json.dumps({"loop": lres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
-        *_flash_records(fres, tres, wres, hres, spres, jres, elres, card),
+        *_flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
+                        card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

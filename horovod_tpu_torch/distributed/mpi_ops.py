@@ -294,14 +294,26 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather0(g, group, n), None, None
 
 
+#: Unsigned integer dtypes the process groups refuse (gloo raises
+#: "Invalid scalar type"), and the signed dtype of their width whose bits
+#: cross the wire in their place.
+_SIGNED_WIRE = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
 def _start_broadcast(x, src: int, group, async_op: bool = False):
     """Start broadcasting a copy of ``x`` from rank ``src`` of the world
-    (bools cross the wire as uint8); returns the work and the function
+    (bools cross the wire as uint8, the wider unsigned integers as the
+    signed integers of their width); returns the work and the function
     that gives the result."""
     wire = x.detach().clone().contiguous()
     if wire.dtype == torch.bool:
         wire = wire.to(torch.uint8)
+    elif wire.dtype in _SIGNED_WIRE:
+        wire = wire.view(_SIGNED_WIRE[wire.dtype])
     work = dist.broadcast(wire, src, group=group, async_op=async_op)
+    if x.dtype in _SIGNED_WIRE:
+        return work, lambda: wire.view(x.dtype)
     return work, lambda: wire.to(x.dtype)
 
 

@@ -28,7 +28,8 @@ the hooks as well. Under ``Compression.int8``/``.fp8`` with the ladder
 engaged, the wrapper holds error-feedback residuals (:attr:`residuals`):
 zeros at construction, one float32 vector per quantized stage per
 floating bucket, each this rank's own shard, on the parameters' device;
-every update feeds them through the exchange and keeps the new ones.
+every update feeds them through the exchange and writes the new ones
+into the same tensors.
 They travel in ``state_dict()`` under ``"hvd_residuals"``, and
 :func:`broadcast_optimizer_state` leaves each rank its own.
 
@@ -145,6 +146,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 "error-feedback residuals were made for them; build a new "
                 "DistributedOptimizer for the new set")
         return res
+
+    def _hvd_keep(self, residuals) -> None:
+        """Write the exchange's new residuals into this wrapper's own
+        tensors, so that a view of them (``TrainState``) stays current."""
+        with torch.no_grad():
+            for own, new in zip(self._hvd_residuals, residuals):
+                if own is not new:
+                    own.copy_(new)
 
     def state_dict(self):
         state = super(self.__class__, self).state_dict()
@@ -297,11 +306,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             else:
                 reduced, res = fused_reduce(grads, residuals=res,
                                             **self._hvd_reduce)
-                self._hvd_residuals = list(res)
+                self._hvd_keep(res)
         else:
             reduced = ex.finish(grads.__getitem__)
             if self._hvd_residuals is not None:
-                self._hvd_residuals = ex.residuals
+                self._hvd_keep(ex.residuals)
         with torch.no_grad():
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
@@ -374,16 +383,20 @@ def _tensors(params):
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:
     """Overwrite, in place, every tensor of ``params`` (a ``state_dict``,
-    ``named_parameters()`` or a list of tensors) with ``root_rank``'s."""
+    ``named_parameters()`` or a list of tensors) with ``root_rank``'s. A
+    tensor off the job's device (Adam's CPU ``step`` under NCCL) goes
+    through a copy on it."""
     n = basics.size()
     if not 0 <= root_rank < n:
         raise InvalidArgumentError(
             f"broadcast root_rank {root_rank} out of range for size {n}")
     if n == 1:
         return
+    dev = basics.device()
     with torch.no_grad():
         for t in _tensors(params):
-            t.copy_(mpi_ops.broadcast(t, root_rank))
+            src = t if t.device == dev else t.to(dev)
+            t.copy_(mpi_ops.broadcast(src, root_rank))
 
 
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,

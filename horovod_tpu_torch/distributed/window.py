@@ -40,10 +40,19 @@ raised with its cause by the capture):
   passes of an update in Python, which a replay does not run, so a window
   over an accumulating optimizer raises ``NotImplementedError`` (the JAX
   window scans ``optax.MultiSteps``, whose counter is device state);
-* no error-feedback residuals: an optimizer on the int8/fp8 hierarchical
-  ladder rebinds its residuals in Python each update, so a window over it
-  raises ``NotImplementedError`` (the JAX window carries them as scan
-  state).
+* no error-feedback residuals: a window over an optimizer on the
+  int8/fp8 hierarchical ladder raises ``NotImplementedError``, since a
+  captured ladder needs NCCL sub-communicators inside the graph, which no
+  one-card run can show (the JAX window carries the residuals as scan
+  state);
+* a learning rate a schedule can change between replays: a tensor
+  ``lr`` on the parameters' device, read by a capturable Adam or AdamW
+  (``torch.optim.Adam(..., lr=torch.tensor(1e-4, device="cuda"),
+  capturable=True)``). A float ``lr`` is a constant of the graph (a new
+  float changes the signature and captures again), and SGD reads a
+  tensor ``lr`` on the host (``alpha=-lr`` is a ``.item()``), so a window
+  over SGD with a tensor ``lr``, or over a tensor ``lr`` on another
+  device, raises before it captures anything.
 
 A step built by :func:`~horovod_tpu_torch.models.train.make_train_step`
 or ``make_image_train_step`` carries its ``model`` and ``optimizer`` as
@@ -87,19 +96,36 @@ def _check_optimizer(optimizer, device: torch.device) -> None:
     if getattr(optimizer, "residuals", None) is not None:
         raise NotImplementedError(
             "a window over DistributedOptimizer's quantized hierarchical "
-            "ladder: the error-feedback residuals are rebound in Python "
-            "each update, which a CUDA graph replay does not run, and a "
-            "captured ladder needs NCCL sub-communicators inside the "
-            "graph, which no one-card run can show (ROADMAP.md Queue 3, "
-            "deliberate differences)")
-    if device.type == "cuda":
-        off = [i for i, g in enumerate(optimizer.param_groups)
-               if g.get("capturable") is False]
-        if off:
+            "ladder: a captured ladder needs NCCL sub-communicators inside "
+            "the graph, which no one-card run can show (ROADMAP.md Queue "
+            "3, deliberate differences)")
+    if device.type != "cuda":
+        return
+    off = [i for i, g in enumerate(optimizer.param_groups)
+           if g.get("capturable") is False]
+    if off:
+        raise ValueError(
+            f"{type(optimizer).__name__} has capturable=False (param "
+            f"groups {off}), and a window captures its step into a CUDA "
+            "graph: construct it with capturable=True")
+    for i, g in enumerate(optimizer.param_groups):
+        lr = g.get("lr")
+        if not isinstance(lr, torch.Tensor):
+            continue
+        if isinstance(optimizer, torch.optim.SGD):
             raise ValueError(
-                f"{type(optimizer).__name__} has capturable=False (param "
-                f"groups {off}), and a window captures its step into a CUDA "
-                "graph: construct it with capturable=True")
+                f"SGD with a tensor lr (param group {i}) under a window: "
+                "SGD reads it on the host (alpha=-lr, an .item()), which a "
+                "CUDA graph cannot capture, and a float lr is a constant "
+                "of the graph; an LR schedule under a captured window "
+                "needs Adam or AdamW with capturable=True and a tensor lr "
+                "on the card")
+        if lr.device.type != device.type:
+            raise ValueError(
+                f"the tensor lr of param group {i} lies on {lr.device}, "
+                f"and the window runs on {device}: a captured step reads "
+                "a host scalar once, at capture; put the lr on the card "
+                "(torch.tensor(lr, device=...))")
 
 
 def _signature_key(step_fn) -> Callable[[], tuple]:

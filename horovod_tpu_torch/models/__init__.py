@@ -3,9 +3,9 @@ has, each imported from its submodule on first use (PEP 562).
 
 The rest of the JAX package's zoo (MNIST, VGG, Inception V3, ViT, the
 ``build`` registry over all of them and ``make_eval_step``) is
-ROADMAP.md Queue 1 item 6; its flax train-state helpers
-(``TrainState``, ``apply_gradients``, ``state_partition_specs``) have
-their counterparts with item 5.4. The port's own entry points
+ROADMAP.md Queue 1 item 6. The train state (``TrainState``,
+``apply_gradients``, ``state_partition_specs``) is a live view of a
+module and its optimizer (``train.py``). The port's own entry points
 (``resnet.build``, ``transformer.params_from_flax``, ...) stay in their
 submodules.
 """
@@ -21,13 +21,16 @@ _EXPORTS = {
     "ResNet50": "resnet",
     "ResNet101": "resnet",
     "ResNet152": "resnet",
+    "TrainState": "train",
     "TransformerBlock": "transformer",
     "TransformerLM": "transformer",
+    "apply_gradients": "train",
     "create_train_state": "train",
     "cross_entropy_loss": "train",
     "make_train_step": "train",
     "make_windowed_train_step": "train",
     "parallel_lm": None,
+    "state_partition_specs": "train",
 }
 
 __all__ = sorted(_EXPORTS)

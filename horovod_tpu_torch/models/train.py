@@ -28,23 +28,43 @@ Usage (images)::
 Windows (``make_windowed_train_step`` / ``make_windowed_image_train_step``,
 or ``hvd.run_steps``) run K steps as CUDA graph replays of one captured
 step (:mod:`horovod_tpu_torch.distributed.window`).
+
+The train state (the JAX package's ``TrainState``, ``apply_gradients``
+and ``state_partition_specs``)::
+
+    opt = create_train_state(model, torch.optim.Adam(
+        model.parameters(), lr=torch.tensor(1e-4, device="cuda"),
+        capturable=True))
+    state = TrainState.from_model(model, opt)     # a live view, no copy
+    opt.zero_grad()
+    loss = ...
+    loss.backward()                               # the hooks' buckets go
+    state = apply_gradients(opt, state)           # .grad, reduced
+
+A :class:`TrainState` is a dict whose leaves are the model's and the
+optimizer's own tensors, so an update in place (``optimizer.step()``, a
+replayed CUDA graph) is what a snapshot, a checkpoint or ``save_model``
+of it reads next.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 import torch.nn.functional as F
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
+from horovod_tpu_torch._pytree import register_sorted_dict
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed import mpi_ops
 from horovod_tpu_torch.distributed.compression import Compression
-from horovod_tpu_torch.distributed.optimizer import (DistributedOptimizer,
-                                                     broadcast_parameters)
-from horovod_tpu_torch.distributed.zero import sharded_distributed_optimizer
+from horovod_tpu_torch.distributed.optimizer import (
+    DistributedOptimizer, _AllreduceState, broadcast_parameters,
+    ef_state_partition_specs)
+from horovod_tpu_torch.distributed.zero import (ZeroOptimizer,
+                                                sharded_distributed_optimizer)
 from horovod_tpu_torch.ops.xent import fused_cross_entropy
 
 
@@ -89,6 +109,169 @@ def cross_entropy_loss(logits, labels):
     logp = torch.log_softmax(logits.float(), dim=-1)
     onehot = F.one_hot(labels.long(), logits.shape[-1]).float()
     return -(onehot * logp).sum(-1).mean()
+
+
+class TrainState(Dict[str, object]):
+    """The train state as a dict of the live tensors: ``params``
+    (``{name: parameter}``), ``batch_stats`` (``{name: buffer}``, e.g.
+    BatchNorm's running statistics), ``opt_state`` and ``step`` (a 0-d
+    int32 tensor on the parameters' device). Registered as a pytree with
+    sorted keys, as the JAX package's ``TrainState`` is. Build it with
+    :meth:`from_model`.
+
+    ``opt_state`` holds the optimizer's per-parameter state tensors by
+    parameter name (a ZeRO optimizer's, over its shards, under ``"zero"``
+    by dtype), the tensor-valued hyperparameters of each param group
+    (a list under ``"hyperparams"``, where any group has one) and a
+    quantized ladder's error-feedback residuals (``"hvd_residuals"``, an
+    ``_AllreduceState``)."""
+
+    @classmethod
+    def from_model(cls, model: torch.nn.Module, optimizer, step: int = 0
+                   ) -> "TrainState":
+        """The live state of ``model`` and ``optimizer`` (plain, wrapped
+        by ``DistributedOptimizer`` or a ZeRO optimizer). Torch creates
+        an optimizer's state at its first ``step()``; this creates it now,
+        as that step would (Adam/AdamW, and SGD with momentum and no
+        dampening; another class raises ``NotImplementedError``), so the
+        state's structure is fixed from step 0."""
+        params = dict(model.named_parameters())
+        names = {id(p): n for n, p in params.items()}
+        zero = isinstance(optimizer, ZeroOptimizer)
+        inner = optimizer.inner if zero else optimizer
+        # A ZeRO shard takes no gradient from autograd: all of them step.
+        _materialise(inner, every=zero)
+        opt_state: dict = {}
+        if zero:
+            opt_state["zero"] = {key: dict(inner.state[leaf])
+                                 for key, leaf in optimizer._leaves.items()
+                                 if inner.state.get(leaf)}
+        else:
+            for group in inner.param_groups:
+                for p in group["params"]:
+                    if id(p) not in names:
+                        raise ValueError(
+                            "the optimizer holds a parameter the model "
+                            "does not name")
+                    if inner.state.get(p):
+                        opt_state[names[id(p)]] = dict(inner.state[p])
+        hyper = [{k: v for k, v in g.items() if isinstance(v, torch.Tensor)}
+                 for g in inner.param_groups]
+        for key, value in (("hyperparams", hyper if any(hyper) else None),
+                           ("hvd_residuals", _residual_state(optimizer))):
+            if value is None:
+                continue
+            if key in opt_state:
+                raise ValueError(f"a parameter is named {key!r}, the "
+                                 "optimizer state's own key")
+            opt_state[key] = value
+        dev = (next(iter(params.values())).device if params
+               else torch.device("cpu"))
+        return cls(params=params, batch_stats=dict(model.named_buffers()),
+                   opt_state=opt_state,
+                   step=torch.tensor(step, dtype=torch.int32, device=dev))
+
+
+register_sorted_dict(TrainState)
+
+
+def _residual_state(optimizer):
+    res = getattr(optimizer, "residuals", None)
+    return None if res is None else _AllreduceState(residuals=tuple(res))
+
+
+def _materialise(optimizer: torch.optim.Optimizer,
+                 every: bool = False) -> None:
+    """Create ``optimizer``'s per-parameter state for every parameter
+    that requires a gradient (``every``: for every parameter), as its
+    ``_init_group`` would at the first step; a parameter that has state
+    keeps it."""
+    from torch.optim.optimizer import _get_scalar_dtype
+
+    adam = isinstance(optimizer, torch.optim.Adam)
+    if not adam and not isinstance(optimizer, torch.optim.SGD):
+        raise NotImplementedError(
+            f"TrainState.from_model creates the optimizer's state before "
+            f"its first step for SGD, Adam and AdamW only, not "
+            f"{type(optimizer).__name__} (ROADMAP.md Queue 3, deliberate "
+            "differences)")
+    for group in optimizer.param_groups:
+        if not adam and group["momentum"] != 0 and group["dampening"] != 0:
+            raise ValueError(
+                "SGD with momentum and dampening != 0 starts its buffer as "
+                "the first gradient, which no zero state equals; "
+                "TrainState.from_model needs dampening=0")
+        for p in group["params"]:
+            if optimizer.state.get(p) or not (every or p.requires_grad):
+                continue
+            state = optimizer.state[p]
+            if not adam:
+                if group["momentum"] != 0:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                continue
+            if group["capturable"] or group["fused"]:
+                state["step"] = torch.zeros(
+                    (), dtype=_get_scalar_dtype(is_fused=group["fused"]),
+                    device=p.device)
+            else:
+                state["step"] = torch.tensor(0.0, dtype=_get_scalar_dtype())
+            state["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            if group["amsgrad"]:
+                state["max_exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+def apply_gradients(optimizer, state: TrainState, grads=None,
+                    batch_stats=None) -> TrainState:
+    """The update tail of a training step, in place: ``grads`` (by
+    parameter name, from ``torch.autograd.grad``) become the parameters'
+    ``.grad`` (a parameter absent from them gets None); ``None`` takes
+    the ``.grad`` that ``loss.backward()`` left, whose gradient hooks
+    (``DistributedOptimizer(named_parameters=...)``) have issued the
+    exchange's buckets during the backward pass. Then ``optimizer``
+    steps (a ``DistributedOptimizer`` or ZeRO wrapper reduces the
+    gradients there, as the JAX package's wrapped optax chain does),
+    ``batch_stats`` (by buffer name) are copied in, and ``state["step"]``
+    advances by a device op (a replayed window advances it). Returns
+    ``state``."""
+    if grads is not None:
+        for name, p in state["params"].items():
+            p.grad = grads.get(name)
+    optimizer.step()
+    if batch_stats is not None:
+        own = state["batch_stats"]
+        with torch.no_grad():
+            torch._foreach_copy_([own[k] for k in batch_stats],
+                                 list(batch_stats.values()))
+    state["step"].add_(1)
+    return state
+
+
+def state_partition_specs(state: TrainState) -> TrainState:
+    """Partition specs (:class:`~horovod_tpu_torch.parallel.spmd.P`) for
+    a :class:`TrainState`: ``P()`` for the params, batch statistics and
+    step, and for each optimizer-state leaf, except the rank-local ones:
+    a ZeRO optimizer's shards (its 1-D state vectors) and a quantized
+    ladder's error-feedback residuals get ``P(data axis)``, the data axis
+    resolved through the bound ``LogicalMesh`` (``"hvd"`` with none
+    bound)."""
+    from torch.utils._pytree import tree_map
+
+    from horovod_tpu_torch.parallel.logical import module_axis
+    from horovod_tpu_torch.parallel.spmd import P
+
+    axis = module_axis("data")
+    opt_spec = {k: v for k, v in ef_state_partition_specs(
+        state["opt_state"], axis_name=axis).items() if k != "zero"}
+    if "zero" in state["opt_state"]:
+        opt_spec["zero"] = tree_map(
+            lambda t: P(axis) if t.dim() == 1 else P(),
+            state["opt_state"]["zero"])
+    return TrainState(params=P(), batch_stats=P(), opt_state=opt_spec,
+                      step=P())
 
 
 def create_train_state(model: torch.nn.Module,

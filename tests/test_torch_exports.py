@@ -1,6 +1,7 @@
 """The public names of each pair of packages: ``horovod_tpu`` and
 ``horovod_tpu_torch`` at the top level and in ``.serve``, ``.models``,
-``.ops``, ``.common``, ``.run`` and ``.elastic``.
+``.ops``, ``.common``, ``.run`` and ``.elastic``, and ``horovod_tpu.flax``
+beside its port, ``horovod_tpu_torch.training``.
 
 Every name the JAX package offers is offered by the port, except those
 listed in ``ABSENT`` with the ROADMAP.md Queue 1 item that brings them;
@@ -22,7 +23,9 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 _ZOO = "item 6 (the rest of the model zoo)"
-_TRAIN_STATE = "item 5.4 (the analogues of flax/: the train state)"
+
+#: subpackage of the JAX package -> the port's, where the names differ.
+PORT_NAME = {".flax": ".training"}
 
 #: subpackage -> {name the JAX package offers and the port does not yet:
 #: the queue item that brings it}.
@@ -34,13 +37,12 @@ ABSENT = {
         "VGG16": _ZOO, "VGG19": _ZOO, "InceptionV3": _ZOO,
         "VisionTransformer": _ZOO, "ViT_S16": _ZOO, "ViT_B16": _ZOO,
         "build": _ZOO, "make_eval_step": _ZOO,
-        "TrainState": _TRAIN_STATE, "apply_gradients": _TRAIN_STATE,
-        "state_partition_specs": _TRAIN_STATE,
     },
     ".ops": {},
     ".common": {},
     ".run": {},
     ".elastic": {},
+    ".flax": {},
 }
 
 _FUSION = "horovod_tpu.jax.fusion's, offered with the Horovod surface"
@@ -58,7 +60,7 @@ PORT_ONLY = {
         "ef_state_partition_specs": "horovod_tpu.jax.optimizer's",
     },
     ".serve": {}, ".models": {}, ".ops": {}, ".common": {}, ".run": {},
-    ".elastic": {},
+    ".elastic": {}, ".flax": {},
 }
 
 
@@ -73,7 +75,8 @@ def _public(module):
 @pytest.mark.parametrize("sub", sorted(ABSENT))
 def test_public_names_match_the_reference(sub):
     ref = _public(importlib.import_module("horovod_tpu" + sub))
-    port_mod = importlib.import_module("horovod_tpu_torch" + sub)
+    port_mod = importlib.import_module("horovod_tpu_torch"
+                                       + PORT_NAME.get(sub, sub))
     port = _public(port_mod)
     assert ref - port == set(ABSENT[sub])
     assert not set(ABSENT[sub]) & port

@@ -406,16 +406,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "run/launcher.py", "run/__main__.py",
                 "parallel/__init__.py", "parallel/logical.py",
                 "parallel/mesh.py", "parallel/tp.py", "parallel/moe.py",
-                "parallel/spmd.py"):
+                "parallel/spmd.py", "models/train.py",
+                "training/__init__.py", "training/callbacks.py",
+                "training/_msgpack.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
-    for pkg in ("elastic", "run"):
+    for pkg in ("elastic", "run", "training"):
         assert sorted(n for n in names
                       if n.startswith(f"horovod_tpu_torch/{pkg}/")) == \
             sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
                 "elastic": ("__init__", "faults", "loop", "signals",
                             "snapshot", "supervisor"),
                 "run": ("__init__", "__main__", "driver", "launcher",
-                        "network", "task_exec")}[pkg])
+                        "network", "task_exec"),
+                "training": ("__init__", "callbacks", "_msgpack")}[pkg])
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -428,6 +431,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for n in names:
                 root = n.split(".")[0]
                 if root in ("jax", "jaxlib", "flax", "optax", "orbax",
-                            "ml_dtypes", "horovod_tpu"):
+                            "ml_dtypes", "msgpack", "horovod_tpu"):
                     bad.append(f"{f.relative_to(REPO)}: {n}")
     assert not bad, bad
