@@ -14,6 +14,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --job-only
     python3 chip_smoke.py --elastic-only
     python3 chip_smoke.py --loop-only
+    python3 chip_smoke.py --autotune-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -271,7 +272,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 17. elastic: preemption-tolerant training through ``hvdrun-torch
    --elastic`` (``horovod_tpu_torch.elastic``), every rank a process of
    this script (``--elastic-rank``) running ``run_elastic`` over
-   GPT-2-small at the training width on K1-K3 (flash,
+   GPT-2-small at the training width, 6 of its 12 layers deep (the
+   phase's depth cut), on K1-K3 (flash,
    ``bwd_impl="kernel"``): a functional step (``hvd.value_and_grad``
    over ``torch.func.functional_call``, ``allreduce_gradients_transform``,
    Adam 1e-4 on dicts) over the state ``{"params", "m", "v", "step"}``
@@ -282,7 +284,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    job without the plan: the faulted job exits 0 after one relaunch of
    a ``crashed`` incident, rank 1 resumed from step 2, each rank's
    SHA-256 over every state leaf and its last-write-wins loss
-   trajectory (``repr``) equal the clean job's, and K1-K3 launch 12 a
+   trajectory (``repr``) equal the clean job's, and K1-K3 launch 6 a
    step on every rank and attempt. (b) 1 rank, 8 sequences, windows of
    2 captured steps, ``--max-restarts 0 --fault-plan
    preempt:rank=0,step=2``: one free relaunch classified
@@ -323,7 +325,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    the LRs, step ms captured (C) and eager (B), ``save_model`` ms, bytes
    and MB/s, ``load_model`` ms, the checkpoint's save and restore ms,
    the snapshots taken and the peak memory;
-19. (``--profile`` only) two training steps of each lane and the
+19. autotune: ``HOROVOD_AUTOTUNE=1`` over the same LM (weights drawn on
+   the card, 8 sequences of 2048 a step cycling over 4 batches), Adam
+   1e-4 ``capturable=True`` under ``DistributedOptimizer`` in an NCCL
+   world of one, the tuner's window 2 dispatches over the 9 flat
+   thresholds (one host cannot ladder), 6 probes by expected
+   improvement. Run A: eager steps, the tuner made by ``init`` from the
+   env knob, until past convergence: its log holds a warm-up and a
+   sample a probe and ends ``converged``, the optimizer then runs
+   ``plan_buckets`` at the winner, and K1-K3 launch 12 times a step.
+   Run B: the same steps untuned, its parameters equal A's bit for bit
+   after each of A's moves and at the end (a world of one with
+   ``Compression.none``: no plan changes a value). Run C: windows of 4
+   captured steps (one dispatch each) under a new tuner: one capture a
+   move plus one, each replacing the last graph (the card's reserved
+   memory after each capture, the allocator's cache emptied, stays
+   within 1 GiB of the first's), K1-K3 12 wrapper calls a warm-up and
+   a capture, and A's final parameters bit for bit. Prints one
+   ``{"autotune"}`` line with each probed threshold's steps/s, the
+   winners, probes, captures, the memory, the runs' seconds and the
+   phase's, beside the card's name and power limit;
+20. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -358,6 +380,9 @@ and prints the ``{"elastic"}`` line and no kernels or ok line.
 
 ``--loop-only`` runs phases 1, 2 and 18 and prints the ``{"loop"}``
 line and no kernels or ok line.
+
+``--autotune-only`` runs phases 1, 2 and 19 and prints the
+``{"autotune"}`` line and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -5394,6 +5419,9 @@ def job_phase(torch, np, card):
 
 
 ELASTIC_RANKS = 2
+# The elastic jobs' LM: the training width, half its depth (the phase
+# starts five ranks at once; each draws and steps its own copy).
+ELASTIC_LAYERS = 6
 # Part (a): 2 sequences a rank a step over 2 ranks; part (b): 8 on one.
 ELASTIC_SEQS = 2
 ELASTIC_WIN_SEQS = 8
@@ -5433,7 +5461,7 @@ def _elastic_digest(torch, state):
     return h.hexdigest()
 
 
-def _elastic_model(torch, dev, attn_fn, seed=ELASTIC_SEED):
+def _elastic_model(torch, dev, attn_fn, seed=ELASTIC_SEED, layers=LAYERS):
     """GPT-2-small at the training width, its weights drawn on the card
     from ``seed`` by torch's generator at the LM's own scales (the same
     on every rank and attempt): the LM's numpy draws of 136M
@@ -5464,13 +5492,14 @@ def _elastic_model(torch, dev, attn_fn, seed=ELASTIC_SEED):
                         mod.scale.fill_(1.0)
                         mod.bias.zero_()
 
-    return OnCard(vocab_size=VOCAB, num_layers=LAYERS, num_heads=HEADS,
+    return OnCard(vocab_size=VOCAB, num_layers=layers, num_heads=HEADS,
                   embed_dim=D_MODEL, max_len=FLASH_L, dtype=torch.bfloat16,
                   attn_fn=attn_fn, seed=seed, device=dev)
 
 
 def _elastic_lm(torch, np, dev, seqs, rank, size):
-    """GPT-2-small at the training width on K1-K3, as a functional step
+    """GPT-2-small at the training width, ``ELASTIC_LAYERS`` deep, on
+    K1-K3, as a functional step
     over a state pytree: ``(state, step_fn, source)``. The state is
     ``{"params", "m", "v", "step"}`` (the LM's float32 weights, bf16
     compute, and Adam's moments of the weights' dtype);
@@ -5486,7 +5515,8 @@ def _elastic_lm(torch, np, dev, seqs, rank, size):
     from horovod_tpu_torch.ops import attention as fa
 
     model = _elastic_model(torch, dev, functools.partial(
-        fa.flash_attention, causal=True, bwd_impl="kernel"))
+        fa.flash_attention, causal=True, bwd_impl="kernel"),
+        layers=ELASTIC_LAYERS)
     params = {n: p.detach() for n, p in model.named_parameters()}
     state = {"params": params,
              "m": {n: torch.zeros_like(p) for n, p in params.items()},
@@ -5929,10 +5959,11 @@ def _elastic_jobs(torch, np, rate):
             start = rank["attempts"].get(a, {}).get(
                 "resumed", min(s for s, _, _ in lines) - 1)
             for s, launches, _ in lines:
-                check(all(n == LAYERS * (s - start) for n in launches),
+                check(all(n == ELASTIC_LAYERS * (s - start)
+                          for n in launches),
                       f"elastic: rank {r % ELASTIC_RANKS} attempt {a} "
                       f"shows K1-K3 launches {launches} after step {s} "
-                      f"from {start}, expected {LAYERS} a step")
+                      f"from {start}, expected {ELASTIC_LAYERS} a step")
         if r < ELASTIC_RANKS:
             first_max = max(s for s, _, _ in rank["lines"][0])
             replayed.append(first_max - rank["attempts"][1]["resumed"])
@@ -5950,11 +5981,12 @@ def _elastic_jobs(torch, np, rate):
           f"expected the manifest of step {ELASTIC_EVERY}")
     for a, lines in win["lines"].items():
         step, launches, captured = lines[-1]
-        check(captured == 1 and all(n == 2 * LAYERS for n in launches),
+        check(captured == 1
+              and all(n == 2 * ELASTIC_LAYERS for n in launches),
               f"elastic: the preempt job's attempt {a} captured "
               f"{captured} step calls with K1-K3 wrapper calls {launches} "
               f"by step {step}, expected one capture after one eager "
-              f"warm-up step ({2 * LAYERS} each)")
+              f"warm-up step ({2 * ELASTIC_LAYERS} each)")
     check(final["digest"] == eager_digest,
           f"elastic: the preempted windowed job ended at "
           f"{final['digest']}, the eager run at {eager_digest}")
@@ -5983,7 +6015,7 @@ def elastic_phase(torch, np, card, rate, cli=None):
 
     t0 = time.perf_counter()
     res = {"card": card, "model": {
-        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "layers": ELASTIC_LAYERS, "d_model": D_MODEL, "heads": HEADS,
         "vocab": VOCAB, "seq": FLASH_L, "dtype": "bfloat16 compute, "
         "float32 weights and moments",
         "attention": "flash (K1-K3, bwd kernel)",
@@ -6442,6 +6474,277 @@ def loop_phase(torch, np, card):
     return res
 
 
+# ------------------------------------------------------------ phase 19
+
+
+# HOROVOD_AUTOTUNE on the LM step: GPT-2-small at the training width on
+# K1-K3 (weights drawn on the card), FLASH_B sequences a step cycling over
+# AUTOTUNE_BATCHES fixed batches, Adam 1e-4 (capturable) under
+# DistributedOptimizer in this process's NCCL world of one. The tuner
+# scores windows of AUTOTUNE_WINDOW dispatches; one host cannot ladder,
+# so its space is the 9 flat thresholds, and EI stops after
+# AUTOTUNE_PROBES probes, each a warm-up and a scored window. Every run
+# takes the steps that run C (windows of AUTOTUNE_K captured steps, one
+# dispatch each) needs to converge, and one window more, which captures
+# the winner's plan.
+AUTOTUNE_WINDOW, AUTOTUNE_K, AUTOTUNE_PROBES = 2, 4, 6
+AUTOTUNE_BATCHES = 4
+AUTOTUNE_STEPS = (2 * AUTOTUNE_PROBES * AUTOTUNE_WINDOW + 1) * AUTOTUNE_K
+AUTOTUNE_LR = 1e-4
+AUTOTUNE_SEED, AUTOTUNE_DATA_SEED = 19, 190
+# Card memory the re-captures may add over the first capture's, after
+# the allocator's cache is emptied: a graph replaced but not freed would
+# keep its pool (GBs of a step's activations) reserved.
+AUTOTUNE_MEM_SLACK = 1 << 30
+
+
+def _autotune_lm(torch, hvd):
+    """GPT-2-small on K1-K3, its ``DistributedOptimizer`` and one step
+    (the next-token loss, ``backward()`` with the hooks issuing the
+    buckets, ``step()``: the tuner's dispatch)."""
+    import functools
+
+    from horovod_tpu_torch.models.train import next_token_loss
+    from horovod_tpu_torch.ops import attention as fa
+
+    model = _elastic_model(torch, "cuda", functools.partial(
+        fa.flash_attention, causal=True, bwd_impl="kernel"),
+        seed=AUTOTUNE_SEED)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=AUTOTUNE_LR,
+                         capturable=True),
+        named_parameters=model.named_parameters())
+
+    def one(tokens):
+        opt.zero_grad()
+        loss = next_token_loss(model(tokens), tokens)
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach()}
+
+    one.model, one.optimizer = model, opt
+    return one
+
+
+def _flash_launches(fa, reset=False):
+    kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    if reset:
+        for k in kernels:
+            k.launches = 0
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _params(model):
+    return [p.detach() for p in model.parameters()]
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(bool((x == y).all())
+                                    for x, y in zip(a, b))
+
+
+def _autotune_eager(torch, hvd, fa, batches, tuner, snaps):
+    """``AUTOTUNE_STEPS`` eager steps from fresh weights. Under a
+    ``tuner``, put a copy of the parameters into ``snaps`` after each
+    step at which its generation moved; without one, hold the parameters
+    against ``snaps`` at those steps. Returns the step, the losses, the
+    launches, the seconds and the steps of the moves."""
+    one = _autotune_lm(torch, hvd)
+    _flash_launches(fa, reset=True)
+    gen = None if tuner is None else tuner.generation
+    losses, moves = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(AUTOTUNE_STEPS):
+        losses.append(one(batches[i % AUTOTUNE_BATCHES])["loss"])
+        if tuner is not None and tuner.generation != gen:
+            gen = tuner.generation
+            moves.append(i + 1)
+            snaps[i + 1] = [p.clone() for p in _params(one.model)]
+        elif tuner is None and i + 1 in snaps:
+            check(_same(_params(one.model), snaps[i + 1]),
+                  f"autotune: run B's parameters after step {i + 1} "
+                  "differ from run A's after its move there")
+            moves.append(i + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return one, [float(x) for x in losses], _flash_launches(fa), wall, moves
+
+
+def autotune_phase(torch, np, card):
+    """Phase 19 (module docstring): ``HOROVOD_AUTOTUNE`` on the card."""
+    import os
+    import tempfile
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.autotune import StepAutotuner
+    from horovod_tpu_torch.distributed.fusion import plan_buckets
+    from horovod_tpu_torch.distributed.window import windowed
+    from horovod_tpu_torch.ops import attention as fa
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(AUTOTUNE_DATA_SEED)
+    res = {"card": card, "model": {
+        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "vocab": VOCAB, "seq": FLASH_L, "batch": FLASH_B,
+        "dtype": "bfloat16 compute, float32 weights and moments",
+        "attention": "flash (K1-K3, bwd kernel)",
+        "optimizer": f"Adam {AUTOTUNE_LR}, capturable, "
+                     "DistributedOptimizer"},
+        "tuner_window": AUTOTUNE_WINDOW, "steps": AUTOTUNE_STEPS}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["HOROVOD_AUTOTUNE"] = "1"
+        os.environ["HOROVOD_AUTOTUNE_LOG"] = f"{tmp}/a.tsv"
+        try:
+            hvd.init()
+        finally:
+            del os.environ["HOROVOD_AUTOTUNE"]
+            del os.environ["HOROVOD_AUTOTUNE_LOG"]
+        try:
+            cfg = basics.config()
+            default = cfg.fusion_threshold
+            batches = [torch.tensor(rng.integers(0, VOCAB, (FLASH_B,
+                                                            FLASH_L)),
+                                    device="cuda")
+                       for _ in range(AUTOTUNE_BATCHES)]
+            # Run A: eager (K = 1), tuned from the env knob, until past
+            # convergence.
+            tuner = basics._state.autotuner
+            check(isinstance(tuner, StepAutotuner),
+                  "autotune: HOROVOD_AUTOTUNE=1 made no StepAutotuner")
+            tuner.window = AUTOTUNE_WINDOW
+            check(len(tuner.candidates) == 9
+                  and not any(h for _, h in tuner.candidates)
+                  and tuner.max_probes == AUTOTUNE_PROBES
+                  and tuner._strategy_resolved == "ei",
+                  f"autotune: the tuner's space {tuner.candidates}, "
+                  f"{tuner.max_probes} probes, {tuner._strategy_resolved}")
+            snaps = {}
+            one, losses_a, launches_a, wall_a, moves_a = _autotune_eager(
+                torch, hvd, fa, batches, tuner, snaps)
+            with open(f"{tmp}/a.tsv") as f:
+                tsv = [ln.split("\t") for ln in f.read().splitlines()]
+            check(tuner.converged and len(tuner.probed) == AUTOTUNE_PROBES
+                  and len(moves_a) == AUTOTUNE_PROBES
+                  and tuner.generation == AUTOTUNE_PROBES + 1,
+                  f"autotune: run A probed {len(tuner.probed)}, moved at "
+                  f"steps {moves_a}, converged {tuner.converged}")
+            check([ln[1] for ln in tsv] == ["warmup", "sample"]
+                  * AUTOTUNE_PROBES + ["converged"],
+                  f"autotune: run A's log {[ln[1] for ln in tsv]}")
+            trainable = [p for p in one.model.parameters()
+                         if p.requires_grad]
+            want = plan_buckets(trainable, tuner.best_threshold)
+            ex = one.optimizer._hvd_exchange
+            check(cfg.fusion_threshold == tuner.best_threshold
+                  and (ex.plan == want if ex is not None
+                       else len(want) == 1),
+                  f"autotune: after convergence the optimizer runs "
+                  f"{None if ex is None else len(ex.plan)} buckets, "
+                  f"plan_buckets at the winner {tuner.best_threshold} has "
+                  f"{len(want)}")
+            steps_k = LAYERS * AUTOTUNE_STEPS
+            check(all(n == steps_k for n in launches_a.values()),
+                  f"autotune: run A's wrappers launched {launches_a}, "
+                  f"expected {steps_k} each")
+            check(all(math.isfinite(x) for x in losses_a)
+                  and losses_a[-1] < losses_a[0],
+                  f"autotune: run A's losses {losses_a[0]} .. "
+                  f"{losses_a[-1]}")
+            final_a = [p.clone() for p in _params(one.model)]
+            res["run_a"] = {
+                "probed_steps_per_s": {str(t): v for (t, _), v in
+                                       tuner.probed.items()},
+                "winner": tuner.best_threshold,
+                "winner_steps_per_s": tuner.best_score,
+                "probes": len(tuner.probed), "moves_at_step": moves_a,
+                "buckets_at_winner": len(want),
+                "log": ["\t".join(ln) for ln in tsv],
+                "wall_s": wall_a, "launches": launches_a,
+                "loss_first_last": [losses_a[0], losses_a[-1]]}
+            del one, trainable, ex
+            # Run B: untuned, the same weights, batches and steps.
+            basics._state.autotuner.close()
+            basics._state.autotuner = None
+            cfg.fusion_threshold = default
+            one, losses_b, launches_b, wall_b, held = _autotune_eager(
+                torch, hvd, fa, batches, None, snaps)
+            check(held == moves_a and losses_b == losses_a,
+                  f"autotune: run B held {held} of A's moves {moves_a}, "
+                  "or its losses differ from run A's")
+            check(_same(_params(one.model), final_a),
+                  "autotune: run B's final parameters differ from run A's")
+            check(all(n == steps_k for n in launches_b.values()),
+                  f"autotune: run B's wrappers launched {launches_b}")
+            del one
+            res["run_b"] = {"wall_s": wall_b, "launches": launches_b,
+                            "equal_a_at_steps": held, "equal_a_final": True}
+            # Run C: windows of AUTOTUNE_K captured steps, tuned anew.
+            tuner_c = basics._state.autotuner = StepAutotuner(
+                cfg, log_path=f"{tmp}/c.tsv", window=AUTOTUNE_WINDOW)
+            one = _autotune_lm(torch, hvd)
+            win = windowed(one, AUTOTUNE_K)
+            _flash_launches(fa, reset=True)
+            memory, captures = [], 0
+            torch.cuda.synchronize()
+            tc = time.perf_counter()
+            for j in range(AUTOTUNE_STEPS // AUTOTUNE_K):
+                win(torch.stack([batches[(j * AUTOTUNE_K + i)
+                                         % AUTOTUNE_BATCHES]
+                                 for i in range(AUTOTUNE_K)]))
+                if win.step.captures != captures:
+                    captures = win.step.captures
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    memory.append({"capture": captures,
+                                   "allocated": torch.cuda.memory_allocated(),
+                                   "reserved": torch.cuda.memory_reserved()})
+            torch.cuda.synchronize()
+            wall_c = time.perf_counter() - tc
+            launches_c = _flash_launches(fa)
+            moves_c = tuner_c.generation - 1
+            check(tuner_c.converged and captures == moves_c + 1,
+                  f"autotune: run C captured {captures} times over "
+                  f"{moves_c} moves (converged {tuner_c.converged})")
+            check(win.step.replays == AUTOTUNE_STEPS - captures,
+                  f"autotune: run C replayed {win.step.replays} steps")
+            check(_same(_params(one.model), final_a),
+                  "autotune: run C's parameters differ from run A's")
+            check(all(n == 2 * LAYERS * captures
+                      for n in launches_c.values()),
+                  f"autotune: run C's wrappers launched {launches_c}, "
+                  f"expected {2 * LAYERS * captures} each (warm-up and "
+                  "capture)")
+            grew = max(m["reserved"] for m in memory) - memory[0]["reserved"]
+            check(grew <= AUTOTUNE_MEM_SLACK,
+                  f"autotune: the card's reserved memory grew {grew} bytes "
+                  f"over {captures} captures: {memory}")
+            res["run_c"] = {
+                "probed_steps_per_s": {str(t): v * AUTOTUNE_K
+                                       for (t, _), v in
+                                       tuner_c.probed.items()},
+                "winner": tuner_c.best_threshold,
+                "probes": len(tuner_c.probed), "captures": captures,
+                "replays": win.step.replays, "moves": moves_c,
+                "memory_after_each_capture": memory,
+                "reserved_growth_bytes": grew, "wall_s": wall_c,
+                "launches": launches_c, "equal_a": True}
+            del one, win, snaps, final_a
+        finally:
+            hvd.shutdown()
+            torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    a, c = res["run_a"], res["run_c"]
+    log(f"autotune: run A probed {a['probes']} thresholds, winner "
+        f"{a['winner']} at {a['winner_steps_per_s']:.3f} steps/s "
+        f"({a['buckets_at_winner']} buckets), moves at steps "
+        f"{a['moves_at_step']}; run B (untuned) and run C ({c['captures']} "
+        f"captures, winner {c['winner']}, reserved memory +{c['reserved_growth_bytes']} "
+        f"bytes) equal A bit for bit; phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -6574,7 +6877,7 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
 
 
 def _flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
-                   card):
+                   ares, card):
     """The kernels line's entries of K1-K3: launches from the training
     phase, and from the window phase the wrapper calls of a window's
     warm-up and capture and the kernels one replayed window's trace
@@ -6584,8 +6887,10 @@ def _flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
     phase every rank's in each attempt of each job (the preempted
     window's: one warm-up step and one capture), and from the loop
     phase run A's wrapper calls (warm-up and capture) and its replayed
-    windows' traces, run B's (eager) and run C's; times and errors from
-    the flash phase at the slice shapes."""
+    windows' traces, run B's (eager) and run C's, from the autotune phase
+    runs A and B (eager) and run C's wrapper calls (a warm-up and a
+    capture each); times and errors from the flash phase at the slice
+    shapes."""
     win = wres["lm_hooks"]["window"]
     traced = {"flash_forward": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
               "flash_bwd_dkv": "flash_bwd_dkv"}
@@ -6627,6 +6932,11 @@ def _flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
                     lres["run_a"]["traced_replayed_steps"],
                 "run_b_eager": lres["run_b"]["launches"][name],
                 "run_c_wrapper_calls": lres["run_c"]["launches"][name]},
+            "launches_autotune": {
+                "run_a_eager": ares["run_a"]["launches"][name],
+                "run_b_eager": ares["run_b"]["launches"][name],
+                "run_c_wrapper_calls": ares["run_c"]["launches"][name],
+                "run_c_captures": ares["run_c"]["captures"]},
             "sp_ulysses_max_abs_err": max(
                 spres["ulysses"]["kernel_check"]["max_abs_err"][o]
                 for o in outs),
@@ -6809,6 +7119,13 @@ def loop_only(torch, np, card):
     print(json.dumps({"loop": loop_phase(torch, np, card)}), flush=True)
 
 
+def autotune_only(torch, np, card):
+    """``--autotune-only``: the build and the autotune phase."""
+    build_phase()
+    print(json.dumps({"autotune": autotune_phase(torch, np, card)}),
+          flush=True)
+
+
 def elastic_only(torch, np, card):
     """``--elastic-only``: the build and the elastic phase."""
     build_phase()
@@ -6859,6 +7176,8 @@ def main():
         return elastic_only(torch, np, card)
     if "--loop-only" in sys.argv[1:]:
         return loop_only(torch, np, card)
+    if "--autotune-only" in sys.argv[1:]:
+        return autotune_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -6892,6 +7211,7 @@ def main():
     elres = timed("elastic", elastic_phase(torch, np, card, rate,
                                            cli=jres["elastic_cli"]))
     lres = timed("loop", loop_phase(torch, np, card))
+    ares = timed("autotune", autotune_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -6910,12 +7230,13 @@ def main():
     print(json.dumps({"job": jres}), flush=True)
     print(json.dumps({"elastic": elres}), flush=True)
     print(json.dumps({"loop": lres}), flush=True)
+    print(json.dumps({"autotune": ares}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres,
                       ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
-                        card),
+                        ares, card),
         _conv_bn_record(cres, rres, wres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,8 @@ class _State:
         # The job's process group (None: the world) and its global ranks.
         self.group = None
         self.ranks: List[int] = []
+        # HOROVOD_AUTOTUNE's StepAutotuner (distributed/autotune.py).
+        self.autotuner = None
 
 
 _state = _State()
@@ -103,11 +105,6 @@ def init(comm: Optional[Sequence[int]] = None,
     once."""
     if _state.initialized:
         return
-    if os.environ.get("HOROVOD_AUTOTUNE", "") not in ("", "0"):
-        raise NotImplementedError(
-            "HOROVOD_AUTOTUNE: the fusion-threshold tuner (the JAX "
-            "package's jax/autotune.py) is not ported yet (ROADMAP.md "
-            "Queue 1, item 5.5); unset it")
     if comm is not None:
         comm = [int(r) for r in comm]
         if not comm:
@@ -176,6 +173,19 @@ def init(comm: Optional[Sequence[int]] = None,
                                mark_cycles=_state.config.timeline_mark_cycles,
                                enabled_rank=dist.get_rank(group) == 0)
     _state.initialized = True
+    if _state.config.autotune:
+        # Every rank runs the tuner, so that generations move in
+        # lockstep; rank 0 alone writes the log.
+        from horovod_tpu_torch.distributed.autotune import StepAutotuner
+
+        try:
+            _state.autotuner = StepAutotuner(
+                _state.config,
+                log_path=(_state.config.autotune_log
+                          if dist.get_rank(group) == 0 else ""))
+        except BaseException:
+            shutdown()
+            raise
 
 
 def shutdown() -> None:
@@ -183,6 +193,9 @@ def shutdown() -> None:
     if not _state.initialized:
         return
     _state.timeline.close()
+    if _state.autotuner is not None:
+        _state.autotuner.close()
+        _state.autotuner = None
     if _state.group is not None and dist.is_initialized():
         dist.destroy_process_group(_state.group)
     if _state.owns_group and dist.is_initialized():

@@ -95,6 +95,10 @@ class Config:
     # (HOROVOD_HIERARCHICAL_INNER_SIZE), so that one host's ranks can
     # stand for several.
     hierarchical_inner_size: int = 0
+    # The step autotuner (HOROVOD_AUTOTUNE) and its TSV log
+    # (HOROVOD_AUTOTUNE_LOG; rank 0 writes, empty = none).
+    autotune: bool = False
+    autotune_log: str = ""
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -115,4 +119,6 @@ class Config:
                 "HOROVOD_HIERARCHICAL_ALLGATHER"),
             hierarchical_inner_size=_env_int(
                 "HOROVOD_HIERARCHICAL_INNER_SIZE", 0),
+            autotune=_env_bool("HOROVOD_AUTOTUNE"),
+            autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG", ""),
         )

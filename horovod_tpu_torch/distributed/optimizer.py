@@ -33,6 +33,14 @@ into the same tensors.
 They travel in ``state_dict()`` under ``"hvd_residuals"``, and
 :func:`broadcast_optimizer_state` leaves each rank its own.
 
+Under ``HOROVOD_AUTOTUNE`` each ``step()`` is one dispatch of the step
+tuner (:mod:`horovod_tpu_torch.distributed.autotune`), and after each
+move of its generation the hook exchange is planned again over the
+threshold the tuner set: at the end of the ``step()`` that moved it, or,
+when a window moved it, at the next update. A quantized ladder under the
+tuner raises ``NotImplementedError``: its residuals are laid out for one
+plan.
+
 The functional gradient API of the JAX package
 (``horovod_tpu/jax/optimizer.py``) over pytrees of tensors (dicts,
 lists, tuples): :func:`grad` and :func:`value_and_grad` differentiate a
@@ -62,7 +70,7 @@ from horovod_tpu_torch._pytree import flatten as _flatten
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (InvalidArgumentError,
                                                  PreconditionError)
-from horovod_tpu_torch.distributed import mpi_ops
+from horovod_tpu_torch.distributed import autotune, mpi_ops
 from horovod_tpu_torch.distributed.compression import (Compression,
                                                        is_dcn_wire)
 from horovod_tpu_torch.distributed.fusion import (BucketExchange,
@@ -86,6 +94,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise ValueError(f"backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
         own = [p for g in self.param_groups for p in g["params"]]
+        tuner = autotune.active()
+        if tuner is not None and is_dcn_wire(compression) and (
+                any(h for _, h in tuner.candidates)
+                or resolve_hierarchical(hierarchical, basics.size())):
+            raise NotImplementedError(
+                f"HOROVOD_AUTOTUNE with {compression.__name__} on the "
+                "hierarchical ladder: the error-feedback residuals are laid "
+                "out for one bucket plan, and the tuner changes the plan "
+                "(the JAX package fails there too; ROADMAP.md Queue 3)")
         if named_parameters is not None:
             named = list(named_parameters)
             names = [n for n, _ in named]
@@ -188,17 +205,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _hvd_plan(self) -> None:
         """Plan the hook exchange over the parameters that require a
         gradient now, and hook the ones that entered the set; nothing
-        changes while the set is the planned one. Runs at construction,
-        at the first hook of each update and at a ``step()`` that no hook
-        preceded, so a parameter frozen between updates leaves the plan
-        as it does under overlap off."""
+        changes while the set and the tuner's generation are the planned
+        ones. Runs at construction, at the first hook of each update and
+        at a ``step()`` that no hook preceded, so a parameter frozen
+        between updates leaves the plan as it does under overlap off, and
+        a threshold the tuner moved (``HOROVOD_AUTOTUNE``) takes effect
+        at the next update."""
         if not self._hvd_hooks_on:
             return
         trainable = [p for p in self._hvd_params if p.requires_grad]
-        ids = [id(p) for p in trainable]
-        if ids == self._hvd_planned:
+        key = ([id(p) for p in trainable], autotune.generation())
+        if key == self._hvd_planned:
             return
-        self._hvd_planned = ids
+        self._hvd_planned = key
         exchange = BucketExchange(trainable, **self._hvd_reduce)
         if not (exchange.overlap and trainable):
             exchange, trainable = None, []
@@ -318,7 +337,17 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def step(self, closure=None):
         """Count one backward pass; on every ``backward_passes_per_step``-th
         call, reduce the accumulated gradients and update. Other calls
-        return ``None`` and leave ``.grad`` accumulating."""
+        return ``None`` and leave ``.grad`` accumulating. Each call is one
+        dispatch for ``HOROVOD_AUTOTUNE``'s tuner, which waits on the
+        parameters at the end of its window; when the tuner moves, the
+        hooks of the new plan are placed before the next backward pass."""
+        out = autotune.tuned_call(self, lambda: self._hvd_step(closure),
+                                  sync=self._hvd_params)
+        if not self._hvd_passes % self._hvd_k:
+            self._hvd_plan()
+        return out
+
+    def _hvd_step(self, closure):
         self._hvd_passes += 1
         if self._hvd_passes % self._hvd_k:
             return None

@@ -54,6 +54,12 @@ raised with its cause by the capture):
   over SGD with a tensor ``lr``, or over a tensor ``lr`` on another
   device, raises before it captures anything.
 
+Under ``HOROVOD_AUTOTUNE`` a window call is one dispatch of the step
+tuner (:mod:`horovod_tpu_torch.distributed.autotune`; the optimizer's
+steps inside it are not counted), and the tuner's generation is part of
+the signature: each move of the tuner captures the step again under the
+new bucket plan, releasing the graph it replaces.
+
 A step built by :func:`~horovod_tpu_torch.models.train.make_train_step`
 or ``make_image_train_step`` carries its ``model`` and ``optimizer`` as
 attributes, and the window reads them for those checks and for the
@@ -75,6 +81,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch._graphs import CapturedStep
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.distributed import autotune
 
 
 def _check_k(steps_per_dispatch) -> int:
@@ -139,7 +146,7 @@ def _signature_key(step_fn) -> Callable[[], tuple]:
             tuple(sorted((k, v) for k, v in g.items()
                          if k != "params" and not isinstance(v, torch.Tensor)))
             for g in optimizer.param_groups)
-        return params, hyper
+        return params, hyper, autotune.generation()
 
     return key
 
@@ -154,6 +161,9 @@ class _Window:
                                  name="window step")
 
     def __call__(self, stacked_batches):
+        return autotune.tuned_call(self, lambda: self._run(stacked_batches))
+
+    def _run(self, stacked_batches):
         leaves = [x for x in tree_leaves(stacked_batches)
                   if isinstance(x, torch.Tensor)]
         if not leaves:

@@ -31,6 +31,13 @@ outputs; in a world of one that is the whole value. ``host_local=False``:
 every rank passes whole tensors, the harness takes this rank's block
 along every dimension that an in-spec shards, and all-gathers every
 sharded output, so every rank returns the whole value.
+
+Under ``HOROVOD_AUTOTUNE`` each call of an :func:`spmd_fn` handle is one
+dispatch of the step tuner (:mod:`horovod_tpu_torch.distributed.
+autotune`: ``claim``, ``step_done``, then ``end_window`` on the output),
+as in the JAX package. Nothing is traced, so nothing is built again when
+the tuner moves: the bucket collectives read the threshold at each call,
+and the plans held across calls key on the tuner's generation.
 """
 
 from __future__ import annotations
@@ -255,8 +262,7 @@ def spmd_fn(fn, *, mesh=None, axis_name: str = DATA_AXIS,
 
     called = [False]
 
-    @functools.wraps(fn)
-    def dispatch(*args, **kwargs):
+    def timed(args, kwargs):
         tl = basics.timeline()
         if not tl.enabled:
             called[0] = True
@@ -270,6 +276,12 @@ def spmd_fn(fn, *, mesh=None, axis_name: str = DATA_AXIS,
         finally:
             tl.end(track, act)
             called[0] = True
+
+    @functools.wraps(fn)
+    def dispatch(*args, **kwargs):
+        from horovod_tpu_torch.distributed.autotune import tuned_call
+
+        return tuned_call(dispatch, lambda: timed(args, kwargs))
 
     return dispatch
 

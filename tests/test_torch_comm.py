@@ -39,13 +39,13 @@ def _data(global_rank):
             [rng.standard_normal(s).astype(np.float32) for s in _LEAVES])
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     res = {"global_rank": rank}
     try:

@@ -36,16 +36,13 @@
 """
 
 import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-REPO = Path(__file__).resolve().parent.parent
+import gloo_worlds
+
 
 # tests/test_overlap.py's shapes: thresholds carve distinct plans
 # (33*4=132 B, 7*5*4=140, 101*4=404, 64*4=256, 257*4=1028).
@@ -108,14 +105,14 @@ def _sgd_steps(batches, k=1, **kw):
         float(loss)
 
 
-def _worker(rank, port, out):
+def _worker(rank, init, out):
     """One rank of the 2-process gloo world: every case, results saved."""
     import torch.distributed as dist
 
     from horovod_tpu_torch import distributed as hvd
     from horovod_tpu_torch.distributed.fusion import fused_reduce
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=2)
     hvd.init(device="cpu")
     res = {"size": hvd.size(), "rank": hvd.rank()}
@@ -312,36 +309,14 @@ def _late_freeze(rank, overlap):
                           if opt._hvd_exchange is not None else None)}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _run_two(worker, out, timeout):
-    """Runs ``worker(rank, port, out)`` of this module in two processes
-    (a gloo world of two); fails, after killing both, if either exits
-    with an error or outlives ``timeout`` seconds. Returns each rank's
-    saved results."""
-    port = _free_port()
-    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import test_torch_distributed as m; m.{}({}, {}, {!r})")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           worker, r, port, out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=timeout)
-            logs.append(stdout + stderr)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    """Runs ``worker(rank, init, out)`` of this module in two processes
+    (a gloo world of two, ``gloo_worlds.spawn``); fails, after killing
+    both, if either exits with an error or outlives ``timeout`` seconds.
+    Returns each rank's saved results."""
+    init = gloo_worlds.init_url(out)
+    gloo_worlds.spawn("test_torch_distributed", worker,
+                      [(r, init, out) for r in range(2)], timeout)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)]
 
@@ -672,7 +647,7 @@ def _none_grad_loss(p, x, uses_b, xp):
     return loss
 
 
-def _none_grad_worker(rank, port, out):
+def _none_grad_worker(rank, init, out):
     """One rank: two DistributedOptimizer(Adam) steps, recording the
     bucket plan each rank reduces over; the two buckets make overlap
     resolve on, so the gradient hooks issue them. Then the same with
@@ -683,7 +658,7 @@ def _none_grad_worker(rank, port, out):
 
     from horovod_tpu_torch import distributed as hvd
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=2,
                             timeout=timedelta(seconds=30))
     hvd.init(device="cpu")

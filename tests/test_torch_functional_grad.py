@@ -80,7 +80,7 @@ def _np(tree):
         lambda t: t.detach().numpy() if torch.is_tensor(t) else t, tree)
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -92,7 +92,7 @@ def _worker(rank, n, port, out):
                                                       params_from_flax)
     from horovod_tpu_torch.ops import attention
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     hvd.init(device="cpu")
     with open(os.path.join(out, "weights.pkl"), "rb") as f:

@@ -45,16 +45,13 @@ all-to-all exchange).
 
 import contextlib
 import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-REPO = Path(__file__).resolve().parent.parent
+import gloo_worlds
+
 WORLD = 8
 _SHAPES = [(33,), (7, 5), (101,), (4, 4, 4), (257,)]
 _THRESHOLD = 400        # a multi-bucket plan with an oversize singleton
@@ -197,7 +194,7 @@ def _error(fn):
     return None
 
 
-def _worker(rank, port, out):
+def _worker(rank, init, out):
     """One rank of the 8-process gloo world: every case, results saved."""
     import torch.distributed as dist
 
@@ -208,7 +205,7 @@ def _worker(rank, port, out):
     from horovod_tpu_torch.parallel import mesh as tm
     from horovod_tpu_torch.parallel.logical import LogicalMesh
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=WORLD)
     hvd.init(device="cpu")
     cfg = basics.config()
@@ -345,38 +342,14 @@ def _worker(rank, port, out):
     dist.destroy_process_group()
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def eight_ranks(tmp_path_factory):
     """Runs :func:`_worker` in 8 processes; fails, after killing them
     all, if any exits with an error or outlives its time limit."""
     out = str(tmp_path_factory.mktemp("eight_ranks"))
-    port = _free_port()
-    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import test_torch_hierarchical as m; m._worker({}, {}, {!r})")
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONWARNINGS="ignore::FutureWarning")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           r, port, out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=240)
-            logs.append(stdout + stderr[-4000:])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    init = gloo_worlds.init_url(out)
+    gloo_worlds.spawn("test_torch_hierarchical", "_worker",
+                      [(r, init, out) for r in range(WORLD)], 240)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(WORLD)]
 

@@ -262,7 +262,7 @@ def _sgd(p, g):
     return p.detach() - LR * g
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     """One rank of the ``n``-rank gloo world: every case, results saved."""
     import os
 
@@ -271,7 +271,7 @@ def _worker(rank, n, port, out):
     import horovod_tpu_torch.distributed as hvd
     from horovod_tpu_torch.parallel.logical import LogicalMesh, bind
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     hvd.init(device="cpu")
     lm = LogicalMesh.from_config(f"ep={n}")

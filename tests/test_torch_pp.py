@@ -150,13 +150,13 @@ def _errors(rank):
     return out
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     """One rank of the ``pp=4`` gloo world: every case, results saved."""
     import torch.distributed as dist
 
     from horovod_tpu_torch.parallel.logical import LogicalMesh, bind
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     with bind(LogicalMesh.from_config(f"pp={n}")):
         res = {"pipeline": _pipeline_cases(rank),

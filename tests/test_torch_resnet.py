@@ -34,7 +34,6 @@ each with its reason:
 import collections
 import functools
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -55,6 +54,8 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.models import resnet as tresnet
 from horovod_tpu_torch.models import train as ttrain
 from horovod_tpu_torch.ops import conv_bn as tcb
+
+import gloo_worlds
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKS = {"bottleneck": (jresnet.BottleneckResNetBlock,
@@ -484,12 +485,6 @@ dist.destroy_process_group()
 """
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_two_rank_step_equals_the_averaged_half_batch_steps(tmp_path):
     """Data parallelism with per-rank BatchNorm: each rank normalises with
     its own half batch's statistics, so the step is NOT the full-batch
@@ -498,11 +493,11 @@ def test_two_rank_step_equals_the_averaged_half_batch_steps(tmp_path):
     averages the two gradients (the DistributedOptimizer's average) and
     takes one SGD step; each rank's parameters must equal it, and each
     rank's running statistics must equal its own half's."""
-    port = _free_port()
+    init = gloo_worlds.init_url(tmp_path)
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER],
         env={**os.environ, "PYTHONPATH": str(REPO), "CASE_RANK": str(r),
-             "CASE_INIT": f"tcp://127.0.0.1:{port}",
+             "CASE_INIT": init,
              "CASE_OUT": str(tmp_path)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(2)]

@@ -220,13 +220,13 @@ def test_a_shape_that_differs_raises(tmp_path):
 # ---------------------------------------------------------- two ranks
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import training
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     hvd.init(device="cpu")
     a = _arrays(rank)

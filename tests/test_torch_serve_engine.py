@@ -408,7 +408,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel/mesh.py", "parallel/tp.py", "parallel/moe.py",
                 "parallel/spmd.py", "models/train.py",
                 "training/__init__.py", "training/callbacks.py",
-                "training/_msgpack.py"):
+                "training/_msgpack.py", "distributed/autotune.py",
+                "distributed/_bayes.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
     for pkg in ("elastic", "run", "training"):
         assert sorted(n for n in names

@@ -178,12 +178,12 @@ def _errors(n, params):
     return out
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     import torch.distributed as dist
 
     from horovod_tpu_torch import serve_bench as sb
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     params = tlm.params_from_numpy(_params(), device="cpu")
     mesh = f"dp=1,tp={n}"

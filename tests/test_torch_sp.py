@@ -331,14 +331,14 @@ def _lm_cases(n, rank):
     return res
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     """One rank of an ``n``-rank gloo world: every case, results saved."""
     import torch.distributed as dist
 
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.parallel.logical import LogicalMesh, bind
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     basics.init(device="cpu")
     with bind(LogicalMesh.from_config(f"sp={n}")):

@@ -22,13 +22,12 @@ Rank 0 writes the Chrome trace; rank 1 writes nothing.
 
 import json
 import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import pytest
 import torch
+
+import gloo_worlds
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -40,7 +39,7 @@ THRESHOLD = 400
 SCATTER = 300
 
 
-def _worker(rank, port, out):
+def _worker(rank, init, out):
     import torch.distributed as dist
 
     from horovod_tpu_torch import distributed as hvd
@@ -50,7 +49,7 @@ def _worker(rank, port, out):
 
     os.environ["HOROVOD_TIMELINE"] = os.path.join(out, "trace.json")
     os.environ["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=2)
     hvd.init(device="cpu")
     ts = [torch.ones(s) * (rank + 1) for s in SHAPES]
@@ -75,36 +74,14 @@ def _worker(rank, port, out):
         json.dump({"n_plan": n_plan, **marks}, f)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("timeline"))
-    port = _free_port()
-    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import test_torch_timeline as m; m._worker({}, {}, {!r})")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_TIMELINE")}
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           r, port, out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=60)
-            logs.append(stdout + stderr)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    init = gloo_worlds.init_url(out)
+    gloo_worlds.spawn("test_torch_timeline", "_worker",
+                      [(r, init, out) for r in range(2)], 60, env=env)
     with open(os.path.join(out, "trace.json")) as f:
         text = f.read()
     with open(os.path.join(out, "rank0.json")) as f:

@@ -28,9 +28,6 @@ inputs. Rank ``r`` holds the ``r``-th shard:
 """
 
 import os
-import socket
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -46,6 +43,8 @@ from horovod_tpu.models import parallel_lm as jplm
 from horovod_tpu.ops.xent import tp_vocab_cross_entropy as jvce
 from horovod_tpu.parallel import tp as jtp
 from horovod_tpu_torch.models import parallel_lm as tplm
+
+import gloo_worlds
 
 REPO = Path(__file__).resolve().parent.parent
 WORLDS = [2, 4]
@@ -256,13 +255,13 @@ def _lm_cases(n, rank):
     return res
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     """One rank of an ``n``-rank gloo world: every case, results saved."""
     import torch.distributed as dist
 
     from horovod_tpu_torch.parallel.logical import LogicalMesh, bind
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     with bind(LogicalMesh.from_config(f"tp={n}")):
         res = {"layers": _layer_cases(n, rank),
@@ -272,37 +271,12 @@ def _worker(rank, n, port, out):
     dist.destroy_process_group()
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def start_world(n, out, module, timeout=180):
-    """Run ``module._worker(rank, n, port, out)`` in ``n`` processes;
-    fail, after killing them all, if any exits with an error or outlives
-    ``timeout``. Returns each rank's saved results."""
-    port = _free_port()
-    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import {} as m; m._worker({}, {}, {}, {!r})")
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONWARNINGS="ignore::FutureWarning")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           module, r, n, port, out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=timeout)
-            logs.append(stdout + stderr[-4000:])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    """Run ``module._worker(rank, n, init, out)`` in ``n`` processes
+    (``gloo_worlds.start_world``); fail, after killing them all, if any
+    exits with an error or outlives ``timeout``. Returns each rank's
+    saved results."""
+    gloo_worlds.start_world(n, out, module, timeout=timeout)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(n)]
 

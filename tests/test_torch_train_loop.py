@@ -812,7 +812,7 @@ def _np(tree):
         tree)
 
 
-def _worker(rank, n, port, out):
+def _worker(rank, n, init, out):
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -821,7 +821,7 @@ def _worker(rank, n, port, out):
     from horovod_tpu_torch.models.train import TrainState, apply_gradients
     from horovod_tpu_torch.training import callbacks as cb
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=n)
     hvd.init(device="cpu")
     res = {}

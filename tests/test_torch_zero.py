@@ -28,16 +28,13 @@ a few ulp.
 """
 
 import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-REPO = Path(__file__).resolve().parent.parent
+import gloo_worlds
+
 
 LR = 0.01
 WD = 0.1
@@ -115,14 +112,14 @@ def _steps(case, mode, rank):
     return out
 
 
-def _worker(rank, port, out):
+def _worker(rank, init, out):
     from datetime import timedelta
 
     import torch.distributed as dist
 
     from horovod_tpu_torch import distributed as hvd
 
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+    dist.init_process_group("gloo", init_method=init,
                             rank=rank, world_size=2,
                             timeout=timedelta(seconds=30))
     hvd.init(device="cpu")
@@ -132,36 +129,14 @@ def _worker(rank, port, out):
     dist.destroy_process_group()
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """Both ranks' results; fails, after killing both, if either errs or
     outlives 60 s (the gloo timeout is 30 s)."""
     out = str(tmp_path_factory.mktemp("zero"))
-    port = _free_port()
-    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
-            "import test_torch_zero as m; m._worker({}, {}, {!r})")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(str(REPO / "tests"), str(REPO),
-                                           r, port, out)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            stdout, stderr = p.communicate(timeout=60)
-            logs.append(stdout + stderr)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    init = gloo_worlds.init_url(out)
+    gloo_worlds.spawn("test_torch_zero", "_worker",
+                      [(r, init, out) for r in range(2)], 60)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)]
 
