@@ -9,6 +9,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --disagg-only [RUNS]
     python3 chip_smoke.py --hier-only
     python3 chip_smoke.py --tp-only
+    python3 chip_smoke.py --tp-fleet-only
     python3 chip_smoke.py --sp-only
     python3 chip_smoke.py --ep-only
     python3 chip_smoke.py --job-only
@@ -173,20 +174,61 @@ Phases, each fatal on failure (exit code 1, no result line):
 13. tp: tensor parallelism. A world of 4 ranks, each a process of this
    script (``--tp-rank``): its own card over NCCL where the machine has
    4, else all on the one card over gloo with every tensor on the card.
+   The LM is the serving width, 6 of its 12 layers deep (phases 13 and
+   13b's depth cut, PR 20), and its references are the single card's
+   captured paged engine at that depth, run in the parent before the
+   world starts, under the weights of numpy seed 0 and seed 1.
    Rank 0 serves the engine phase's requests and waves through
    ``ServeEngine(..., attention="paged", mesh="dp=1,tp=4",
    capture=False)`` (heads, MLP features and vocab sharded; each rank's
    pages ``[num_pages, 16, 3, 64]``, a tensor of their own) and the
    others follow: every request finishes, every greedy stream equals the
    single-card paged engine's (else the first diverging position and
-   the top-2 logit gap there), every rank launches K4 12 times a live
+   the top-2 logit gap there), every rank launches K4 6 times a live
    decode tick over its 3 heads, and ``kv_bytes_per_chip`` is at most a
-   quarter of the single card's. Then each rank takes one TP training
-   step at the same width (``lm_apply(tp)``, the vocab-parallel fused
-   loss, ``reduce_grads``; batch 2 x 256): its loss within 1e-5 relative
-   of the dense step's on the same weights and each gradient shard
-   within 1e-4 (of the leaf's largest entry) of the dense gradient's
-   slice;
+   quarter of the single card's. The controller then swaps to the
+   weights of numpy seed 1 (``update_params``: the dense weights
+   broadcast, every rank cuts its shard) and serves the same requests
+   again: every stream equals the single-card paged engine's under those
+   weights. Then the HVKV
+   round trip: request 0 parked on the TP engine and exported (the ranks'
+   head shards gathered) has the single card's framing bytes and its
+   tiles within 1e-5 (atol = rtol; float32 summation order), imports
+   into a tp=1 cache and exports from it to the same bytes, and admitted
+   back into the TP engine it exports to the same bytes again (every
+   rank wrote its heads bit for bit) and decodes the single card's
+   stream. Over NCCL (4 cards) a second engine serves the requests with
+   ``capture=True``: every rank captures its lane and replays it, the
+   streams equal the eager ones, a replayed tick's trace holds K4's two
+   kernels 6 times each, and after a swap to the seed-1 weights every
+   rank captures again (K4 24 wrapper calls each: a warm-up step and a
+   capture before and after) and request 0 decodes the single card's
+   stream under them; over gloo the record says why that lane
+   did not run (gloo collectives cannot be captured; the engine refuses
+   ``capture=True`` there). Then each rank takes one TP training step at
+   the same width (``lm_apply(tp)``, the vocab-parallel fused loss,
+   ``reduce_grads``; batch 2 x 256): its loss within 1e-5 relative of
+   the dense step's on the same weights and each gradient shard within
+   1e-4 (of the leaf's largest entry) of the dense gradient's slice;
+13b. tp_fleet: tensor-parallel replicas in disaggregated pools. A
+   ``FleetConfig(pools={"prefill": 1, "decode": 1})`` fleet over the
+   ``process`` transport with ``mesh="dp=1,tp=2"``: each replica a worker
+   (the controller) and one follower it starts, all four ranks on the
+   one card over gloo (replica i takes cards (2i + r) % cards: NCCL on 4
+   cards), the LM phase 13's (6 layers deep). The engine phase's requests
+   prefill on replica 0, ship their pages (gathered from both ranks) and
+   decode on replica 1 (each rank writing its heads): every stream
+   equals phase 13's single-card reference, every request finishes on
+   replica 1, the pools transfer one
+   blob a request, and by the ranks' own counters (``rank_counters``,
+   read before and after the run) both decode ranks run the same live
+   ticks with K4 6 times each and the prefill ranks decode nothing.
+   A rolling ``update_params`` (the seed-1 weights pushed to each
+   controller, which fans them out) and a second wave: every stream
+   equals the single card's under the new weights. After ``close()``
+   no worker or follower is left. Prints one ``{"tp_fleet"}`` line:
+   transfers and their ms, tokens/s of the card with the gloo caveat,
+   TTFT and per-token p50/p99, the roll's seconds and the phase's;
 14. sp: sequence and pipeline parallelism. First K1-K3 alone at the
    Ulysses step's shape and dtype (``[1, 8192, 3, 64]`` float32, causal)
    against their plain versions at 1e-5, in this process: the dense
@@ -196,19 +238,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    the machine has 4, else all on the one card over gloo with every
    tensor on the card; float32, no TF32, each variant against the dense
    step on the same weights, taken in this process before the world
-   starts. The Ulysses and ring models are 4 layers deep at the full
-   width. Ulysses: the bench lane's ``TransformerLM`` at the training
+   starts. The Ulysses and ring models are 2 layers deep at the full
+   width (4 before PR 20, which cut them to pay for phase 13b). Ulysses: the bench lane's ``TransformerLM`` at the training
    width with ``attn_fn`` a ``ulysses_attention`` on the flash kernels
    and ``pos_offset``, one sequence of 8192 tokens (2048 a rank), a
    warm-up and a timed forward and backward step: the sp-aware loss
    within 1e-5 relative of the dense model's (``attn_fn`` the flash
    attention over the whole sequence), the gradients summed over ``sp``
    within 1e-4 of each leaf's largest entry, and K1, K2 and K3 launched
-   4 times each in the timed step on every rank, over ``[1, 8192, 3,
+   2 times each in the timed step on every rank, over ``[1, 8192, 3,
    64]``. Ring: ``lm_apply(sp=)``, ``next_token_nll_fused(sp=)`` and
    ``reduce_grads(sp=)`` on one sequence of 4096 tokens, held the same
    way against the dense ``lm_apply`` step, with the dead blocks the
-   causal ring skipped (4 x (3 - rank) a forward: 6 of 16 block-steps
+   causal ring skipped (2 x (3 - rank) a forward: 6 of 16 block-steps
    a layer). ``sp=2,tp=2``: one forward of ``lm_apply(sp=, tp=)`` and its
    loss on the ring's weights and tokens against the dense loss.
    Pipeline: ``lm_apply_pp`` with 4 stages of one block (8 x 512 tokens,
@@ -246,8 +288,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    is this module's function, imported as ``chip_smoke``): each joins
    the world from the launcher's environment (its own card over NCCL
    where there are two, else a gloo group on the one card) and calls
-   ``hvd.init(device=...)``; GPT-2-small at the training width on the
-   flash kernels, each rank with weights of its own seed until
+   ``hvd.init(device=...)``; GPT-2-small at the training width, 6 of
+   its 12 layers deep (the phase's depth cut, PR 20), on the flash
+   kernels, each rank with weights of its own seed until
    ``broadcast_parameters`` gives it rank 0's, and its own 4 sequences
    of 2048; three steps of ``hvd.value_and_grad`` over
    ``torch.func.functional_call``, ``allreduce_gradients_transform``
@@ -256,7 +299,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    and after every step (SHA-256 of their bytes), step 1's averaged
    gradient equals the mean of both ranks' local gradients computed on
    rank 0 with no collective within one bf16 ulp of each leaf's largest
-   entry, K1 ran 12 times a forward pass and K2/K3 12 times a backward
+   entry, K1 ran 6 times a forward pass and K2/K3 6 times a backward
    pass on every rank, and the bucket collectives are two exchanges of
    the plan's a step (the gradient's and the transform's). Then the CLI
    (``python -m horovod_tpu_torch.run``, the ``hvdrun-torch`` entry):
@@ -300,7 +343,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    and a spill and a restore are timed. (d) the CLI checks of phase
    16. Prints one ``{"elastic"}`` line;
 18. loop: the training loop (``horovod_tpu_torch.training``) over
-   GPT-2-small at the training width on K1-K3 (weights drawn on the
+   GPT-2-small at the training width, 6 of its 12 layers deep (the
+   phase's depth cut, PR 20), on K1-K3 (weights drawn on the
    card, 8 sequences of 2048 a step), Adam 1e-4 with ``capturable=True``
    and the LR a tensor on the card, ``create_distributed_optimizer`` in
    an NCCL world of one, a live ``TrainState`` and ``apply_gradients``
@@ -315,7 +359,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    differs from C's, the LR tensor (the optimizer's own) holds the
    schedule's closed form at every window, the state reads step 8, and
    one profiler session over A's last two windows (4 replayed steps,
-   after a traced and dropped replayed warm-up window) holds K1-K3 12
+   after a traced and dropped replayed warm-up window) holds K1-K3 6
    times a step; A's
    state through ``save_model``/``load_model`` into a fresh model's
    ``TrainState``, the checkpoint's last step and the last snapshot
@@ -325,22 +369,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    the LRs, step ms captured (C) and eager (B), ``save_model`` ms, bytes
    and MB/s, ``load_model`` ms, the checkpoint's save and restore ms,
    the snapshots taken and the peak memory;
-19. autotune: ``HOROVOD_AUTOTUNE=1`` over the same LM (weights drawn on
-   the card, 8 sequences of 2048 a step cycling over 4 batches), Adam
+19. autotune: ``HOROVOD_AUTOTUNE=1`` over the same LM (6 layers deep,
+   weights drawn on the card, 8 sequences of 2048 a step cycling over 4
+   batches), Adam
    1e-4 ``capturable=True`` under ``DistributedOptimizer`` in an NCCL
    world of one, the tuner's window 2 dispatches over the 9 flat
    thresholds (one host cannot ladder), 6 probes by expected
    improvement. Run A: eager steps, the tuner made by ``init`` from the
    env knob, until past convergence: its log holds a warm-up and a
    sample a probe and ends ``converged``, the optimizer then runs
-   ``plan_buckets`` at the winner, and K1-K3 launch 12 times a step.
+   ``plan_buckets`` at the winner, and K1-K3 launch 6 times a step.
    Run B: the same steps untuned, its parameters equal A's bit for bit
    after each of A's moves and at the end (a world of one with
    ``Compression.none``: no plan changes a value). Run C: windows of 4
    captured steps (one dispatch each) under a new tuner: one capture a
    move plus one, each replacing the last graph (the card's reserved
    memory after each capture, the allocator's cache emptied, stays
-   within 1 GiB of the first's), K1-K3 12 wrapper calls a warm-up and
+   within 1 GiB of the first's), K1-K3 6 wrapper calls a warm-up and
    a capture, and A's final parameters bit for bit. Prints one
    ``{"autotune"}`` line with each probed threshold's steps/s, the
    winners, probes, captures, the memory, the runs' seconds and the
@@ -365,6 +410,11 @@ line and no kernels or ok line.
 ``--tp-only`` runs phases 1 and 2, one captured paged engine run for the
 reference streams and phase 13, and prints the ``{"tp"}`` line and no
 kernels or ok line.
+
+``--tp-fleet-only`` runs phases 1 and 2, the captured paged engine runs
+for the reference streams (the engine phase's weights and seed 1's)
+and phase 13b, and prints the ``{"tp_fleet"}`` line and no kernels or
+ok line.
 
 ``--sp-only`` runs phases 1, 2 and 14 and prints the ``{"sp"}`` line and
 no kernels or ok line.
@@ -415,8 +465,11 @@ one shared card the step times measure host copies, and a ``{"tp":
 ...}`` line the degree, backend and cards, the streams compared and
 equal, the tokens/s of the card against the single engine's, TTFT and
 per-token p50/p99, ``kv_bytes_per_chip`` against the single card's, K4's
-launches and live ticks on every rank, the training step's losses and
-gradient errors and the phase's seconds, with the same caveat, and an
+launches and live ticks on every rank, the weight swap's seconds and
+streams, the HVKV round trip's bytes, error and milliseconds, the
+captured lane's record (or why it did not run), the training step's
+losses and gradient errors and the phase's seconds, with the same
+caveat, and a ``{"tp_fleet": ...}`` line (phase 13b), and an
 ``{"sp": ...}`` line the backend and cards, the collective each path
 rides, and for each variant (Ulysses, ring, sp=2,tp=2, the pipeline
 stored and rematerialised) its step milliseconds on every rank, tokens/s
@@ -445,6 +498,7 @@ CUDA device, it fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -3706,6 +3760,135 @@ TP_CAVEAT = ("4 ranks share one card over gloo: each collective stages "
              "its CUDA tensors through host memory and loopback TCP, so "
              "the tokens/s is that of host copies and sockets, not of "
              "NVLink")
+# The weight swap's numpy seed (the engine phase swaps to the same
+# weights), and the HVKV tiles' tolerance against the single card's
+# (atol = rtol: float32 sums in another order across 12 layers).
+TP_SWAP_SEED = 1
+TP_PAGE_TOL = 1e-5
+# Phases 13 and 13b's LM: the serving width, half its depth (cut in PR
+# 20 to pay for the swap, the blob and phase 13b, whose gloo ticks on
+# one card cost about a second a tick on slow hosts at 12 layers); its
+# reference runs on the single card are at the same depth.
+TP_LAYERS = 6
+TP_NO_CAPTURE = ("the ranks share one card, so they meet over gloo, "
+                 "whose collectives cannot be captured into a CUDA "
+                 "graph: ServeEngine refuses capture=True over a gloo "
+                 "group (NCCL refuses two ranks on one device)")
+
+
+def _blob_parts(np, blob):
+    """An HVKV blob's framing bytes and its float32 tiles."""
+    end = 8 + int.from_bytes(blob[4:8], "big")
+    return blob[:end], np.frombuffer(blob[end:], np.float32)
+
+
+def _tp_blob(torch, np, eng, params, prompts, job):
+    """Phase 13's HVKV round trip on the controller (module docstring):
+    request 0 parked and exported, against the single card's blob, into
+    a tp=1 cache and out, then admitted back and decoded."""
+    from horovod_tpu_torch.serve import ServeConfig
+    from horovod_tpu_torch.serve.kvcache import PagedKVCache
+    from horovod_tpu_torch.serve.scheduler import make_request
+
+    req = eng.submit(prompts[0], NEW_TOKENS)
+    req.prefill_only = True
+    while not eng.handoff:
+        eng.step()
+    t0 = time.perf_counter()
+    blob = eng.export_handoff(req.rid)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    eng.release_handoff(req.rid)
+    with open(job["single_blob"], "rb") as f:
+        single = f.read()
+    frame, tiles = _blob_parts(np, blob)
+    frame1, tiles1 = _blob_parts(np, single)
+    err = (float(np.abs(tiles - tiles1).max())
+           if tiles.shape == tiles1.shape else None)
+    cache1 = PagedKVCache(params, ServeConfig(
+        page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
+        prefill_chunk=CHUNK))
+    grant, npos = cache1.import_pages(blob)
+    back = cache1.export_pages(grant, npos)
+    del cache1
+    r2 = make_request(eng.config, eng.clock, prompts[0], NEW_TOKENS)
+    r2.generated = [req.output[0]]
+    r2.output = list(r2.generated)
+    t0 = time.perf_counter()
+    eng.admit_prefilled(r2, back)
+    import_ms = (time.perf_counter() - t0) * 1e3
+    again = eng.export_pages(r2.pages[:len(grant)], npos)
+    eng.run(max_steps=2000)
+    return {"bytes": len(blob), "pages": len(grant), "positions": npos,
+            "framing_equal": frame == frame1,
+            "max_abs_err": err,
+            "within_tol": err is not None and bool(np.allclose(
+                tiles, tiles1, rtol=TP_PAGE_TOL, atol=TP_PAGE_TOL)),
+            "tp1_bit_exact": back == blob,
+            "tp_bit_exact": again == blob,
+            "stream_equal": r2.output == job["refs_new"][0],
+            "export_ms": export_ms, "import_ms": import_ms}
+
+
+def _tp_captured(torch, np, params, dev, world, prompts, job, streams):
+    """Phase 13's captured lane over NCCL: a second engine with
+    ``capture=True`` on every rank, the waves again (the controller),
+    one replayed live tick under the profiler, then a weight swap, which
+    every rank's lane captures again."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+    from horovod_tpu_torch.ops.paged_attention import paged_attention_decode
+    from horovod_tpu_torch.serve import ServeConfig, ServeEngine
+
+    paged_attention_decode.launches = 0
+    eng = ServeEngine(params, ServeConfig(
+        page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
+        prefill_chunk=CHUNK, attention="paged", mesh=f"dp=1,tp={world}"),
+        device=dev, capture=True, chips=world)
+    out = {"ran": True}
+    if eng.is_controller:
+        eng.submit(prompts[0][:16], 4)
+        eng.run()
+        eng.reset_metrics()
+        t1 = time.perf_counter()
+        reqs = []
+        for idx, steps in job["waves"]:
+            reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
+            for _ in range(steps):
+                eng.step()
+        eng.run(max_steps=2000)
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out.update(wall=time.perf_counter() - t1,
+                   streams_equal_eager=[r.output for r in reqs] == streams,
+                   ttft_ms=st["ttft_ms"], tbt_ms=st["tbt_ms"],
+                   tokens_per_sec_per_chip=st["tokens_per_sec_per_chip"])
+        # One replayed live tick under the profiler, after a traced one.
+        eng.submit(prompts[1], 8)
+        while not any(eng.slots):
+            eng.step()
+        prof = _profile_run(torch, eng.step, ("paged_split", "paged_merge"),
+                            warmup=eng.step)
+        out["tick_trace"] = prof
+        eng.run(max_steps=2000)
+        # A weight swap captures the lane again on every rank.
+        new = init_lm_params(TP_SWAP_SEED, VOCAB, LMAX, TP_LAYERS, HEADS,
+                             HEAD_DIM, FFN, device=dev)
+        eng.update_params(new)
+        n = min(8, NEW_TOKENS)
+        req = eng.submit(prompts[0], n)
+        eng.run(max_steps=2000)
+        out["swap_stream_equal"] = req.output == job["refs_new"][0][:n]
+        del new
+        eng.close()
+    else:
+        eng.follow()
+    graph = eng.lane_graphs[False]
+    out.update(captures=graph.captures, replays=graph.replays,
+               capture_s=graph.capture_s,
+               launches=paged_attention_decode.launches)
+    del eng, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _tp_train(torch, np, params, world, rank, dev):
@@ -3718,7 +3901,7 @@ def _tp_train(torch, np, params, world, rank, dev):
 
     tokens = torch.tensor(np.random.default_rng(9).integers(
         0, VOCAB, (TP_BATCH, TP_SEQ)), device=dev)
-    specs = plm.lm_param_specs(LAYERS, "tp", vocab_parallel=True)
+    specs = plm.lm_param_specs(TP_LAYERS, "tp", vocab_parallel=True)
 
     def tree(fn, t):
         if isinstance(t, dict):
@@ -3757,11 +3940,15 @@ def tp_rank(argv):
     ``mesh="dp=1,tp=WORLD"`` paged engine (eager) and the others follow;
     then every rank takes the TP training step. Prints ``TP_RESULT
     {json}`` last."""
+    import faulthandler
+
     import numpy as np
     import torch
     import torch.distributed as dist
 
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     rank, world, port = (int(a) for a in argv[:3])
+
     with open(argv[3]) as f:
         job = json.load(f)
     own = torch.cuda.device_count() >= world
@@ -3776,7 +3963,7 @@ def tp_rank(argv):
 
     out = {"rank": rank, "backend": backend, "device": str(dev)}
     try:
-        params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM,
+        params = init_lm_params(0, VOCAB, LMAX, TP_LAYERS, HEADS, HEAD_DIM,
                                 FFN, device=dev)
         eng = ServeEngine(params, ServeConfig(
             page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
@@ -3804,21 +3991,31 @@ def tp_rank(argv):
             eng.run(max_steps=2000)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-            eng.close()
             out["streams"] = [r.output for r in reqs]
             out["states"] = [r.state for r in reqs]
             out["stats"] = eng.stats()
             out["wall"] = wall
-            refs = job["refs"]
-            out["divergence"] = None
-            for i, (r, ref) in enumerate(zip(reqs, refs)):
-                j = _first_divergence(r.output, ref)
-                if j is not None:
-                    out["divergence"] = {
-                        "request": i, "position": j,
-                        "top2_gap": _top2_gap(torch, params,
-                                              list(prompts[i]) + ref[:j])}
-                    break
+            out["divergence"] = _tp_divergence(torch, params, prompts,
+                                               reqs, job["refs"])
+            # The weight swap, then the same requests again.
+            new = init_lm_params(TP_SWAP_SEED, VOCAB, LMAX, TP_LAYERS, HEADS,
+                                 HEAD_DIM, FFN, device=dev)
+            t1 = time.perf_counter()
+            eng.update_params(new)
+            torch.cuda.synchronize()
+            out["swap_s"] = time.perf_counter() - t1
+            reqs = []
+            for idx, steps in job["waves"]:
+                reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
+                for _ in range(steps):
+                    eng.step()
+            eng.run(max_steps=2000)
+            out["swap_states"] = [r.state for r in reqs]
+            out["swap_divergence"] = _tp_divergence(
+                torch, new, prompts, reqs, job["refs_new"])
+            out["blob"] = _tp_blob(torch, np, eng, params, prompts, job)
+            del new
+            eng.close()
         else:
             eng.follow()
         out["lane_ticks"] = eng.lane_ticks
@@ -3826,10 +4023,26 @@ def tp_rank(argv):
         out["serve_s"] = time.perf_counter() - t0
         del eng
         torch.cuda.empty_cache()
+        out["captured"] = (
+            _tp_captured(torch, np, params, dev, world, prompts, job,
+                         out.get("streams"))
+            if backend == "nccl" else {"ran": False, "why": TP_NO_CAPTURE})
         out["train"] = _tp_train(torch, np, params, world, rank, dev)
+        print("TP_RESULT " + json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
-    print("TP_RESULT " + json.dumps(out), flush=True)
+
+
+def _tp_divergence(torch, params, prompts, reqs, refs):
+    """The first request whose stream leaves its reference: the position
+    and the top-2 logit gap there (None when every stream is equal)."""
+    for i, (r, ref) in enumerate(zip(reqs, refs)):
+        j = _first_divergence(r.output, ref)
+        if j is not None:
+            return {"request": i, "position": j,
+                    "top2_gap": _top2_gap(torch, params,
+                                          list(prompts[i]) + ref[:j])}
+    return None
 
 
 def _rank_world(flag, n, timeout, arg, tag, parent=None):
@@ -3868,11 +4081,18 @@ def _rank_world(flag, n, timeout, arg, tag, parent=None):
                     break
                 time.sleep(0.2)
         finally:
+            live = [p for p in procs if p.poll() is None]
+            for p in live:
+                # A rank that registered faulthandler on SIGUSR1 dumps
+                # its threads' stacks: where it waited.
+                p.send_signal(signal.SIGUSR1)
+            if live:
+                time.sleep(3)
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                 p.wait()
-        results = []
+        results, errors = [], []
         for r, (p, (o, e)) in enumerate(zip(procs, logs)):
             o.seek(0)
             e.seek(0)
@@ -3880,10 +4100,14 @@ def _rank_world(flag, n, timeout, arg, tag, parent=None):
             o.close()
             e.close()
             lines = [l for l in stdout.splitlines() if l.startswith(prefix)]
-            check(p.returncode == 0 and lines,
-                  f"{tag.lower()}: rank {r} exited {p.returncode}: "
-                  f"{stderr[-3000:]}")
-            results.append(json.loads(lines[-1][len(prefix):]))
+            if p.returncode == 0 and lines:
+                results.append(json.loads(lines[-1][len(prefix):]))
+            else:
+                errors.append(f"rank {r} exited {p.returncode}: "
+                              f"{stderr[-3000:]}" + (
+                                  f"\nits result: {lines[-1][:3000]}"
+                                  if lines else ""))
+        check(not errors, f"{tag.lower()}: " + "\n".join(errors))
     return results
 
 
@@ -3908,41 +4132,103 @@ def _wait_ready(d, timeout):
         time.sleep(0.2)
 
 
-def _tp_world(job):
+def _tp_world(job, blob):
     """Start TP_RANKS rank processes of this script over ``job`` (written
-    to a file); return each rank's result."""
+    to a file, with the single card's handoff ``blob`` beside it); return
+    each rank's result."""
     import os
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
+        job = dict(job, single_blob=os.path.join(tmp, "single.hvkv"))
+        with open(job["single_blob"], "wb") as f:
+            f.write(blob)
         path = os.path.join(tmp, "tp_job.json")
         with open(path, "w") as f:
             json.dump(job, f)
         return _rank_world("--tp-rank", TP_RANKS, TP_TIMEOUT_S, path, "TP")
 
 
-def tp_phase(torch, np, runs, prompts, waves, card):
+def tp_references(torch, np, prompts, waves):
+    """The single card's captured paged engine at the TP phases' depth
+    (``TP_LAYERS``): its run over the waves under the weights of numpy
+    seed 0 (``old``) and of ``TP_SWAP_SEED`` (``new``, with request 0's
+    handoff blob). Phases 13 and 13b compare against them."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+
+    out = {}
+    for name, seed in (("old", 0), ("new", TP_SWAP_SEED)):
+        params = init_lm_params(seed, VOCAB, LMAX, TP_LAYERS, HEADS,
+                                HEAD_DIM, FFN, device="cuda")
+        eng, run = _serve_run(torch, params, prompts, waves,
+                              f"tp_reference_{name}", "paged", True)
+        if name == "new":
+            req = eng.submit(prompts[0], NEW_TOKENS)
+            req.prefill_only = True
+            while not eng.handoff:
+                eng.step()
+            run["blob"] = eng.export_handoff(req.rid)
+        out[name] = run
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(torch, np, prompts, waves, card, ref):
     """Phase 13 (module docstring): the engine phase's requests through a
     4-rank tensor-parallel paged engine, against the single-card paged
-    engine's streams; K4 on every rank's 3-head shard; the TP training
-    step against the dense one."""
+    engine's streams before and after a weight swap (``ref``:
+    :func:`tp_references`, with request 0's blob under the new weights);
+    the HVKV round trip; K4 on every rank's 3-head shard; the captured
+    lane over NCCL; the TP training step against the dense one."""
     t0 = time.perf_counter()
     index = {id(p): i for i, p in enumerate(prompts)}
-    single = runs["paged"]
+    single = ref["old"]
     job = {"prompts": [p.tolist() for p in prompts],
            "waves": [([index[id(p)] for p in wave], steps)
                      for wave, steps in waves],
-           "refs": [r.output for r in single["reqs"]]}
-    ranks = _tp_world(job)
+           "refs": [r.output for r in single["reqs"]],
+           "refs_new": [r.output for r in ref["new"]["reqs"]]}
+    ranks = _tp_world(job, ref["new"]["blob"])
     r0 = ranks[0]
-    check(all(s == "finished" for s in r0["states"]),
-          f"tp: not every request finished: {r0['states']}")
-    div = r0["divergence"]
-    check(div is None,
-          f"tp: request {div and div['request']}: the tp={TP_RANKS} "
-          f"stream and the single-card paged stream diverge at generated "
-          f"position {div and div['position']} (top-2 logit gap there "
-          f"{div and div['top2_gap']})")
+    for what, states, div in (
+            ("", r0["states"], r0["divergence"]),
+            (" after the weight swap", r0["swap_states"],
+             r0["swap_divergence"])):
+        check(all(s == "finished" for s in states),
+              f"tp: not every request finished{what}: {states}")
+        check(div is None,
+              f"tp: request {div and div['request']}: the tp={TP_RANKS} "
+              f"stream and the single-card paged stream diverge{what} at "
+              f"generated position {div and div['position']} (top-2 "
+              f"logit gap there {div and div['top2_gap']})")
+    blob = r0["blob"]
+    check(blob["framing_equal"] and blob["within_tol"]
+          and blob["tp1_bit_exact"] and blob["tp_bit_exact"]
+          and blob["stream_equal"],
+          f"tp: the HVKV round trip of request 0: {blob} (framing equal to "
+          f"the single card's, tiles within {TP_PAGE_TOL}, a tp=1 cache's "
+          "and the TP engine's re-exports bit for bit, the admitted "
+          "request's stream the single card's)")
+    cap = r0["captured"]
+    if r0["backend"] == "nccl":
+        counts = cap["tick_trace"]["counts"]
+        check(cap["streams_equal_eager"] and cap["swap_stream_equal"]
+              and counts["paged_split"] == counts["paged_merge"] == TP_LAYERS,
+              f"tp: the captured lane's streams equal eager "
+              f"{cap['streams_equal_eager']} and the single card's after "
+              f"the swap {cap['swap_stream_equal']}, a replayed tick "
+              f"traced {counts}, expected {TP_LAYERS} of each K4 kernel")
+        for r in ranks:
+            c = r["captured"]
+            check(c["captures"] == 2
+                  and c["replays"] == cap["replays"] > 0
+                  and c["launches"] == 4 * TP_LAYERS,
+                  f"tp: rank {r['rank']}'s captured lane: {c['captures']} "
+                  f"captures, {c['replays']} replays (rank 0 "
+                  f"{cap['replays']}), {c['launches']} K4 wrapper calls; "
+                  f"expected 2 (before and after the swap), equal and "
+                  f"{4 * TP_LAYERS} (a warm-up step and a capture each)")
     heads = HEADS // TP_RANKS
     for r in ranks:
         check(r["page_shape"] == [NUM_PAGES, PAGE, heads, HEAD_DIM]
@@ -3951,10 +4237,10 @@ def tp_phase(torch, np, runs, prompts, waves, card):
               f"{r['pages_contiguous']}), expected [{NUM_PAGES}, {PAGE}, "
               f"{heads}, {HEAD_DIM}] each its own tensor")
         check(r["lane_ticks"] == r0["lane_ticks"] > 0
-              and r["launches"] == LAYERS * r["lane_ticks"],
+              and r["launches"] == TP_LAYERS * r["lane_ticks"],
               f"tp: rank {r['rank']} launched K4 {r['launches']} times "
               f"over {r['lane_ticks']} live decode ticks (rank 0: "
-              f"{r0['lane_ticks']}), expected {LAYERS} a tick")
+              f"{r0['lane_ticks']}), expected {TP_LAYERS} a tick")
         t = r["train"]
         check(t["loss_rel"] <= TP_LOSS_RTOL and math.isfinite(t["loss"]),
               f"tp: rank {r['rank']}'s TP loss {t['loss']} against the "
@@ -3988,6 +4274,18 @@ def tp_phase(torch, np, runs, prompts, waves, card):
         "ttft_ms": st["ttft_ms"], "tbt_ms": st["tbt_ms"],
         "wall_s": r0["wall"],
         "kv_bytes_per_chip": kv, "kv_bytes_per_chip_single": kv1,
+        "swap_s": r0["swap_s"], "swap_streams_equal": True,
+        "blob": blob,
+        "captured": (
+            {k: cap[k] for k in ("ran", "wall", "ttft_ms", "tbt_ms",
+                                 "tokens_per_sec_per_chip", "capture_s")}
+            | {"captures": [r["captured"]["captures"] for r in ranks],
+               "replays": [r["captured"]["replays"] for r in ranks],
+               "wrapper_launches": [r["captured"]["launches"]
+                                    for r in ranks],
+               "tick_trace": cap["tick_trace"]["counts"],
+               "eager_tbt_ms": st["tbt_ms"]}
+            if cap["ran"] else cap),
         "k4_launches": [r["launches"] for r in ranks],
         "lane_ticks": [r["lane_ticks"] for r in ranks],
         "k4_heads": heads,
@@ -4004,11 +4302,147 @@ def tp_phase(torch, np, runs, prompts, waves, card):
         f"the single card's; K4 {res['k4_launches']} launches over "
         f"{res['lane_ticks']} live ticks ({heads} heads a rank); "
         f"kv_bytes_per_chip {kv} vs {kv1}; tokens/s a card "
-        f"{res['tokens_per_sec_per_card']}; train loss rel "
+        f"{res['tokens_per_sec_per_card']}; swap {r0['swap_s']:.2f} s; "
+        f"blob {blob['bytes']} bytes, max err {blob['max_abs_err']}, "
+        f"export {blob['export_ms']:.1f} ms, import "
+        f"{blob['import_ms']:.1f} ms; captured: "
+        f"{res['captured'] if cap['ran'] else 'not run (gloo)'}; "
+        f"train loss rel "
         f"{max(res['train']['loss_rel']):.2e}, grad rel "
         f"{max(res['train']['grad_rel_max']):.2e}; phase passed in "
         f"{res['phase_s']:.1f} s")
     return res
+
+
+# ----------------------------------------------------------- phase 13b
+
+TP_FLEET_MESH = "dp=1,tp=2"
+TP_FLEET_CAVEAT = ("each replica's 2 ranks share the card over gloo: "
+                   "every collective stages its CUDA tensors through host "
+                   "memory and loopback TCP, and all 4 ranks share one "
+                   "card, so the tokens/s is that of host copies and "
+                   "sockets, not of NVLink")
+
+
+def _rank_counts(fl):
+    """Every replica's ranks' counters (``rank_counters`` RPC)."""
+    return [rep.engine.client.call("rank_counters")["ranks"]
+            for rep in fl.replicas]
+
+
+def _pid_gone(pid):
+    """True when ``pid`` has exited (or is a zombie nobody reaped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def tp_fleet_phase(torch, np, prompts, waves, ref, card):
+    """Phase 13b (module docstring): a tp=2 prefill pool feeding a tp=2
+    decode pool over the process transport, against the single card's
+    streams (``ref``: :func:`tp_references`, ``new`` after a rolling
+    update to the seed-1 weights)."""
+    from horovod_tpu_torch.models.parallel_lm import init_lm_params
+    from horovod_tpu_torch.serve import ServeConfig, ServeFleet
+
+    t0 = time.perf_counter()
+    params = init_lm_params(0, VOCAB, LMAX, TP_LAYERS, HEADS, HEAD_DIM, FFN,
+                            device="cuda")
+    fl = ServeFleet(params, ServeConfig(
+        page_size=PAGE, num_pages=NUM_PAGES, decode_slots=SLOTS,
+        prefill_chunk=CHUNK, attention="paged", mesh=TP_FLEET_MESH),
+        _disagg_cfg(transport="process", spawn_timeout=FLEET_SPAWN_S,
+                    rpc_deadline=FLEET_RPC_S), device="cuda")
+    procs = [rep.proc for rep in fl.replicas]
+    out = {"mesh": TP_FLEET_MESH, "pools": DISAGG_POOLS, "card": card,
+           "cards": fl.replica_cards}
+    followers = []
+    try:
+        _fleet_warm(fl, prompts)
+        out["warm_s"] = time.perf_counter() - t0
+        worlds = [rep.engine.client.call("ping")["tp"] for rep in fl.replicas]
+        followers = [pid for w in worlds for pid in w["followers"]]
+        out["backend"] = [w["backend"] for w in worlds]
+        before = _rank_counts(fl)
+        reqs, wall = _fleet_serve(torch, fl, waves)
+        after = _rank_counts(fl)
+        _fleet_check(torch, params, prompts, "tp_fleet", reqs,
+                     ref["old"]["reqs"], "the single-card paged engine")
+        st = _disagg_stats(fl, wall)
+        d = st["disagg"]
+        check(all(r.replica == 1 and r.redispatches == 0 for r in reqs)
+              and d["transfers"] == len(prompts) and d["failures"] == {}
+              and d["parked"] == 0,
+              f"tp_fleet: {d}, finished on {[r.replica for r in reqs]}")
+        delta = [[{k: a[k] - b[k] for k in ("lane_ticks", "decode_launches",
+                                             "lane_replays")
+                   if a[k] is not None}
+                  for a, b in zip(ra, rb)] for ra, rb in zip(after, before)]
+        pre, dec = delta
+        captured = worlds[1]["backend"] == "nccl"
+        check(all(c["lane_ticks"] == c["decode_launches"] == 0
+                  for c in pre),
+              f"tp_fleet: the prefill ranks decoded: {pre}")
+        ticks = dec[0]["lane_ticks"]
+        check(ticks > 0 and all(
+            c["lane_ticks"] == ticks
+            and c["decode_launches"] == (0 if captured else TP_LAYERS * ticks)
+            and (not captured or c["lane_replays"] == ticks) for c in dec),
+              f"tp_fleet: the decode ranks' counters over the run {dec}, "
+              f"expected equal live ticks and K4 {TP_LAYERS} a tick "
+              + ("in replays" if captured else "eager"))
+        out.update(clean=st, rank_delta=delta,
+                   ranks=[[{k: c[k] for k in ("rank", "pid")} for c in r]
+                          for r in after])
+        # The rolling update, then a second wave under the new weights.
+        new = init_lm_params(TP_SWAP_SEED, VOCAB, LMAX, TP_LAYERS, HEADS,
+                             HEAD_DIM, FFN, device="cuda")
+        t1 = time.perf_counter()
+        fl.update_params(new)
+        _fleet_drain(fl)
+        out["roll_s"] = time.perf_counter() - t1
+        check([r.version for r in fl.replicas] == [2, 2],
+              f"tp_fleet: versions after the roll "
+              f"{[r.version for r in fl.replicas]}")
+        fl.reset_metrics()
+        reqs2, wall2 = _fleet_serve(torch, fl, waves)
+        _fleet_check(torch, new, prompts, "tp_fleet[rolled]", reqs2,
+                     ref["new"]["reqs"], "the single-card paged engine "
+                     "under the new weights")
+        out["rolled"] = _disagg_stats(fl, wall2)
+        del new
+    finally:
+        fl.close()
+    for p in procs:
+        check(p.poll() is not None,
+              f"tp_fleet: worker {p.pid} not reaped after close()")
+    deadline = time.monotonic() + 10
+    while not all(_pid_gone(p) for p in followers) and \
+            time.monotonic() < deadline:
+        time.sleep(0.1)
+    check(all(_pid_gone(p) for p in followers),
+          f"tp_fleet: followers {followers} outlived close()")
+    cards = max(1, len({c for cs in fl.replica_cards.values() for c in cs}))
+    for key in ("clean", "rolled"):
+        run = out[key]
+        total = run["tokens_per_sec_per_replica"] * fl.chips
+        run["tokens_per_sec_per_card"] = round(total / cards, 1)
+    out["caveat"] = (TP_FLEET_CAVEAT if "gloo" in out["backend"] else None)
+    out["phase_s"] = time.perf_counter() - t0
+    c = out["clean"]
+    log(f"tp_fleet: {len(prompts)} requests through a {TP_FLEET_MESH} "
+        f"prefill pool and decode pool ({out['backend']}, cards "
+        f"{fl.replica_cards}), streams equal the single card's before and "
+        f"after the roll ({out['roll_s']:.1f} s); transfers "
+        f"{c['disagg']['transfers']}, ms p50 "
+        f"{c['disagg']['transfer_ms_p50']} p99 "
+        f"{c['disagg']['transfer_ms_p99']}; tokens/s a card "
+        f"{c['tokens_per_sec_per_card']}; per-token ms p50 "
+        f"{c['tbt_ms']['p50']}; decode ranks {dec}; phase "
+        f"{out['phase_s']:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ phase 14
@@ -4029,11 +4463,12 @@ SP_TIMEOUT_S = 600.0
 # wrong global position or a gradient summed twice moves them by whole
 # factors.
 SP_ULYSSES_L, SP_RING_L = 8192, 4096
-# The Ulysses and ring models' depth: 4 of the 12 layers at the full
-# width (12 until the ep phase came: the cut pays for part of it, as the
-# hier phase's did for this one). Every layer runs the same collectives
-# and kernels, so the checks see the same paths at a third of the steps.
-SP_LAYERS = 4
+# The Ulysses and ring models' depth: 2 of the 12 layers at the full
+# width (12 until the ep phase came, 4 until phase 13b came: each cut
+# pays for part of a new phase, as the hier phase's did for this one).
+# Every layer runs the same collectives and kernels, so the checks see
+# the same paths at a sixth of the steps.
+SP_LAYERS = 2
 SP_PP_BATCH, SP_PP_SEQ, SP_PP_MICRO = 8, 512, 4
 SP_LOSS_RTOL = 1e-5
 SP_GRAD_RTOL = 1e-4
@@ -5056,6 +5491,9 @@ JOB_RANKS = 2
 # its own seed.
 JOB_SEQS = 4
 JOB_STEPS = 3
+# The job's LM: the training width, half its depth (cut in PR 20, as the
+# elastic jobs' in PR 19, to pay for phase 13b).
+JOB_LAYERS = 6
 JOB_SEED = 16
 JOB_LR = 1e-4
 JOB_DEVICE = "cuda"
@@ -5132,7 +5570,7 @@ def job_task():
 
     # Each rank draws other weights; the broadcast gives every rank
     # rank 0's (seed JOB_SEED).
-    model = TransformerLM(vocab_size=VOCAB, num_layers=LAYERS,
+    model = TransformerLM(vocab_size=VOCAB, num_layers=JOB_LAYERS,
                           num_heads=HEADS, embed_dim=D_MODEL,
                           max_len=FLASH_L, dtype=torch.bfloat16,
                           attn_fn=flash, seed=JOB_SEED + rank, device=dev)
@@ -5360,8 +5798,8 @@ def job_phase(torch, np, card):
               f"{who}: parameters differ from rank 0's after the "
               f"broadcast or a step ({r['digests']} vs {r0['digests']})")
         for name, n in r["launches"].items():
-            check(JOB_DEVICE != "cuda" or n == LAYERS * JOB_STEPS,
-                  f"{who}: {name} launched {n} times, expected {LAYERS} "
+            check(JOB_DEVICE != "cuda" or n == JOB_LAYERS * JOB_STEPS,
+                  f"{who}: {name} launched {n} times, expected {JOB_LAYERS} "
                   f"layers x {JOB_STEPS} passes")
         # value_and_grad's exchange and the transform's, each a step.
         check(r["collectives"] == 2 * per_exchange * JOB_STEPS,
@@ -5381,7 +5819,7 @@ def job_phase(torch, np, card):
     res = {
         "ranks": JOB_RANKS, "backend": r0["backend"], "cards": cards,
         "card": card,
-        "model": {"layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "model": {"layers": JOB_LAYERS, "d_model": D_MODEL, "heads": HEADS,
                   "vocab": VOCAB, "seq": FLASH_L, "seqs_per_rank": JOB_SEQS,
                   "dtype": "bfloat16", "attention": "flash (K1-K3)"},
         "losses": [r["losses"] for r in ranks],
@@ -6056,6 +6494,9 @@ def elastic_phase(torch, np, card, rate, cli=None):
 # under create_distributed_optimizer in this process's NCCL world of one.
 # LOOP_EPOCHS epochs of LOOP_WINDOWS windows of LOOP_K captured steps.
 LOOP_EPOCHS, LOOP_WINDOWS, LOOP_K = 2, 2, 2
+# The loop's LM: the training width, half its depth (cut in PR 20 to pay
+# for phase 13b; its state then 1.12 GB instead of 1.63).
+LOOP_LAYERS = 6
 LOOP_STEPS = LOOP_EPOCHS * LOOP_WINDOWS * LOOP_K
 LOOP_LR = 1e-4
 LOOP_SEED, LOOP_OTHER_SEED, LOOP_DATA_SEED = 18, 19, 180
@@ -6081,7 +6522,8 @@ def _loop_lm(torch, seed):
     from horovod_tpu_torch.ops import attention as fa
 
     model = _elastic_model(torch, "cuda", functools.partial(
-        fa.flash_attention, causal=True, bwd_impl="kernel"), seed=seed)
+        fa.flash_attention, causal=True, bwd_impl="kernel"), seed=seed,
+        layers=LOOP_LAYERS)
     opt = training.create_distributed_optimizer(
         torch.optim.Adam(model.parameters(),
                          lr=torch.tensor(LOOP_LR, device="cuda"),
@@ -6337,7 +6779,7 @@ def loop_phase(torch, np, card):
                             device="cuda")
                for _ in range(LOOP_EPOCHS * LOOP_WINDOWS)]
     res = {"card": card, "model": {
-        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "layers": LOOP_LAYERS, "d_model": D_MODEL, "heads": HEADS,
         "vocab": VOCAB, "seq": FLASH_L, "batch": FLASH_B,
         "dtype": "bfloat16 compute, float32 weights and moments",
         "attention": "flash (K1-K3, bwd kernel)",
@@ -6400,14 +6842,14 @@ def loop_phase(torch, np, card):
                   f"loop: run A captured {ws.captures} times and replayed "
                   f"{ws.replays} steps, expected 1 and {LOOP_STEPS - 1}")
             traced_steps = (LOOP_EPOCHS * LOOP_WINDOWS - 2) * LOOP_K
-            check(all(n == LAYERS * traced_steps
+            check(all(n == LOOP_LAYERS * traced_steps
                       for n in a["traced"].values()),
                   f"loop: the {traced_steps} replayed steps of the traced "
                   f"windows hold K1-K3 {a['traced']}, expected "
-                  f"{LAYERS * traced_steps} each ({LAYERS} a step)")
-            check(all(n == 2 * LAYERS for n in a["launches"].values()),
+                  f"{LOOP_LAYERS * traced_steps} each ({LOOP_LAYERS} a step)")
+            check(all(n == 2 * LOOP_LAYERS for n in a["launches"].values()),
                   f"loop: run A's wrappers launched {a['launches']}, "
-                  f"expected {2 * LAYERS} each (warm-up and capture)")
+                  f"expected {2 * LOOP_LAYERS} each (warm-up and capture)")
             history_a = _loop_history(a)
             res["run_a"] = {
                 "lr_per_window": a["lrs"], "lr_closed_form": _loop_lrs(),
@@ -6431,7 +6873,7 @@ def loop_phase(torch, np, card):
                   f"loop: the captured run A ({digest}, {history_a}) and "
                   f"the eager run B ({digest_b}, {_loop_history(b)}) "
                   "differ")
-            check(all(n == LOOP_STEPS * LAYERS
+            check(all(n == LOOP_STEPS * LOOP_LAYERS
                       for n in b["launches"].values()),
                   f"loop: run B's wrappers launched {b['launches']}")
             res["run_b"] = {"digest_equal_a": True,
@@ -6491,6 +6933,9 @@ AUTOTUNE_WINDOW, AUTOTUNE_K, AUTOTUNE_PROBES = 2, 4, 6
 AUTOTUNE_BATCHES = 4
 AUTOTUNE_STEPS = (2 * AUTOTUNE_PROBES * AUTOTUNE_WINDOW + 1) * AUTOTUNE_K
 AUTOTUNE_LR = 1e-4
+# The tuned LM: the training width, half its depth (cut in PR 20 to pay
+# for phase 13b).
+AUTOTUNE_LAYERS = 6
 AUTOTUNE_SEED, AUTOTUNE_DATA_SEED = 19, 190
 # Card memory the re-captures may add over the first capture's, after
 # the allocator's cache is emptied: a graph replaced but not freed would
@@ -6509,7 +6954,7 @@ def _autotune_lm(torch, hvd):
 
     model = _elastic_model(torch, "cuda", functools.partial(
         fa.flash_attention, causal=True, bwd_impl="kernel"),
-        seed=AUTOTUNE_SEED)
+        seed=AUTOTUNE_SEED, layers=AUTOTUNE_LAYERS)
     opt = hvd.DistributedOptimizer(
         torch.optim.Adam(model.parameters(), lr=AUTOTUNE_LR,
                          capturable=True),
@@ -6586,7 +7031,7 @@ def autotune_phase(torch, np, card):
     t0 = time.perf_counter()
     rng = np.random.default_rng(AUTOTUNE_DATA_SEED)
     res = {"card": card, "model": {
-        "layers": LAYERS, "d_model": D_MODEL, "heads": HEADS,
+        "layers": AUTOTUNE_LAYERS, "d_model": D_MODEL, "heads": HEADS,
         "vocab": VOCAB, "seq": FLASH_L, "batch": FLASH_B,
         "dtype": "bfloat16 compute, float32 weights and moments",
         "attention": "flash (K1-K3, bwd kernel)",
@@ -6644,7 +7089,7 @@ def autotune_phase(torch, np, card):
                   f"{None if ex is None else len(ex.plan)} buckets, "
                   f"plan_buckets at the winner {tuner.best_threshold} has "
                   f"{len(want)}")
-            steps_k = LAYERS * AUTOTUNE_STEPS
+            steps_k = AUTOTUNE_LAYERS * AUTOTUNE_STEPS
             check(all(n == steps_k for n in launches_a.values()),
                   f"autotune: run A's wrappers launched {launches_a}, "
                   f"expected {steps_k} each")
@@ -6711,11 +7156,11 @@ def autotune_phase(torch, np, card):
                   f"autotune: run C replayed {win.step.replays} steps")
             check(_same(_params(one.model), final_a),
                   "autotune: run C's parameters differ from run A's")
-            check(all(n == 2 * LAYERS * captures
+            check(all(n == 2 * AUTOTUNE_LAYERS * captures
                       for n in launches_c.values()),
                   f"autotune: run C's wrappers launched {launches_c}, "
-                  f"expected {2 * LAYERS * captures} each (warm-up and "
-                  "capture)")
+                  f"expected {2 * AUTOTUNE_LAYERS * captures} each "
+                  "(warm-up and capture)")
             grew = max(m["reserved"] for m in memory) - memory[0]["reserved"]
             check(grew <= AUTOTUNE_MEM_SLACK,
                   f"autotune: the card's reserved memory grew {grew} bytes "
@@ -6796,7 +7241,8 @@ def _leaves(tree):
 # ---------------------------------------------------------------- main
 
 
-def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
+def _paged_record(kres, rate, runs, fleet, disagg, tpres, tfres, ptxas,
+                  card):
     """The kernels line's entry of K4: launches from the engine phase (the
     captured engine's wrapper calls, counted from its construction: the
     warm-up step and the capture; the eager engine's; and the kernels a
@@ -6850,6 +7296,16 @@ def _paged_record(kres, rate, runs, fleet, disagg, tpres, ptxas, card):
         # 12 a live decode tick), with the live ticks.
         "tp_launches_per_rank": tpres["k4_launches"],
         "tp_live_ticks_per_rank": tpres["lane_ticks"],
+        # Over NCCL, the captured TP lane's wrapper calls on every rank
+        # (warm-up + capture; None over gloo, where it cannot run).
+        "tp_captured_launches_per_rank":
+            tpres["captured"].get("wrapper_launches"),
+        # The tp_fleet phase: the pools' ranks' launches and live ticks
+        # over the clean run (prefill ranks, then decode ranks).
+        "tp_fleet_launches_per_rank": [
+            c["decode_launches"] for r in tfres["rank_delta"] for c in r],
+        "tp_fleet_live_ticks_per_rank": [
+            c["lane_ticks"] for r in tfres["rank_delta"] for c in r],
         "captured": "the decode lane is one CUDA graph; wrapper calls count "
                     "its warm-up step and capture, replay_launches the "
                     "split kernels a captured run's trace holds",
@@ -7079,20 +7535,25 @@ def hier_only(torch, np, card):
 
 
 def tp_only(torch, np, card):
-    """``--tp-only``: the build, one captured paged engine run (the
-    reference streams) and the tp phase."""
-    from horovod_tpu_torch.models.parallel_lm import init_lm_params
-
-    build_phase()
-    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
-                            device="cuda")
-    prompts, waves = _requests(np)
-    _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
-                           True)
-    del params
-    torch.cuda.empty_cache()
-    res = tp_phase(torch, np, {"paged": single}, prompts, waves, card)
+    """``--tp-only``: the build, the reference runs and the tp phase."""
+    prompts, waves, ref = _tp_only_references(torch, np)
+    res = tp_phase(torch, np, prompts, waves, card, ref)
     print(json.dumps({"tp": res}), flush=True)
+
+
+def _tp_only_references(torch, np):
+    """The build, the requests and the TP phases' reference runs, for
+    ``--tp-only`` and ``--tp-fleet-only``."""
+    build_phase()
+    prompts, waves = _requests(np)
+    return prompts, waves, tp_references(torch, np, prompts, waves)
+
+
+def tp_fleet_only(torch, np, card):
+    """``--tp-fleet-only``: the build, the reference runs and phase 13b."""
+    prompts, waves, ref = _tp_only_references(torch, np)
+    res = tp_fleet_phase(torch, np, prompts, waves, ref, card)
+    print(json.dumps({"tp_fleet": res}), flush=True)
 
 
 def sp_only(torch, np, card):
@@ -7166,6 +7627,8 @@ def main():
         return hier_only(torch, np, card)
     if "--tp-only" in sys.argv[1:]:
         return tp_only(torch, np, card)
+    if "--tp-fleet-only" in sys.argv[1:]:
+        return tp_fleet_only(torch, np, card)
     if "--sp-only" in sys.argv[1:]:
         return sp_only(torch, np, card)
     if "--ep-only" in sys.argv[1:]:
@@ -7204,7 +7667,12 @@ def main():
         colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
                    "process": fleet["process"]["clean"]}))
     hres = timed("hier", hier_phase(torch, np, card))
-    tpres = timed("tp", tp_phase(torch, np, runs, prompts, waves, card))
+    tpref = timed("tp_references", tp_references(torch, np, prompts,
+                                                 waves))
+    tpres = timed("tp", tp_phase(torch, np, prompts, waves, card, tpref))
+    tfres = timed("tp_fleet", tp_fleet_phase(torch, np, prompts, waves,
+                                             tpref, card))
+    del tpref
     spres = timed("sp", sp_phase(torch, np, card))
     epres = timed("ep", ep_phase(torch, np, card))
     jres = timed("job", job_phase(torch, np, card))
@@ -7225,6 +7693,7 @@ def main():
     print(json.dumps({"disagg": disagg}), flush=True)
     print(json.dumps({"hier": hres}), flush=True)
     print(json.dumps({"tp": tpres}), flush=True)
+    print(json.dumps({"tp_fleet": tfres}), flush=True)
     print(json.dumps({"sp": spres}), flush=True)
     print(json.dumps({"ep": epres}), flush=True)
     print(json.dumps({"job": jres}), flush=True)
@@ -7233,7 +7702,7 @@ def main():
     print(json.dumps({"autotune": ares}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
-        _paged_record(kres, rate, runs, fleet, disagg, tpres,
+        _paged_record(kres, rate, runs, fleet, disagg, tpres, tfres,
                       ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
                         ares, card),

@@ -115,6 +115,13 @@ class CapturedStep:
         self.replays += 1
         return self._static_out
 
+    def release(self) -> None:
+        """Drop the graph and its memory pool now (the next call warms up
+        and captures again); the counters stay. A graph that holds NCCL
+        collectives must go before its process group is destroyed: the
+        communicator's teardown waits for the graphs that use it."""
+        self._release()
+
     def _release(self) -> None:
         """Drop the graph and its memory pool. The pool also holds the
         cuBLAS workspace the capture's matmuls took, which cuBLAS keeps

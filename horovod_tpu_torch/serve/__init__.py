@@ -40,9 +40,9 @@
 * tensor-parallel serving (``ServeConfig(mesh="dp=1,tp=N")``): one
   engine over the N ranks of a ``torch.distributed`` world, rank 0 the
   controller and the others :meth:`ServeEngine.follow`-ing
-  (:func:`~horovod_tpu_torch.serve.engine.resolve_tp_mesh`); a fleet or
-  pool of such engines is still to port (ROADMAP.md Queue 1 item 4.3's
-  follow-ups).
+  (:func:`~horovod_tpu_torch.serve.engine.resolve_tp_mesh`); in a fleet
+  or a pool on the worker transports each such replica is one worker
+  and its followers (:mod:`~horovod_tpu_torch.serve.tp_replica`).
 """
 
 from horovod_tpu_torch._lazy import lazy_getattr

@@ -16,8 +16,10 @@ and vocab over the ranks of a ``torch.distributed`` world
 here as the reference validates it (:meth:`ServeConfig.mesh_axes`).
 :class:`FleetConfig` sizes the fleet
 (:mod:`~horovod_tpu_torch.serve.fleet`), with the reference's fields,
-defaults and validation; a fleet of tensor-parallel engines is not
-ported yet (:func:`refuse_tp_fleet`).
+defaults and validation. A tensor-parallel replica is a world of its
+own: a worker transport (``process``, ``tcp``) runs it as one worker
+process, the controller, and its followers; the ``inproc`` transport
+refuses it (:func:`refuse_tp_fleet`).
 """
 
 from __future__ import annotations
@@ -233,17 +235,25 @@ class ServeConfig:
             else self.decode_slots + 1
 
 
-def refuse_tp_fleet(config: ServeConfig) -> None:
-    """A fleet or pool of tensor-parallel engines is not ported yet:
-    raise :class:`NotImplementedError` when ``config`` shards over more
-    than one rank (the reference's own tool refuses ``--mesh`` with
-    ``--fleet``)."""
-    if config.tp_degree > 1:
-        raise NotImplementedError(
-            f"ServeConfig.mesh={config.mesh!r}: a fleet of tensor-"
-            "parallel replicas (and a pool of them) is not ported yet; "
-            "it comes with ROADMAP.md Queue 1 item 4.3's follow-ups (TP "
-            "replicas in fleets and pools)")
+def refuse_tp_fleet(config: ServeConfig, transport: str) -> None:
+    """Raise :class:`~horovod_tpu_torch.common.exceptions.
+    InvalidArgumentError` for tensor-parallel replicas (``config``
+    sharding over more than one rank) on the ``inproc`` transport. A TP
+    engine's mesh is its whole ``torch.distributed`` world, and one
+    process takes part in one world: in-process replicas, several
+    engines in the router's process, cannot each be the controller of
+    their own. The worker transports give each replica its own world."""
+    if config.tp_degree > 1 and transport == "inproc":
+        from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+
+        raise InvalidArgumentError(
+            f"ServeConfig.mesh={config.mesh!r} with FleetConfig("
+            "transport='inproc'): a tensor-parallel engine's mesh is its "
+            "whole torch.distributed world, and a process takes part in "
+            "one world, so the router's process cannot hold a TP replica "
+            "beside others; use transport='process' or 'tcp', where each "
+            "replica is a worker process that starts its own tp-1 "
+            "followers")
 
 
 @dataclasses.dataclass(frozen=True)

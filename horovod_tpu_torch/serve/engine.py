@@ -111,21 +111,35 @@ controller and followers. Rank 0 of the tensor axis (the controller)
 owns the control plane: the scheduler, the allocator, the prefix index,
 sampling and stats (:meth:`ServeEngine.submit`, :meth:`~ServeEngine.step`,
 :meth:`~ServeEngine.run`, :meth:`~ServeEngine.stats`). Every rank owns
-its slice of the data plane. Each data-plane action — a step's prefill
-chunk and lane, a copy-on-write page copy — is broadcast over the tensor
-group first: a fixed int32 header (op, flags), then the action's inputs
-(the prefill chunk packed as int32, the lane's packed index and the
-draft's temperatures). A follower (:meth:`ServeEngine.follow`) runs the
-same lane functions on its shards until the controller's
-:meth:`ServeEngine.close`, so no rank reads a page another rank's
-allocator placed differently. A tensor-parallel lane runs eagerly:
-``capture=True`` raises (ROADMAP.md Queue 1 item 4.3's follow-ups).
+its slice of the data plane. Each data-plane action is broadcast over
+the tensor group first: a fixed int32 header (op and two arguments),
+then the action's inputs. The actions are a step (the prefill chunk
+packed as int32, the lane's packed index and the draft's temperatures),
+a copy-on-write page copy, a weight swap (the dense weights, which every
+rank cuts as at construction: :meth:`ServeEngine.update_params`), a page
+export (the page ids; every rank returns its head shard of the pages'
+tiles to the controller, which writes the blob in the full-head layout:
+:meth:`ServeEngine.export_handoff`) and a page import (the ids the
+controller's allocator granted and the blob's tiles; every rank writes
+its own heads: :meth:`ServeEngine.admit_prefilled`). Page ids and the
+allocator live on the controller only; a follower's cache is data only.
+A follower (:meth:`ServeEngine.follow`) runs the same lane functions on
+its shards until the controller's :meth:`ServeEngine.close`, so no rank
+reads a page another rank's allocator placed differently.
+
+Over an NCCL tensor group (one card a rank) ``capture=True`` captures
+the lane on every rank: the ranks warm up and capture at the same step,
+so the graphs hold the lane's collectives in one order, and a weight
+swap captures again everywhere at the next step. gloo collectives cannot
+be captured, so over a gloo group (ranks sharing a card, or the CPU) the
+engine refuses ``capture=True``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -495,11 +509,54 @@ def resolve_tp_mesh(params: Dict, config: ServeConfig):
 
 
 #: Data-plane ops the controller broadcasts to its followers, as the
-#: first entry of a ``[3]`` int32 header (op, then two op arguments).
-_OP_CLOSE, _OP_COW, _OP_STEP = 0, 1, 2
+#: first entry of a ``[3]`` int32 header (op, then two op arguments):
+#: close, a copy-on-write page copy (src, dst), a step (flags), a weight
+#: swap, a page export and a page import (the page count), a keepalive
+#: of an idle controller, and a read of every rank's counters.
+(_OP_CLOSE, _OP_COW, _OP_STEP, _OP_PARAMS, _OP_EXPORT, _OP_IMPORT,
+ _OP_NOP, _OP_COUNT) = range(8)
 #: A step header's flags: a prefill chunk follows, the decode (or
 #: speculative) lane runs, and it takes the draft's sampled draw.
 _STEP_PRE, _STEP_LANE, _STEP_SAMPLED = 1, 2, 4
+#: The counters :meth:`ServeEngine.rank_counters` reads on every rank.
+_COUNTERS = ("pid", "lane_ticks", "decode_launches", "lane_captures",
+             "lane_replays")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as a uint8 view (what the collectives
+    below carry, whatever the dtype)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def broadcast_params(params: Optional[Dict], *, src: int, group=None,
+                     device: torch.device) -> Dict:
+    """The dense weights of rank ``src`` on every rank of ``group``: the
+    tree's layout (shapes and dtypes, one object broadcast), then each
+    leaf. ``params`` is the tree on ``src`` and None elsewhere; returns
+    the tree on ``device`` on every rank."""
+    skeleton = [None if params is None else _tree_map(
+        lambda x: (tuple(x.shape), str(x.dtype).rpartition(".")[2]),
+        params)]
+    dist.broadcast_object_list(
+        skeleton, src=src, group=group,
+        device=device if device.type == "cuda" else None)
+    if params is None:
+        params = _tree_map(lambda sd: torch.empty(
+            sd[0], dtype=getattr(torch, sd[1]), device=device), skeleton[0])
+    else:
+        params = _tree_map(lambda x: x.to(device).contiguous(), params)
+    for leaf in tree_leaves(params):
+        dist.broadcast(_raw(leaf), src=src, group=group)
+    return params
 
 
 class ServeEngine:
@@ -521,8 +578,8 @@ class ServeEngine:
     keeps its shard, :func:`~horovod_tpu_torch.models.parallel_lm.
     shard_lm_params`); rank 0 (:attr:`is_controller`) serves and the
     others call :meth:`follow`, until the controller's :meth:`close`.
-    ``capture`` must be False there (a captured tensor-parallel lane is
-    not ported yet).
+    ``capture`` needs an NCCL tensor group there: over gloo it raises
+    (gloo collectives cannot be captured), so pass ``capture=False``.
     """
 
     def __init__(self, params: Dict, config: ServeConfig, *,
@@ -532,18 +589,12 @@ class ServeEngine:
         self.config = config
         self.chips = chips
         self.clock = clock
-        if capture and config.tp_degree > 1:
-            raise NotImplementedError(
-                f"ServeEngine(capture=True) with ServeConfig.mesh="
-                f"{config.mesh!r}: a captured tensor-parallel lane is not "
-                "ported yet (gloo collectives cannot be captured; it "
-                "comes with ROADMAP.md Queue 1 item 4.3's follow-ups: "
-                "the captured TP lane over NCCL); pass capture=False")
         #: The bound mesh, its tensor axis and degree (``mesh=None`` ->
         #: ``(None, None, 1)``), and this rank's place on the axis.
         self.logical_mesh, self._tp_axis, self.tp = \
             resolve_tp_mesh(params, config)
         self.tp_rank = 0
+        self.tp_backend = None
         self._closed = False
         if self.tp > 1:
             from horovod_tpu_torch.parallel._collectives import axis_group
@@ -551,10 +602,16 @@ class ServeEngine:
             with self._bound():
                 self._tp_group, _, self.tp_rank = axis_group(self._tp_axis)
             self._tp_src = dist.get_global_rank(self._tp_group, 0)
-            params = shard_lm_params(
-                params, lm_param_specs(len(params["layers"]),
-                                       self._tp_axis, vocab_parallel=True),
-                self.tp, self.tp_rank)
+            #: The tensor group's backend (``nccl``: one card a rank).
+            self.tp_backend = dist.get_backend(self._tp_group)
+            if capture and self.tp_backend != "nccl":
+                raise InvalidArgumentError(
+                    f"ServeEngine(capture=True) with ServeConfig.mesh="
+                    f"{config.mesh!r} over a {self.tp_backend} tensor "
+                    f"group: {self.tp_backend} collectives cannot be "
+                    "captured into a CUDA graph; pass capture=False, or "
+                    "serve over an NCCL group (one card a rank)")
+            params = self._shard(params)
         self._set_params(params)
         #: Speculative decoding (``speculate_k`` > 0): the window k and
         #: the layer-skip draft's depth, resolved against this model at
@@ -572,7 +629,8 @@ class ServeEngine:
                     f"the layer-skip draft is a prefix of the target's "
                     f"{n_layers} layers — need 1..{n_layers}") from e
             self.draft_layers = dl
-        self.cache = PagedKVCache(self.params, config, tp=self.tp)
+        self.cache = PagedKVCache(self.params, config, tp=self.tp,
+                                  tp_rank=self.tp_rank)
         #: The radix prefix index (``prefix_caching``), else None.
         self.prefix = (PrefixIndex(self.cache.allocator, config.page_size)
                        if config.prefix_caching else None)
@@ -725,10 +783,65 @@ class ServeEngine:
         self.lane_ticks += lane
         return pre_logits, lane_out
 
+    def _shard(self, dense: Dict) -> Dict:
+        """This rank's cut of the dense weights (the tensor axis's
+        Megatron cut, :func:`~horovod_tpu_torch.models.parallel_lm.
+        shard_lm_params`)."""
+        return shard_lm_params(
+            dense, lm_param_specs(len(dense["layers"]), self._tp_axis,
+                                  vocab_parallel=True),
+            self.tp, self.tp_rank)
+
+    def _plane_params(self, dense: Optional[Dict]) -> Dict:
+        """Every rank: the controller's dense weights (None on a
+        follower) over the tensor group, cut to this rank's shard."""
+        return self._shard(broadcast_params(
+            dense, src=self._tp_src, group=self._tp_group,
+            device=self.device))
+
+    def _plane_export(self, ids: torch.Tensor) -> Optional[torch.Tensor]:
+        """Every rank: the page ids from the controller, then this rank's
+        tiles of those pages gathered at the controller, which gets the
+        full-head tiles (the shards concatenated in rank order: rank
+        ``r`` holds heads ``r*H/tp`` onward); None on a follower."""
+        ids = self._bcast(ids)
+        mine = self.cache.read_tiles(ids).contiguous()
+        parts = ([torch.empty_like(mine) for _ in range(self.tp)]
+                 if self.is_controller else None)
+        dist.gather(mine.view(torch.uint8), None if parts is None else
+                    [p.view(torch.uint8) for p in parts],
+                    dst=self._tp_src, group=self._tp_group)
+        return None if parts is None else torch.cat(parts, dim=-2)
+
+    def _plane_import(self, ids: torch.Tensor, tiles: torch.Tensor) -> None:
+        """Every rank: the granted page ids and the blob's full-head tiles
+        from the controller; each rank writes its own heads."""
+        ids = self._bcast(ids)
+        dist.broadcast(_raw(tiles), src=self._tp_src, group=self._tp_group)
+        self.cache.write_tiles(ids, tiles)
+
+    def _plane_counters(self) -> List[Dict]:
+        """Every rank's :data:`_COUNTERS`, gathered at the controller (an
+        empty list on a follower)."""
+        graphs = list((self.lane_graphs or {}).values())
+        mine = torch.tensor(
+            [os.getpid(), self.lane_ticks, paged_attention_decode.launches,
+             sum(g.captures for g in graphs),
+             sum(g.replays for g in graphs)],
+            dtype=torch.int64, device=self.device)
+        rows = [mine]
+        if self.tp > 1:
+            rows = ([torch.empty_like(mine) for _ in range(self.tp)]
+                    if self.is_controller else None)
+            dist.gather(mine, rows, dst=self._tp_src, group=self._tp_group)
+        return [dict(zip(_COUNTERS, r.tolist()), rank=i)
+                for i, r in enumerate(rows or [])]
+
     def follow(self) -> int:
         """A follower's serving loop: run every data-plane action the
-        controller broadcasts (page copies, steps) on this rank's shards
-        until the controller's :meth:`close`. Returns the steps run."""
+        controller broadcasts (steps, page copies, weight swaps, page
+        exports and imports) on this rank's shards until the
+        controller's :meth:`close`. Returns the steps run."""
         if self.tp == 1:
             raise PreconditionError(
                 "ServeEngine.follow: this engine is not tensor-parallel "
@@ -739,28 +852,70 @@ class ServeEngine:
                 "ServeEngine.follow on the controller (tensor-parallel "
                 "rank 0): it serves with submit/step/run and ends its "
                 "followers with close()")
+        c = self.cache
         steps = 0
         while True:
             op, a, b = self._header()
             if op == _OP_CLOSE:
-                self._closed = True
+                self._close_graphs()
                 return steps
             if op == _OP_COW:
-                self.cache.copy_page(a, b)
+                c.copy_page(a, b)
             elif op == _OP_STEP:
                 self._plane_step(a, None)
                 steps += 1
-            else:
+            elif op == _OP_PARAMS:
+                self._set_params(self._plane_params(None))
+            elif op == _OP_EXPORT:
+                self._plane_export(torch.zeros(a, dtype=torch.int32,
+                                               device=self.device))
+            elif op == _OP_IMPORT:
+                self._plane_import(
+                    torch.zeros(a, dtype=torch.int32, device=self.device),
+                    torch.empty((c.num_layers, 2, a, self.config.page_size,
+                                 c.blob_heads, c.head_dim),
+                                dtype=c.dtype, device=self.device))
+            elif op == _OP_COUNT:
+                self._plane_counters()
+            elif op != _OP_NOP:
                 raise RuntimeError(f"ServeEngine.follow: unknown data-"
                                    f"plane op {op}")
 
     def close(self) -> None:
         """End the followers' :meth:`follow` loops (the controller of a
         tensor-parallel engine; idempotent, and nothing to do
-        unsharded)."""
+        unsharded). Every rank then drops its captured lane graphs,
+        which hold the tensor group's collectives."""
         if self.tp > 1 and self.is_controller and not self._closed:
             self._header(_OP_CLOSE)
-            self._closed = True
+            self._close_graphs()
+
+    def _close_graphs(self) -> None:
+        """A closed tensor-parallel engine's end on this rank: release
+        the lane graphs (their counters stay), so the process group can
+        be destroyed."""
+        self._closed = True
+        for graph in (self.lane_graphs or {}).values():
+            graph.release()
+
+    def keepalive(self) -> None:
+        """An idle controller's no-op for its followers, whose wait for
+        the next action would otherwise run into the tensor group's
+        timeout (nothing to do unsharded)."""
+        self._controller_only("keepalive")
+        if self.tp > 1:
+            self._header(_OP_NOP)
+
+    def rank_counters(self) -> List[Dict]:
+        """Every rank's counters, rank by rank: ``pid``, ``lane_ticks``,
+        the paged-attention wrapper's ``decode_launches`` and the lane's
+        graph ``lane_captures`` and ``lane_replays`` (one entry
+        unsharded). On a tensor-parallel engine the followers take part,
+        as in any data-plane action."""
+        self._controller_only("rank_counters")
+        if self.tp > 1:
+            self._header(_OP_COUNT)
+        return self._plane_counters()
 
     # ------------------------------------------------------ submission
 
@@ -1177,11 +1332,32 @@ class ServeEngine:
         blob (:meth:`PagedKVCache.export_pages
         <horovod_tpu_torch.serve.kvcache.PagedKVCache.export_pages>` over
         the page-table prefix covering the prompt). READ-ONLY and
-        repeatable — a torn transfer re-exports identical bytes."""
+        repeatable — a torn transfer re-exports identical bytes. A
+        tensor-parallel engine gathers the ranks' head shards, so its
+        blob is the one a tp=1 engine with the same pages writes."""
+        self._controller_only("export_handoff")
         req = self._handoff_req(rid)
         n_exp = self.cache.pages_needed(req.prompt_len, 1)
-        pages = [int(req.page_table[j]) for j in range(n_exp)]
-        return self.cache.export_pages(pages, req.prompt_len)
+        return self.export_pages(
+            [int(req.page_table[j]) for j in range(n_exp)], req.prompt_len)
+
+    def export_pages(self, pages, num_positions: int) -> bytes:
+        """The HVKV blob of any ``pages`` covering ``num_positions``
+        positions (:meth:`PagedKVCache.export_pages
+        <horovod_tpu_torch.serve.kvcache.PagedKVCache.export_pages>`),
+        the ranks' head shards gathered on a tensor-parallel engine."""
+        self._controller_only("export_pages")
+        return self.cache.export_pages(
+            pages, num_positions,
+            gather=self._gather_tiles if self.tp > 1 else None)
+
+    def _gather_tiles(self, ids: torch.Tensor) -> torch.Tensor:
+        self._header(_OP_EXPORT, ids.numel())
+        return self._plane_export(ids)
+
+    def _share_tiles(self, ids: torch.Tensor, tiles: torch.Tensor) -> None:
+        self._header(_OP_IMPORT, ids.numel())
+        self._plane_import(ids, tiles.to(self.device))
 
     def release_handoff(self, rid) -> Request:
         """Drop the prefill side's hold once the decode replica has
@@ -1190,6 +1366,7 @@ class ServeEngine:
         leaves the bay WITHOUT a terminal event — ownership moved, the
         stream did not end. Returns the request (the in-process fleet
         re-uses the very same object on the decode side)."""
+        self._controller_only("release_handoff")
         req = self._handoff_req(rid)
         self.scheduler.release(req)
         self.handoff = [r for r in self.handoff if r is not req]
@@ -1204,8 +1381,11 @@ class ServeEngine:
         2 onward; token 1 was emitted prefill-side). All-or-nothing:
         :class:`~horovod_tpu_torch.serve.kvcache.OutOfPages` or a typed
         :class:`~horovod_tpu_torch.serve.transport.FrameError` leaves
-        this engine unchanged."""
-        imported, positions = self.cache.import_pages(blob)
+        this engine unchanged. A tensor-parallel engine checks the blob
+        on the controller, then every rank writes its own heads."""
+        self._controller_only("admit_prefilled")
+        imported, positions = self.cache.import_pages(
+            blob, write=self._share_tiles if self.tp > 1 else None)
         try:
             if positions != req.prompt_len:
                 raise FrameError(
@@ -1270,17 +1450,15 @@ class ServeEngine:
         request's decode must never mix weights mid-stream); the
         geometry must match. A captured decode lane is captured again
         over the new weights at its next step, and the prefix index is
-        flushed: K/V rows are a function of the weights."""
-        if self.tp > 1:
-            raise NotImplementedError(
-                "update_params on a tensor-parallel engine (ServeConfig."
-                f"mesh={self.config.mesh!r}) is not ported yet; it comes "
-                "with ROADMAP.md Queue 1 item 4.3's follow-ups (weight "
-                "swaps under tp)")
+        flushed: K/V rows are a function of the weights. On a
+        tensor-parallel engine the controller checks, then broadcasts
+        the dense weights over the tensor group and every rank cuts its
+        shard as at construction."""
+        self._controller_only("update_params")
         if not self.idle:
             raise RuntimeError(
                 "update_params with requests in flight — drain the "
-                "engine first")
+                "engine first (the fleet's rolling update does)")
         old, new = self.params["pos"].shape, params["pos"].shape
         if tuple(old) != tuple(new):
             raise ValueError(
@@ -1288,6 +1466,9 @@ class ServeEngine:
                 f"{tuple(new)} vs the engine's {tuple(old)} — a "
                 "geometry change needs a fresh engine, not a weight "
                 "swap")
+        if self.tp > 1:
+            self._header(_OP_PARAMS)
+            params = self._plane_params(params)
         self._set_params(params)
         if self.prefix is not None:
             self.prefix.flush()

@@ -62,7 +62,20 @@ what every spawned worker gets as ``--device``; before the first spawn
 on the card the fleet builds the kernels, so no worker compiles under
 its spawn timeout. Placement across several cards stays the caller's,
 through ``worker_env``/``worker_cmd`` (``CUDA_VISIBLE_DEVICES`` per
-worker, for example).
+worker, for example), except for tensor-parallel replicas.
+
+**Tensor-parallel replicas** (``ServeConfig.mesh="dp=1,tp=N"``) run on
+the worker transports: each replica is one worker, the controller of
+its engine, which starts ``N - 1`` followers of its own in its process
+group (:mod:`~horovod_tpu_torch.serve.tp_replica`), so a replica's kill
+or relaunch takes its whole world. The fleet gives replica ``i`` the
+cards ``(i*N + r) % cards`` for its ranks ``r`` (``--cards``): distinct
+cards make an NCCL world that captures its lane, a shared card a gloo
+world that runs it eagerly. ``chips_per_replica`` defaults to ``N``,
+the group's timeout to the larger of ``spawn_timeout`` and
+``rpc_deadline``, and a rolling update pushes to the controller, which
+fans the weights out. The ``inproc`` transport refuses them
+(:func:`~horovod_tpu_torch.serve.config.refuse_tp_fleet`).
 
 **Weights travel the wire, versioned**
 (:mod:`~horovod_tpu_torch.serve.params_wire`): every worker incarnation
@@ -583,18 +596,24 @@ class ServeFleet:
 
     def __init__(self, params: Dict, config: ServeConfig,
                  fleet: Optional[FleetConfig] = None, *,
-                 chips_per_replica: int = 1,
+                 chips_per_replica: Optional[int] = None,
                  clock=time.perf_counter, sleep=time.sleep,
                  worker_env: Optional[Dict[str, str]] = None,
                  worker_cmd: Optional[Callable] = None,
                  device: DeviceLike = None):
-        refuse_tp_fleet(config)
         self.device = resolve_device(device)
         self.config = config
         self.fleet = fleet if fleet is not None else FleetConfig()
+        refuse_tp_fleet(config, self.fleet.transport)
         self.params = self._place(params)
-        self.chips_per_replica = chips_per_replica
-        self.chips = chips_per_replica * self.fleet.replicas
+        #: Chips a replica spans: its tensor-parallel degree by default.
+        self.chips_per_replica = (config.tp_degree
+                                  if chips_per_replica is None
+                                  else chips_per_replica)
+        #: Each replica's cards, rank by rank (tensor-parallel replicas
+        #: on the card; filled at spawn).
+        self.replica_cards: Dict[int, List[int]] = {}
+        self.chips = self.chips_per_replica * self.fleet.replicas
         self.clock = clock
         self._sleep = sleep
 
@@ -852,8 +871,27 @@ class ServeFleet:
                "--socket", sock_path,
                "--rank", str(rid),
                "--heartbeat-dir", self.heartbeat_dir,
-               "--device", str(self.device)]
+               "--device", str(self.device)] + self._tp_args(rid)
         return cmd, self._spawn_env()
+
+    def _tp_args(self, rid: int) -> List[str]:
+        """A tensor-parallel replica's worker flags: its ranks' cards
+        (on the card) and its group's timeout, no longer than the
+        fleet's own budgets for a spawn and an RPC."""
+        tp = self.config.tp_degree
+        if tp == 1:
+            return []
+        timeout = max(self.fleet.spawn_timeout, self.fleet.rpc_deadline)
+        args = ["--group-timeout", str(timeout)]
+        if self.device.type == "cuda":
+            import torch
+
+            from horovod_tpu_torch.serve.tp_replica import replica_cards
+
+            cards = replica_cards(rid, tp, torch.cuda.device_count())
+            self.replica_cards[rid] = cards
+            args += ["--cards", ",".join(map(str, cards))]
+        return args
 
     def _spawn_env(self) -> Dict[str, str]:
         """The inherited environment, ``worker_env`` over it, and this
@@ -923,7 +961,7 @@ class ServeFleet:
         cmd = [sys.executable, "-m", "horovod_tpu_torch.serve.worker",
                "--bind", endpoint,
                "--rank", str(rid),
-               "--device", str(self.device)]
+               "--device", str(self.device)] + self._tp_args(rid)
         env = self._spawn_env()
         env["HOROVOD_SECRET"] = self._secret
         if self._worker_cmd is not None:

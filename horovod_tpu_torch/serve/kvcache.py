@@ -27,9 +27,16 @@ Under tensor parallelism (``ServeConfig.mesh``) every rank's cache holds
 its own head shard: page tensors ``[num_pages, page_size, H/tp, D]``,
 each a contiguous tensor of its own (the paged-attention kernel reads a
 page row at stride ``H/tp * D`` from the tensor's base, so a head-slice
-view of a full-width tensor would read the wrong heads). The blob of a
-head-sharded cache is not ported yet (ROADMAP.md Queue 1 item 4.3's
-follow-up): its export and import raise.
+view of a full-width tensor would read the wrong heads). The blob stays
+in the full-head layout whatever the tp: rank ``r`` holds heads
+``r*H/tp .. (r+1)*H/tp - 1`` (the cut of
+:func:`~horovod_tpu_torch.models.parallel_lm.shard_lm_params`), so an
+export concatenates the ranks' tiles in rank order and an import keeps
+each rank's slice, and exporter and importer need not agree on tp. The
+cache stays single-process: :meth:`PagedKVCache.export_pages` takes the
+group's gather and :meth:`PagedKVCache.import_pages` its fan-out from
+the engine (:class:`~horovod_tpu_torch.serve.engine.ServeEngine`),
+which owns the tensor group.
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ from __future__ import annotations
 import json
 import math
 import struct
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 from horovod_tpu_torch.serve.transport import FrameError
 
 
@@ -234,10 +242,14 @@ class PagedKVCache:
     is the shard's head count ``H/tp``.
     """
 
-    def __init__(self, params: Dict, config, tp: int = 1):
+    def __init__(self, params: Dict, config, tp: int = 1,
+                 tp_rank: int = 0):
         self.config = config
-        #: The tensor-parallel degree the heads are sharded over.
+        #: The tensor-parallel degree the heads are sharded over, and
+        #: this rank's place on the axis (its heads in the blob's
+        #: layout: ``tp_rank * num_heads`` onward).
         self.tp = tp
+        self.tp_rank = tp_rank
         self.max_len = int(params["pos"].shape[0])
         if self.max_len % config.page_size:
             raise ValueError(
@@ -296,28 +308,63 @@ class PagedKVCache:
             for kv in ("k", "v"):
                 layer[kv][dst] = layer[kv][src]
 
-    def _whole_heads(self, what: str) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"PagedKVCache.{what} of a head-sharded cache (tp="
-                f"{self.tp}) is not ported yet; it comes with the HVKV "
-                "blob of sharded pages (ROADMAP.md Queue 1 item 4.3, "
-                "follow-ups)")
-
     # --------------------------------------------- export / import (kv)
 
-    def export_pages(self, pages: Sequence[int],
-                     num_positions: int) -> bytes:
+    @property
+    def blob_heads(self) -> int:
+        """The head count of the blob's layout: the model's, whatever
+        this cache's shard of it."""
+        return self.num_heads * self.tp
+
+    def read_tiles(self, ids: torch.Tensor) -> torch.Tensor:
+        """This rank's K/V tiles of the pages ``ids`` (int tensor on the
+        cache's device), as one ``[layers, 2, n, page_size, H/tp, D]``
+        tensor: per layer, K then V, in the order of ``ids``."""
+        ids = ids.long()
+        return torch.stack([torch.stack([layer[kv].index_select(0, ids)
+                                         for kv in ("k", "v")])
+                            for layer in self.pages])
+
+    def write_tiles(self, ids: torch.Tensor, tiles: torch.Tensor) -> None:
+        """Write the full-head tiles ``[layers, 2, n, page_size, H, D]``
+        of :meth:`read_tiles`' layout into the pages ``ids``, this rank's
+        heads only, into the existing page tensors in place
+        (``index_copy_``: a captured lane's storage stays the one it
+        reads)."""
+        h = self.num_heads
+        mine = tiles[..., self.tp_rank * h:(self.tp_rank + 1) * h, :]
+        mine = mine.to(self.device)
+        ids = ids.long().to(self.device)
+        for layer, lt in zip(self.pages, mine):
+            for kv, t in zip(("k", "v"), lt):
+                layer[kv].index_copy_(0, ids, t)
+
+    def _sharded(self, what: str, hook) -> None:
+        if self.tp > 1 and hook is None:
+            raise InvalidArgumentError(
+                f"PagedKVCache.{what} of a head-sharded cache (tp="
+                f"{self.tp}): this rank holds {self.num_heads} of the "
+                f"blob's {self.blob_heads} heads, so the tensor group "
+                "takes part; go through the engine (ServeEngine."
+                "export_handoff / admit_prefilled)")
+
+    def export_pages(self, pages: Sequence[int], num_positions: int, *,
+                     gather: Optional[Callable] = None) -> bytes:
         """Serialize the finished K/V pages covering logical positions
         ``0..num_positions-1`` into ONE deterministic byte blob, the
         payload of the disaggregated handoff (``serve/kv_wire.py``).
         ``pages`` is the request's physical page list in logical order;
         the tiles ship per layer, K then V, as ``[n, page_size, H, D]``
-        in logical page order. Each layer's K (and V) is gathered on the
-        device and copied to the host once. READ-ONLY: refcounts are
-        untouched, so pages shared under COW or the prefix cache export
-        safely."""
-        self._whole_heads("export_pages")
+        in logical page order and the model's full head layout. The
+        tiles are read on the device and copied to the host once.
+        READ-ONLY: refcounts are untouched, so pages shared under COW or
+        the prefix cache export safely.
+
+        A head-sharded cache (``tp`` > 1) needs ``gather(ids)``: the
+        full-head tiles of :meth:`read_tiles`' layout, the ranks' shards
+        concatenated in rank order (the engine's tensor group). It runs
+        only once the page math has been checked."""
+        self._sharded("export_pages", gather)
         ps = self.config.page_size
         need = pages_needed(num_positions, 1, ps) \
             if num_positions >= 1 else 0
@@ -329,35 +376,39 @@ class PagedKVCache:
         header = json.dumps({
             "layers": self.num_layers,
             "page_size": ps,
-            "heads": self.num_heads,
+            "heads": self.blob_heads,
             "head_dim": self.head_dim,
             "dtype": self.dtype_name,
             "pages": len(pages),
             "positions": int(num_positions),
         }).encode("utf-8")
-        parts = [_KV_BLOB_HEADER.pack(KV_BLOB_MAGIC, len(header)), header]
-        idx = torch.tensor(list(pages), dtype=torch.long,
+        ids = torch.tensor(list(pages), dtype=torch.int32,
                            device=self.device)
-        for layer in self.pages:
-            for kv in ("k", "v"):
-                tiles = layer[kv].index_select(0, idx).cpu()
-                if tiles.dtype == torch.bfloat16:
-                    # numpy has no bfloat16: the same bytes as int16.
-                    tiles = tiles.view(torch.int16)
-                parts.append(tiles.numpy().tobytes())
-        return b"".join(parts)
+        tiles = (gather or self.read_tiles)(ids).contiguous().cpu()
+        if tiles.dtype == torch.bfloat16:
+            # numpy has no bfloat16: the same bytes as int16.
+            tiles = tiles.view(torch.int16)
+        return b"".join([_KV_BLOB_HEADER.pack(KV_BLOB_MAGIC, len(header)),
+                         header, tiles.numpy().tobytes()])
 
-    def import_pages(self, blob: bytes) -> Tuple[List[int], int]:
+    def import_pages(self, blob: bytes, *,
+                     write: Optional[Callable] = None
+                     ) -> Tuple[List[int], int]:
         """Inverse of :meth:`export_pages` against THIS cache: checks the
         geometry (a blob of another model or page shape is a typed
         :class:`~horovod_tpu_torch.serve.transport.FrameError`), the page
         math and the length before allocating, allocates the pages
         all-or-nothing (:class:`OutOfPages` with no state change), and
         writes the tiles into the existing page tensors in place
-        (``index_copy_``: a captured lane's storage stays the one it
-        reads). Returns ``(granted_pages, num_positions)``, the granted
-        ids in logical order; any failure after the grant frees it."""
-        self._whole_heads("import_pages")
+        (:meth:`write_tiles`). Returns ``(granted_pages,
+        num_positions)``, the granted ids in logical order; any failure
+        after the grant frees it.
+
+        A head-sharded cache needs ``write(ids, tiles)``, which hands the
+        granted ids and the full-head tiles to every rank of the group
+        and writes this rank's heads (the engine's fan-out); it runs
+        only once the blob has been checked and the pages granted."""
+        self._sharded("import_pages", write)
         if len(blob) < _KV_BLOB_HEADER.size:
             raise FrameError(
                 f"kv blob of {len(blob)} bytes is shorter than its "
@@ -377,7 +428,7 @@ class PagedKVCache:
                              ) from None
         ps = self.config.page_size
         want = {"layers": self.num_layers, "page_size": ps,
-                "heads": self.num_heads, "head_dim": self.head_dim,
+                "heads": self.blob_heads, "head_dim": self.head_dim,
                 "dtype": self.dtype_name}
         got = {k: h.get(k) for k in want}
         if got != want:
@@ -388,26 +439,19 @@ class PagedKVCache:
             raise FrameError(
                 f"kv blob claims {n} pages for {positions} positions — "
                 "inconsistent page math")
-        step = n * ps * self.num_heads * self.head_dim * self.dtype_bytes
-        total = end + self.num_layers * 2 * step
+        shape = (self.num_layers, 2, n, ps, self.blob_heads, self.head_dim)
+        total = end + math.prod(shape) * self.dtype_bytes
         if len(blob) != total:
             raise FrameError(
                 f"kv blob is {len(blob)} bytes, geometry says {total} "
                 "— torn or padded payload")
         grant = self.allocator.alloc(n)     # all-or-nothing; OutOfPages
         try:
-            idx = torch.tensor(grant, dtype=torch.long, device=self.device)
+            ids = torch.tensor(grant, dtype=torch.int32, device=self.device)
             # One writable copy of the payload for torch.frombuffer.
-            buf = bytearray(memoryview(blob)[end:])
-            shape = (n, ps, self.num_heads, self.head_dim)
-            off = 0
-            for layer in self.pages:
-                for kv in ("k", "v"):
-                    tiles = torch.frombuffer(
-                        buf, dtype=self.dtype, count=step // self.dtype_bytes,
-                        offset=off).reshape(shape)
-                    off += step
-                    layer[kv].index_copy_(0, idx, tiles.to(self.device))
+            tiles = torch.frombuffer(bytearray(memoryview(blob)[end:]),
+                                     dtype=self.dtype).reshape(shape)
+            (write or self.write_tiles)(ids, tiles)
         except BaseException:
             self.allocator.free(grant)
             raise

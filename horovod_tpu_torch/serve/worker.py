@@ -51,6 +51,17 @@ the ``kv_export_*`` RPCs ship a parked request's K/V pages out of this
 worker and the ``kv_import_*`` RPCs admit another worker's into it
 (:mod:`~horovod_tpu_torch.serve.kv_wire`).
 
+**A tensor-parallel replica** (the pushed config's ``mesh`` shards
+over ``tp`` > 1 ranks) is a world of its own: at engine build this
+worker starts ``tp - 1`` follower processes and becomes rank 0, the
+engine's controller (:mod:`~horovod_tpu_torch.serve.tp_replica`).
+``--cards`` names each rank's card (``--device cuda``) and
+``--group-timeout`` the group's timeout. The followers get the config
+and the weights from this process over the group, never from a file;
+every RPC still lands here, and the engine fans each data-plane action
+(a step, a weight swap, a page export or import) out to them. They run
+in this worker's process group and die with it.
+
 Test hooks (environment): ``HVD_SERVE_WORKER_FAIL_START`` exits with
 that code before binding; ``HVD_SERVE_WORKER_TORN_COLLECT_AFTER=N``
 writes half of the reply after N collects and dies (the kill-mid-write
@@ -184,6 +195,12 @@ class WorkerHost:
         self._slow = 1.0
         self._collects = 0
         self._last_hb = 0.0
+        #: The tensor-parallel replica's world (tp_replica.TpWorld), or
+        #: None for a one-rank engine.
+        self.tp_world = None
+        #: Seconds between an idle controller's keepalives to its
+        #: followers (set with the world).
+        self.keepalive_s = 0.0
         torn = os.environ.get("HVD_SERVE_WORKER_TORN_COLLECT_AFTER")
         #: test hook: after N collect responses, write HALF the next
         #: collect reply frame and die — the deterministic
@@ -193,6 +210,7 @@ class WorkerHost:
     # ------------------------------------------------- engine loop
 
     def serve_loop(self) -> None:
+        last_action = time.monotonic()
         while not self._shutdown.is_set():
             with self._lock:
                 stall, self._stall_pending = self._stall_pending, None
@@ -229,6 +247,15 @@ class WorkerHost:
                 if now - self._last_hb >= 0.05:
                     self.heartbeat.touch(self._ticks)
                     self._last_hb = now
+            if progressed:
+                last_action = time.monotonic()
+            elif self.tp_world is not None and \
+                    time.monotonic() - last_action >= self.keepalive_s:
+                # Followers wait for the next action inside the group's
+                # timeout: an idle controller tells them it lives.
+                with self._lock:
+                    self.engine.keepalive()
+                last_action = time.monotonic()
             if not progressed:
                 time.sleep(0.002)
 
@@ -267,11 +294,16 @@ class WorkerHost:
 
     # --------------------------------------------------- wire init
 
-    def attach_engine(self, engine, heartbeat=None) -> None:
+    def attach_engine(self, engine, heartbeat=None, tp_world=None,
+                      group_timeout: float = 0.0) -> None:
         """Hand the freshly-built engine to the host (wire init: the
         main thread builds it once config + params have arrived and
         verified). Unblocks every engine-facing RPC waiting in
-        :meth:`_require_engine`."""
+        :meth:`_require_engine`. ``tp_world`` is a tensor-parallel
+        replica's world, whose followers get a keepalive every quarter
+        of ``group_timeout`` while the engine idles."""
+        self.tp_world = tp_world
+        self.keepalive_s = group_timeout / 4
         self.engine = engine
         if heartbeat is not None:
             self.heartbeat = heartbeat
@@ -329,7 +361,17 @@ class WorkerHost:
                 "hb": self._hb_seq,
                 "params_version": self._params_version or None,
                 "params_sha256": self._params_sha,
+                "tp": (self.tp_world.describe()
+                       if self.tp_world is not None else None),
                 **self._decode_evidence()}
+
+    def _rpc_rank_counters(self, p: Dict) -> Dict:
+        """Every rank's counters (``ServeEngine.rank_counters``: pid,
+        lane ticks, K4 wrapper calls, lane captures and replays): a
+        tensor-parallel replica's followers take part over the group."""
+        self._require_engine()
+        with self._lock:
+            return {"ranks": self.engine.rank_counters()}
 
     def _decode_evidence(self) -> Dict:
         """How this process decoded: the paged-attention wrapper's launch
@@ -776,6 +818,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs: cuda (the card, the "
                          "default) or cpu")
+    ap.add_argument("--cards", default="",
+                    help="a tensor-parallel replica's card for each rank, "
+                         "comma-separated (--device cuda; default: every "
+                         "rank on the device's card)")
+    ap.add_argument("--group-timeout", type=float, default=300.0,
+                    help="a tensor-parallel replica's group timeout in "
+                         "seconds (its world's meeting and every "
+                         "collective)")
     ap.add_argument("--heartbeat-dir", default="",
                     help="fleet heartbeat directory ('' = no beacon; "
                          "tcp workers normally run without one — "
@@ -846,13 +896,25 @@ def main(argv=None) -> int:
         # construction. Runs AFTER the socket is bound, so the
         # router's connect always succeeds early. The kernels were
         # built by the fleet before the spawn: loading them here is a
-        # cache hit, never a compile under the watchdog.
+        # cache hit, never a compile under the watchdog. Returns the
+        # engine and a tensor-parallel replica's world (else None).
         from horovod_tpu_torch.serve.config import ServeConfig
         from horovod_tpu_torch.serve.engine import ServeEngine
 
         cfg = ServeConfig(**cfg_kwargs)
+        if cfg.tp_degree > 1:
+            from horovod_tpu_torch.serve.tp_replica import start_world
+
+            world = start_world(
+                cfg_kwargs, load_params(params_path), device=args.device,
+                cards=([int(c) for c in args.cards.split(",")]
+                       if args.cards else None),
+                timeout=args.group_timeout)
+            print(f"serve.worker[{args.rank}]: tensor-parallel world "
+                  f"{world.describe()}", file=sys.stderr, flush=True)
+            return world.engine, world
         return ServeEngine(load_params(params_path), cfg,
-                           device=args.device)
+                           device=args.device), None
 
     from horovod_tpu_torch.elastic.signals import Heartbeat
 
@@ -880,9 +942,9 @@ def main(argv=None) -> int:
                   file=sys.stderr, flush=True)
             srv.close()
             return EXIT_USAGE
-        engine = _build_engine(host_loop.init_config,
-                               host_loop.init_params_path)
-        host_loop.attach_engine(engine, hb)
+        engine, world = _build_engine(host_loop.init_config,
+                                      host_loop.init_params_path)
+        host_loop.attach_engine(engine, hb, world, args.group_timeout)
         print(f"serve.worker[{args.rank}]: engine up on params "
               f"v{host_loop._params_version} "
               f"(sha256 {(host_loop._params_sha or '')[:12]})",
@@ -892,12 +954,13 @@ def main(argv=None) -> int:
         # disk, version stamped from the CLI, sha from the file bytes.
         with open(args.config) as f:
             cfg_kwargs = json.load(f)
-        engine = _build_engine(cfg_kwargs, args.params)
+        engine, world = _build_engine(cfg_kwargs, args.params)
         with open(args.params, "rb") as f:
             sha = params_wire.sha256_hex(f.read())
         host_loop = WorkerHost(engine, hb, secret=secret or None,
                                params_version=args.params_version,
                                params_sha=sha)
+        host_loop.attach_engine(engine, hb, world, args.group_timeout)
         rpc = threading.Thread(target=host_loop.rpc_loop, args=(srv,),
                                daemon=True,
                                name=f"serve-worker-rpc-{args.rank}")
@@ -906,6 +969,8 @@ def main(argv=None) -> int:
               f"{args.bind or args.socket} (pid {os.getpid()})",
               file=sys.stderr, flush=True)
     host_loop.serve_loop()
+    if host_loop.tp_world is not None:
+        host_loop.tp_world.close(host_loop._lock)
     srv.close()
     return EXIT_CLEAN
 

@@ -57,8 +57,10 @@ Modes (the JAX tool's flags and defaults, one A/B per record):
   every greedy stream is bit-identical and the sharded side's
   ``kv_bytes_per_chip`` is at most ``1/tp`` of the run's single-chip
   bytes; ``serve.tp`` carries the degree, the per-chip bytes and the
-  collectives' backend. A tensor-parallel lane runs eagerly: pass
-  ``--capture off`` (``--ab-tp`` runs both sides with the same setting).
+  collectives' backend. Over NCCL (a card a rank) the sharded lane is
+  captured on every rank as the tp=1 lane is; over gloo it cannot be:
+  pass ``--capture off`` (``--ab-tp`` runs both sides with the same
+  setting).
 
 Every fleet record carries ``per_card``: each lane's tokens/s of the
 card, the figure to hold against a single engine when replicas share a

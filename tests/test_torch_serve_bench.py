@@ -159,10 +159,13 @@ def test_bad_args_are_argparse_errors(argv):
 ], ids=lambda a: a[0].strip("-"))
 def test_unported_flags_raise_naming_the_roadmap(argv):
     """The mesh flags are ported (tests/test_torch_serve_tp.py runs them
-    in gloo worlds); a captured tensor-parallel lane is not, so with the
-    default ``--capture on`` they raise naming its ROADMAP.md item."""
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md Queue 1 item 4"):
+    in gloo worlds), and so is the captured tensor-parallel lane (over
+    NCCL only); with no world started they raise the engine's refusal of
+    a mesh that is not the world, naming the launch that fixes it."""
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
+
+    with pytest.raises(InvalidArgumentError,
+                       match=r"world has 1.*torchrun --nproc-per-node"):
         _run(*argv)
 
 

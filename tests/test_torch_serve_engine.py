@@ -339,15 +339,18 @@ def test_config_validation_matches_jax(kw):
 
 @pytest.mark.parametrize("kw", [dict(mesh="dp=1,tp=4")])
 def test_unported_knobs_raise_naming_the_roadmap(kw):
-    """``mesh`` builds the JAX config's fields and degree; what is not
-    ported yet is a fleet of tensor-parallel replicas, which raises
-    naming its ROADMAP.md item."""
+    """``mesh`` builds the JAX config's fields and degree; a fleet of
+    tensor-parallel replicas runs on the worker transports
+    (tests/test_torch_serve_tp_fleet.py), and the in-process one refuses
+    it, naming the transports that take it."""
+    from horovod_tpu_torch.common.exceptions import InvalidArgumentError
     from horovod_tpu_torch.serve import FleetConfig, ServeFleet
 
     want, got = JServeConfig(**kw), ServeConfig(**kw)
     assert got.mesh_axes() == want.mesh_axes()
     assert got.tp_degree == want.tp_degree == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(InvalidArgumentError,
+                       match="transport='inproc'.*'process' or 'tcp'"):
         ServeFleet({}, got, FleetConfig(), device="cpu")
 
 
@@ -397,7 +400,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/fleet.py", "serve/transport.py", "serve/worker.py",
                 "serve/netfault.py", "serve/params_wire.py",
                 "serve/chunk_stream.py", "serve/kv_wire.py",
-                "serve/disagg.py", "elastic/__init__.py",
+                "serve/disagg.py", "serve/tp_replica.py",
+                "elastic/__init__.py",
                 "elastic/faults.py", "elastic/signals.py",
                 "elastic/supervisor.py", "elastic/snapshot.py",
                 "elastic/loop.py", "checkpoint.py", "_pytree.py",

@@ -5,9 +5,10 @@ engine and the port's own tp=1 engine.
 A small model (2 layers, 4 heads of 4, MLP 32, vocab 64, 64 positions;
 numpy-seeded weights carried to both packages). One gloo world per size
 (started once for the module, as tests/test_torch_tp.py starts its
-worlds) runs every case: rank 0 serves, the others ``follow()``; the JAX
-engines run in this process on tests/conftest.py's virtual CPU mesh (its
-gather mode: the JAX tests pin its paged mode equal to it).
+worlds, the 2-rank world first) runs every case: rank 0 serves, the
+others ``follow()``; the JAX engines run in this process on
+tests/conftest.py's virtual CPU mesh (its gather mode: the JAX tests pin
+its paged mode equal to it).
 
 * Greedy streams, requests joining mid-flight, in both attention modes:
   equal to the JAX TP engine's and the port's tp=1 engine's; so with
@@ -19,10 +20,22 @@ gather mode: the JAX tests pin its paged mode equal to it).
   head slice of the same pages (the null page 0 aside: the port writes
   idle slots' rows there, the JAX engine drops them); every rank runs
   the same lane ticks; ``kv_bytes_per_chip`` is the tp=1 figure over tp.
+* A weight swap (``update_params``) on a served engine with the prefix
+  cache on: the streams after it equal the JAX TP engine's and the
+  port's tp=1 engine's after theirs, the index is flushed, and the busy
+  and geometry refusals carry the JAX engine's messages.
+* The HVKV blob of a head-sharded cache: a TP engine's handoff blob has
+  the JAX TP engine's framing bytes exactly and its tiles within
+  ``PAGE_TOL``; it decodes on the TP engine itself and on a tp=1 engine
+  (tiles bit for bit) with the tp=1 stream; a tp=1 blob, and in the
+  4-rank world the 2-rank world's blob, land on every rank as the
+  blob's head slice bit for bit; a blob of another geometry is refused
+  with no state change.
 * Every refusal: a mesh that is not the world, heads or vocab that do
-  not split, ``capture=True``, ``update_params``, the HVKV blob of a
-  sharded cache, a fleet of TP engines, control-plane calls on a
-  follower and ``follow()`` on a controller or an unsharded engine.
+  not split, ``capture=True`` over gloo, the sharded cache's own export
+  and import (the group takes part through the engine), control-plane
+  calls on a follower, an in-process fleet of TP engines, and
+  ``follow()`` on a controller or an unsharded engine.
 * ``serve_bench --mesh dp=1,tp=N --ab-tp``'s record: ``serve.tp``
   (degree, backend, per-chip bytes, the exact pin), ``per_card`` and
   ``config.mesh``; the followers print nothing.
@@ -40,6 +53,7 @@ from horovod_tpu.serve import ServeConfig as JServeConfig
 from horovod_tpu.serve import ServeEngine as JServeEngine
 from horovod_tpu_torch.models import parallel_lm as tlm
 from horovod_tpu_torch.serve import ServeConfig, ServeEngine
+from horovod_tpu_torch.serve.scheduler import make_request
 from test_torch_tp import start_world
 
 WORLDS = [2, 4]
@@ -66,10 +80,21 @@ SCENARIOS = {
 }
 PREFIX_CFG = dict(page_size=8, num_pages=32, decode_slots=1,
                   prefill_chunk=8, prefix_caching=True)
+# The weight swap: the staggered waves on a prefix-caching engine, a
+# swap to the weights of numpy seed SWAP_SEED, the waves again.
+SWAP_CFG = dict(SCENARIOS["staggered"][0], prefix_caching=True)
+SWAP_SEED = 22
+# The handoff request (prompt id, length, max_new): two pages of 8.
+HANDOFF_CFG = dict(page_size=8, num_pages=40, decode_slots=2,
+                   prefill_chunk=4)
+HANDOFF = (80, 13, 6)
+#: The environment variable naming the 2-rank world's handoff blob for
+#: the 4-rank world to import.
+FOREIGN = "HVD_TEST_SERVE_TP_BLOB"
 
 
-def _params():
-    rng = np.random.default_rng(21)
+def _params(seed=21):
+    rng = np.random.default_rng(seed)
     e = H * DH
 
     def dense(shape, fan_in):
@@ -136,6 +161,95 @@ def _pages(eng):
             for layer in eng.cache.pages]
 
 
+def _swap(eng, new):
+    """On a controller (or an unsharded engine, of either package): the
+    staggered waves, the busy and geometry refusals, the swap to
+    ``new``, the waves again."""
+    waves = SCENARIOS["staggered"][1]
+    before = [r.output for r in _serve(eng, waves)]
+    entries = eng.prefix_stats()["entries"]
+    eng.submit(_prompt(0, 3), 2)
+    errors = {"busy": _error(lambda: eng.update_params(new))}
+    eng.run()
+    errors["geometry"] = _error(lambda: eng.update_params(
+        dict(new, pos=new["pos"][:LMAX // 2])))
+    eng.update_params(new)
+    flushed = eng.prefix_stats()["entries"]
+    after = [r.output for r in _serve(eng, waves)]
+    return {"before": before, "after": after, "errors": errors,
+            "entries": entries, "flushed": flushed}
+
+
+def _park(eng, i, lp, n):
+    """A prefill-only request parked in the handoff bay."""
+    req = eng.submit(_prompt(i, lp), n)
+    req.prefill_only = True
+    while not eng.handoff:
+        eng.step()
+    return req
+
+
+def _prefilled(eng, like):
+    """A request as a decode replica receives ``like`` (its first token
+    emitted on the prefill side)."""
+    req = make_request(eng.config, eng.clock, like.prompt,
+                       like.max_new_tokens)
+    req.generated = [like.output[0]]
+    req.output = list(req.generated)
+    return req
+
+
+def _payload(blob):
+    """A blob's framing bytes and its tiles ``[L, 2, n, ps, H, D]``."""
+    end = 8 + int.from_bytes(blob[4:8], "big")
+    n = len(blob[end:]) // (LAYERS * 2 * 8 * H * DH * 4)
+    return blob[:end], np.frombuffer(blob[end:], np.float32).reshape(
+        LAYERS, 2, n, 8, H, DH)
+
+
+def _handoff(eng, params, foreign):
+    """On a TP controller (paged, HANDOFF_CFG): the handoff request
+    parked, exported twice and released; its blob admitted back and
+    decoded (TP -> TP); the same blob into a tp=1 engine (tiles read
+    back, decoded); a blob of another geometry refused; then the tp=1
+    engine's blob and ``foreign`` admitted and left undecoded, for the
+    ranks' pages to show their head slices."""
+    i, lp, n = HANDOFF
+    req = _park(eng, i, lp, n)
+    blob = eng.export_handoff(req.rid)
+    out = {"blob": blob, "again": eng.export_handoff(req.rid)}
+    eng.release_handoff(req.rid)
+    req.prefill_only = False
+    eng.admit_prefilled(req, blob)
+    eng.run()
+    out["stream_tp"] = req.output
+    single = ServeEngine(params, ServeConfig(attention="paged",
+                                             **HANDOFF_CFG), device="cpu")
+    r1 = _park(single, i, lp, n)
+    out["blob1"] = single.export_handoff(r1.rid)
+    single.release_handoff(r1.rid)
+    r1.prefill_only = False
+    single.admit_prefilled(r1, blob)
+    ids = torch.tensor(r1.pages[:2], dtype=torch.int32)
+    out["single_tiles"] = single.cache.read_tiles(ids).numpy()
+    single.run()
+    out["stream_1"] = r1.output
+    bad = out["blob1"].replace(b'"page_size": 8', b'"page_size": 4')
+    avail, ready = eng.cache.allocator.available, list(eng.ready)
+    out["mismatch"] = _error(lambda: eng.admit_prefilled(
+        _prefilled(eng, req), bad))
+    out["unchanged"] = (eng.cache.allocator.available == avail
+                        and eng.ready == ready)
+    grants = {}
+    for name, b in (("tp1", out["blob1"]), ("foreign", foreign)):
+        if b is not None:
+            r = _prefilled(eng, req)
+            eng.admit_prefilled(r, b)
+            grants[name] = r.pages[:2]
+    out["grants"] = grants
+    return out
+
+
 def _error(fn):
     try:
         fn()
@@ -146,27 +260,36 @@ def _error(fn):
 
 def _errors(n, params):
     """The refusals that need the world (construction checks are
-    collective: every rank runs them)."""
+    collective: every rank runs them), and the TP engine's own calls:
+    the controller swaps weights, finds no parked request to export and
+    refuses a torn blob; a follower refuses them all."""
     cfg = dict(page_size=8, num_pages=16, decode_slots=1, prefill_chunk=4)
+    mesh = f"dp=1,tp={n}"
     out = {
         "world": _error(lambda: ServeEngine(params, ServeConfig(
             mesh=f"dp=1,tp={n + 1}", **cfg), device="cpu", capture=False)),
         "heads": _error(lambda: ServeEngine(
             tlm.init_lm_params(0, 8 * n, 16, 1, n + 1, 4, 8 * n,
                                device="cpu"),
-            ServeConfig(mesh=f"dp=1,tp={n}", **cfg), device="cpu",
+            ServeConfig(mesh=mesh, **cfg), device="cpu",
             capture=False)),
         "vocab": _error(lambda: ServeEngine(
             tlm.init_lm_params(0, 4 * n + 1, 16, 1, n, 4, 8 * n,
                                device="cpu"),
-            ServeConfig(mesh=f"dp=1,tp={n}", **cfg), device="cpu",
+            ServeConfig(mesh=mesh, **cfg), device="cpu",
             capture=False)),
+        "capture": _error(lambda: ServeEngine(
+            params, ServeConfig(mesh=mesh, **cfg), device="cpu",
+            capture=True)),
     }
-    eng = ServeEngine(params, ServeConfig(mesh=f"dp=1,tp={n}", **cfg),
+    eng = ServeEngine(params, ServeConfig(mesh=mesh, **cfg),
                       device="cpu", capture=False)
+    out["cache_export"] = _error(lambda: eng.cache.export_pages([1], 3))
+    out["cache_import"] = _error(lambda: eng.cache.import_pages(b"HVKV"))
+    req = make_request(eng.config, eng.clock, _prompt(0, 3), 2)
     out["update_params"] = _error(lambda: eng.update_params(params))
-    out["export"] = _error(lambda: eng.cache.export_pages([1], 3))
-    out["import"] = _error(lambda: eng.cache.import_pages(b"HVKV"))
+    out["export"] = _error(lambda: eng.export_handoff(7))
+    out["import"] = _error(lambda: eng.admit_prefilled(req, b"HVKV"))
     if eng.is_controller:
         out["follow"] = _error(eng.follow)
         eng.close()
@@ -222,6 +345,34 @@ def _worker(rank, n, init, out):
     pair = [got.get("pair")]
     dist.broadcast_object_list(pair, src=0)
     res["prefix"]["pair"] = tuple(pair[0])
+    eng = ServeEngine(params, ServeConfig(attention="paged", mesh=mesh,
+                                          **SWAP_CFG),
+                      device="cpu", capture=False)
+    if eng.is_controller:
+        got = _swap(eng, tlm.params_from_numpy(_params(SWAP_SEED),
+                                               device="cpu"))
+        eng.close()
+        got["steps"] = eng.steps
+    else:
+        got = {"steps": eng.follow()}
+    res["swap"] = dict(got, ticks=eng.lane_ticks)
+    foreign = os.environ.get(FOREIGN)
+    if foreign is not None:
+        with open(foreign, "rb") as f:
+            foreign = f.read()
+    eng = ServeEngine(params, ServeConfig(attention="paged", mesh=mesh,
+                                          **HANDOFF_CFG),
+                      device="cpu", capture=False)
+    if eng.is_controller:
+        got = _handoff(eng, params, foreign)
+        eng.close()
+        with open(os.path.join(out, "blob_tp.bin"), "wb") as f:
+            f.write(got["blob"])
+    else:
+        eng.follow()
+        got = {}
+    got["pages"] = _pages(eng)
+    res["handoff"] = got
     res["errors"] = _errors(n, params)
     args = sb.build_parser().parse_args(
         SB_FLAGS + ["--mesh", mesh, "--ab-tp"])
@@ -230,11 +381,22 @@ def _worker(rank, n, init, out):
     dist.destroy_process_group()
 
 
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Both worlds, the 2-rank one first: the 4-rank world imports its
+    handoff blob (named by the ``FOREIGN`` variable)."""
+    out, env = {}, None
+    for n in WORLDS:
+        d = str(tmp_path_factory.mktemp(f"stp{n}"))
+        out[n] = start_world(n, d, "test_torch_serve_tp", timeout=240,
+                             env=env)
+        env = dict(os.environ, **{FOREIGN: os.path.join(d, "blob_tp.bin")})
+    return out
+
+
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda n: f"tp{n}")
-def world(request, tmp_path_factory):
-    n = request.param
-    return n, start_world(n, str(tmp_path_factory.mktemp(f"stp{n}")),
-                          "test_torch_serve_tp", timeout=240)
+def world(request, worlds):
+    return request.param, worlds[request.param]
 
 
 # ------------------------------------------------------- the references
@@ -265,6 +427,12 @@ def jax_tp(jparams):
     reqs.append(eng.submit(np.concatenate([sys_p, _prompt(63, 3)]), 4))
     eng.run()
     out["prefix"] = [r.output for r in reqs]
+    out["swap"] = _swap(
+        JServeEngine(jparams, JServeConfig(mesh="dp=1,tp=4", **SWAP_CFG)),
+        jax.tree_util.tree_map(jnp.asarray, _params(SWAP_SEED)))
+    eng = JServeEngine(jparams, JServeConfig(mesh="dp=1,tp=4",
+                                             **HANDOFF_CFG))
+    out["blob"] = eng.export_handoff(_park(eng, *HANDOFF).rid)
     return out
 
 
@@ -283,6 +451,15 @@ def tp1():
                       device="cpu")
     reqs, _ = _prefix_serve(eng)
     out["prefix"] = [r.output for r in reqs]
+    out["swap"] = _swap(
+        ServeEngine(params, ServeConfig(attention="paged", **SWAP_CFG),
+                    device="cpu"),
+        tlm.params_from_numpy(_params(SWAP_SEED), device="cpu"))
+    eng = ServeEngine(params, ServeConfig(attention="paged", **HANDOFF_CFG),
+                      device="cpu")
+    req = eng.submit(_prompt(HANDOFF[0], HANDOFF[1]), HANDOFF[2])
+    eng.run()
+    out["handoff"] = req.output
     return out
 
 
@@ -370,15 +547,23 @@ def test_refusals_in_the_world(world):
         assert "num_heads" in e["heads"][1]
         assert e["vocab"][0] == "InvalidArgumentError"
         assert "vocab" in e["vocab"][1]
-        for key in ("update_params", "export", "import"):
-            assert e[key][0] == "NotImplementedError", key
-            assert "ROADMAP.md Queue 1 item 4.3" in e[key][1], key
+        assert e["capture"][0] == "InvalidArgumentError"
+        assert "gloo collectives cannot be captured" in e["capture"][1]
+        for key in ("cache_export", "cache_import"):
+            assert e[key][0] == "InvalidArgumentError", key
+            assert "go through the engine" in e[key][1], key
         if r == 0:
+            # The controller swaps weights, has no parked request 7 and
+            # refuses a torn blob before any page moves.
+            assert e["update_params"] is None
+            assert e["export"][0] == "KeyError"
+            assert e["import"][0] == "FrameError"
             assert e["follow"][0] == "PreconditionError"
             assert e["after_close"][0] == "PreconditionError"
         else:
-            assert e["submit"][0] == "PreconditionError"
-            assert e["step"][0] == "PreconditionError"
+            for key in ("update_params", "export", "import", "submit",
+                        "step"):
+                assert e[key][0] == "PreconditionError", key
 
 
 def test_refusals_without_a_world():
@@ -387,14 +572,18 @@ def test_refusals_without_a_world():
 
     params = tlm.params_from_numpy(_params(), device="cpu")
     cfg = dict(page_size=8, num_pages=16, decode_slots=1, prefill_chunk=4)
-    with pytest.raises(NotImplementedError, match="item 4.3"):
+    # capture=True (the default) over no world: the mesh is not the
+    # world, which is checked before the group's backend can be (the
+    # gloo refusal is pinned in the worlds).
+    with pytest.raises(InvalidArgumentError, match="world has 1"):
         ServeEngine(params, ServeConfig(mesh="dp=1,tp=4", **cfg),
                     device="cpu")
     with pytest.raises(InvalidArgumentError, match="world has 1"):
         ServeEngine(params, ServeConfig(mesh="dp=1,tp=2", **cfg),
                     device="cpu", capture=False)
     for pools in (None, {"prefill": 1, "decode": 1}):
-        with pytest.raises(NotImplementedError, match="item 4.3"):
+        with pytest.raises(InvalidArgumentError,
+                           match="transport='inproc'.*'process' or 'tcp'"):
             ServeFleet(params, ServeConfig(mesh="dp=1,tp=2", **cfg),
                        FleetConfig(pools=pools), device="cpu")
     single = ServeEngine(params, ServeConfig(mesh="dp=1,tp=1", **cfg),
@@ -416,6 +605,98 @@ def test_bad_mesh_strings_raise_as_the_jax_config(bad):
                     prefill_chunk=4, mesh=bad)
     assert type(got.value).__name__ == type(want.value).__name__
     assert str(got.value) == str(want.value)
+
+
+# --------------------------------------------------------- weight swap
+
+
+def test_update_params_streams_equal_the_jax_tp_engine_and_tp1(
+        world, jax_tp, tp1):
+    n, ranks = world
+    got = ranks[0]["swap"]
+    assert got["before"] == tp1["swap"]["before"]
+    assert got["after"] == jax_tp["swap"]["after"] == tp1["swap"]["after"]
+    assert got["after"] != got["before"]
+    # The followers ran every step of both waves with the controller.
+    assert {res["swap"]["ticks"] for res in ranks} == {got["ticks"]}
+    for res in ranks[1:]:
+        assert res["swap"]["steps"] == got["steps"]
+
+
+def test_update_params_refusals_keep_the_jax_messages(world, jax_tp):
+    n, ranks = world
+    got, want = ranks[0]["swap"]["errors"], jax_tp["swap"]["errors"]
+    assert got["busy"][0] == "RuntimeError"
+    assert got["geometry"][0] == "ValueError"
+    assert got == want
+
+
+def test_update_params_flushes_the_prefix_index(world, jax_tp):
+    n, ranks = world
+    got = ranks[0]["swap"]
+    assert got["entries"] > 0 and got["flushed"] == 0
+    assert (jax_tp["swap"]["entries"], jax_tp["swap"]["flushed"]) == (
+        got["entries"], 0)
+
+
+# ------------------------------------------------------- the HVKV blob
+
+
+def test_handoff_blob_framing_equals_the_jax_tp_engine(world, jax_tp):
+    n, ranks = world
+    got = ranks[0]["handoff"]
+    assert got["again"] == got["blob"]              # repeatable
+    frame, tiles = _payload(got["blob"])
+    jframe, jtiles = _payload(jax_tp["blob"])
+    assert frame == jframe
+    np.testing.assert_allclose(tiles, jtiles, **PAGE_TOL)
+    # The port's tp=1 blob of the same request frames the same way.
+    frame1, tiles1 = _payload(got["blob1"])
+    assert frame1 == frame
+    np.testing.assert_allclose(tiles1, tiles, **PAGE_TOL)
+
+
+def test_blob_decodes_across_tp_degrees(world, tp1):
+    n, ranks = world
+    got = ranks[0]["handoff"]
+    want = tp1["handoff"]
+    assert got["stream_tp"] == want                 # tp=N -> tp=N
+    assert got["stream_1"] == want                  # tp=N -> tp=1
+    # The tp=1 engine's pages hold the blob's tiles bit for bit.
+    np.testing.assert_array_equal(got["single_tiles"],
+                                  _payload(got["blob"])[1])
+
+
+@pytest.mark.parametrize("source", ["tp1", "foreign"])
+def test_each_rank_holds_the_blobs_head_slice(world, worlds, source):
+    """tp=1 -> tp=N, and the 2-rank world's blob -> tp=4: rank r's
+    imported pages are the blob's heads r*H/N onward, bit for bit."""
+    n, ranks = world
+    got = ranks[0]["handoff"]
+    if source == "tp1":
+        blob = got["blob1"]
+    else:
+        blob = worlds[2][0]["handoff"]["blob"]
+        assert ("foreign" in got["grants"]) == (n == 4)
+        if n == 2:
+            return
+    grant = got["grants"][source]
+    tiles = _payload(blob)[1]
+    hl = H // n
+    for r, res in enumerate(ranks):
+        pages = res["handoff"]["pages"]
+        for layer, lt in zip(pages, tiles):
+            for kv, t in zip(("k", "v"), lt):
+                np.testing.assert_array_equal(
+                    layer[kv][grant], t[..., r * hl:(r + 1) * hl, :])
+
+
+def test_mismatched_blob_is_refused_with_no_state_change(world):
+    n, ranks = world
+    got = ranks[0]["handoff"]
+    assert got["mismatch"][0] == "FrameError"
+    assert "geometry" in got["mismatch"][1]
+    assert got["unchanged"]
 
 
 # ---------------------------------------------------------- serve_bench

@@ -271,12 +271,12 @@ def _worker(rank, n, init, out):
     dist.destroy_process_group()
 
 
-def start_world(n, out, module, timeout=180):
+def start_world(n, out, module, timeout=180, env=None):
     """Run ``module._worker(rank, n, init, out)`` in ``n`` processes
-    (``gloo_worlds.start_world``); fail, after killing them all, if any
-    exits with an error or outlives ``timeout``. Returns each rank's
-    saved results."""
-    gloo_worlds.start_world(n, out, module, timeout=timeout)
+    (``gloo_worlds.start_world``, with ``env`` their environment); fail,
+    after killing them all, if any exits with an error or outlives
+    ``timeout``. Returns each rank's saved results."""
+    gloo_worlds.start_world(n, out, module, timeout=timeout, env=env)
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(n)]
 
