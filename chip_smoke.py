@@ -16,6 +16,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --elastic-only
     python3 chip_smoke.py --loop-only
     python3 chip_smoke.py --autotune-only
+    python3 chip_smoke.py --zoo-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -41,8 +42,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 5. conv_bn: K5 (fused 1x1 conv + BatchNorm statistics) against its
    plain version over a sweep (rows off the tile, K 8-2048, prologue on
    and off with positive shifts, strided NHWC views, f32 and bf16), then
-   at ResNet-50's 16 1x1 shapes (batch 64, 224^2, bf16), with the four
-   times each and their sums over one training step's 36 launches;
+   at ResNet-50's 16 1x1 shapes (batch 64, 224^2, bf16) and Inception
+   V3's 19 (batch 64, 299^2, bf16), with the four times each and their
+   sums over one training step's 36 and 40 launches;
 6. training: the bench lane's data-parallel step at GPT-2-small width
    (12 layers, d_model 768, 12 heads, vocab 32000, seq 2048, batch 8,
    bf16 compute, random weights from a seed) on flash attention, Adam
@@ -72,13 +74,14 @@ Phases, each fatal on failure (exit code 1, no result line):
 8. window: the training lanes as multi-step windows
    (``distributed.window``: one captured step replayed as a CUDA graph),
    two windows of 2 steps against 4 eager steps from the same weights,
-   bit for bit (window means, parameters, buffers): the LM above with
-   ``capturable`` Adam under hook-driven ``DistributedOptimizer``, with
+   bit for bit (window means, parameters, buffers): the LM above at 4
+   of its 12 layers with ``capturable`` Adam under hook-driven
+   ``DistributedOptimizer``, with
    ZeRO-1, and with ``fused_ce`` + ``remat``; ResNet-50 ``--fused-bn``
    (cuDNN pinned to its deterministic algorithms for this A/B). The
    wrappers launch K1-K3 / K5 and the collectives are issued for the
    warm-up step and the capture only; one replayed window under
-   ``torch.profiler`` traces K1 12 (24 with remat), K2/K3 12 and K5 36
+   ``torch.profiler`` traces K1 4 (8 with remat), K2/K3 4 and K5 36
    kernels a step, and as many NCCL kernels as an eager window; step ms,
    idle share and peak memory eager against windowed, capture time;
 9. engine: the continuous-batching ``ServeEngine`` at full GPT-2-small
@@ -102,8 +105,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    eager; and with the prefix cache on and off over 8 requests sharing a
    128-token system prompt: 7 hits of 128 tokens, no copy-on-write copy,
    the streams unchanged and equal ``lm_decode``'s;
-10. fleet: ``ServeFleet`` at the engine phase's geometry and width
-   (paged, captured, the same weights and waves). Two in-process
+10. fleet: ``ServeFleet`` at the engine phase's geometry and width and
+   4 of its 12 layers (paged, captured, the waves, seed 0's weights at
+   that depth, against the single engine's run at that depth, which
+   phases 11, 13 and 13b share). Two in-process
    replicas sharing one copy of the weights: the streams equal the
    single engine's and ``lm_decode``'s, each replica's K4 wrapper
    launched only for its warm-up step and capture (the card's reserved
@@ -174,10 +179,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 13. tp: tensor parallelism. A world of 4 ranks, each a process of this
    script (``--tp-rank``): its own card over NCCL where the machine has
    4, else all on the one card over gloo with every tensor on the card.
-   The LM is the serving width, 6 of its 12 layers deep (phases 13 and
-   13b's depth cut, PR 20), and its references are the single card's
-   captured paged engine at that depth, run in the parent before the
-   world starts, under the weights of numpy seed 0 and seed 1.
+   The LM is the serving width, 4 of its 12 layers deep (the depth cut
+   of phases 10, 11, 13 and 13b, shared with the zoo's budget), and its
+   references are the single card's captured paged engine at that depth,
+   run in the parent before phase 10, under the weights of numpy seed 0
+   and seed 1.
    Rank 0 serves the engine phase's requests and waves through
    ``ServeEngine(..., attention="paged", mesh="dp=1,tp=4",
    capture=False)`` (heads, MLP features and vocab sharded; each rank's
@@ -215,7 +221,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``process`` transport with ``mesh="dp=1,tp=2"``: each replica a worker
    (the controller) and one follower it starts, all four ranks on the
    one card over gloo (replica i takes cards (2i + r) % cards: NCCL on 4
-   cards), the LM phase 13's (6 layers deep). The engine phase's requests
+   cards), the LM phase 13's (4 layers deep). The engine phase's requests
    prefill on replica 0, ship their pages (gathered from both ranks) and
    decode on replica 1 (each rank writing its heads): every stream
    equals phase 13's single-card reference, every request finishes on
@@ -390,7 +396,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``{"autotune"}`` line with each probed threshold's steps/s, the
    winners, probes, captures, the memory, the runs' seconds and the
    phase's, beside the card's name and power limit;
-20. (``--profile`` only) two training steps of each lane and the
+20. zoo: the rest of the model zoo through the image bench lane's step
+   (SGD 0.01 momentum 0.9 under ``DistributedOptimizer``, bf16, 64
+   images, 1000 classes, an NCCL world of one, random weights from a
+   seed, published widths): Inception V3 at 299^2, one step fused (K5)
+   against unfused from the same weights (loss, gradient norm and the 94
+   layers' new running means), then 3 fused steps on one batch: the loss
+   falls, K5 ran 40 times a step and never with the prologue, the bucket
+   collectives are the plan's each step; VGG-16 and ViT-B/16 at 224^2,
+   3 steps each (the loss falls, the plan's collectives); MNISTNet, one
+   step and one ``make_eval_step`` call; then cross-replica BatchNorm:
+   ResNet-50 with ``axis_name="hvd"`` on 2 ``--syncbn-rank`` processes
+   of 16 images (gloo on one card, NCCL on 2) against one rank of all
+   32, float32: the summed loss, every layer's new running mean and the
+   summed gradients. Prints one ``{"zoo"}`` line with each model's
+   parameters, bucket plan, losses, step times, median step, img/s a card, peak
+   memory and launches, the parity and the sync-BN errors and the
+   phase's seconds, beside the card's name and power limit;
+21. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
 
@@ -433,6 +456,9 @@ line and no kernels or ok line.
 
 ``--autotune-only`` runs phases 1, 2 and 19 and prints the
 ``{"autotune"}`` line and no kernels or ok line.
+
+``--zoo-only`` runs phases 1, 2 and 20 and prints the ``{"zoo"}`` line
+and no kernels or ok line.
 
 ``--engine-only`` runs phases 1 and 9 alone (and 12's engine half with
 ``--profile``), the engine phase RUNS times (default 3) with all its
@@ -1049,44 +1075,24 @@ def _k5_bound(M, K, N, prologue, elt):
     return nbytes, 2 * M * K * N
 
 
-def conv_bn_phase(torch, np):
-    """K5 over the sweep (f32 and bf16), then at the 16 ResNet-50 shapes
-    in bf16: agreement, bit-for-bit repetition, and per shape the cold-L2
-    time of the kernel, of its plain version and of the library yardstick
+def _k5_table(torch, np, cb, rng, flush, model, table):
+    """K5 at one model's 1x1 shapes (``table`` rows ``(side, K, N, stride,
+    prologue, launches a step)``) in bf16 at batch ``IMG_B``: agreement,
+    bit-for-bit repetition, and per shape the cold-L2 time of the kernel,
+    its device time, the plain version's and the library yardstick's
     (``torch.matmul`` + the two column reductions, behind the prologue's
-    elementwise pass), with the bound; the sums over one training step's
-    36 launches."""
-    from horovod_tpu_torch._timing import (device_ms, flush_buffer,
-                                           time_cold_ms)
-    from horovod_tpu_torch.models.resnet import RESNET50_K5
-    from horovod_tpu_torch.ops import conv_bn as cb
+    elementwise pass), with the bound; their sums over one training
+    step's launches."""
+    from horovod_tpu_torch._timing import device_ms, time_cold_ms
 
-    rng = np.random.default_rng(21)
-    worst = {}
-    cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[1]
-        for B, H, W, K, N, s, pro in K5_SWEEP:
-            x, w, a, b = _k5_inputs(torch, np, rng, B, H, W, K, N, s, pro,
-                                    dtype)
-            errs = _k5_check(torch, cb, x, w, a, b, dname,
-                             f"sweep {dname} x {tuple(x.shape)} "
-                             f"stride {s} N {N} prologue {pro}")
-            worst[dname] = max(worst.get(dname, (0, 0)), errs)
-            cases += 1
-    log(f"conv_bn sweep: {cases} cases (M 1..39999, K 8..2048, N 3..1024, "
-        f"prologue on/off, strided views, f32 + bf16) agree with the plain "
-        f"version; worst (y abs, stats rel) {worst}")
-
-    flush = flush_buffer()
     shapes = []
     tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
            "t_bytes": 0.0, "t_ops": 0.0, "bytes": 0, "flops": 0,
            "launches": 0, "max_abs_err": 0.0}
-    for side, K, N, s, pro, count in RESNET50_K5:
+    for side, K, N, s, pro, count in table:
         x, w, a, b = _k5_inputs(torch, np, rng, IMG_B, side, side, K, N, s,
                                 pro, torch.bfloat16)
-        what = f"ResNet-50 M={x.shape[0] * x.shape[1] * x.shape[2]} " \
+        what = f"{model} M={x.shape[0] * x.shape[1] * x.shape[2]} " \
                f"{K}->{N} stride {s} prologue {pro}"
         err, serr = _k5_check(torch, cb, x, w, a, b, "bfloat16", what)
         first = cb.bn_stats_forward(x, w, a, b)
@@ -1138,22 +1144,62 @@ def conv_bn_phase(torch, np):
             f"{row['bound_ms']:.4f} ({row['bound_by']}), max_abs_err "
             f"{err:.3e}")
         del x, w, a, b, x2
-    del flush
-    torch.cuda.empty_cache()
-    check(tot["launches"] == 36, f"the ResNet-50 table holds "
-                                 f"{tot['launches']} launches, not 36")
     step = {k: tot[k] for k in ("ms", "device_ms", "plain_ms", "library_ms",
-                                "bytes", "flops", "max_abs_err")}
+                                "bytes", "flops", "max_abs_err",
+                                "launches")}
     step["bound_ms"] = max(tot["t_bytes"], tot["t_ops"])
     step["bound_by"] = ("bytes" if tot["t_bytes"] >= tot["t_ops"]
                         else "operations")
-    log(f"conv_bn: one ResNet-50 step's 36 launches: ms {step['ms']:.4f}  "
-        f"device_ms {step['device_ms']:.4f}  plain_ms "
+    log(f"conv_bn: one {model} step's {step['launches']} launches: ms "
+        f"{step['ms']:.4f}  device_ms {step['device_ms']:.4f}  plain_ms "
         f"{step['plain_ms']:.4f}  library_ms "
         f"{step['library_ms']:.4f}  bound_ms {step['bound_ms']:.4f} "
         f"({step['bound_by']}: {step['bytes']} bytes, {step['flops']} "
         f"flops)")
-    return {"step": step, "shapes": shapes, "sweep_worst": worst}
+    return {"step": step, "shapes": shapes}
+
+
+def conv_bn_phase(torch, np):
+    """K5 over the sweep (f32 and bf16), then at the 16 ResNet-50 shapes
+    and the 19 Inception V3 shapes (299^2) in bf16: agreement,
+    bit-for-bit repetition, the times and the bound per shape and summed
+    over one training step's 36 (ResNet-50) and 40 (Inception V3)
+    launches (:func:`_k5_table`)."""
+    from horovod_tpu_torch._timing import flush_buffer
+    from horovod_tpu_torch.models.inception import INCEPTION_V3_K5
+    from horovod_tpu_torch.models.resnet import RESNET50_K5
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    rng = np.random.default_rng(21)
+    worst = {}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for B, H, W, K, N, s, pro in K5_SWEEP:
+            x, w, a, b = _k5_inputs(torch, np, rng, B, H, W, K, N, s, pro,
+                                    dtype)
+            errs = _k5_check(torch, cb, x, w, a, b, dname,
+                             f"sweep {dname} x {tuple(x.shape)} "
+                             f"stride {s} N {N} prologue {pro}")
+            worst[dname] = max(worst.get(dname, (0, 0)), errs)
+            cases += 1
+    log(f"conv_bn sweep: {cases} cases (M 1..39999, K 8..2048, N 3..1024, "
+        f"prologue on/off, strided views, f32 + bf16) agree with the plain "
+        f"version; worst (y abs, stats rel) {worst}")
+
+    flush = flush_buffer()
+    res = _k5_table(torch, np, cb, rng, flush, "ResNet-50", RESNET50_K5)
+    inc = _k5_table(torch, np, cb, rng, flush, "Inception-V3", [
+        (side, K, N, 1, False, count)
+        for side, K, N, count in INCEPTION_V3_K5])
+    del flush
+    torch.cuda.empty_cache()
+    check(res["step"]["launches"] == 36, f"the ResNet-50 table holds "
+          f"{res['step']['launches']} launches, not 36")
+    check(inc["step"]["launches"] == 40, f"the Inception V3 table holds "
+          f"{inc['step']['launches']} launches, not 40")
+    res.update(sweep_worst=worst, inception_v3=inc)
+    return res
 
 
 # ------------------------------------------------------------- phase 6
@@ -1710,6 +1756,10 @@ def resnet_phase(torch, np, profile):
 # toward): the first window still holds a warm-up, the capture and a
 # replay, and the second only replays.
 WINDOW_K, WINDOWS = 2, 2
+# The LM lanes' depth: 4 of GPT-2-small's 12 layers (the phase's depth
+# cut, which pays toward the zoo phase; every check is kept, at this
+# depth).
+WINDOW_LAYERS = 4
 
 
 def _window_mean(torch, outs):
@@ -1869,7 +1919,8 @@ def _lm_window_lane(torch, flash, mode):
     from horovod_tpu_torch.models.train import make_train_step
 
     def build():
-        model = _lm(torch, flash, remat=mode == "fused_ce_remat")
+        model = _lm(torch, flash, remat=mode == "fused_ce_remat",
+                    layers=WINDOW_LAYERS)
         adam = torch.optim.Adam(model.parameters(), lr=1e-4,
                                 capturable=True)
         opt = (hvd.sharded_distributed_optimizer(adam) if mode == "zero"
@@ -1913,25 +1964,26 @@ def window_phase(torch, np):
                         _lm_window_lane(torch, flash, mode), tokens,
                         kernels, lm_names)
         w = ab["window"]
-        k1 = 2 * LAYERS if mode == "fused_ce_remat" else LAYERS
+        k1 = (2 * WINDOW_LAYERS if mode == "fused_ce_remat"
+              else WINDOW_LAYERS)
         check(w["launches"] == {"flash_forward": 2 * k1,
-                                "flash_bwd_dq": 2 * LAYERS,
-                                "flash_bwd_dkv": 2 * LAYERS},
+                                "flash_bwd_dq": 2 * WINDOW_LAYERS,
+                                "flash_bwd_dkv": 2 * WINDOW_LAYERS},
               f"window[lm {mode}]: wrapper launches {w['launches']}, "
-              f"expected K1 {k1}, K2/K3 {LAYERS} for each of the warm-up "
-              "and the capture")
+              f"expected K1 {k1}, K2/K3 {WINDOW_LAYERS} for each of the "
+              "warm-up and the capture")
         counts = w["profile"]["counts"]
         check(counts["flash_fwd"] == k1 * WINDOW_K
-              and counts["flash_bwd_dq"] == LAYERS * WINDOW_K
-              and counts["flash_bwd_dkv"] == LAYERS * WINDOW_K,
+              and counts["flash_bwd_dq"] == WINDOW_LAYERS * WINDOW_K
+              and counts["flash_bwd_dkv"] == WINDOW_LAYERS * WINDOW_K,
               f"window[lm {mode}]: a replayed window of {WINDOW_K} traced "
-              f"{counts}, expected K1 {k1} and K2/K3 {LAYERS} a step")
+              f"{counts}, expected K1 {k1} and K2/K3 {WINDOW_LAYERS} a step")
         if mode == "zero":
             per_step = 2                  # one float32 group: RS + AG
             issued = w["zero_collectives"]
         else:
             if lm_plan is None:           # the same parameters each lane
-                model = _lm(torch, flash)
+                model = _lm(torch, flash, layers=WINDOW_LAYERS)
                 lm_plan = len(hvd.plan_buckets(
                     list(model.parameters()),
                     basics.config().fusion_threshold))
@@ -2395,6 +2447,12 @@ def engine_phase(torch, np):
 #: artifact and the engine build; the first step RPC after it waits out
 #: the first capture.
 FLEET_REPLICAS = 2
+# The fleet's and the pools' LM: 4 of GPT-2-small's 12 layers (phases 10
+# and 11's depth cut, which pays toward the zoo phase; every check kept,
+# at this depth), the TP phases' depth too, so that phases 10, 11, 13
+# and 13b hold their streams to one single-card reference run
+# (:func:`tp_references`).
+FLEET_LAYERS = 4
 FLEET_SPAWN_S, FLEET_RPC_S = 180.0, 180.0
 FLEET_TIMEOUT_S = 300.0
 
@@ -2568,10 +2626,10 @@ def _inproc_fleet(torch, params, prompts, waves, single):
         check(sorted(rid for rid, *_ in watch.captures)
               == list(range(FLEET_REPLICAS)),
               f"fleet[inproc]: replicas captured {watch.captures}")
-        check(all(watch.launches.get(r, 0) == 2 * LAYERS
+        check(all(watch.launches.get(r, 0) == 2 * FLEET_LAYERS
                   for r in range(FLEET_REPLICAS)),
               f"fleet[inproc]: K4 wrapper launches per replica "
-              f"{watch.launches}, expected {2 * LAYERS} each (warm-up + "
+              f"{watch.launches}, expected {2 * FLEET_LAYERS} each (warm-up + "
               "capture; replays launch none)")
         out["launches_per_replica"] = dict(watch.launches)
         log(f"fleet[inproc] clean: {out['clean']}")
@@ -2599,10 +2657,11 @@ def _inproc_fleet(torch, params, prompts, waves, single):
         live = sum(1 for r in fl.replicas
                    if len(r.engine.attn_len_samples) > before[r.id]
                    and any(r.engine.attn_len_samples[-1]))
-        check(live >= 1 and prof["counts"]["paged_split"] == LAYERS * live
-              and prof["counts"]["paged_merge"] == LAYERS * live,
+        check(live >= 1
+              and prof["counts"]["paged_split"] == FLEET_LAYERS * live
+              and prof["counts"]["paged_merge"] == FLEET_LAYERS * live,
               f"fleet[inproc]: one replayed tick traced {prof['counts']}, "
-              f"expected {LAYERS} x {live} live replicas")
+              f"expected {FLEET_LAYERS} x {live} live replicas")
         out["tick_trace"] = {"live_replicas": live, **prof}
         _fleet_drain(fl)
 
@@ -2728,16 +2787,17 @@ def _others_mib(torch):
 
 def _check_worker_decode(fl, name, lane_replays=None):
     """Each worker's own count of K4 wrapper calls: its decode lane's
-    warm-up step and capture, 2 x LAYERS, and replays after that, which
+    warm-up step and capture, 2 x FLEET_LAYERS, and replays after that, which
     launch none through the wrapper. Returns the workers' replies."""
     pongs = [rep.engine.client.call("ping") for rep in fl.replicas]
     for rep, p in zip(fl.replicas, pongs):
-        check(p["decode_launches"] == 2 * LAYERS
+        check(p["decode_launches"] == 2 * FLEET_LAYERS
               and p["lane_captures"] == 1 and p["lane_replays"] > 0
               and p["lane_replays"] > (lane_replays or {}).get(p["pid"], 0)
               and p["pid"] == rep.proc.pid,
               f"{name}: worker {rep.id} reports {p}, expected "
-              f"{2 * LAYERS} K4 wrapper calls, one capture and new replays")
+              f"{2 * FLEET_LAYERS} K4 wrapper calls, one capture and new "
+              "replays")
     return pongs
 
 
@@ -2862,7 +2922,9 @@ def _card_freed(torch, others0, weights_mib, name):
 
 
 def fleet_phase(torch, np, params, prompts, waves, single, card):
-    """Phase 10: the fleet at the engine phase's geometry and width."""
+    """Phase 10: the fleet at the engine phase's geometry and width,
+    ``FLEET_LAYERS`` deep; ``single`` is the single engine's run at that
+    depth."""
     t0 = time.perf_counter()
     inproc = _inproc_fleet(torch, params, prompts, waves, single)
     torch.cuda.empty_cache()
@@ -2905,11 +2967,11 @@ def _kv_blob_bytes(prompts):
     for p in prompts:
         n = -(-len(p) // PAGE)
         header = json.dumps({
-            "layers": LAYERS, "page_size": PAGE, "heads": HEADS,
+            "layers": FLEET_LAYERS, "page_size": PAGE, "heads": HEADS,
             "head_dim": HEAD_DIM, "dtype": "float32", "pages": n,
             "positions": len(p)}).encode("utf-8")
         out.append((8 + len(header)
-                    + LAYERS * 2 * n * PAGE * HEADS * HEAD_DIM * 4, n))
+                    + FLEET_LAYERS * 2 * n * PAGE * HEADS * HEAD_DIM * 4, n))
     return out
 
 
@@ -3046,7 +3108,7 @@ def _inproc_disagg(torch, params, prompts, waves, ref_reqs, blobs):
               f"disagg[inproc]: {d}")
         want = sum(b for b, _ in blobs)
         pages = sum(n for _, n in blobs)
-        tile = LAYERS * 2 * PAGE * HEADS * HEAD_DIM * 4
+        tile = FLEET_LAYERS * 2 * PAGE * HEADS * HEAD_DIM * 4
         chunks = sum(-(-b // KV_CHUNK) for b, _ in blobs)
         check(d["kv_bytes_shipped"] == want
               and d["chunks_shipped"] == chunks,
@@ -3056,12 +3118,12 @@ def _inproc_disagg(torch, params, prompts, waves, ref_reqs, blobs):
               f"{chunks} chunks of {KV_CHUNK}")
         pe, de = fl.replicas[0].engine, fl.replicas[1].engine
         dg = (de.lane_graphs or {}).get(False)
-        check(watch.launches.get(1, 0) == 2 * LAYERS and dg is not None
+        check(watch.launches.get(1, 0) == 2 * FLEET_LAYERS and dg is not None
               and dg.captures == 1 and dg.replays > 0,
               f"disagg[inproc]: decode replica K4 wrapper calls "
               f"{watch.launches.get(1, 0)}, graph {dg and dg.captures} "
               f"captures {dg and dg.replays} replays; expected "
-              f"{2 * LAYERS} (warm-up + capture), 1 capture and replays")
+              f"{2 * FLEET_LAYERS} (warm-up + capture), 1 capture and replays")
         check(not pe.lane_graphs and pe.attn_len_samples
               and not any(any(s) for s in pe.attn_len_samples),
               f"disagg[inproc]: the prefill replica decoded "
@@ -3093,11 +3155,11 @@ def _inproc_disagg(torch, params, prompts, waves, ref_reqs, blobs):
                             warmup=warm_tick)
         live = int(len(de.attn_len_samples) > n0[0]
                    and any(de.attn_len_samples[-1]))
-        check(live == 1 and prof["counts"]["paged_split"] == LAYERS
-              and prof["counts"]["paged_merge"] == LAYERS,
+        check(live == 1 and prof["counts"]["paged_split"] == FLEET_LAYERS
+              and prof["counts"]["paged_merge"] == FLEET_LAYERS,
               f"disagg[inproc]: one replayed decode-pool tick traced "
               f"{prof['counts']} with {live} live decode step, expected "
-              f"{LAYERS} of each")
+              f"{FLEET_LAYERS} of each")
         out["tick_trace"] = prof
         _fleet_drain(fl, watch)
         out["launches"] = k4.launches
@@ -3183,10 +3245,10 @@ def _process_disagg(torch, params, prompts, waves, ref_reqs, shipped):
               f"{[r.replica for r in reqs]}; in process shipped {shipped}")
         pongs = [rep.engine.client.call("ping") for rep in fl.replicas]
         pp, dp = pongs
-        check(dp["decode_launches"] == 2 * LAYERS
+        check(dp["decode_launches"] == 2 * FLEET_LAYERS
               and dp["lane_captures"] == 1 and dp["lane_replays"] > 0,
               f"disagg[process]: the decode worker reports {dp}, expected "
-              f"{2 * LAYERS} K4 wrapper calls, one capture and replays")
+              f"{2 * FLEET_LAYERS} K4 wrapper calls, one capture and replays")
         check(pp["lane_replays"] is None and pp["lane_captures"] is None,
               f"disagg[process]: the prefill worker decoded: {pp}")
         out.update(clean=st, card_mib_outside={"before": others0,
@@ -3231,9 +3293,10 @@ def _latency(st):
 def disagg_phase(torch, np, params, prompts, waves, single, card,
                  colocated=None):
     """Phase 11: disaggregated prefill/decode pools at the engine phase's
-    geometry and width. ``colocated`` holds phase 10's clean runs (the
-    in-process one's streams and numbers, the workers' numbers); without
-    it the colocated in-process fleet runs here first."""
+    geometry and width, ``FLEET_LAYERS`` deep. ``colocated`` holds phase
+    10's clean runs (the in-process one's streams and numbers, the
+    workers' numbers); without it the colocated in-process fleet runs
+    here first."""
     t0 = time.perf_counter()
     if colocated is None:
         st, reqs = _colocated_inproc(torch, params, prompts, waves)
@@ -3765,11 +3828,12 @@ TP_CAVEAT = ("4 ranks share one card over gloo: each collective stages "
 # (atol = rtol: float32 sums in another order across 12 layers).
 TP_SWAP_SEED = 1
 TP_PAGE_TOL = 1e-5
-# Phases 13 and 13b's LM: the serving width, half its depth (cut in PR
-# 20 to pay for the swap, the blob and phase 13b, whose gloo ticks on
-# one card cost about a second a tick on slow hosts at 12 layers); its
-# reference runs on the single card are at the same depth.
-TP_LAYERS = 6
+# Phases 13 and 13b's LM: the serving width at the fleet's cut depth
+# (the swap, the blob and phase 13b's gloo ticks on one card cost about
+# a second a tick on slow hosts at 12 layers, and the zoo phase is paid
+# for by these cuts); its reference runs on the single card are at the
+# same depth.
+TP_LAYERS = FLEET_LAYERS
 TP_NO_CAPTURE = ("the ranks share one card, so they meet over gloo, "
                  "whose collectives cannot be captured into a CUDA "
                  "graph: ServeEngine refuses capture=True over a gloo "
@@ -4150,10 +4214,11 @@ def _tp_world(job, blob):
 
 
 def tp_references(torch, np, prompts, waves):
-    """The single card's captured paged engine at the TP phases' depth
-    (``TP_LAYERS``): its run over the waves under the weights of numpy
-    seed 0 (``old``) and of ``TP_SWAP_SEED`` (``new``, with request 0's
-    handoff blob). Phases 13 and 13b compare against them."""
+    """The single card's captured paged engine at the cut depth of phases
+    10, 11, 13 and 13b (``FLEET_LAYERS``): its run over the waves under
+    the weights of numpy seed 0 (``old``, with those weights as
+    ``"params"``) and of ``TP_SWAP_SEED`` (``new``, with request 0's
+    handoff blob). Those phases compare against them."""
     from horovod_tpu_torch.models.parallel_lm import init_lm_params
 
     out = {}
@@ -4168,6 +4233,8 @@ def tp_references(torch, np, prompts, waves):
             while not eng.handoff:
                 eng.step()
             run["blob"] = eng.export_handoff(req.rid)
+        else:
+            run["params"] = params
         out[name] = run
         del eng, params
         torch.cuda.empty_cache()
@@ -7190,6 +7257,351 @@ def autotune_phase(torch, np, card):
     return res
 
 
+# ------------------------------------------------------------ phase 20
+
+ZOO_STEPS = 3
+# Inception V3 at its published input (the bench lane's other defaults:
+# 64 images a card, 1000 classes, bf16, SGD 0.01 momentum 0.9).
+INCEPTION_SIZE = 299
+# Fused (K5) against unfused (cuDNN 1x1 convs, statistics as a separate
+# pass) Inception V3, same weights, batch and dropout mask (one seed, one
+# generator), one bf16 forward + backward: RESNET_PARITY_TOL's argument
+# (a y rounding one bf16 ulp the other way now and then, carried along),
+# over 94 ConvBNs instead of 53 and without the identity paths through
+# which a fresh ResNet's blocks pass most of the signal, so twice its
+# bounds for the loss and the gradient norm. A running mean is held to
+# one bf16 ulp (2^-8) of its layer's largest: under zero-mean images the
+# stem's and the first blocks' channel means sit near 0, so the layer's
+# largest is small against the per-element roundings that move it
+# (1.86e-3 measured on an H100 at 700 W). Wrong statistics move a
+# layer's running mean by its whole scale.
+INCEPTION_PARITY_TOL = {"loss": 2e-3, "running_mean": 2.0 ** -8,
+                        "grad_norm": 2e-2}
+MNIST_B = 64
+# Cross-replica BatchNorm: ResNet-50 (fused, 224^2) on 2 ranks of 16
+# images with axis_name="hvd" against one rank of all 32 without it, in
+# float32 (the K5 float32 kernel): in bf16 cuDNN's other algorithms at
+# batch 16 and 32 round some y the other way, which moved near-zero
+# running means by 4.0e-3 of their layer's largest and the summed
+# gradients by 2.4e-2 (on an H100 at 700 W), too close to what a fault
+# moves.
+SYNCBN_RANKS, SYNCBN_B = 2, 32
+SYNCBN_TIMEOUT_S = 300.0
+# float32 without TF32 (the port's policy, _device.py): the same values
+# summed in another order (other algorithms at batch 16 and 32, the
+# statistics in two parts and then across the ranks): the loss (the
+# ranks' summed to the whole batch's) within 1e-5 and each layer's new
+# running mean within 1e-4 of its largest (0 and 2.0e-6 measured on an
+# H100 at 700 W). cuDNN's float32 backward takes algorithms at the two
+# batch sizes whose transforms round differently: the summed gradients
+# moved by 5.6e-4 of their norm (relative L2, same card), so they are
+# held to 1e-2. Statistics left per rank move a layer's mean by its
+# whole scale; a cotangent left per rank (the psum's backward returning
+# its input) moved the gradients by 0.34 (ResNet-50 at 64^2, 4 images a
+# rank, float32, on the CPU).
+SYNCBN_TOL = {"loss": 1e-5, "running_mean": 1e-4, "grad": 1e-2}
+
+
+def _zoo_batch(torch, np, seed, b, size, channels=3, classes=CLASSES):
+    rng = np.random.default_rng(seed)
+    return {"image": torch.tensor(rng.standard_normal(
+                (b, size, size, channels), dtype=np.float32), device="cuda"),
+            "label": torch.tensor(rng.integers(0, classes, b),
+                                  device="cuda")}
+
+
+def _conv_bns(model):
+    from horovod_tpu_torch.models import resnet
+
+    return [m for m in model.modules() if isinstance(m, resnet.ConvBN)]
+
+
+def _inception_parity(torch, batch):
+    """One forward + backward of the same Inception V3 weights with fused
+    and with unfused BatchNorm: loss, gradient norm, new running means."""
+    from horovod_tpu_torch.models.inception import InceptionV3
+    from horovod_tpu_torch.models.train import cross_entropy_loss
+
+    out = {}
+    for fused in (True, False):
+        model = InceptionV3(fused_bn=fused, seed=0, device="cuda")
+        loss = cross_entropy_loss(model(batch["image"]), batch["label"])
+        loss.backward()
+        out[fused] = {"loss": float(loss.detach()),
+                      "grad_norm": _grad_norm(torch, model),
+                      "means": [m.mean.clone() for m in _conv_bns(model)]}
+        del model, loss
+        torch.cuda.empty_cache()
+    res = {}
+    for key in ("loss", "grad_norm"):
+        f, u = out[True][key], out[False][key]
+        rel = abs(f - u) / abs(u)
+        res[key] = {"fused": f, "unfused": u, "rel_diff": rel}
+        check(math.isfinite(f) and math.isfinite(u)
+              and rel <= INCEPTION_PARITY_TOL[key],
+              f"zoo: Inception V3 fused and unfused {key} differ by "
+              f"{rel:.3e} (fused {f}, unfused {u}; rtol "
+              f"{INCEPTION_PARITY_TOL[key]})")
+    worst = max(float((f - u).abs().max() / u.abs().max().clamp_min(1e-30))
+                for f, u in zip(out[True]["means"], out[False]["means"]))
+    res["running_mean"] = {"layers": len(out[True]["means"]),
+                           "worst_rel_diff": worst}
+    check(len(out[True]["means"]) == 94
+          and worst <= INCEPTION_PARITY_TOL["running_mean"],
+          f"zoo: Inception V3 fused and unfused running means differ by "
+          f"{worst:.3e} of a layer's largest over "
+          f"{len(out[True]['means'])} layers (tol "
+          f"{INCEPTION_PARITY_TOL['running_mean']})")
+    return res
+
+
+def _zoo_train(torch, name, model, batch):
+    """``ZOO_STEPS`` bench-lane steps (SGD 0.01 momentum 0.9 under
+    ``DistributedOptimizer``, ``average_loss=False``) on one fixed batch:
+    the losses are finite and fall, the bucket collectives are the plan's
+    each step; the step times, rate, peak memory and K5's launches."""
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.distributed.fusion import fused_reduce
+    from horovod_tpu_torch.models.train import (create_train_state,
+                                                make_image_train_step)
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = create_train_state(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        device="cuda")
+    step = make_image_train_step(model, opt, average_loss=False)
+    plan = hvd.plan_buckets(list(model.parameters()),
+                            basics.config().fusion_threshold)
+    summary = hvd.plan_summary(plan)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb.bn_stats_forward.launches = 0
+    cb.bn_stats_forward.prologue_launches = 0
+    fused_reduce.collectives = 0
+    losses, times = [], []
+    for _ in range(ZOO_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res = {"params": n_params, "plan": summary,
+           "launches": cb.bn_stats_forward.launches,
+           "prologue_launches": cb.bn_stats_forward.prologue_launches,
+           "collectives": fused_reduce.collectives, "losses": losses,
+           "step_s": times,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    check(all(math.isfinite(x) for x in losses),
+          f"zoo: {name}: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"zoo: {name}: the loss did not fall on a fixed batch: {losses}")
+    check(res["collectives"] == len(plan) * ZOO_STEPS,
+          f"zoo: {name}: {res['collectives']} bucket collectives, expected "
+          f"{len(plan)} buckets x {ZOO_STEPS} steps")
+    b = batch["image"].shape[0]
+    res["median_step_s"] = sorted(times[1:])[len(times[1:]) // 2]
+    res["img_per_s"] = b / res["median_step_s"]
+    log(f"zoo: {name}: {n_params} parameters, plan {summary}, losses "
+        f"{losses}, step s {[round(t, 4) for t in times]}, median "
+        f"{res['median_step_s']:.4f} s = {res['img_per_s']:.1f} img/s per "
+        f"card, peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB, K5 "
+        f"{res['launches']} ({res['prologue_launches']} with the "
+        f"prologue), {res['collectives']} bucket collectives")
+    del opt, step
+    return res
+
+
+def _mnist_run(torch, np):
+    """MNISTNet: one bench-lane step and one ``make_eval_step`` call over
+    the live train state, float32."""
+    from horovod_tpu_torch.models.mnist import MNISTNet
+    from horovod_tpu_torch.models.train import (TrainState,
+                                                create_train_state,
+                                                make_eval_step,
+                                                make_image_train_step)
+
+    model = MNISTNet(seed=0, device="cuda")
+    opt = create_train_state(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        device="cuda")
+    batch = _zoo_batch(torch, np, 9, MNIST_B, 28, channels=1, classes=10)
+    loss = float(make_image_train_step(model, opt, average_loss=False)(
+        batch)["loss"])
+    ev = make_eval_step(model)(TrainState.from_model(model, opt), batch)
+    ev = {k: float(v) for k, v in ev.items()}
+    check(math.isfinite(loss) and math.isfinite(ev["loss"])
+          and ev["count"] == MNIST_B and 0 <= ev["correct"] <= MNIST_B
+          and model.training,
+          f"zoo: MNISTNet: step loss {loss}, eval {ev}")
+    log(f"zoo: MNISTNet: step loss {loss:.4f}, eval {ev}")
+    return {"step_loss": loss, "eval": ev}
+
+
+def _syncbn_inputs(torch, np, dev, axis_name=None):
+    from horovod_tpu_torch.models import resnet
+
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.standard_normal(
+        (SYNCBN_B, IMG_SIZE, IMG_SIZE, 3), dtype=np.float32), device=dev)
+    y = torch.tensor(rng.integers(0, CLASSES, SYNCBN_B), device=dev)
+    model = resnet.build("resnet50", fused_bn=True, axis_name=axis_name,
+                         dtype=torch.float32, seed=0, device=dev)
+    return model, x, y
+
+
+def _syncbn_step(torch, model, x, y):
+    """One train-mode forward and backward of ``sum(CE) / SYNCBN_B``: the
+    loss, the new running means (CPU) and the flat float32 gradient
+    (CPU)."""
+    from horovod_tpu_torch.ops import conv_bn as cb
+
+    model.train()
+    cb.bn_stats_forward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logp = torch.log_softmax(model(x).float(), -1)
+    loss = -logp[torch.arange(len(y), device=x.device), y].sum() / SYNCBN_B
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"loss": float(loss.detach()),
+            "step_s": time.perf_counter() - t0,
+            "launches": cb.bn_stats_forward.launches,
+            "means": [m.mean.cpu() for m in _conv_bns(model)],
+            "grad": torch.cat([p.grad.float().reshape(-1)
+                               for p in model.parameters()]).cpu()}
+
+
+def syncbn_rank(argv):
+    """``--syncbn-rank RANK WORLD PORT DIR``: one rank of the zoo phase's
+    sync-BN world (its own card over NCCL when there are WORLD cards,
+    else the first card over gloo): its share of the batch through
+    ResNet-50 with ``axis_name="hvd"``; saves its step to
+    ``DIR/rank<R>.pt`` and prints ``SYNCBN_RESULT {json}`` last."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in argv[:3])
+    own = torch.cuda.device_count() >= world
+    dev = torch.device("cuda", rank if own else 0)
+    torch.cuda.set_device(dev)
+    backend = "nccl" if own else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    from horovod_tpu_torch import distributed as hvd
+
+    hvd.init(device=dev)
+    try:
+        model, x, y = _syncbn_inputs(torch, np, dev, axis_name="hvd")
+        rows = slice(rank * SYNCBN_B // world,
+                     (rank + 1) * SYNCBN_B // world)
+        res = _syncbn_step(torch, model, x[rows], y[rows])
+        torch.save(res, os.path.join(argv[3], f"rank{rank}.pt"))
+    finally:
+        hvd.shutdown()
+        dist.destroy_process_group()
+    print("SYNCBN_RESULT " + json.dumps(
+        {"rank": rank, "backend": backend, "device": str(dev),
+         "step_s": res["step_s"], "launches": res["launches"]}), flush=True)
+
+
+def _syncbn(torch, np):
+    """Sync-BN on the card: 2 ranks of 16 images against one of 32."""
+    import tempfile
+
+    ref = {}
+
+    def parent():
+        model, x, y = _syncbn_inputs(torch, np, "cuda")
+        ref.update(_syncbn_step(torch, model, x, y))
+        del model, x, y
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _rank_world("--syncbn-rank", SYNCBN_RANKS, SYNCBN_TIMEOUT_S,
+                            tmp, "SYNCBN", parent=parent)
+        steps = [torch.load(f"{tmp}/rank{r}.pt") for r in range(SYNCBN_RANKS)]
+    loss = sum(s["loss"] for s in steps)
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    mean_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(
+        1e-30)) for s in steps for a, b in zip(s["means"], ref["means"]))
+    grad = sum(s["grad"].double() for s in steps)
+    grad_rel = float((grad - ref["grad"].double()).norm()
+                     / ref["grad"].double().norm())
+    res = {"ranks": ranks, "batch": SYNCBN_B, "loss": loss,
+           "single_loss": ref["loss"], "loss_rel_diff": loss_rel,
+           "layers": len(ref["means"]), "running_mean_worst_rel": mean_rel,
+           "grad_rel_l2": grad_rel, "single_step_s": ref["step_s"],
+           "single_launches": ref["launches"], "tol": SYNCBN_TOL}
+    check(all(r["launches"] == 36 for r in ranks) and ref["launches"] == 36,
+          f"zoo: sync-BN: K5 launches {[r['launches'] for r in ranks]} "
+          f"on the ranks, {ref['launches']} on the single rank, not 36")
+    check(math.isfinite(loss) and loss_rel <= SYNCBN_TOL["loss"]
+          and mean_rel <= SYNCBN_TOL["running_mean"]
+          and grad_rel <= SYNCBN_TOL["grad"],
+          f"zoo: sync-BN over {SYNCBN_RANKS} ranks against one rank of "
+          f"{SYNCBN_B}: loss {loss} vs {ref['loss']} ({loss_rel:.3e}), "
+          f"running means {mean_rel:.3e}, gradients {grad_rel:.3e} "
+          f"(tol {SYNCBN_TOL})")
+    log(f"zoo: sync-BN, ResNet-50 over {SYNCBN_RANKS} {ranks[0]['backend']} "
+        f"ranks of {SYNCBN_B // SYNCBN_RANKS} images against one rank of "
+        f"{SYNCBN_B}: loss rel {loss_rel:.3e}, running means {mean_rel:.3e} "
+        f"of a layer's largest, summed gradients {grad_rel:.3e} (rel L2)")
+    return res
+
+
+def zoo_phase(torch, np, card):
+    """Phase 20: the rest of the model zoo through the image bench lane's
+    step at published widths, an NCCL world of one, bf16: Inception V3
+    (299^2, fused against unfused, then 3 fused steps with K5 40 times a
+    step and never with the prologue), VGG-16 and ViT-B/16 (224^2, 3
+    steps each), MNISTNet (one step and one eval step); then
+    cross-replica BatchNorm on ResNet-50."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.models import build
+
+    t0 = time.perf_counter()
+    hvd.init()
+    check(hvd.size() == 1 and dist.get_backend() == "nccl",
+          f"zoo: expected an NCCL world of one, got {dist.get_backend()} x "
+          f"{hvd.size()}")
+    res = {"card": card, "batch": IMG_B}
+    batch = _zoo_batch(torch, np, 10, IMG_B, INCEPTION_SIZE)
+    parity = _inception_parity(torch, batch)
+    log(f"zoo: Inception V3 fused vs unfused BatchNorm, one step at batch "
+        f"{IMG_B}, {INCEPTION_SIZE}^2: {json.dumps(parity)}")
+    inc = _zoo_train(torch, "Inception V3", build(
+        "inception_v3", fused_bn=True, seed=0, device="cuda"), batch)
+    check(inc["launches"] == 40 * ZOO_STEPS and inc["prologue_launches"] == 0,
+          f"zoo: Inception V3: K5 launched {inc['launches']} times "
+          f"({inc['prologue_launches']} with the prologue), expected 40 x "
+          f"{ZOO_STEPS} (0)")
+    res["inception_v3"] = {"image_size": INCEPTION_SIZE, "parity": parity,
+                           **inc}
+    del batch
+    torch.cuda.empty_cache()
+    batch = _zoo_batch(torch, np, 11, IMG_B, IMG_SIZE)
+    for name in ("vgg16", "vit_b16"):
+        res[name] = {"image_size": IMG_SIZE, **_zoo_train(
+            torch, name, build(name, image_size=IMG_SIZE, seed=0,
+                                      device="cuda"), batch)}
+        torch.cuda.empty_cache()
+    del batch
+    res["mnist"] = _mnist_run(torch, np)
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    res["sync_bn"] = _syncbn(torch, np)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"zoo: phase passed in {res['phase_s']:.1f} s")
+    return res
+
+
+
 def profile_phase(torch, params, prompts, waves):
     """``--profile``: the engine phase's workload again, per mode, captured
     and eager, and with speculation (captured paged, the half- and the
@@ -7410,12 +7822,13 @@ def _flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
     return out
 
 
-def _conv_bn_record(cres, rres, wres, card):
+def _conv_bn_record(cres, rres, wres, zres, card):
     """The kernels line's entry of K5: launches from the ResNet phase (36
     a step) and from the window phase (a window's warm-up and capture,
     and one replayed window's trace), the times and the bound summed over
     one step's 36 launches at the ResNet-50 shapes, each shape's own
-    numbers beside them."""
+    numbers beside them; the same for Inception V3's geometry (40
+    launches a step in the zoo phase, at its 299^2 shapes)."""
     st = cres["step"]
     win = wres["resnet"]["window"]
     return {
@@ -7445,6 +7858,15 @@ def _conv_bn_record(cres, rres, wres, card):
                   "y staged and stored in 16-byte chunks",
         "dtype": "bfloat16", "flops": st["flops"], "bytes": st["bytes"],
         "shapes": cres["shapes"], "card": card,
+        "inception_v3": {
+            "launches": zres["inception_v3"]["launches"],
+            "prologue_launches": zres["inception_v3"]["prologue_launches"],
+            "times_cover": "one Inception V3 training step's 40 launches "
+                           "(batch 64, 299^2, bf16)",
+            **{k: cres["inception_v3"]["step"][k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "flops", "bytes")},
+            "shapes": cres["inception_v3"]["shapes"]},
     }
 
 
@@ -7499,7 +7921,7 @@ def fleet_only(torch, np, card):
     args = sys.argv[sys.argv.index("--fleet-only") + 1:]
     n = int(args[0]) if args and args[0].isdigit() else 1
     build_phase()
-    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+    params = init_lm_params(0, VOCAB, LMAX, FLEET_LAYERS, HEADS, HEAD_DIM, FFN,
                             device="cuda")
     prompts, waves = _requests(np)
     _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
@@ -7518,7 +7940,7 @@ def disagg_only(torch, np, card):
     args = sys.argv[sys.argv.index("--disagg-only") + 1:]
     n = int(args[0]) if args and args[0].isdigit() else 1
     build_phase()
-    params = init_lm_params(0, VOCAB, LMAX, LAYERS, HEADS, HEAD_DIM, FFN,
+    params = init_lm_params(0, VOCAB, LMAX, FLEET_LAYERS, HEADS, HEAD_DIM, FFN,
                             device="cuda")
     prompts, waves = _requests(np)
     _, single = _serve_run(torch, params, prompts, waves, "paged", "paged",
@@ -7580,6 +8002,12 @@ def loop_only(torch, np, card):
     print(json.dumps({"loop": loop_phase(torch, np, card)}), flush=True)
 
 
+def zoo_only(torch, np, card):
+    """``--zoo-only``: the build and the zoo phase."""
+    build_phase()
+    print(json.dumps({"zoo": zoo_phase(torch, np, card)}), flush=True)
+
+
 def autotune_only(torch, np, card):
     """``--autotune-only``: the build and the autotune phase."""
     build_phase()
@@ -7608,6 +8036,8 @@ def main():
         return comm_rank(sys.argv[sys.argv.index("--comm-rank") + 1:])
     if "--elastic-rank" in sys.argv[1:]:
         return elastic_rank(sys.argv[sys.argv.index("--elastic-rank") + 1:])
+    if "--syncbn-rank" in sys.argv[1:]:
+        return syncbn_rank(sys.argv[sys.argv.index("--syncbn-rank") + 1:])
     import numpy as np
     import torch
 
@@ -7641,6 +8071,8 @@ def main():
         return loop_only(torch, np, card)
     if "--autotune-only" in sys.argv[1:]:
         return autotune_only(torch, np, card)
+    if "--zoo-only" in sys.argv[1:]:
+        return zoo_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -7660,19 +8092,21 @@ def main():
     wres = timed("window", window_phase(torch, np))
     runs, params, prompts, waves = timed("engine",
                                          engine_phase(torch, np))
-    fleet, colo_reqs = timed("fleet", fleet_phase(
-        torch, np, params, prompts, waves, runs["paged"], card))
-    disagg = timed("disagg", disagg_phase(
-        torch, np, params, prompts, waves, runs["paged"], card,
-        colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
-                   "process": fleet["process"]["clean"]}))
-    hres = timed("hier", hier_phase(torch, np, card))
     tpref = timed("tp_references", tp_references(torch, np, prompts,
                                                  waves))
+    cut = tpref["old"]["params"]
+    fleet, colo_reqs = timed("fleet", fleet_phase(
+        torch, np, cut, prompts, waves, tpref["old"], card))
+    disagg = timed("disagg", disagg_phase(
+        torch, np, cut, prompts, waves, tpref["old"], card,
+        colocated={"reqs": colo_reqs, "inproc": fleet["inproc"]["clean"],
+                   "process": fleet["process"]["clean"]}))
+    del cut
+    hres = timed("hier", hier_phase(torch, np, card))
     tpres = timed("tp", tp_phase(torch, np, prompts, waves, card, tpref))
     tfres = timed("tp_fleet", tp_fleet_phase(torch, np, prompts, waves,
                                              tpref, card))
-    del tpref
+    del tpref["old"]["params"], tpref
     spres = timed("sp", sp_phase(torch, np, card))
     epres = timed("ep", ep_phase(torch, np, card))
     jres = timed("job", job_phase(torch, np, card))
@@ -7680,6 +8114,7 @@ def main():
                                            cli=jres["elastic_cli"]))
     lres = timed("loop", loop_phase(torch, np, card))
     ares = timed("autotune", autotune_phase(torch, np, card))
+    zres = timed("zoo", zoo_phase(torch, np, card))
     if profile:
         profile_phase(torch, params, prompts, waves)
     print(json.dumps({"window": _window_summary(wres, runs, card)}),
@@ -7700,13 +8135,14 @@ def main():
     print(json.dumps({"elastic": elres}), flush=True)
     print(json.dumps({"loop": lres}), flush=True)
     print(json.dumps({"autotune": ares}), flush=True)
+    print(json.dumps({"zoo": zres}), flush=True)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [
         _paged_record(kres, rate, runs, fleet, disagg, tpres, tfres,
                       ptxas.get("paged_attention", {}), card),
         *_flash_records(fres, tres, wres, hres, spres, jres, elres, lres,
                         ares, card),
-        _conv_bn_record(cres, rres, wres, card)]}
+        _conv_bn_record(cres, rres, wres, zres, card)]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

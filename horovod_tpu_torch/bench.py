@@ -5,6 +5,7 @@ the JAX package's ``bench.py``, on the card.
         [--attention dense|flash] [--seq-len 2048] [--batch-size 8] ...
     python -m horovod_tpu_torch.bench --model resnet50 [--fused-bn] \\
         [--image-size 224] [--batch-size 64] ...
+    python -m horovod_tpu_torch.bench --model inception_v3|vgg16|vit_b16 ...
 
 One process per card (``torchrun`` sets the world; alone it is a world of
 one). The reference's timing discipline: ``--num-warmup-batches`` steps,
@@ -28,13 +29,16 @@ limit.
   {auto,scan,pallas,kernel}`` (``pallas`` is the JAX spelling of
   ``kernel``). ``--attention auto`` takes flash at every length, the
   H100's measured crossover (:func:`resolve_attention`).
-* ``resnet18|34|50|101|152``: the JAX lane's image defaults (224x224x3
+* the image models of the zoo (``models.build``: ``resnet18|34|50|101|
+  152``, ``inception_v3`` (alias ``inception3``), ``vgg11|13|16|19``,
+  ``vit_s16|vit_b16``): the JAX lane's image defaults (224x224x3
   synthetic images and 1000 classes from a numpy seed, 64 images per
   card, bfloat16 compute with float32 parameters and BatchNorm
   statistics, ``torch.optim.SGD(lr=0.01, momentum=0.9)`` under
   ``DistributedOptimizer``, the per-rank loss as with the JAX lane's
-  ``average_loss=False``); images/s per card. ``--fused-bn`` runs every
-  training-mode 1x1 ConvBN through kernel K5.
+  ``average_loss=False``); images/s per card. ``--fused-bn`` (the ResNet
+  and Inception families) runs every training-mode 1x1 ConvBN through
+  kernel K5.
 
 Both lanes take ``--steps-per-dispatch K``: each timed iteration runs
 ``--num-batches-per-iter`` windows of K steps (the warm-up
@@ -77,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import inspect
 import json
 import subprocess
 import sys
@@ -85,6 +90,7 @@ import time
 import numpy as np
 import torch
 
+from horovod_tpu_torch import models
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed.compression import Compression
@@ -94,7 +100,6 @@ from horovod_tpu_torch.distributed.fusion import (hier_wire_summary,
 from horovod_tpu_torch.distributed.mpi_ops import allgather
 from horovod_tpu_torch.distributed.window import stage_synthetic_window
 from horovod_tpu_torch.distributed.zero import shard_info
-from horovod_tpu_torch.models import resnet
 from horovod_tpu_torch.models.train import (create_train_state,
                                             make_image_train_step,
                                             make_train_step)
@@ -105,7 +110,7 @@ from horovod_tpu_torch.ops.attention import (flash_attention,
 
 
 LM = "transformer_lm"
-IMAGE_MODELS = sorted(resnet._FAMILY)
+IMAGE_MODELS = sorted(k for k in models._FAMILY if k != LM)
 
 
 class _Parser(argparse.ArgumentParser):
@@ -130,8 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "card")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--fused-bn", action="store_true",
-                   help="ResNet family: BatchNorm statistics in the 1x1 "
-                        "convs' matmul epilogue (kernel K5)")
+                   help="ResNet and Inception families: BatchNorm "
+                        "statistics in the 1x1 convs' matmul epilogue "
+                        "(kernel K5)")
     p.add_argument("--lm-layers", type=int, default=12)
     p.add_argument("--lm-dim", type=int, default=768)
     p.add_argument("--lm-heads", type=int, default=12)
@@ -215,8 +221,7 @@ def _sync(dev: torch.device) -> None:
 #: ROADMAP.md item that brings it).
 _LATER = (
     (lambda a: a.bf16_momentum, "--bf16-momentum",
-     "ROADMAP.md Queue 1, the rest of the model zoo and the image "
-     "lane's options"),
+     "ROADMAP.md Queue 1 item 6.2, the model zoo's image-lane options"),
     (lambda a: a.scan_layers, "--scan-layers",
      "ROADMAP.md Queue 1: XLA's compile-time layer scan has no eager "
      "PyTorch counterpart"),
@@ -337,8 +342,8 @@ def _check_flags(args) -> None:
     raise."""
     if args.model == LM:
         if args.fused_bn:
-            raise ValueError("--fused-bn applies to the ResNet family "
-                             f"(got --model {LM})")
+            raise ValueError("--fused-bn applies to the ResNet and "
+                             f"Inception families (got --model {LM})")
         if resolve_attention(args) != "flash":
             for flag, on in (("--flash-full-grid", args.flash_full_grid),
                              ("--flash-bwd", args.flash_bwd is not None)):
@@ -357,6 +362,10 @@ def _check_flags(args) -> None:
             if on:
                 raise ValueError(f"{flag} applies to {LM} only (got "
                                  f"--model {args.model})")
+        if args.fused_bn and not args.model.lower().startswith(
+                ("resnet", "inception")):
+            raise ValueError(
+                "--fused-bn applies to the ResNet and Inception families")
     if args.steps_per_dispatch < 1:
         raise ValueError(f"--steps-per-dispatch must be >= 1, got "
                          f"{args.steps_per_dispatch}")
@@ -410,12 +419,17 @@ def _lm_lane(args, dev):
 
 
 def _image_lane(args, dev):
-    """The ResNet, its step on one fixed batch of synthetic images per rank,
-    and the units (images) a step."""
-    model = resnet.build(
+    """The zoo's image model, its step on one fixed batch of synthetic
+    images per rank, and the units (images) a step."""
+    kwargs = {"fused_bn": True} if args.fused_bn else {}
+    if "image_size" in inspect.signature(
+            models.constructor(args.model)).parameters:
+        # VGG's flatten and ViT's pos_embed are sized at the input's.
+        kwargs["image_size"] = args.image_size
+    model = models.build(
         args.model, num_classes=1000,
-        dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        fused_bn=args.fused_bn, seed=42, device=dev)
+        dtype=torch.float32 if args.fp32 else torch.bfloat16, seed=42,
+        device=dev, **kwargs)
     opt = create_train_state(
         model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
         compression=resolve_compression(args), overlap=args.overlap,

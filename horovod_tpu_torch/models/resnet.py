@@ -35,7 +35,15 @@ Weights are random from a numpy ``seed`` at flax's initialisers' scales
 the last BatchNorm of each block, so every block starts as the identity —
 and biases 0); :func:`params_from_flax` carries a flax variable tree
 (``params`` and ``batch_stats``) across. Running statistics are buffers,
-per rank, never reduced (the JAX lane without ``axis_name``).
+per rank; with ``axis_name`` (cross-replica BatchNorm) each ConvBN's
+batch statistics are summed over that axis first (``lax.psum`` of the
+fused ``s1``/``s2``/``n``, ``lax.pmean`` of the unfused moments), through
+a collective whose backward sums the cotangents over the axis.
+
+The zoo's layer helpers live here too: flax's ``max_pool`` (``"VALID"``
+and ``"SAME"``) and ``avg_pool(..., "SAME")`` on NCHW tensors, a biased
+``nn.Conv``, the NHWC flatten, :class:`Dropout` with flax's masks and a
+generator of its own, the ``lecun_normal`` fill and the flax loader.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch import nn
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.ops.conv_bn import (conv1x1_bn_stats,
                                            conv1x1_prologue_bn_stats)
+from horovod_tpu_torch.parallel._collectives import pmean, psum
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -67,10 +76,46 @@ def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
 def _pads(padding: Padding, shape, window, strides):
     if padding == "SAME":
         return [same_pads(shape[i], window[i], strides[i]) for i in (0, 1)]
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
     if isinstance(padding, str):
-        raise ValueError(f"padding {padding!r}: the ResNets use \"SAME\" "
-                         "or explicit (low, high) pairs")
+        raise ValueError(f"padding {padding!r}: flax's \"SAME\" or "
+                         "\"VALID\", or explicit (low, high) pairs")
     return [tuple(p) for p in padding]
+
+
+def conv2d(x, k, strides=(1, 1), padding: Padding = "SAME"):
+    """flax ``lax.conv_general_dilated`` on an NCHW tensor and an OIHW
+    kernel, with flax's padding: a symmetric pad goes to ``F.conv2d``,
+    an uneven one (``"SAME"`` at stride 2 on an even side) is explicit."""
+    (t, b), (l, r) = _pads(padding, x.shape[2:], k.shape[2:], strides)
+    if (t, l) == (b, r):
+        return F.conv2d(x, k, stride=tuple(strides), padding=(t, l))
+    x = F.pad(x, (l, r, t, b)).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, k, stride=tuple(strides))
+
+
+def conv2d_bias(conv: nn.Conv2d, x, dtype: torch.dtype, stride: int = 1):
+    """flax ``nn.Conv(dtype=dtype)`` with a bias, ``"VALID"``: input and
+    kernel cast to ``dtype``, the product rounded to it, then the bias
+    added in it."""
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), stride=stride)
+    return y + conv.bias.to(dtype)[:, None, None]
+
+
+def flatten_nhwc(x):
+    """An NCHW tensor flattened per image in NHWC order, as flax's
+    ``x.reshape((B, -1))`` reads its NHWC activation: a Dense kernel
+    carried from flax reads its rows in (h, w, c) order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def lecun_normal_(rng, p, fan_in: int) -> None:
+    """Fill ``p`` with ``normal / sqrt(fan_in)`` from the numpy ``rng``:
+    flax's ``lecun_normal`` scale (``jax.random``'s numbers cannot be
+    reproduced)."""
+    w = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+    p.data.copy_(torch.from_numpy(w * np.float32(fan_in ** -0.5)))
 
 
 def max_pool_same(x, window: int = 3, stride: int = 2):
@@ -84,6 +129,60 @@ def max_pool_same(x, window: int = 3, stride: int = 2):
     return F.max_pool2d(x, window, stride)
 
 
+def max_pool(x, window: int, stride: int):
+    """flax ``nn.max_pool(x, (w, w), (s, s))`` (``"VALID"``) on an NCHW
+    tensor."""
+    return F.max_pool2d(x, window, stride)
+
+
+def avg_pool_same(x, window: int = 3, stride: int = 1):
+    """flax ``nn.avg_pool(x, (w, w), (s, s), "SAME")`` on an NCHW tensor:
+    zero padding counted in every window's mean (flax's
+    ``count_include_pad=True``)."""
+    (t, b), (l, r) = (same_pads(x.shape[2], window, stride),
+                      same_pads(x.shape[3], window, stride))
+    if (t, l) == (b, r):
+        return F.avg_pool2d(x, window, stride, padding=(t, l),
+                            count_include_pad=True)
+    x = F.pad(x, (l, r, t, b)).contiguous(memory_format=torch.channels_last)
+    return F.avg_pool2d(x, window, stride)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in training each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else 0;
+    eval mode returns the input. The masks come from this module's own
+    ``torch.Generator`` on the input's device, seeded with ``seed`` at
+    its first draw there, so two runs from one seed draw the same masks
+    (``seed``: an int or a tuple of ints, as ``numpy.random.SeedSequence``
+    takes them).
+    JAX draws other numbers from its keys: tests that hold the two
+    packages together feed both the same masks (:meth:`keep_mask`)."""
+
+    def __init__(self, rate: float, seed=0):
+        super().__init__()
+        self.rate = rate
+        self.seed = seed
+        self._gen = None
+
+    def keep_mask(self, x):
+        """A boolean mask of ``x``'s shape, True where ``x`` is kept."""
+        if self._gen is None or self._gen.device != x.device:
+            self._gen = torch.Generator(device=x.device)
+            self._gen.manual_seed(int(np.random.SeedSequence(
+                self.seed).generate_state(1)[0]))
+        return torch.rand(x.shape, generator=self._gen,
+                          device=x.device) >= self.rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        return torch.where(self.keep_mask(x), x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConvBN(nn.Module):
     """Bias-free convolution + BatchNorm as one module (flax ``ConvBN``).
 
@@ -91,7 +190,10 @@ class ConvBN(nn.Module):
     producing layer's ``(mul, add)``, and ``x`` then its raw output: the
     normalise + ReLU runs in K5's prologue (fused 1x1) or as an explicit
     elementwise pass. ``emit_raw=True`` returns ``(raw y, mul, add)``.
-    ``self.training`` plays flax's ``not use_running_average``."""
+    ``self.training`` plays flax's ``not use_running_average``.
+    ``axis_name`` sums the batch statistics over that axis
+    (:func:`~horovod_tpu_torch.parallel._collectives.psum`: the SPMD
+    region's axis, a bound mesh's, or ``"hvd"``, the job's ranks)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, int] = (1, 1),
@@ -101,16 +203,13 @@ class ConvBN(nn.Module):
                  axis_name: Optional[str] = None, zero_scale: bool = False,
                  fuse: bool = False, emit_raw: bool = False):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "cross-replica BatchNorm (axis_name) is not ported yet "
-                "(ROADMAP.md Queue 1, sync-BN)")
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
         self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
+        self.axis_name = axis_name
         self.fuse = fuse
         self.emit_raw = emit_raw
         kh, kw = self.kernel_size
@@ -122,13 +221,7 @@ class ConvBN(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def _conv(self, x, k):
-        (t, b), (l, r) = _pads(self.padding, x.shape[2:], self.kernel_size,
-                               self.strides)
-        if (t, l) == (b, r):
-            return F.conv2d(x, k, stride=self.strides, padding=(t, l))
-        x = F.pad(x, (l, r, t, b)).contiguous(
-            memory_format=torch.channels_last)
-        return F.conv2d(x, k, stride=self.strides)
+        return conv2d(x, k, self.strides, self.padding)
 
     def _prologue(self, x, prologue):
         mul, add = prologue
@@ -155,6 +248,11 @@ class ConvBN(nn.Module):
                     y, s1, s2 = conv1x1_prologue_bn_stats(
                         xn, prologue[0], prologue[1], w, self.strides)
                 n = y.shape[0] * y.shape[1] * y.shape[2]
+                if self.axis_name is not None:
+                    c = s1.shape[0]
+                    s = psum(torch.cat([s1, s2, s1.new_full((1,), n)]),
+                             self.axis_name)
+                    s1, s2, n = s[:c], s[c:2 * c], s[2 * c]
                 mean = s1 / n
                 var = s2 / n - mean * mean
                 y = y.permute(0, 3, 1, 2)             # NCHW, channels_last
@@ -163,7 +261,12 @@ class ConvBN(nn.Module):
                                else self._prologue(x, prologue), k)
                 yf = y.to(torch.promote_types(torch.float32, y.dtype))
                 mean = yf.mean((0, 2, 3))
-                var = (yf * yf).mean((0, 2, 3)) - mean * mean
+                msq = (yf * yf).mean((0, 2, 3))
+                if self.axis_name is not None:
+                    c = mean.shape[0]
+                    m = pmean(torch.cat([mean, msq]), self.axis_name)
+                    mean, msq = m[:c], m[c:]
+                var = msq - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -232,8 +335,9 @@ class BottleneckResNetBlock(nn.Module):
 class ResNet(nn.Module):
     """ImageNet-style ResNet: NHWC images ``[B, H, W, 3]`` -> float32
     logits ``[B, num_classes]``. ``model.train()`` / ``model.eval()`` play
-    flax's ``train`` flag. ``axis_name`` (cross-replica BatchNorm) raises.
-    ``device=None`` is the card and raises without one."""
+    flax's ``train`` flag. ``axis_name`` makes every BatchNorm
+    cross-replica (:class:`ConvBN`). ``device=None`` is the card and
+    raises without one."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls,
                  num_classes: int = 1000, num_filters: int = 64,
@@ -264,16 +368,11 @@ class ResNet(nn.Module):
 
     def _init_weights(self, seed: int) -> None:
         rng = np.random.default_rng(seed)
-
-        def normal(p, fan_in):
-            w = rng.standard_normal(tuple(p.shape), dtype=np.float32)
-            p.data.copy_(torch.from_numpy(w * np.float32(fan_in ** -0.5)))
-
         for mod in self.modules():
             if isinstance(mod, ConvBN):
-                normal(mod.weight, mod.weight[0].numel())
+                lecun_normal_(rng, mod.weight, mod.weight[0].numel())
             elif isinstance(mod, nn.Linear):
-                normal(mod.weight, mod.in_features)
+                lecun_normal_(rng, mod.weight, mod.in_features)
                 mod.bias.data.zero_()
 
     def forward(self, x):
@@ -383,8 +482,16 @@ def params_from_flax(variables, model: ResNet) -> ResNet:
     ...}``, mapped to numpy (``jax.tree_util.tree_map(np.asarray, v)``),
     into ``model`` in place; returns ``model``. Raises when the tree's
     paths or shapes are not the model's."""
-    leaves = dict(_flax_leaves(variables))
-    pairs = flax_parameter_map(model)
+    return load_flax(variables, flax_parameter_map(model), model)
+
+
+def load_flax(tree, pairs, model):
+    """Copy the leaves of the flax tree ``tree`` (mapped to numpy) into
+    ``model``'s tensors by ``pairs`` (``(flax path, tensor, layout)``, as
+    a model's ``flax_parameter_map`` gives them; the layouts of
+    :func:`to_port_layout`); returns ``model``. Raises when the tree's
+    paths or shapes are not the model's."""
+    leaves = dict(_flax_leaves(tree))
     want = {path for path, _, _ in pairs}
     if set(leaves) != want:
         raise ValueError(

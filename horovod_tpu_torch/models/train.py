@@ -24,6 +24,11 @@ Usage (images)::
                                                     lr=0.01, momentum=0.9))
     step = make_image_train_step(model, opt, average_loss=False)
     metrics = step({"image": images, "label": labels})  # NHWC, per rank
+    ev = make_eval_step(model)(TrainState.from_model(model, opt), batch)
+    # {"loss", "correct", "count"}: allreduce the sums for totals
+
+Any zoo model works here (``models.build("inception_v3",
+fused_bn=True)``, ``"vgg16"``, ``"vit_b16"``, ...).
 
 Windows (``make_windowed_train_step`` / ``make_windowed_image_train_step``,
 or ``hvd.run_steps``) run K steps as CUDA graph replays of one captured
@@ -374,6 +379,37 @@ def make_image_train_step(model: torch.nn.Module,
 
     train_step.model, train_step.optimizer = model, optimizer
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module):
+    """The per-rank evaluation step: ``eval_step(state, batch) ->
+    {"loss", "correct", "count"}``, float32 tensors: the eval-mode
+    forward (running statistics, no dropout) over ``state``'s parameters
+    and batch statistics (a :class:`TrainState`; the live one holds the
+    model's own tensors), the mean cross-entropy and the summed correct
+    predictions and images of ``batch`` (``{"image", "label"}``), for
+    the caller to allreduce (the reference's metric average,
+    examples/pytorch_mnist.py:120-133). The model's train/eval mode is
+    left as it was."""
+
+    def eval_step(state, batch):
+        was = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = torch.func.functional_call(
+                    model, (state["params"], state["batch_stats"]),
+                    (batch["image"],))
+        finally:
+            model.train(was)
+        labels = batch["label"]
+        loss = cross_entropy_loss(logits, labels)
+        correct = (logits.argmax(-1) == labels).float().sum()
+        count = torch.tensor(float(labels.shape[0]), device=logits.device)
+        return {"loss": loss, "correct": correct, "count": count}
+
+    eval_step.model = model
+    return eval_step
 
 
 def make_windowed_train_step(model: torch.nn.Module,

@@ -196,6 +196,22 @@ class TransformerLM(nn.Module):
         return F.linear(x, self.lm_head.weight)
 
 
+def block_parameter_map(p: str, blk: TransformerBlock):
+    """``(flax path, parameter, transposed)`` of one
+    :class:`TransformerBlock` under the flax name ``p``."""
+    return [((p, "LayerNorm_0", "scale"), blk.ln1.scale, False),
+            ((p, "LayerNorm_0", "bias"), blk.ln1.bias, False),
+            ((p, "Dense_0", "kernel"), blk.qkv.weight, True),
+            ((p, "Dense_1", "kernel"), blk.proj.weight, True),
+            ((p, "Dense_1", "bias"), blk.proj.bias, False),
+            ((p, "LayerNorm_1", "scale"), blk.ln2.scale, False),
+            ((p, "LayerNorm_1", "bias"), blk.ln2.bias, False),
+            ((p, "Dense_2", "kernel"), blk.up.weight, True),
+            ((p, "Dense_2", "bias"), blk.up.bias, False),
+            ((p, "Dense_3", "kernel"), blk.down.weight, True),
+            ((p, "Dense_3", "bias"), blk.down.bias, False)]
+
+
 def flax_parameter_map(model: TransformerLM):
     """``(flax path, parameter, transposed)`` for every parameter of
     ``model``, in the flax tree's names: a flax ``kernel [in, out]`` is
@@ -203,18 +219,7 @@ def flax_parameter_map(model: TransformerLM):
     pairs = [(("Embed_0", "embedding"), model.embed.weight, False),
              (("Embed_1", "embedding"), model.pos_embed.weight, False)]
     for i, blk in enumerate(model.blocks):
-        p = f"TransformerBlock_{i}"
-        pairs += [((p, "LayerNorm_0", "scale"), blk.ln1.scale, False),
-                  ((p, "LayerNorm_0", "bias"), blk.ln1.bias, False),
-                  ((p, "Dense_0", "kernel"), blk.qkv.weight, True),
-                  ((p, "Dense_1", "kernel"), blk.proj.weight, True),
-                  ((p, "Dense_1", "bias"), blk.proj.bias, False),
-                  ((p, "LayerNorm_1", "scale"), blk.ln2.scale, False),
-                  ((p, "LayerNorm_1", "bias"), blk.ln2.bias, False),
-                  ((p, "Dense_2", "kernel"), blk.up.weight, True),
-                  ((p, "Dense_2", "bias"), blk.up.bias, False),
-                  ((p, "Dense_3", "kernel"), blk.down.weight, True),
-                  ((p, "Dense_3", "bias"), blk.down.bias, False)]
+        pairs += block_parameter_map(f"TransformerBlock_{i}", blk)
     pairs += [(("LayerNorm_0", "scale"), model.ln_f.scale, False),
               (("LayerNorm_0", "bias"), model.ln_f.bias, False),
               (("lm_head", "kernel"), model.lm_head.weight, True)]

@@ -1,6 +1,7 @@
 """Differentiable collectives over one axis of the bound mesh: the
 port's counterparts of ``lax.ppermute`` and ``lax.all_to_all`` (tiled),
-which sequence and pipeline parallelism stand on.
+which sequence and pipeline parallelism stand on, and of ``lax.psum`` /
+``lax.pmean`` over a named axis, which cross-replica BatchNorm stands on.
 
 The JAX collectives run inside ``shard_map`` over a named axis; here
 each rank is a process and ``axis`` names a physical axis of the bound
@@ -147,3 +148,41 @@ def all_to_all(x, axis: Optional[str], split_dim: int, concat_dim: int,
     split_dim %= x.dim()
     concat_dim %= x.dim()
     return _AllToAll.apply(x, group, size, split_dim, concat_dim)
+
+
+def named_axis(axis_name: str):
+    """``(group, size)`` of the axis a JAX module names (``lax.psum(x,
+    axis_name)``): the enclosing SPMD region's axis when it has that name,
+    else that axis of the bound :class:`LogicalMesh`, else, for the data
+    axis ``"hvd"``, the job's group. Raises for any other name."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.parallel.logical import DATA_AXIS
+
+    region = basics.current_spmd_axis()
+    if region is not None and region.name == axis_name:
+        return region.group, region.size
+    lm = current_logical_mesh()
+    if lm is not None and lm.defines(axis_name):
+        group, size, _ = axis_group(axis_name, role="data")
+        return group, size
+    if axis_name == DATA_AXIS:
+        return basics.job_group(), basics.size()
+    raise InvalidArgumentError(
+        f"axis {axis_name!r} is neither the SPMD region's axis, an axis of "
+        f"the bound LogicalMesh, nor the job's data axis {DATA_AXIS!r}")
+
+
+def psum(x, axis_name: str):
+    """``lax.psum(x, axis_name)`` (axis resolved by :func:`named_axis`):
+    the sum over the axis, whose backward sums the cotangents over it, so
+    every rank's gradient takes the other ranks' uses of its ``x``."""
+    from horovod_tpu_torch.distributed.mpi_ops import _AllReduce
+
+    group, size = named_axis(axis_name)
+    return x if size == 1 else _AllReduce.apply(x, group)
+
+
+def pmean(x, axis_name: str):
+    """``lax.pmean(x, axis_name)``: :func:`psum` over the axis size."""
+    _, size = named_axis(axis_name)
+    return psum(x, axis_name) / size

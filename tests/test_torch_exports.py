@@ -22,8 +22,6 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
-_ZOO = "item 6 (the rest of the model zoo)"
-
 #: subpackage of the JAX package -> the port's, where the names differ.
 PORT_NAME = {".flax": ".training"}
 
@@ -32,12 +30,7 @@ PORT_NAME = {".flax": ".training"}
 ABSENT = {
     "": {},
     ".serve": {},
-    ".models": {
-        "MNISTNet": _ZOO, "VGG": _ZOO, "VGG11": _ZOO, "VGG13": _ZOO,
-        "VGG16": _ZOO, "VGG19": _ZOO, "InceptionV3": _ZOO,
-        "VisionTransformer": _ZOO, "ViT_S16": _ZOO, "ViT_B16": _ZOO,
-        "build": _ZOO, "make_eval_step": _ZOO,
-    },
+    ".models": {},
     ".ops": {},
     ".common": {},
     ".run": {},

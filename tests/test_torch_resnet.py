@@ -353,8 +353,6 @@ def test_build_names_and_errors():
         assert isinstance(model, tresnet.ResNet)
     with pytest.raises(ValueError, match="Unknown ResNet"):
         tresnet.build("resnet7", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        tresnet.build("resnet18", axis_name="hvd", device="cpu")
 
 
 @pytest.mark.parametrize("name", ["resnet18", "resnet50"])

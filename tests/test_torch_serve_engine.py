@@ -411,6 +411,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "parallel/__init__.py", "parallel/logical.py",
                 "parallel/mesh.py", "parallel/tp.py", "parallel/moe.py",
                 "parallel/spmd.py", "models/train.py",
+                "models/mnist.py", "models/vgg.py", "models/vit.py",
+                "models/inception.py",
                 "training/__init__.py", "training/callbacks.py",
                 "training/_msgpack.py", "distributed/autotune.py",
                 "distributed/_bayes.py"):
