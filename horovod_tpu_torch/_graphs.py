@@ -22,6 +22,17 @@ in the port that captures.
    static tensors and replays the graph, and returns the graph's static
    outputs, which the next replay overwrites.
 
+A step that draws random numbers from a ``torch.Generator`` of its own
+(the zoo's :class:`~horovod_tpu_torch.models.resnet.Dropout`) needs that
+generator registered with the graph, or a replay would reuse the masks
+of the capture: ``generators`` names the modules to look in, and every
+generator they hold after the warm-up is registered before the capture
+(``CUDAGraph.register_generator_state``), so each replay draws from the
+generator's current state and advances it, as an eager step would. A
+module that draws from a generator that was not registered raises
+:class:`CaptureError` naming it (:func:`check_registered`); the default
+generator is torch's, registered by every capture.
+
 The signature is the inputs' structure, shapes, dtypes and devices (and
 the values of non-tensor inputs, which the graph holds as constants),
 plus what ``key()`` returns: a training window passes the model's
@@ -58,6 +69,62 @@ class CaptureError(RuntimeError):
     what CUDA or PyTorch raised."""
 
 
+#: While a capture runs: ``id(generator)`` of each generator registered
+#: with its graph, and ``id(module)`` -> name of each module the step's
+#: ``generators`` named.
+_capture: Optional[dict] = None
+
+
+def check_registered(generator: torch.Generator, owner) -> None:
+    """Raise :class:`CaptureError` when a CUDA graph capture is running
+    and ``generator``, which ``owner`` (a module) is about to draw from,
+    was not registered with it: the graph would replay one frozen draw.
+    Outside a capture, and on the CPU, it does nothing."""
+    if generator.device.type != "cuda" or \
+            not torch.cuda.is_current_stream_capturing():
+        return
+    cap = _capture or {"generators": set(), "names": {}}
+    if id(generator) in cap["generators"]:
+        return
+    name = cap["names"].get(id(owner))
+    where = (f"module {name!r} ({type(owner).__name__})" if name else
+             f"{type(owner).__name__} {owner!r}, which the captured "
+             "step's generators do not name,")
+    raise CaptureError(
+        f"{where} draws from a torch.Generator that is not registered "
+        "with the CUDA graph being captured, so every replay would draw "
+        "the capture's numbers again; a window registers the generators "
+        "that the step's model holds after its warm-up step")
+
+
+def register_generators(graph, named, device: torch.device) -> dict:
+    """Register with ``graph`` the generator on ``device`` of each
+    ``(name, module)`` in ``named`` that holds one (``module.generator``
+    returns it, or ``None`` before its first draw there). Returns the
+    capture record :func:`check_registered` reads: the registered
+    generators' ids and every named module's name."""
+    gens, names = set(), {}
+    for name, module in named:
+        names[id(module)] = name
+        gen = module.generator(device)
+        if gen is not None and id(gen) not in gens:
+            graph.register_generator_state(gen)
+            gens.add(id(gen))
+    return {"generators": gens, "names": names}
+
+
+def module_generators(model: torch.nn.Module):
+    """``generators`` for a step over ``model``: each ``(name, module)``
+    of its modules that draws from a generator of its own (has a
+    ``generator(device)`` method)."""
+
+    def named():
+        return [(n, m) for n, m in model.named_modules()
+                if callable(getattr(m, "generator", None))]
+
+    return named
+
+
 def _describe(x):
     if isinstance(x, torch.Tensor):
         return ("tensor", tuple(x.shape), x.dtype, x.device)
@@ -78,6 +145,8 @@ class CapturedStep:
     ``device`` is where ``fn`` runs (``None``: the device of the call's
     tensor arguments, which must share one). ``key`` returns the part of
     the signature that the arguments do not show. ``name`` labels errors.
+    ``generators`` returns the ``(name, module)`` pairs whose generators
+    the graph registers (:func:`module_generators`).
 
     Counters for the caller: ``captures`` and ``replays``; ``warmup_s`` and
     ``capture_s``, the host seconds of the last warm-up step (synchronised)
@@ -85,8 +154,10 @@ class CapturedStep:
 
     def __init__(self, fn: Callable, device: DeviceLike = None,
                  key: Optional[Callable[[], object]] = None,
-                 name: str = "step"):
+                 name: str = "step",
+                 generators: Optional[Callable[[], list]] = None):
         self.fn = fn
+        self.generators = generators
         self.device = None if device is None else torch.device(device)
         self.key = key
         self.name = name
@@ -157,6 +228,9 @@ class CapturedStep:
         static_in = [torch.empty_like(x) if isinstance(x, torch.Tensor)
                      else x for x in flat]
         graph = torch.cuda.CUDAGraph()
+        global _capture
+        _capture = register_generators(
+            graph, self.generators() if self.generators else [], dev)
         t0 = time.perf_counter()
         # A graph destroyed while this stream captures (another engine's,
         # freed by the cycle collector) invalidates the capture: the
@@ -173,6 +247,7 @@ class CapturedStep:
                 f": {e}); the step must run without host syncs and with "
                 "capturable optimizers and process groups") from e
         finally:
+            _capture = None
             if collecting:
                 gc.enable()
         self.capture_s = time.perf_counter() - t0

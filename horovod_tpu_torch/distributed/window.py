@@ -36,6 +36,10 @@ raised with its cause by the capture):
   (and the other optimizers that have the flag); SGD needs nothing;
 * no host sync inside the step (no ``.item()``, no branch on a tensor's
   value);
+* random draws from the default generator or from a generator that the
+  step's ``model`` holds (the zoo's ``Dropout``): the capture registers
+  those with the graph, so each replay draws fresh masks, as K eager
+  steps would; a draw from another generator raises at the capture;
 * ``backward_passes_per_step == 1``: ``DistributedOptimizer`` counts the
   passes of an update in Python, which a replay does not run, so a window
   over an accumulating optimizer raises ``NotImplementedError`` (the JAX
@@ -79,7 +83,7 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
-from horovod_tpu_torch._graphs import CapturedStep
+from horovod_tpu_torch._graphs import CapturedStep, module_generators
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.distributed import autotune
 
@@ -157,8 +161,10 @@ class _Window:
 
     def __init__(self, step_fn):
         self.step_fn = step_fn
-        self.step = CapturedStep(step_fn, key=_signature_key(step_fn),
-                                 name="window step")
+        model = getattr(step_fn, "model", None)
+        self.step = CapturedStep(
+            step_fn, key=_signature_key(step_fn), name="window step",
+            generators=None if model is None else module_generators(model))
 
     def __call__(self, stacked_batches):
         return autotune.tuned_call(self, lambda: self._run(stacked_batches))

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
+from horovod_tpu_torch._graphs import check_registered
 from horovod_tpu_torch.ops.conv_bn import (conv1x1_bn_stats,
                                            conv1x1_prologue_bn_stats)
 from horovod_tpu_torch.parallel._collectives import pmean, psum
@@ -157,7 +158,12 @@ class Dropout(nn.Module):
     (``seed``: an int or a tuple of ints, as ``numpy.random.SeedSequence``
     takes them).
     JAX draws other numbers from its keys: tests that hold the two
-    packages together feed both the same masks (:meth:`keep_mask`)."""
+    packages together feed both the same masks (:meth:`keep_mask`).
+
+    Under a captured window the generator is registered with the step's
+    CUDA graph (:func:`horovod_tpu_torch._graphs.module_generators`), so
+    every replay draws fresh masks; a draw inside a capture from a
+    generator that was not registered raises, naming the module."""
 
     def __init__(self, rate: float, seed=0):
         super().__init__()
@@ -165,12 +171,20 @@ class Dropout(nn.Module):
         self.seed = seed
         self._gen = None
 
+    def generator(self, device) -> Optional[torch.Generator]:
+        """The generator the masks on ``device`` come from, ``None``
+        before the first draw there."""
+        gen = self._gen
+        return gen if gen is not None and gen.device == \
+            torch.device(device) else None
+
     def keep_mask(self, x):
         """A boolean mask of ``x``'s shape, True where ``x`` is kept."""
-        if self._gen is None or self._gen.device != x.device:
+        if self.generator(x.device) is None:
             self._gen = torch.Generator(device=x.device)
             self._gen.manual_seed(int(np.random.SeedSequence(
                 self.seed).generate_state(1)[0]))
+        check_registered(self._gen, self)
         return torch.rand(x.shape, generator=self._gen,
                           device=x.device) >= self.rate
 

@@ -139,7 +139,9 @@ class TrainState(Dict[str, object]):
         an optimizer's state at its first ``step()``; this creates it now,
         as that step would (Adam/AdamW, and SGD with momentum and no
         dampening; another class raises ``NotImplementedError``), so the
-        state's structure is fixed from step 0."""
+        state's structure is fixed from step 0. The optimizers of
+        :mod:`horovod_tpu_torch.training.optim` make theirs in its own
+        dtype (a bfloat16 momentum or first moment)."""
         params = dict(model.named_parameters())
         names = {id(p): n for n, p in params.items()}
         zero = isinstance(optimizer, ZeroOptimizer)
@@ -208,6 +210,10 @@ def _materialise(optimizer: torch.optim.Optimizer,
                 "TrainState.from_model needs dampening=0")
         for p in group["params"]:
             if optimizer.state.get(p) or not (every or p.requires_grad):
+                continue
+            if hasattr(optimizer, "init_param_state"):
+                # training.optim's classes: state in its own dtype.
+                optimizer.init_param_state(p, group)
                 continue
             state = optimizer.state[p]
             if not adam:

@@ -107,7 +107,6 @@ def test_fused_ce_and_remat_keep_the_loss():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--bf16-momentum"], "model zoo"),
     (["--scan-layers"], "layer scan"),
 ])
 def test_flags_left_for_later_raise_naming_their_item(flags, item):

@@ -415,9 +415,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models/inception.py",
                 "training/__init__.py", "training/callbacks.py",
                 "training/_msgpack.py", "distributed/autotune.py",
-                "distributed/_bayes.py"):
+                "distributed/_bayes.py", "training/optim.py",
+                "examples/__init__.py", "examples/mnist.py",
+                "examples/synthetic_benchmark.py",
+                "examples/imagenet_resnet50.py",
+                "examples/transformer_zero.py", "examples/word2vec.py",
+                "examples/long_context_ring_attention.py",
+                "examples/gpt_parallel.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
-    for pkg in ("elastic", "run", "training"):
+    for pkg in ("elastic", "run", "training", "examples"):
         assert sorted(n for n in names
                       if n.startswith(f"horovod_tpu_torch/{pkg}/")) == \
             sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
@@ -425,7 +431,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                             "snapshot", "supervisor"),
                 "run": ("__init__", "__main__", "driver", "launcher",
                         "network", "task_exec"),
-                "training": ("__init__", "callbacks", "_msgpack")}[pkg])
+                "training": ("__init__", "callbacks", "_msgpack", "optim"),
+                "examples": ("__init__", "mnist", "synthetic_benchmark",
+                             "imagenet_resnet50", "transformer_zero",
+                             "word2vec", "long_context_ring_attention",
+                             "gpt_parallel")}[pkg])
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
