@@ -19,6 +19,7 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py --zoo-only
     python3 chip_smoke.py --harness-only
     python3 chip_smoke.py --examples-only
+    python3 chip_smoke.py --decode-only
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -109,6 +110,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    eager; and with the prefix cache on and off over 8 requests sharing a
    128-token system prompt: 7 hits of 128 tokens, no copy-on-write copy,
    the streams unchanged and equal ``lm_decode``'s;
+9b. decode: the static-cache decode lane (``tools/decode_bench.py``'s
+   defaults: GPT-2-small width, all 12 layers, vocab 32000, float32,
+   batch 8, prompt 128, 256 greedy steps) as
+   ``models.parallel_lm.StaticDecoder`` (one step's graph replayed 255
+   times after the prefill's) against the eager ``lm_decode``: the
+   greedy tokens equal token for token (first call and replays), the
+   last logits within 1e-4, no memory added by replays after the first
+   capture; its tokens/s per card and the eager loop's (CUDA events a
+   generation, the L2 flushed before each); a replayed generation traced
+   (kernels a step, device busy time, idle share) and a step's bound
+   (the weights and the whole K/V cache read once at the HBM peak); then ``python -m
+   horovod_tpu_torch.decode_bench --steps 64 --iters 3`` as a user runs
+   it (one record). No kernel of the port
+   runs here: the lane's attention is the dense one, as the JAX lane's;
 10. fleet: ``ServeFleet`` at the engine phase's geometry and width and
    2 of its 12 layers (paged, captured, the waves, seed 0's weights at
    that depth, against the single engine's run at that depth, which
@@ -175,6 +190,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    parameters equal rank 0's bit for bit, each loss is within its
    tolerance of the flat run's, the residuals are non-zero with
    ``ef_residual_specs``'s shapes, and K1-K3 ran 4 times a step on
+   every rank. Each variant's warm-up step runs under the schedule
+   verifier's recorder (``verify.audit_collectives``): what it issued,
+   the buckets that gradient hooks start from autograd's device thread
+   included, reconciles leg by leg with ``plan_buckets`` (HVV105) on
    every rank. Were a collective refused on CUDA tensors, the line would
    say so with the error (``"ladder_on_card": false``), a world of one
    would hold ``hierarchical="on"`` to ``"off"`` on the card, and the
@@ -423,7 +442,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    world of one): ``python -m horovod_tpu_torch.bench --probe-only``
    supervised (one record, the card's bf16 matmul TFLOP/s, its name and
    power limit) while a lane that fails deterministically runs beside it
-   (one attempt, one record, rc 0); ResNet-50 ``--fused-bn`` at batch 64,
+   (one attempt, one record, rc 0), then the LM lane at 2 layers and
+   ResNet-50 ``--fused-bn`` in windows of 2, side by side, whose
+   records' ``"collectives"`` (one eager step before the warm-up,
+   recorded) equal their bucket plans, where the other two stamp null;
+   ResNet-50 ``--fused-bn`` at batch 64,
    4 steps with the SGD momentum in bfloat16 against float32 from the
    same weights (losses within rtol 0.1, the momentum's bytes halved, K5
    36 times a step; each step's update replayed on the lane's own
@@ -450,6 +473,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 23. (``--profile`` only) two training steps of each lane and the
    engine's workload again (captured and eager) under
    ``torch.profiler``: device busy time, idle share, top kernels.
+
+``--decode-only`` runs phases 1 and 9b and prints one ``{"decode"}``
+line and no kernels or ok line.
 
 ``--fleet-only [RUNS]`` runs phases 1 and 2, one captured paged engine
 run for comparison and the fleet phase RUNS times (default 1), and
@@ -1847,6 +1873,7 @@ def _profile_run(torch, fn, names, warmup=None):
     busy_us = sum(e.self_device_time_total for e in events)
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "idle_share": 1 - busy_us / 1e6 / wall,
+            "launches": len(events),
             "counts": _trace_counts(events, names)}
 
 
@@ -2479,6 +2506,181 @@ def engine_phase(torch, np):
     torch.cuda.empty_cache()
     spec_prefix_runs(torch, np, params, prompts, waves, runs)
     return runs, params, prompts, waves
+
+
+# The decode phase: tools/decode_bench.py's static-cache lane on the port
+# at its defaults (GPT-2-small width, float32, batch 8, prompt 128, 256
+# steps; Lmax = 384, the serving geometry's).
+DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 128, 256
+# The captured decoder's last logits against the eager loop's: the same
+# kernels on the same shapes, so equal in practice; 1e-4 absolute.
+DECODE_LOGIT_ATOL = 1e-4
+# Timed generations, captured and eager (each its own CUDA-event span).
+DECODE_ITERS = 3
+DECODE_BENCH_ARGS = ["--steps", "64", "--iters", "3"]
+DECODE_BENCH_TIMEOUT_S = 300.0
+
+
+def _decode_eager(torch, params, prompt):
+    """The port's eager decode: ``lm_decode``'s tokens, and the float32
+    logits of its last step (``lm_prefill`` + ``lm_decode_step``, the
+    loop ``lm_decode`` runs)."""
+    from horovod_tpu_torch.models import parallel_lm as plm
+
+    tokens = plm.lm_decode(params, prompt.cpu().numpy(), DECODE_STEPS,
+                           device="cuda")
+    with torch.no_grad():
+        caches, logits = plm.lm_prefill(params, prompt)
+        tok = torch.argmax(logits.float(), -1)
+        for i in range(DECODE_STEPS - 1):
+            caches, logits = plm.lm_decode_step(params, caches, tok,
+                                                DECODE_PROMPT + i)
+            tok = torch.argmax(logits.float(), -1)
+    return tokens, logits.float()
+
+
+def _decode_ms(torch, fn, flush):
+    from horovod_tpu_torch._timing import time_cold_ms
+
+    return [time_cold_ms(fn, flush, iters=1, warmup=0)
+            for _ in range(DECODE_ITERS)]
+
+
+def decode_phase(torch, np, card):
+    """The static-cache decode lane at full width: the captured
+    ``StaticDecoder`` against the eager ``lm_decode`` (greedy tokens
+    equal, last logits within ``DECODE_LOGIT_ATOL``, no CUDA-graph memory
+    added by replays), its and the eager loop's tokens/s per card, then
+    ``python -m horovod_tpu_torch.decode_bench`` as a user runs it."""
+    import os
+
+    from horovod_tpu_torch._timing import flush_buffer
+    from horovod_tpu_torch.models import parallel_lm as plm
+
+    t0 = time.perf_counter()
+    lmax = DECODE_PROMPT + DECODE_STEPS
+    params = plm.init_lm_params(0, VOCAB, lmax, LAYERS, HEADS, HEAD_DIM,
+                                FFN, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, VOCAB, (DECODE_B, DECODE_PROMPT),
+                           generator=gen, device="cuda")
+    tokens = DECODE_B * DECODE_STEPS
+    flush = flush_buffer()
+    want, want_logits = _decode_eager(torch, params, prompt)
+    host_prompt = prompt.cpu().numpy()
+    eager_ms = _decode_ms(torch, lambda: plm.lm_decode(
+        params, host_prompt, DECODE_STEPS, device="cuda"), flush)
+    res = {"card": card, "batch": DECODE_B, "prompt": DECODE_PROMPT,
+           "steps": DECODE_STEPS, "layers": LAYERS, "d_model": D_MODEL,
+           "vocab": VOCAB, "dtype": "float32",
+           "eager": {"ms": eager_ms,
+                     "tokens_per_s": tokens / (min(eager_ms) / 1e3)}}
+    dec = plm.StaticDecoder(params, DECODE_B, DECODE_PROMPT, DECODE_STEPS,
+                            device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = dec(prompt).clone()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    err = float((dec.logits - want_logits).abs().max())
+    reserved = torch.cuda.memory_reserved()
+    allocated = torch.cuda.memory_allocated()
+    ms = _decode_ms(torch, lambda: dec(prompt), flush)
+    dec(prompt)
+    grew = torch.cuda.memory_reserved() - reserved
+    grew_alloc = torch.cuda.memory_allocated() - allocated
+    again = dec.tokens.clone()
+    for name, toks in (("first call", got), ("replays", again)):
+        rows = [_first_divergence(toks[b].tolist(), want[b].tolist())
+                for b in range(DECODE_B)]
+        check(all(r is None for r in rows),
+              f"decode: {name}' greedy tokens differ from the eager "
+              f"lm_decode's at steps {rows}")
+    check(err <= DECODE_LOGIT_ATOL,
+          f"decode: last logits off the eager loop's by {err:.3e} "
+          f"(> {DECODE_LOGIT_ATOL})")
+    check(grew == 0 and grew_alloc == 0,
+          f"decode: replays grew the reserved memory by {grew} B and the "
+          f"allocated by {grew_alloc} B")
+    graphs = (dec._prefill_graph, dec._step_graph)
+    res["captured"] = {
+        "ms": ms, "tokens_per_s": tokens / (min(ms) / 1e3),
+        "mean_tokens_per_s": tokens / (sum(ms) / len(ms) / 1e3),
+        "first_call_s": first_s, "logits_max_abs_err": err,
+        "captures": sum(g.captures for g in graphs),
+        "replays": sum(g.replays for g in graphs),
+        "capture_s": sum(g.capture_s or 0.0 for g in graphs),
+        "reserved_growth_bytes": grew}
+    log(f"decode: captured (the prefill's graph, then one step's replayed "
+        f"{DECODE_STEPS - 1} times) {res['captured']['tokens_per_s']:.1f} "
+        f"tok/s/card ({min(ms):.2f} ms a generation of {DECODE_STEPS} "
+        f"steps x {DECODE_B}), first call {first_s:.2f} s, tokens equal "
+        f"the eager loop's, logits within {err:.2e}; eager "
+        f"{res['eager']['tokens_per_s']:.1f} tok/s/card "
+        f"({min(eager_ms):.2f} ms a generation) ({card})")
+    # Where a captured generation's time goes: one replayed generation
+    # traced (the tracer started on another), against the least time a
+    # step could take: every weight but the two gathered tables, and
+    # every layer's whole [B, Lmax] K/V cache (a step attends over all
+    # of it), read once at the HBM peak.
+    from torch.utils._pytree import tree_leaves
+
+    prof = _profile_run(torch, lambda: dec(prompt), [],
+                        warmup=lambda: dec(prompt))
+    check(prof["launches"] > 0 and prof["device_busy_s"] > 0,
+          f"decode: the traced generation shows no device work: {prof}")
+    weight_b = sum(t.nbytes for t in tree_leaves(params)) \
+        - params["embed"].nbytes - params["pos"].nbytes
+    cache_b = sum(c["k"].nbytes + c["v"].nbytes for c in dec.caches)
+    res["captured"]["step_ms"] = min(ms) / DECODE_STEPS
+    res["captured"]["profile"] = {
+        "device_busy_ms": prof["device_busy_s"] * 1e3,
+        "idle_share": prof["idle_share"], "launches": prof["launches"],
+        "launches_a_step": prof["launches"] / DECODE_STEPS}
+    res["step_bound"] = {
+        "weight_bytes": weight_b, "cache_bytes": cache_b,
+        "bound_ms": (weight_b + cache_b) / HBM_PEAK_BYTES_S * 1e3,
+        "bound_by": "bytes"}
+    log(f"decode: a captured step {res['captured']['step_ms']:.4f} ms "
+        f"against its bound {res['step_bound']['bound_ms']:.4f} ms "
+        f"({weight_b} B of weights and {cache_b} B of K/V cache at "
+        f"{HBM_PEAK_BYTES_S / 1e9:.0f} GB/s); a traced generation: "
+        f"{prof['launches']} kernels, device busy "
+        f"{prof['device_busy_s'] * 1e3:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    dec.release()
+    del dec, got, again
+    del params, flush
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.decode_bench",
+         *DECODE_BENCH_ARGS], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=DECODE_BENCH_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"decode: decode_bench exited {proc.returncode} with "
+          f"{len(lines)} stdout lines: {proc.stdout[-500:]} "
+          f"{proc.stderr[-2000:]}")
+    rec = json.loads(lines[0])
+    check(rec["metric"] == "transformer_lm_decode_tokens_per_sec_per_card"
+          and rec["unit"] == "tokens/sec/card" and rec["value"] > 0
+          and rec["peak"] >= rec["value"] and rec["ms_per_generation"] > 0
+          and rec["vs_baseline"] is None and rec["device"] == "cuda",
+          f"decode: decode_bench's record {rec}")
+    res["decode_bench"] = {"args": DECODE_BENCH_ARGS, "record": rec,
+                           "wall_s": time.perf_counter() - t1}
+    log(f"decode: decode_bench {DECODE_BENCH_ARGS}: {rec['value']:.1f} "
+        f"tok/s/card, {rec['ms_per_generation']:.2f} ms a generation")
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def decode_only(torch, np, card):
+    """``--decode-only``: the decode phase alone (it runs no kernel of
+    the port's own: the lane's attention is the dense one)."""
+    print(json.dumps({"decode": decode_phase(torch, np, card)}),
+          flush=True)
 
 
 # ------------------------------------------------------------- phase 10
@@ -3536,6 +3738,10 @@ def _hier_lm(torch, np, dev, world, variant):
     from horovod_tpu_torch.models.train import (create_train_state,
                                                 make_train_step)
     from horovod_tpu_torch.ops import attention as fa
+    from horovod_tpu_torch.parallel.mesh import ladder_groups
+    from horovod_tpu_torch.verify import audit_collectives, summarize
+    from horovod_tpu_torch.verify.rules import (ReconcileSpec,
+                                                check_reconciliation)
 
     name, mode, codec, inner = variant
     cfg = basics.config()
@@ -3543,6 +3749,10 @@ def _hier_lm(torch, np, dev, world, variant):
     comp = getattr(hvd.Compression, codec)
     flash = functools.partial(fa.flash_attention, causal=True,
                               bwd_impl="kernel")
+    if inner:
+        # The ladder's groups (each made with a warm-up all-reduce)
+        # before the audited step, as the verifier's registry makes them.
+        ladder_groups(world, inner)
     model = _lm(torch, flash, layers=HIER_LAYERS)
     opt = create_train_state(
         model, torch.optim.Adam(model.parameters(), lr=1e-4),
@@ -3552,7 +3762,18 @@ def _hier_lm(torch, np, dev, world, variant):
     tokens = torch.tensor(np.random.default_rng(7).integers(
         0, VOCAB, (world * HIER_SEQS, FLASH_L))[
             rank * HIER_SEQS:(rank + 1) * HIER_SEQS], device=dev)
-    losses = [float(step(tokens))]
+    # The warm-up step under the collective recorder, reconciled with
+    # plan_buckets (HVV105): the buckets that gradient hooks issue from
+    # autograd's device thread must be in the recording too.
+    loss, sched = audit_collectives(step, tokens)
+    losses = [float(loss)]
+    wire_dtype = (str(comp.wire_dtype).rpartition(".")[2]
+                  if codec in ("int8", "fp8") else None)
+    hvv105 = check_reconciliation(
+        f"hier[{name}]", sched, ReconcileSpec(
+            [p for p in model.parameters() if p.requires_grad],
+            basics.config().fusion_threshold, world,
+            hier_inner=opt.hierarchical_inner, dcn_dtype=wire_dtype))
     kernels = (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for k in kernels:
         k.launches = 0
@@ -3580,6 +3801,8 @@ def _hier_lm(torch, np, dev, world, variant):
         "inner": got_inner, "m": world // got_inner if got_inner else None,
         "losses": losses, "step_ms": times, "launches": launches,
         "wire": wire, "max_param_diff": float((flat - ref).abs().max()),
+        "collectives": summarize(sched),
+        "hvv105": [f.format() for f in hvv105],
         "residuals": None if res is None else {
             "n": len(res),
             "shapes_match": [tuple(r.shape) for r in res]
@@ -3805,6 +4028,11 @@ def _hier_check_lm(ranks):
             check(run["inner"] == inner,
                   f"hier[{name}]: rank {r} resolved inner {run['inner']}, "
                   f"expected {inner}")
+            check(not run["hvv105"]
+                  and run["collectives"] == r0["collectives"],
+                  f"hier[{name}]: rank {r}'s audited warm-up step "
+                  f"({run['collectives']}) does not reconcile with "
+                  f"plan_buckets: {run['hvv105']}")
             for k, n in run["launches"].items():
                 check(n == HIER_LAYERS * HIER_STEPS,
                       f"hier[{name}]: rank {r}: {k} launched {n} times, "
@@ -3837,11 +4065,13 @@ def _hier_check_lm(ranks):
             "losses": r0["losses"], "loss_rel_vs_off": max(rel),
             "launches": r0["launches"],
             "residuals": r0["residuals"],
+            "collectives": r0["collectives"], "hvv105": "reconciled",
         }
         log(f"hier[{name}]: inner {inner}, m {r0['m']}, step ms "
             f"{out[name]['step_ms']:.1f}, losses {r0['losses']} (rel vs "
             f"off {max(rel):.2e}), wire {r0['wire']}, residuals "
-            f"{r0['residuals']}")
+            f"{r0['residuals']}, collectives {r0['collectives']} "
+            "reconciled with plan_buckets")
     return out
 
 
@@ -4084,43 +4314,48 @@ def tp_rank(argv):
         paged_attention_decode.launches = 0
         t0 = time.perf_counter()
         if eng.is_controller:
-            eng.submit(prompts[0][:16], 4)
-            eng.run()
-            eng.reset_metrics()
-            t1 = time.perf_counter()
-            reqs = []
-            for idx, steps in job["waves"]:
-                reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
-                for _ in range(steps):
-                    eng.step()
-            eng.run(max_steps=2000)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            out["streams"] = [r.output for r in reqs]
-            out["states"] = [r.state for r in reqs]
-            out["stats"] = eng.stats()
-            out["wall"] = wall
-            out["divergence"] = _tp_divergence(torch, params, prompts,
-                                               reqs, job["refs"])
-            # The weight swap, then the same requests again.
-            new = init_lm_params(TP_SWAP_SEED, VOCAB, LMAX, TP_LAYERS, HEADS,
-                                 HEAD_DIM, FFN, device=dev)
-            t1 = time.perf_counter()
-            eng.update_params(new)
-            torch.cuda.synchronize()
-            out["swap_s"] = time.perf_counter() - t1
-            reqs = []
-            for idx, steps in job["waves"]:
-                reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
-                for _ in range(steps):
-                    eng.step()
-            eng.run(max_steps=2000)
-            out["swap_states"] = [r.state for r in reqs]
-            out["swap_divergence"] = _tp_divergence(
-                torch, new, prompts, reqs, job["refs_new"])
-            out["blob"] = _tp_blob(torch, np, eng, params, prompts, job)
-            del new
-            eng.close()
+            try:
+                eng.submit(prompts[0][:16], 4)
+                eng.run()
+                eng.reset_metrics()
+                t1 = time.perf_counter()
+                reqs = []
+                for idx, steps in job["waves"]:
+                    reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
+                    for _ in range(steps):
+                        eng.step()
+                eng.run(max_steps=2000)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                out["streams"] = [r.output for r in reqs]
+                out["states"] = [r.state for r in reqs]
+                out["stats"] = eng.stats()
+                out["wall"] = wall
+                out["divergence"] = _tp_divergence(torch, params, prompts,
+                                                   reqs, job["refs"])
+                # The weight swap, then the same requests again.
+                new = init_lm_params(TP_SWAP_SEED, VOCAB, LMAX, TP_LAYERS, HEADS,
+                                     HEAD_DIM, FFN, device=dev)
+                t1 = time.perf_counter()
+                eng.update_params(new)
+                torch.cuda.synchronize()
+                out["swap_s"] = time.perf_counter() - t1
+                reqs = []
+                for idx, steps in job["waves"]:
+                    reqs += [eng.submit(prompts[i], NEW_TOKENS) for i in idx]
+                    for _ in range(steps):
+                        eng.step()
+                eng.run(max_steps=2000)
+                out["swap_states"] = [r.state for r in reqs]
+                out["swap_divergence"] = _tp_divergence(
+                    torch, new, prompts, reqs, job["refs_new"])
+                out["blob"] = _tp_blob(torch, np, eng, params, prompts, job)
+                del new
+            finally:
+                # Ends the followers' follow() loops, also when the
+                # controller's part failed (close() is idempotent).
+                # hvdlint: disable=HVD005 (this IS a finally: the inner try's)
+                eng.close()
         else:
             eng.follow()
         out["lane_ticks"] = eng.lane_ticks
@@ -5177,9 +5412,10 @@ def _ep_collectives(torch, np, hvd, dev):
     largest relative error of each (0 where the result is exact) and the
     tolerance it is held to."""
     from horovod_tpu_torch.parallel import P
+    from horovod_tpu_torch.parallel.logical import DATA_AXIS
 
     n = hvd.size()
-    whole = dict(out_specs=P("hvd"), host_local=False)
+    whole = dict(out_specs=P(DATA_AXIS), host_local=False)
 
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
@@ -5211,6 +5447,7 @@ def _ep_collectives(torch, np, hvd, dev):
     held("allreduce_average", hvd.spmd_run(lambda: hvd.allreduce(
         torch.ones(4, 4, device=dev) * hvd.rank())),
         np.full((4, 4), (n - 1) / 2))
+    # hvdlint: disable=HVD006 (one op a reduction kind, each held to its closed form)
     held("allreduce_min_max", hvd.spmd_run(lambda: [hvd.allreduce(
         torch.ones(2, 2, device=dev) * hvd.rank(), op=op)
         for op in (hvd.Min, hvd.Max)]),
@@ -5219,6 +5456,7 @@ def _ep_collectives(torch, np, hvd, dev):
     for name, comp, tol in (("fp16", hvd.Compression.fp16, 1e-2),
                             ("bf16", hvd.Compression.bf16, 2e-2)):
         x = rng.rand(17, 3).astype(np.float32)
+        # hvdlint: disable=HVD006 (one op a compression, each held to its closed form)
         out = hvd.spmd_run(lambda: hvd.allreduce(t(x), compression=comp))
         check(out.dtype == torch.float32, f"ep: {name} came back "
               f"{out.dtype}")
@@ -7166,65 +7404,71 @@ def autotune_phase(torch, np, card):
                                                             FLASH_L)),
                                     device="cuda")
                        for _ in range(AUTOTUNE_BATCHES)]
-            # Run A: eager (K = 1), tuned from the env knob, until past
-            # convergence.
-            tuner = basics._state.autotuner
-            check(isinstance(tuner, StepAutotuner),
-                  "autotune: HOROVOD_AUTOTUNE=1 made no StepAutotuner")
-            tuner.window = AUTOTUNE_WINDOW
-            check(len(tuner.candidates) == 9
-                  and not any(h for _, h in tuner.candidates)
-                  and tuner.max_probes == AUTOTUNE_PROBES
-                  and tuner._strategy_resolved == "ei",
-                  f"autotune: the tuner's space {tuner.candidates}, "
-                  f"{tuner.max_probes} probes, {tuner._strategy_resolved}")
-            snaps = {}
-            one, losses_a, launches_a, wall_a, moves_a = _autotune_eager(
-                torch, hvd, fa, batches, tuner, snaps)
-            with open(f"{tmp}/a.tsv") as f:
-                tsv = [ln.split("\t") for ln in f.read().splitlines()]
-            check(tuner.converged and len(tuner.probed) == AUTOTUNE_PROBES
-                  and len(moves_a) == AUTOTUNE_PROBES
-                  and tuner.generation == AUTOTUNE_PROBES + 1,
-                  f"autotune: run A probed {len(tuner.probed)}, moved at "
-                  f"steps {moves_a}, converged {tuner.converged}")
-            check([ln[1] for ln in tsv] == ["warmup", "sample"]
-                  * AUTOTUNE_PROBES + ["converged"],
-                  f"autotune: run A's log {[ln[1] for ln in tsv]}")
-            trainable = [p for p in one.model.parameters()
-                         if p.requires_grad]
-            want = plan_buckets(trainable, tuner.best_threshold)
-            ex = one.optimizer._hvd_exchange
-            check(cfg.fusion_threshold == tuner.best_threshold
-                  and (ex.plan == want if ex is not None
-                       else len(want) == 1),
-                  f"autotune: after convergence the optimizer runs "
-                  f"{None if ex is None else len(ex.plan)} buckets, "
-                  f"plan_buckets at the winner {tuner.best_threshold} has "
-                  f"{len(want)}")
-            steps_k = AUTOTUNE_LAYERS * AUTOTUNE_STEPS
-            check(all(n == steps_k for n in launches_a.values()),
-                  f"autotune: run A's wrappers launched {launches_a}, "
-                  f"expected {steps_k} each")
-            check(all(math.isfinite(x) for x in losses_a)
-                  and losses_a[-1] < losses_a[0],
-                  f"autotune: run A's losses {losses_a[0]} .. "
-                  f"{losses_a[-1]}")
-            final_a = [p.clone() for p in _params(one.model)]
-            res["run_a"] = {
-                "probed_steps_per_s": {str(t): v for (t, _), v in
-                                       tuner.probed.items()},
-                "winner": tuner.best_threshold,
-                "winner_steps_per_s": tuner.best_score,
-                "probes": len(tuner.probed), "moves_at_step": moves_a,
-                "buckets_at_winner": len(want),
-                "log": ["\t".join(ln) for ln in tsv],
-                "wall_s": wall_a, "launches": launches_a,
-                "loss_first_last": [losses_a[0], losses_a[-1]]}
-            del one, trainable, ex
+            try:
+                # Run A: eager (K = 1), tuned from the env knob, until past
+                # convergence.
+                tuner = basics._state.autotuner
+                check(isinstance(tuner, StepAutotuner),
+                      "autotune: HOROVOD_AUTOTUNE=1 made no StepAutotuner")
+                tuner.window = AUTOTUNE_WINDOW
+                check(len(tuner.candidates) == 9
+                      and not any(h for _, h in tuner.candidates)
+                      and tuner.max_probes == AUTOTUNE_PROBES
+                      and tuner._strategy_resolved == "ei",
+                      f"autotune: the tuner's space {tuner.candidates}, "
+                      f"{tuner.max_probes} probes, {tuner._strategy_resolved}")
+                snaps = {}
+                one, losses_a, launches_a, wall_a, moves_a = _autotune_eager(
+                    torch, hvd, fa, batches, tuner, snaps)
+                with open(f"{tmp}/a.tsv") as f:
+                    tsv = [ln.split("\t") for ln in f.read().splitlines()]
+                check(tuner.converged and len(tuner.probed) == AUTOTUNE_PROBES
+                      and len(moves_a) == AUTOTUNE_PROBES
+                      and tuner.generation == AUTOTUNE_PROBES + 1,
+                      f"autotune: run A probed {len(tuner.probed)}, moved at "
+                      f"steps {moves_a}, converged {tuner.converged}")
+                check([ln[1] for ln in tsv] == ["warmup", "sample"]
+                      * AUTOTUNE_PROBES + ["converged"],
+                      f"autotune: run A's log {[ln[1] for ln in tsv]}")
+                trainable = [p for p in one.model.parameters()
+                             if p.requires_grad]
+                want = plan_buckets(trainable, tuner.best_threshold)
+                ex = one.optimizer._hvd_exchange
+                check(cfg.fusion_threshold == tuner.best_threshold
+                      and (ex.plan == want if ex is not None
+                           else len(want) == 1),
+                      f"autotune: after convergence the optimizer runs "
+                      f"{None if ex is None else len(ex.plan)} buckets, "
+                      f"plan_buckets at the winner {tuner.best_threshold} has "
+                      f"{len(want)}")
+                steps_k = AUTOTUNE_LAYERS * AUTOTUNE_STEPS
+                check(all(n == steps_k for n in launches_a.values()),
+                      f"autotune: run A's wrappers launched {launches_a}, "
+                      f"expected {steps_k} each")
+                check(all(math.isfinite(x) for x in losses_a)
+                      and losses_a[-1] < losses_a[0],
+                      f"autotune: run A's losses {losses_a[0]} .. "
+                      f"{losses_a[-1]}")
+                final_a = [p.clone() for p in _params(one.model)]
+                res["run_a"] = {
+                    "probed_steps_per_s": {str(t): v for (t, _), v in
+                                           tuner.probed.items()},
+                    "winner": tuner.best_threshold,
+                    "winner_steps_per_s": tuner.best_score,
+                    "probes": len(tuner.probed), "moves_at_step": moves_a,
+                    "buckets_at_winner": len(want),
+                    "log": ["\t".join(ln) for ln in tsv],
+                    "wall_s": wall_a, "launches": launches_a,
+                    "loss_first_last": [losses_a[0], losses_a[-1]]}
+                del one, trainable, ex
+            finally:
+                # Runs B and C are untuned: the tuner closes here, also
+                # when run A failed.
+                if basics._state.autotuner is not None:
+                    # hvdlint: disable=HVD005 (this IS a finally: the inner try's; the outer finally's hvd.shutdown() closes any tuner left)
+                    basics._state.autotuner.close()
+                    basics._state.autotuner = None
             # Run B: untuned, the same weights, batches and steps.
-            basics._state.autotuner.close()
-            basics._state.autotuner = None
             cfg.fusion_threshold = default
             one, losses_b, launches_b, wall_b, held = _autotune_eager(
                 torch, hvd, fa, batches, None, snaps)
@@ -7538,10 +7782,11 @@ def syncbn_rank(argv):
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     from horovod_tpu_torch import distributed as hvd
+    from horovod_tpu_torch.parallel.logical import DATA_AXIS
 
     hvd.init(device=dev)
     try:
-        model, x, y = _syncbn_inputs(torch, np, dev, axis_name="hvd")
+        model, x, y = _syncbn_inputs(torch, np, dev, axis_name=DATA_AXIS)
         rows = slice(rank * SYNCBN_B // world,
                      (rank + 1) * SYNCBN_B // world)
         res = _syncbn_step(torch, model, x[rows], y[rows])
@@ -7670,6 +7915,16 @@ HARNESS_UPDATE_RTOL = 1e-4
 #: One supervised bench call's limit (a child's CUDA start, the build of
 #: its kernels and its steps).
 HARNESS_CLI_TIMEOUT_S = 300.0
+#: The lanes whose records' ``collectives`` the harness holds to their
+#: bucket plans: GPT-2-small at 2 of its 12 layers, and ResNet-50 with
+#: K5 in windows of 2 steps; one warm-up and one timed dispatch each.
+HARNESS_SHORT = ["--num-warmup-batches", "1", "--num-batches-per-iter", "1",
+                 "--num-iters", "1"]
+HARNESS_LANE_ARGS = ["--model", "transformer_lm", "--lm-layers", "2",
+                     *HARNESS_SHORT]
+HARNESS_WINDOW_LANE_ARGS = ["--model", "resnet50", "--fused-bn",
+                            "--batch-size", "32", "--steps-per-dispatch",
+                            "2", *HARNESS_SHORT]
 
 
 def _bench_cli(args, env=None):
@@ -7723,8 +7978,38 @@ def _harness_cli():
     log(f"harness: probe {prec['value']} TFLOP/s on {prec['card']} "
         f"({psecs:.1f} s); the failing lane: one attempt, {frec['error']} "
         f"({fsecs:.1f} s)")
+    # The collectives stamp: null in the probe's and the error record;
+    # a lane's record holds what one eager step issued before its
+    # warm-up, in an NCCL world of one DistributedOptimizer's buckets
+    # (each an all-reduce, from gradient hooks under overlap), which must
+    # be plan_buckets' own; a window's record one step's, not K's.
+    with ThreadPoolExecutor(2) as pool:
+        lanes = [pool.submit(_bench_cli, a) for a in
+                 (HARNESS_LANE_ARGS, HARNESS_WINDOW_LANE_ARGS)]
+        (lane, _, lsecs), (wlane, _, wsecs) = [f.result() for f in lanes]
+    check(prec.get("collectives", "missing") is None
+          and frec.get("collectives", "missing") is None,
+          f"harness: the collectives stamps of the probe "
+          f"{prec.get('collectives', 'missing')} and the failing lane "
+          f"{frec.get('collectives', 'missing')} are not null")
+    for name, rec in (("lm", lane), ("resnet50 window", wlane)):
+        plan, got = rec["buckets"], rec.get("collectives", "missing")
+        check(isinstance(got, dict) and got["count"] == plan["count"]
+              and got["bytes"] == plan["total_bytes"]
+              and got["by_kind"] == {"allreduce": plan["count"]},
+              f"harness: the {name} lane's collectives {got} against its "
+              f"plan {plan}")
+        log(f"harness: the {name} lane's collectives {got} equal its "
+            f"bucket plan ({plan['count']} buckets, "
+            f"{plan['total_bytes']} B)")
+    check(wlane.get("window") == 2 and wlane["metric"] == "img/sec_win2"
+          and wlane["value"] > 0,
+          f"harness: the window lane's record {wlane}")
+    log(f"harness: the lanes ran beside each other in {lsecs:.1f} s and "
+        f"{wsecs:.1f} s")
     return {"probe": prec, "probe_s": psecs, "failing_lane": frec,
-            "failing_lane_s": fsecs}
+            "failing_lane_s": fsecs, "lane": lane, "lane_s": lsecs,
+            "window_lane": wlane, "window_lane_s": wsecs}
 
 
 def _momentum_steps(torch, batch, bf16):
@@ -8753,6 +9038,8 @@ def main():
         return harness_only(torch, np, card)
     if "--examples-only" in sys.argv[1:]:
         return examples_only(torch, np, card)
+    if "--decode-only" in sys.argv[1:]:
+        return decode_only(torch, np, card)
     profile = "--profile" in sys.argv[1:]
     t_start = t_phase = time.perf_counter()
 
@@ -8772,6 +9059,7 @@ def main():
     wres = timed("window", window_phase(torch, np))
     runs, params, prompts, waves = timed("engine",
                                          engine_phase(torch, np))
+    dres = timed("decode", decode_phase(torch, np, card))
     tpref = timed("tp_references", tp_references(torch, np, prompts,
                                                  waves))
     cut = tpref["old"]["params"]
@@ -8815,6 +9103,7 @@ def main():
         flush=True)
     print(json.dumps({"resnet": {k: v for k, v in rres.items()
                                  if k != "profile"}}), flush=True)
+    print(json.dumps({"decode": dres}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"disagg": disagg}), flush=True)
     print(json.dumps({"hier": hres}), flush=True)

@@ -63,6 +63,20 @@ and the same line goes to stderr as in the JAX lane::
     torchrun --nproc_per_node 8 -m horovod_tpu_torch.bench \
         --hierarchical on --compression int8
 
+Every record carries ``"collectives"`` beside ``"wire"``: ``{"count",
+"bytes", "mb", "by_kind"}`` of what one step of the lane issues through
+``torch.distributed``: one eager step, run alone before the warm-up under
+the schedule verifier's recorder
+(:func:`horovod_tpu_torch.verify.audit_collectives`; it adds no device
+work and runs before any timed window), so a window of K steps stamps
+one step's collectives, on the card and on the CPU. It is a recording, not a
+trace: it counts what the step issues on this world (a collective that a
+world of one skips is not there; ``DistributedOptimizer``'s buckets
+are), where the JAX lane counts the psums of its traced step. ``null``
+where the audit fails (the reason goes to stderr), under
+``--compile-only`` (the audit would add to the timed first step) and in
+``--probe-only`` and error records.
+
 ``--snapshot-every N`` measures the elastic snapshot's cost before the
 timed windows: the min over three synchronous host-RAM snapshots
 (:class:`horovod_tpu_torch.elastic.Snapshotter`) of the model's
@@ -155,6 +169,8 @@ from horovod_tpu_torch.ops.attention import (flash_attention,
 from horovod_tpu_torch.parallel.logical import (format_mesh_config,
                                                 parse_mesh_config)
 from horovod_tpu_torch.training import optim
+from horovod_tpu_torch.verify.core import audit_collectives
+from horovod_tpu_torch.verify.schedule import summarize
 
 #: Exit code of a supervised child whose failure a retry would repeat.
 RC_DETERMINISTIC = 3
@@ -553,7 +569,10 @@ def probe_chip(dev: torch.device, log=print):
     100``, each chain timed by CUDA events (``_timing.time_cold_ms``); on
     the CPU the JAX bench's token sizes, 512, 2 and 6, on the host clock.
     ``None`` when the longer chain did not take longer (noise on a
-    loaded host would otherwise stamp an absurd rate)."""
+    loaded host would otherwise stamp an absurd rate). The rate keeps
+    three significant figures, so a measured rate stays positive however
+    slow the device (a loaded host's CPU chains run well under
+    0.05 TFLOP/s)."""
     on_card = dev.type == "cuda"
     n, n1, n2 = (4096, 25, 100) if on_card else (512, 2, 6)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -589,7 +608,7 @@ def probe_chip(dev: torch.device, log=print):
     tflops = 2 * n ** 3 * (n2 - n1) / (t2 - t1) / 1e12
     log(f"Chip probe: {tflops:.1f} TFLOP/s (bf16 {n}^3 matmuls, marginal "
         f"over {n1}->{n2} chained, {dev.type})", file=sys.stderr)
-    return round(tflops, 1)
+    return float(f"{tflops:.3g}")
 
 
 def metric_contract(args):
@@ -635,7 +654,8 @@ def run(args, device: DeviceLike = None) -> dict:
         probe = probe_chip(dev, log)
         metric, unit = metric_contract(args)
         return {"metric": metric, "value": probe, "unit": unit,
-                "probe_tflops": probe, "mesh": args.mesh,
+                "probe_tflops": probe, "collectives": None,
+                "mesh": args.mesh,
                 "device": dev.type, "card": card_description(dev),
                 "torch": torch.__version__}
     lane = _lm_lane if args.model == LM else _image_lane
@@ -660,6 +680,7 @@ def run(args, device: DeviceLike = None) -> dict:
                                  resolve_compression(args)),
                      basics.config().fusion_threshold))}
     stamp.update(wire_stamp(args, model, log))
+    stamp["collectives"] = None
 
     if dev.type == "cuda" and k > 1:
         # A window's memory is allocated at its capture, in the warm-up:
@@ -667,6 +688,17 @@ def run(args, device: DeviceLike = None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     if getattr(args, "compile_only", False):
         return _first_step_record(args, dev, step, fields, stamp, opt, log)
+    # One step alone, eager, under the recorder before the warm-up: a
+    # window's steps are captured on the card (a replay issues nothing
+    # the recorder sees) and run eagerly on the CPU, so one step of it
+    # on its own is the same step on both.
+    _, sched = audit_collectives(
+        step_fn, batch,
+        log=lambda msg: log(f"Collectives audit failed ({msg}): stamped "
+                            "null", file=sys.stderr))
+    if sched is not None:
+        stamp["collectives"] = summarize(sched)
+        log(f"Collectives a step: {stamp['collectives']}", file=sys.stderr)
     for _ in range(args.num_warmup_batches):
         loss = step()
     _sync(dev)
@@ -748,7 +780,8 @@ def error_record(args, error: str) -> dict:
             "window": getattr(args, "steps_per_dispatch", 1),
             "overlap": getattr(args, "overlap", None),
             "mesh": getattr(args, "mesh", None), "hierarchical": None,
-            "wire": None, "snapshot": None, "model": args.model,
+            "wire": None, "collectives": None, "snapshot": None,
+            "model": args.model,
             "device": getattr(args, "device", None), "error": error}
 
 

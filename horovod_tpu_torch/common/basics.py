@@ -131,7 +131,11 @@ def init(comm: Optional[Sequence[int]] = None,
         torch.cuda.set_device(dev)
     if dist.is_initialized():
         # gloo carries CUDA tensors as well; NCCL carries no CPU tensor.
-        takes = (backend, "gloo") if dev.type == "cuda" else (backend,)
+        # torch's "fake" backend (a simulated world whose collectives
+        # move nothing) is taken too: the schedule verifier
+        # (horovod_tpu_torch.verify) runs the real code paths in one.
+        takes = ((backend, "gloo") if dev.type == "cuda"
+                 else (backend,)) + ("fake",)
         if dist.get_backend() not in takes:
             raise PreconditionError(
                 f"the process group runs {dist.get_backend()}, but device "

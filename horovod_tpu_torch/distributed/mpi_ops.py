@@ -439,6 +439,7 @@ def grouped_allreduce(tensors, average: bool = True,
     tensors = [_tensor(t) for t in tensors]
     ax = basics.current_spmd_axis()
     if ax is not None and ax.size != basics.size():
+        # hvdlint: disable=HVD006 (a sub-axis region reduces tensor by tensor: its fused path is not ported, ROADMAP Queue 3)
         return [allreduce(t, average, None, compression, op)
                 for t in tensors]
     return fused_reduce(tensors, average=average, compression=compression,

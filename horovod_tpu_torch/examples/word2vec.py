@@ -27,6 +27,7 @@ import torch.nn.functional as F
 import horovod_tpu_torch.distributed as hvd
 from horovod_tpu_torch import examples
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.parallel.logical import DATA_AXIS
 from horovod_tpu_torch.parallel.spmd import P
 
 
@@ -104,7 +105,7 @@ def main(argv=None):
         new = {"in": emb_in - lr * d_in, "out": emb_out - lr * d_out}
         return new, hvd.allreduce(loss.detach(), average=True)
 
-    run_step = hvd.spmd_fn(step, in_specs=(P(), P("hvd")),
+    run_step = hvd.spmd_fn(step, in_specs=(P(), P(DATA_AXIS)),
                            out_specs=(P(), P()))
 
     centers, contexts, negs, topic_of = make_batches(

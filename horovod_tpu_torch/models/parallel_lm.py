@@ -13,7 +13,10 @@ default); the attention scale ``1 / math.sqrt(D)``; greedy selection as
 
 The training losses (``next_token_nll`` and the chunked
 ``next_token_nll_fused``) and the speculative-decoding functions
-(``draft_params``, ``lm_verify_window``, ``lm_decode_spec``) are here.
+(``draft_params``, ``lm_verify_window``, ``lm_decode_spec``) are here,
+and :class:`StaticDecoder`: greedy generation over a preallocated cache
+with the position on the device, captured into CUDA graphs (the static
+lane of ``python -m horovod_tpu_torch.decode_bench``).
 
 **Tensor parallelism** (``tp`` = a tensor axis of the bound
 :class:`~horovod_tpu_torch.parallel.logical.LogicalMesh`): heads and MLP
@@ -373,6 +376,145 @@ def lm_decode(params: Dict, prompt, steps: int, temperature: float = 0.0,
                 caches, logits = lm_decode_step(params, caches, tok, Lp + i,
                                                 tp)
     return torch.stack(toks, dim=1)
+
+
+class StaticDecoder:
+    """Greedy generation with a static KV cache that a CUDA graph can
+    hold: the counterpart of the JAX package's jitted ``lm_decode``,
+    whose prefill and ``lax.scan`` over the steps compile into one
+    program (``tools/decode_bench.py``'s lane).
+
+    :func:`lm_decode` runs a Python loop whose position is a host integer
+    (baked into the position row, the cache writes and the attention
+    offset) and copies every layer's whole cache each step. Here every
+    buffer is allocated once, at construction: the per-layer ``[B, Lmax,
+    H, D]`` K/V caches, the position (a 0-d device tensor), the fed-back
+    token, the last logits and the ``[B, steps]`` output. A step reads
+    its position row with ``index_select``, writes its K/V rows in place
+    with ``index_copy_`` along dim 1, passes the offset to attention as a
+    ``[B]`` tensor (one offset a row, the serving engine's form), picks
+    the greedy token on the device and advances the position, with no
+    host read between steps. Every kernel a step launches is the same
+    for every step, so the step can be captured.
+
+    On the card it holds two graphs, the prefill and one decode step,
+    replayed once and ``steps - 1`` times a generation (one graph of the
+    whole generation was no faster on an H100 and took a hundred times
+    as long to capture: PERF.md). Graphs go through
+    :class:`~horovod_tpu_torch._graphs.CapturedStep`: the first call runs
+    eagerly (a real generation) and captures; later calls replay. On the
+    CPU it runs eagerly. The arithmetic is
+    :func:`lm_prefill` and :func:`lm_decode_step` op for op, so the tokens
+    equal :func:`lm_decode`'s bit for bit.
+
+    Greedy only, as the JAX lane is: ``temperature > 0`` raises. Calling
+    the decoder with a ``[batch, prompt_len]`` prompt returns the
+    ``[batch, steps]`` output buffer, which the next call overwrites;
+    :attr:`logits` holds the float32 logits the last token was picked
+    from."""
+
+    def __init__(self, params: Dict, batch: int, prompt_len: int,
+                 steps: int, temperature: float = 0.0,
+                 device: DeviceLike = None):
+        if temperature > 0:
+            raise ValueError(
+                f"StaticDecoder is greedy only (temperature={temperature}"
+                "): the static-cache lane does not sample, as the JAX "
+                "lane does not; use lm_decode for sampling")
+        if min(batch, prompt_len, steps) < 1:
+            raise ValueError("batch, prompt_len and steps must be >= 1")
+        dev = resolve_device(device)
+        self.params = params_to(params, dev)
+        Lmax = self.params["pos"].shape[0]
+        if prompt_len + steps > Lmax:
+            raise ValueError(
+                f"prompt ({prompt_len}) + steps ({steps}) exceeds the "
+                f"position table ({Lmax})")
+        _, _, heads, head_dim = self.params["layers"][0]["wqkv"].shape
+        dtype = self.params["embed"].dtype
+        vocab = self.params["head"].shape[-1]
+        self.device = dev
+        self.batch, self.prompt_len, self.steps = batch, prompt_len, steps
+        self.caches = [
+            {n: torch.zeros(batch, Lmax, heads, head_dim, dtype=dtype,
+                            device=dev) for n in ("k", "v")}
+            for _ in self.params["layers"]]
+        self.pos = torch.zeros((), dtype=torch.long, device=dev)
+        self.offsets = self.pos.expand(batch)   # a view: reads pos
+        self.tok = torch.zeros(batch, dtype=torch.long, device=dev)
+        self.logits = torch.zeros(batch, vocab, dtype=torch.float32,
+                                  device=dev)
+        self.tokens = torch.zeros(batch, steps, dtype=torch.long,
+                                  device=dev)
+        from horovod_tpu_torch._graphs import CapturedStep
+
+        self._prefill_graph = CapturedStep(self._prefill, device=dev,
+                                           name="decoder prefill")
+        self._step_graph = CapturedStep(self._step, device=dev,
+                                        name="decoder step")
+
+    def _pick(self, logits) -> None:
+        """Greedy token of float32 ``logits`` into :attr:`tok`."""
+        self.logits.copy_(logits)
+        self.tok.copy_(torch.argmax(logits, dim=-1))
+
+    def _prefill(self, prompt) -> None:
+        """:func:`lm_prefill` writing the caches' first rows in place;
+        picks the first token and sets the position to the prompt's
+        length."""
+        p, Lp = self.params, self.prompt_len
+        x = p["embed"][prompt] + p["pos"][None, :Lp]
+        for layer, cache in zip(p["layers"], self.caches):
+            q, k, v = _project_qkv(layer, x)
+            cache["k"][:, :Lp].copy_(k)
+            cache["v"][:, :Lp].copy_(v)
+            attn = dot_product_attention(q, k, v, causal=True,
+                                         scale=1.0 / math.sqrt(q.shape[-1]))
+            x = _attn_out_residual(layer, attn, x)
+            x = _ffn_residual(layer, x)
+        self._pick(_logits(p, x[:, -1:])[:, 0].float())
+        self.tokens[:, 0].copy_(self.tok)
+        self.pos.fill_(Lp)
+
+    def _step(self) -> None:
+        """:func:`lm_decode_step` at the device position: feed the last
+        token back, write its K/V rows in place, pick the next token into
+        its column of the output and advance the position."""
+        p, at = self.params, self.pos.view(1)
+        x = p["embed"][self.tok][:, None] + \
+            p["pos"].index_select(0, at)[None]
+        for layer, cache in zip(p["layers"], self.caches):
+            q, k, v = _project_qkv(layer, x)             # [B, 1, H, D]
+            cache["k"].index_copy_(1, at, k)
+            cache["v"].index_copy_(1, at, v)
+            attn = dot_product_attention(
+                q, cache["k"], cache["v"], causal=True,
+                scale=1.0 / math.sqrt(q.shape[-1]), q_offset=self.offsets)
+            x = _attn_out_residual(layer, attn, x)
+            x = _ffn_residual(layer, x)
+        self._pick(_logits(p, x)[:, 0].float())
+        column = (self.pos - (self.prompt_len - 1)).view(1)
+        self.tokens.index_copy_(1, column, self.tok[:, None])
+        self.pos.add_(1)
+
+    def __call__(self, prompt):
+        prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
+            prompt) else prompt, dtype=torch.long, device=self.device)
+        if tuple(prompt.shape) != (self.batch, self.prompt_len):
+            raise ValueError(
+                f"prompt of shape {tuple(prompt.shape)}; the decoder was "
+                f"built for ({self.batch}, {self.prompt_len})")
+        with torch.no_grad():
+            self._prefill_graph(prompt)
+            for _ in range(self.steps - 1):   # the last token is not fed back
+                self._step_graph()
+        return self.tokens
+
+    def release(self) -> None:
+        """Drop the graphs and their memory pools (the next call captures
+        again)."""
+        self._prefill_graph.release()
+        self._step_graph.release()
 
 
 def draft_params(params: Dict, layers: int) -> Dict:

@@ -33,11 +33,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from horovod_tpu_torch.common.exceptions import InvalidArgumentError
 
 #: The flat data-parallel axis of the default 1-D mesh (every card a rank).
-DATA_AXIS = "hvd"
+DATA_AXIS = "hvd"  # hvdlint: disable=HVD008 (the vocabulary itself)
 #: Fast-domain axis of the hybrid mesh (within one host, NVLink).
-ICI_AXIS = "ici"
+ICI_AXIS = "ici"  # hvdlint: disable=HVD008 (the vocabulary itself)
 #: Slow-domain axis of the hybrid mesh (across hosts, InfiniBand).
-DCN_AXIS = "dcn"
+DCN_AXIS = "dcn"  # hvdlint: disable=HVD008 (the vocabulary itself)
 
 #: Physical axis spelling per parallelism role.
 ROLE_AXES: Dict[str, str] = {

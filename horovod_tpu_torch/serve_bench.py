@@ -86,6 +86,7 @@ import numpy as np
 
 from horovod_tpu_torch._device import DeviceLike, resolve_device
 from horovod_tpu_torch.bench import card_description
+from horovod_tpu_torch.lm_common import add_model_args, build_params
 from horovod_tpu_torch.models import parallel_lm as plm
 from horovod_tpu_torch.serve import (FleetConfig, ServeConfig,
                                      ServeEngine, ServeFleet)
@@ -376,10 +377,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.serve_bench",
         description="Open-loop serving bench of one ServeEngine.")
-    ap.add_argument("--layers", type=int, default=12)
-    ap.add_argument("--d-model", type=int, default=768)
-    ap.add_argument("--heads", type=int, default=12)
-    ap.add_argument("--vocab", type=int, default=32000)
+    add_model_args(ap)
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--rate", type=float, default=2.0,
                     help="Poisson arrival rate (requests/s)")
@@ -669,9 +667,7 @@ def run(args, device: DeviceLike = None, ap=None) -> Optional[dict]:
     if cfg.mesh is not None:
         dev, backend, cards = tp_world(device)
         tp_info = {"backend": backend, "cards": cards}
-    params = plm.init_lm_params(
-        0, args.vocab, lmax, args.layers, args.heads,
-        args.d_model // args.heads, 4 * args.d_model, device=dev)
+    params = build_params(args, lmax, device=dev)
     workload = make_workload(args, system_prompt_len=spl)
 
     def lane(tag, lane_cfg=cfg, runner=run_continuous):

@@ -259,6 +259,7 @@ class MetricAverageCallback(Callback):
             if isinstance(val, (int, float, torch.Tensor)):
                 # One reduction a metric, a handful of scalars an epoch,
                 # each under its own name (timeline identity).
+                # hvdlint: disable=HVD006 (a few named scalars an epoch)
                 logs[key] = mpi_ops.allreduce(
                     torch.as_tensor(val, dtype=torch.float32,
                                     device=basics.device()),

@@ -17,7 +17,9 @@ JAX lane has and the port has not taken yet raises ``NotImplementedError`` namin
 stamp never claims one); the flash-only flags raise without flash, and the LM-only flags on the image lane, as
 the JAX ``bench.py`` does. ``--steps-per-dispatch K`` runs windows of K
 steps (CUDA graph replays on the card, eager on the CPU) under the JAX
-lane's ``_winK`` metric contract, with every step flag.
+lane's ``_winK`` metric contract, with every step flag. Every record's
+``collectives`` stamp holds one step's recorded exchange, a window's
+too: the bucket plan's all-reduces.
 """
 
 import itertools
@@ -287,6 +289,23 @@ def test_steps_per_dispatch_composes_with_the_step_flags(flags):
     rec = _run(flags + ["--steps-per-dispatch", "2"])
     assert rec["window"] == 2 and rec["metric"].endswith("_win2")
     assert np.isfinite(rec["loss"]) and rec["replicas_in_sync"]
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--overlap", "on"], ["--steps-per-dispatch", "2"],
+    ["--model", "resnet18", "--image-size", "32", "--fused-bn",
+     "--steps-per-dispatch", "2"],
+], ids=lambda f: "_".join(x.strip("-") for x in f) or "lm")
+def test_collectives_stamp_is_one_steps_bucket_plan(flags):
+    """The record's ``collectives`` hold one step's exchange, a window's
+    too: in a world of one, ``DistributedOptimizer``'s buckets, each one
+    all-reduce, as ``plan_buckets`` lays them out (the record's
+    ``buckets``)."""
+    rec = _run(flags)
+    plan, got = rec["buckets"], rec["collectives"]
+    assert got == {"count": plan["count"], "bytes": plan["total_bytes"],
+                   "mb": round(plan["total_bytes"] / 2 ** 20, 2),
+                   "by_kind": {"allreduce": plan["count"]}}
 
 
 def test_steps_per_dispatch_below_one_raises():

@@ -239,7 +239,17 @@ def test_probe_rate_is_the_marginal_one(monkeypatch):
     ticks = iter([0.0, 1.0] * 3 + [0.0, 3.0] * 3)
     monkeypatch.setattr(bench.time, "perf_counter", lambda: next(ticks))
     got = bench.probe_chip(torch.device("cpu"), log=lambda *a, **k: None)
-    assert got == round(2 * 512 ** 3 * 4 / 2.0 / 1e12, 1)
+    assert got == float(f"{2 * 512 ** 3 * 4 / 2.0 / 1e12:.3g}") == 0.000537
+
+
+def test_probe_never_stamps_zero_for_a_slow_device(monkeypatch):
+    # chain(2) takes 10 s, chain(6) 30 s: 5.37e-5 TFLOP/s, which one
+    # decimal would round to 0.0, a rate no device has.
+    ticks = iter([0.0, 10.0] * 3 + [0.0, 30.0] * 3)
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: next(ticks))
+    got = bench.probe_chip(torch.device("cpu"), log=lambda *a, **k: None)
+    assert got is not None and got > 0
+    assert got == float(f"{2 * 512 ** 3 * 4 / 20.0 / 1e12:.3g}")
 
 
 # ------------------------------------------------------ --bf16-momentum

@@ -421,9 +421,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "examples/imagenet_resnet50.py",
                 "examples/transformer_zero.py", "examples/word2vec.py",
                 "examples/long_context_ring_attention.py",
-                "examples/gpt_parallel.py"):
+                "examples/gpt_parallel.py", "lm_common.py",
+                "decode_bench.py", "verify/__init__.py",
+                "verify/schedule.py", "verify/rules.py", "verify/core.py",
+                "verify/registry.py", "verify/__main__.py"):
         assert f"horovod_tpu_torch/{new}" in names, new
-    for pkg in ("elastic", "run", "training", "examples"):
+    for pkg in ("elastic", "run", "training", "examples", "verify"):
         assert sorted(n for n in names
                       if n.startswith(f"horovod_tpu_torch/{pkg}/")) == \
             sorted(f"horovod_tpu_torch/{pkg}/{m}.py" for m in {
@@ -435,7 +438,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "examples": ("__init__", "mnist", "synthetic_benchmark",
                              "imagenet_resnet50", "transformer_zero",
                              "word2vec", "long_context_ring_attention",
-                             "gpt_parallel")}[pkg])
+                             "gpt_parallel"),
+                "verify": ("__init__", "schedule", "rules", "core",
+                           "registry", "__main__")}[pkg])
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -448,6 +453,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             for n in names:
                 root = n.split(".")[0]
                 if root in ("jax", "jaxlib", "flax", "optax", "orbax",
-                            "ml_dtypes", "msgpack", "horovod_tpu"):
+                            "ml_dtypes", "msgpack", "horovod_tpu",
+                            "tools"):
                     bad.append(f"{f.relative_to(REPO)}: {n}")
     assert not bad, bad
